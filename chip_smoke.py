@@ -14,7 +14,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    S=40 and a D=128 shape; time the kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it) with CUDA events, beside the kernel's bound.
-3. Serve GPT-2-small width (random weights from a seeded generator, bf16)
+3. Hold the backward kernels K2 (dK/dV) and K3 (dQ) against
+   ``flash_attention_bwd_plain`` on the same cases, in bf16 and fp32, and
+   time each at the training shape (B=8, S=1024, H=12, D=64, bf16,
+   causal) beside the backward of ``scaled_dot_product_attention`` (a
+   yardstick only) and each kernel's bound.
+4. Serve GPT-2-small width (random weights from a seeded generator, bf16)
    through ``Scheduler`` -> ``DecodeEngine``: 8 requests with prompts
    spread over the prefill buckets, 32 new tokens each, 6 greedy and 2
    sampled (temperature 0.8, top-k 50, top-p 0.9). Every request must
@@ -22,13 +27,20 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    kernel must have run once per layer per admission and the reference
    path never. Greedy requests are compared with the port's solo
    ``gpt_generate``; then a full batch decodes alone, its folds timed.
-4. Print the ``{"kernels": [...]}`` line, the card line, and last
+5. Train GPT-2 small at full width and depth for 20 steps through
+   ``Trainer.fit`` (B=8, S=1024, bf16 compute, flash attention, AdamW
+   with warmup): every step's loss must be finite and the last below the
+   first, each backward kernel must have run once per layer per step and
+   the reference path never. Prints step time, tokens/s, MFU and peak
+   memory.
+6. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when the package is not beside
 this file.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -186,6 +198,127 @@ def phase_kernels():
     return worst, timed
 
 
+def bwd_inputs(B, S, H, D, dtype, gen, causal, window, sinks):
+    """q, k, v, dO on the card and the forward's out and lse from K1: the
+    inputs K2 and K3 are given on the main path."""
+    import torch
+
+    from ray_lightning_tpu_torch.ops.flash_attention import _flash_fwd_cuda
+
+    q, k, v, do = (
+        torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        for _ in range(4)
+    )
+    out, lse = _flash_fwd_cuda(q, k, v, causal, D ** -0.5, window, sinks)
+    return q, k, v, do, out, lse
+
+
+def bwd_bound(q, causal, n_products, out_tensors):
+    """(bound_ms, bound_by) of one backward kernel: q, k, v, dO read once,
+    lse and delta (fp32) read once, its outputs written once, over the
+    memory rate; ``n_products`` products of 2*D FLOPs per visible
+    (query, key) pair over the peak rate of the input type."""
+    B, S, H, D = q.shape
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = n_products * 2.0 * D * pairs * B * H
+    nbytes = (4 + out_tensors) * q.numel() * q.element_size() + 2 * B * H * S * 4
+    dtype = str(q.dtype).replace("torch.", "")
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / MEM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, "operations" if t_ops > t_mem else "bytes"
+
+
+def phase_bwd_kernels():
+    """K2 (dK/dV) and K3 (dQ) against ``flash_attention_bwd_plain`` on the
+    card over the K1 cases, then timed at the training shape."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    # The ops package re-exports the function under the module's name.
+    fa = importlib.import_module("ray_lightning_tpu_torch.ops.flash_attention")
+    shapes = [
+        (1, 16, 12, 64), (1, 128, 12, 64), (1, 1024, 12, 64),
+        (1, 40, 12, 64), (1, 256, 8, 128),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n_cases = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        atol, rtol = TOL[dname]
+        for B, S, H, D in shapes:
+            window = max(5, S // 4)
+            for causal, w, s in (
+                (True, 0, 0), (False, 0, 0), (True, window, 0),
+                (True, window, 4),
+            ):
+                q, k, v, do, out, lse = bwd_inputs(
+                    B, S, H, D, dtype, gen, causal, w, s
+                )
+                scale = D ** -0.5
+                got = fa._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale,
+                                         w, s)
+                ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                   causal, scale, w, s)
+                torch.cuda.synchronize()
+                errs = []
+                for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                    if not torch.isfinite(a).all():
+                        fail(f"non-finite {name} {dname} {(B, S, H, D)}")
+                    err = (a.float() - b.float()).abs()
+                    if not bool((err <= atol + rtol * b.float().abs()).all()):
+                        fail(f"flash_bwd {name} disagrees with its plain "
+                             f"version ({dname}, {(B, S, H, D)}, causal="
+                             f"{causal}, window={w}, sinks={s}): max abs "
+                             f"err {float(err.max())}")
+                    errs.append(float(err.max()))
+                worst[dname] = max(worst[dname], *errs)
+                n_cases += 1
+                print(f"[kernel] flash_bwd {dname} B={B} S={S} H={H} D={D} "
+                      f"causal={causal} window={w} sinks={s} max_abs_err "
+                      f"dq={errs[0]} dk={errs[1]} dv={errs[2]} "
+                      f"tol=({atol}+{rtol}*|ref|)")
+    print(f"[kernel] flash_bwd: {n_cases} cases held against the plain "
+          f"version; worst bf16 {worst['bfloat16']}, fp32 {worst['float32']}")
+
+    # The training call: B=8, H=12, S=1024, D=64, bf16, causal.
+    B, S, H, D = 8, 1024, 12, 64
+    q, k, v, do, out, lse = bwd_inputs(
+        B, S, H, D, torch.bfloat16, gen, True, 0, 0
+    )
+    scale = D ** -0.5
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    args = fa.prepare_bwd(q, k, v, out, lse, do, True, scale, 0, 0)
+    qt, kt, vt = (
+        x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)
+    )
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    plain_ms = cuda_ms(
+        lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
+                                             scale), iters=5, warmup=1
+    )
+    library_ms = cuda_ms(
+        lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
+                                    retain_graph=True)
+    )
+    rows = {}
+    for name, fn, n_products, n_out in (
+        ("flash_bwd_dkv", lambda: fa.launch_bwd_dkv(args, dk, dv), 4, 2),
+        ("flash_bwd_dq", lambda: fa.launch_bwd_dq(args, dq), 3, 1),
+    ):
+        row = {"ms": cuda_ms(fn), "plain_ms": plain_ms,
+               "library_ms": library_ms}
+        row["bound_ms"], row["bound_by"] = bwd_bound(q, True, n_products, n_out)
+        rows[name] = row
+        print(f"[kernel] {name} timing bf16 causal B={B} S={S} H={H} D={D}: "
+              f"{json.dumps(row)} (plain_ms and library_ms are the whole "
+              f"backward: dq, dk and dv)")
+    return worst, rows
+
+
 def greedy_margin(params, cfg, tokens):
     """Top-2 logit margin of the next token after ``tokens``."""
     import torch
@@ -324,6 +457,104 @@ def phase_serve():
     return launches
 
 
+def phase_train(n_steps: int = 20):
+    """GPT-2 small at full width and depth through ``Trainer.fit``: bf16
+    compute over fp32 master weights, flash attention forward (K1) and
+    backward (K2, K3), dense ``lm_loss``, AdamW with warmup. Step times are
+    host time between consecutive step ends (each step's loss is read on
+    the host, a device sync)."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from ray_lightning_tpu_torch.models.gpt import GPTLM, GPTConfig
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.trainer import Callback, Trainer
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    class StepClock(Callback):
+        def __init__(self):
+            self.ends, self.losses = [], []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.ends.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+
+    cfg = GPTConfig.gpt2_small()
+    batch = 8
+    # Two batches per epoch: every sequence comes back every other step,
+    # so 20 steps lower the loss well clear of its step-to-step noise (on
+    # fresh rows of this corpus it hardly moves from ln(V) in 20 steps).
+    # Validation (2 batches) and the default checkpoint run every 5
+    # epochs.
+    module = GPTLM(cfg, batch_size=batch, warmup_steps=2, n_train=2 * batch)
+    clock = StepClock()
+    root = os.path.join(HERE, "build", "smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    trainer = Trainer(
+        max_epochs=n_steps // 2, max_steps=n_steps, limit_val_batches=2,
+        check_val_every_n_epoch=5,
+        seed=0, log_every_n_steps=1, callbacks=[clock], default_root_dir=root,
+    )
+    counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(module)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {
+        "flash_fwd": counters.launches,
+        "flash_bwd_dkv": counters.bwd_dkv_launches,
+        "flash_bwd_dq": counters.bwd_dq_launches,
+        "reference": counters.reference,
+    }
+    shutil.rmtree(root, ignore_errors=True)
+    losses = clock.losses
+    print(f"[train] {n_steps} steps of GPT-2 small (B={batch}, S="
+          f"{cfg.max_seq}, bf16 compute, flash attention) through "
+          f"Trainer.fit in {wall:.3f} s; launches {json.dumps(launches)}")
+    print(f"[train] losses {losses}")
+    if len(losses) != n_steps or trainer.global_step != n_steps:
+        fail(f"trained {trainer.global_step} steps, {len(losses)} losses, "
+             f"expected {n_steps}")
+    if not all(math.isfinite(x) for x in losses):
+        fail("non-finite training loss")
+    if not losses[-1] < losses[0]:
+        fail(f"the loss did not fall: first {losses[0]}, last {losses[-1]}")
+    expect = cfg.n_layer * n_steps
+    if (launches["flash_bwd_dkv"] != expect
+            or launches["flash_bwd_dq"] != expect
+            or launches["reference"] != 0):
+        fail(f"backward kernel launches {launches} != {expect} each (12 "
+             f"layers x {n_steps} steps) with 0 reference-path calls")
+    if launches["flash_fwd"] < expect:
+        fail(f"flash_fwd launched {launches['flash_fwd']} < {expect} times")
+    steps_s = [b - a for a, b in zip(clock.ends, clock.ends[1:])]
+    # Steps 4.. (after the first 3); the median steps over the two that
+    # also hold an epoch-end validation and checkpoint.
+    step_s = statistics.median(steps_s[2:])
+    tokens = batch * cfg.max_seq
+    n_params = sum(int(x.numel()) for x in tree_leaves(module.params))
+    # The JAX package's FLOPs per token (obs/telemetry.py:133): 6N + 12*L*D*S.
+    fpt = 6.0 * n_params + 12.0 * cfg.n_layer * cfg.d_model * cfg.max_seq
+    train = {
+        "steps": n_steps,
+        "step_ms_median": step_s * 1e3,
+        "step_ms_all": [x * 1e3 for x in steps_s],
+        "tokens_per_s": tokens / step_s,
+        "mfu": fpt * tokens / step_s / PEAK_FLOPS["bfloat16"],
+        "n_params": n_params,
+        "loss_first": losses[0],
+        "loss_last": losses[-1],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "val_loss": trainer.callback_metrics.get("val_loss"),
+        "wall_s": wall,
+    }
+    print(f"[train] {json.dumps(train)} on {card_line()}")
+    return launches, train
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "ray_lightning_tpu_torch")):
         fail("the ray_lightning_tpu_torch package is not beside chip_smoke.py")
@@ -338,13 +569,18 @@ def main() -> None:
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     phase_build()
     worst, timed = phase_kernels()
-    launches = phase_serve()
+    bwd_worst, bwd_rows = phase_bwd_kernels()
+    serve_launches = phase_serve()
+    train_launches, _ = phase_train()
+    src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "ray_lightning_tpu_torch/ops/csrc/flash_fwd.cu",
+        "source": src + "flash_fwd.cu",
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
-        "launches": launches,
+        "launches": serve_launches + train_launches["flash_fwd"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],
         "ms": timed["ms"],
@@ -354,6 +590,23 @@ def main() -> None:
         "library_ms": timed["library_ms"],
         "shape": [1, timed["S"], 12, 64],
     }]
+    for name, line in (("flash_bwd_dkv", 189), ("flash_bwd_dq", 254)):
+        row = bwd_rows[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + "flash_bwd.cu",
+            "replaces": f"ray_lightning_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": bwd_worst["bfloat16"],
+            "max_abs_err_fp32": bwd_worst["float32"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": [8, 1024, 12, 64],
+        })
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card_line()}")
     print(json.dumps({

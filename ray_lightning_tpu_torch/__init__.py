@@ -1,16 +1,26 @@
 """ray_lightning_tpu_torch — the PyTorch/CUDA port of ray_lightning_tpu.
 
-A second package beside the JAX one, which stays the reference. This slice
-ports the serving path: GPT prefill and cached decode (``models/gpt.py``),
-the weight bridge from the JAX parameter tree (``models/weights.py``), the
-slot decode engine and scheduler core (``serve/``), and a hand-written
-Hopper flash-attention forward kernel (``ops/``). It imports ``torch``,
-never ``jax``, and nothing of ``ray_lightning_tpu``.
+A second package beside the JAX one, which stays the reference. Ported so
+far: serving (GPT prefill and cached decode in ``models/gpt.py``, the slot
+decode engine and scheduler core in ``serve/``), training on one device
+(``gpt_forward``, the losses and ``GPTLM`` in ``models/gpt.py``;
+``Trainer`` and its loop, data, callbacks and optimizer rule in
+``trainer/``; ``SingleDeviceStrategy`` in ``strategies/``), the weight
+bridge from the JAX parameter tree (``models/weights.py``), and
+hand-written Hopper flash-attention kernels, forward and backward
+(``ops/``). It imports ``torch``, never ``jax``, and nothing of
+``ray_lightning_tpu``.
 """
 __version__ = "0.1.0"
 
 _LAZY = {
     "GPTConfig": "ray_lightning_tpu_torch.models.gpt",
+    "GPTLM": "ray_lightning_tpu_torch.models.gpt",
+    "gpt_forward": "ray_lightning_tpu_torch.models.gpt",
+    "BoringModule": "ray_lightning_tpu_torch.models.boring",
+    "Trainer": "ray_lightning_tpu_torch.trainer",
+    "TorchModule": "ray_lightning_tpu_torch.trainer",
+    "SingleDeviceStrategy": "ray_lightning_tpu_torch.strategies",
     "init_gpt_params": "ray_lightning_tpu_torch.models.gpt",
     "gpt_generate": "ray_lightning_tpu_torch.models.gpt",
     "params_from_jax": "ray_lightning_tpu_torch.models.weights",

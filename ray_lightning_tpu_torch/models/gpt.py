@@ -1,6 +1,7 @@
-"""GPT (serving half) in PyTorch: prefill, cached decode, sampling, generate.
+"""GPT in PyTorch: the training forward, losses and ``GPTLM``; prefill,
+cached decode, sampling and generate.
 
-Port of ``ray_lightning_tpu/models/gpt.py``'s serving path. The parameter
+Port of ``ray_lightning_tpu/models/gpt.py``'s dense paths. The parameter
 tree keeps the JAX package's names and its stacked layout (every block leaf
 carries a leading ``layers`` dim), so weights cross over as a copy with no
 re-layout (``models/weights.py``). Mixed precision follows the reference:
@@ -17,6 +18,8 @@ Differences that follow from PyTorch:
 - Randomness comes from explicit ``torch.Generator``s, not threefry keys:
   the same seed gives other draws than the JAX package, by design.
 - Dense configs only: ``n_experts > 0`` raises (MoE is ROADMAP queue 1 item 13).
+- ``remat`` recomputes each block in the backward through
+  ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -26,7 +29,11 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ray_lightning_tpu_torch.trainer.data import ArrayDataset, DataLoader, Dataset
+from ray_lightning_tpu_torch.trainer.module import TorchModule
+from ray_lightning_tpu_torch.trainer.optim import warmup_cosine_decay_schedule
 from ray_lightning_tpu_torch.utils.device import resolve_device
 from ray_lightning_tpu_torch.utils.quantize import dequant, embed_rows
 
@@ -48,8 +55,8 @@ _MATMUL_LEAVES = (
 class GPTConfig:
     """Same field names and defaults as the JAX package's ``GPTConfig``,
     so configs round-trip. Fields of paths the port does not run yet
-    (remat, sequence parallelism, MoE, pipeline, chunked loss) are kept
-    for that round trip and read nowhere in this package."""
+    (sequence parallelism, MoE, pipeline) are kept for that round trip
+    and read nowhere in this package."""
 
     vocab_size: int = 256
     n_layer: int = 2
@@ -375,6 +382,156 @@ def _project_qkv(
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     return q, k, v
+
+
+def gpt_forward(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    cfg: GPTConfig,
+    mesh: Any = None,
+    seq_axis: Optional[str] = None,
+    return_aux: bool = False,
+    return_hidden: bool = False,
+) -> Any:
+    """tokens (B, S) int -> fp32 logits (B, S, V): the training forward
+    (``gpt.py:611`` of the JAX package, dense path).
+
+    With ``attn_impl="flash"`` each layer's attention is one
+    :func:`flash_attention` call, differentiable through its own backward
+    kernels; ``"reference"`` is the dense attention. ``cfg.remat``
+    recomputes each block in the backward. ``return_hidden`` returns the
+    post-final-norm hidden states (B, S, D) instead of logits (the input of
+    :func:`chunked_lm_loss`); ``return_aux`` also returns the MoE
+    load-balancing loss, zero for the dense configs the port runs.
+    """
+    from ray_lightning_tpu_torch.ops import attention_reference, flash_attention
+
+    if mesh is not None or seq_axis is not None:
+        raise NotImplementedError(
+            "meshes and sequence parallelism are not ported yet (ROADMAP "
+            "queue 1 items 11 and 13)"
+        )
+    cfg.validate_variants()
+    if cfg.seq_impl not in ("ring", "zigzag"):
+        raise ValueError(
+            f"unknown seq_impl {cfg.seq_impl!r}; use 'ring' or 'zigzag'"
+        )
+    cdt = compute_dtype(cfg)
+    norm_fn = _make_norm(cfg)
+    _, S = tokens.shape
+    attn_fn = (
+        flash_attention if cfg.attn_impl == "flash" else attention_reference
+    )
+    rope_tables = (
+        _rope_tables(torch.arange(S, device=tokens.device), cfg.rope_theta,
+                     cfg.head_dim)
+        if cfg.pos_embed == "rope"
+        else None
+    )
+    x = embed_rows(params["wte"], tokens)
+    if cfg.pos_embed == "learned":
+        x = x + params["wpe"][:S]
+    x = x.to(cdt)
+
+    def block(h: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
+        a = norm_fn(h, lp["ln1_g"], lp["ln1_b"])
+        q, k, v = _project_qkv(a, lp, cfg, cdt, rope_tables)  # (B,S,H,hd)
+        o = attn_fn(
+            q, k, v, causal=True, window=cfg.attn_window, sinks=cfg.attn_sinks
+        )
+        h = h + torch.einsum("bshk,hkd->bsd", o, dequant(lp["wo"], cdt)) + lp[
+            "bo"
+        ].to(cdt)
+        m = norm_fn(h, lp["ln2_g"], lp["ln2_b"])
+        return h + _dense_mlp(m, lp, cfg, cdt)
+
+    for li in range(cfg.n_layer):
+        lp = _layer(params["blocks"], li)
+        if cfg.remat:
+            x = checkpoint(block, x, lp, use_reentrant=False)
+        else:
+            x = block(x, lp)
+    x = norm_fn(x, params["lnf_g"], params["lnf_b"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = x if return_hidden else _lm_head(x, _head_weight(params, cfg))
+    return (out, aux) if return_aux else out
+
+
+def lm_loss(
+    logits: torch.Tensor, targets: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean next-token cross entropy + accuracy over all positions."""
+    ce = F.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]).float(), targets.reshape(-1).long()
+    )
+    acc = (logits.argmax(-1) == targets).float().mean()
+    return ce, acc
+
+
+def chunked_lm_loss(
+    x: torch.Tensor, wte: Any, targets: torch.Tensor, chunk: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused LM head + mean CE + accuracy without (B, S, V) logits
+    (``gpt.py:924`` of the JAX package).
+
+    ``x``: post-final-norm hidden states (B, S, D); ``wte``: the (V, D)
+    output table; ``targets`` (B, S), negative = ignore. The head and the
+    cross entropy run over S-chunks, each under ``torch.utils.checkpoint``
+    so the backward recomputes a chunk's logits instead of keeping them:
+    peak logits memory is B*chunk*V fp32. The table's cast to the compute
+    dtype is made once, outside the chunk loop. Same fp32 math as
+    :func:`lm_loss`; the mean is over the valid positions.
+    """
+    B, S, D = x.shape
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad), value=-1)
+    # The table as _lm_head reads it: rounded to the compute dtype, in fp32.
+    wte_c = dequant(wte, x.dtype).float()
+
+    def body(x_c: torch.Tensor, t_c: torch.Tensor):
+        logits = _lm_head(x_c, wte_c)
+        valid = t_c >= 0
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, t_c.clamp(min=0)[..., None].long())[..., 0]
+        ce_sum = torch.where(valid, lse - tgt, 0.0).sum()
+        hit = (logits.argmax(-1) == t_c) & valid
+        return ce_sum, hit.float().sum()
+
+    ce_sum = n_correct = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ce_c, hit_c = checkpoint(body, x[:, sl], targets[:, sl],
+                                 use_reentrant=False)
+        ce_sum = ce_sum + ce_c
+        n_correct = n_correct + hit_c
+    n = torch.clamp((targets >= 0).float().sum(), min=1.0)
+    return ce_sum / n, n_correct / n
+
+
+def make_fake_text(
+    n_seqs: int = 256,
+    seq_len: int = 64,
+    vocab: int = 256,
+    seed: int = 0,
+    noise: float = 0.05,
+) -> ArrayDataset:
+    """Synthetic LM corpus, the JAX package's ``make_fake_text`` exactly
+    (same numpy draws, same tokens): an affine recurrence
+    ``t[i+1] = (5*t[i] + 7) % V`` with occasional random flips, so a small
+    GPT's loss falls well below ln(V) within a few epochs."""
+    g = np.random.default_rng(seed)
+    starts = g.integers(0, vocab, size=n_seqs)
+    toks = np.empty((n_seqs, seq_len + 1), dtype=np.int32)
+    toks[:, 0] = starts
+    flips = g.random((n_seqs, seq_len)) < noise
+    rand = g.integers(0, vocab, size=(n_seqs, seq_len))
+    for i in range(seq_len):
+        nxt = (5 * toks[:, i] + 7) % vocab
+        toks[:, i + 1] = np.where(flips[:, i], rand[:, i], nxt)
+    return ArrayDataset(toks)
 
 
 def sample_logits(
@@ -748,3 +905,127 @@ def params_to(tree: Any, device: torch.device) -> Any:
     if isinstance(tree, dict):
         return {k: params_to(v, device) for k, v in tree.items()}
     return torch.as_tensor(tree, device=device)
+
+
+class GPTLM(TorchModule):
+    """Language-model module over :func:`gpt_forward` (the JAX package's
+    ``GPTLM``, ``gpt.py:2385``).
+
+    Batches are ``(tokens,)`` or tokens, (B, S+1) int; the step trains on
+    the shifted pair. ``batch_size`` is the rows of one batch on the one
+    card (the JAX module's ``batch_size`` is per device).
+    """
+
+    def __init__(
+        self,
+        config: Optional[GPTConfig] = None,
+        lr: float = 3e-4,
+        warmup_steps: int = 20,
+        batch_size: int = 8,
+        n_train: int = 256,
+        dataset: Optional[Dataset] = None,
+        weight_decay: float = 0.01,
+    ) -> None:
+        super().__init__()
+        if isinstance(config, dict):
+            config = GPTConfig(**config)
+        self.config = config or GPTConfig()
+        self.lr = lr
+        self.warmup_steps = warmup_steps
+        self.batch_size = batch_size
+        self.n_train = n_train
+        self._dataset = dataset
+        self.weight_decay = weight_decay
+
+    # -- model -----------------------------------------------------------
+    def init_params(self, generator: torch.Generator, batch: Any) -> Any:
+        return init_gpt_params(generator, self.config)
+
+    def _forward(self, params: Any, tokens: torch.Tensor) -> torch.Tensor:
+        return gpt_forward(params, tokens, self.config)
+
+    def _loss(self, params: Any, batch: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+        toks = batch[0] if isinstance(batch, (tuple, list)) else batch
+        toks = toks.long()
+        if self.config.loss_chunk > 0:
+            h = gpt_forward(params, toks[:, :-1], self.config, return_hidden=True)
+            return chunked_lm_loss(
+                h, _head_weight(params, self.config), toks[:, 1:],
+                self.config.loss_chunk,
+            )
+        return lm_loss(self._forward(params, toks[:, :-1]), toks[:, 1:])
+
+    # -- steps -----------------------------------------------------------
+    def training_step(self, params, batch, generator):
+        loss, acc = self._loss(params, batch)
+        return loss, {"loss": loss, "acc": acc}
+
+    def validation_step(self, params, batch):
+        loss, acc = self._loss(params, batch)
+        return {"val_loss": loss, "val_accuracy": acc}
+
+    def predict_step(self, params, batch):
+        toks = batch[0] if isinstance(batch, (tuple, list)) else batch
+        return self._forward(params, toks[:, :-1].long()).argmax(-1)
+
+    def generate(
+        self,
+        prompt: Any,
+        max_new_tokens: int = 32,
+        temperature: float = 0.0,
+        generator: Optional[torch.Generator] = None,
+        top_k: Optional[int] = None,
+        top_p: Optional[float] = None,
+    ) -> torch.Tensor:
+        """KV-cached decode from the fitted params (:func:`gpt_generate`)
+        on the device the params live on; greedy unless ``temperature >
+        0``."""
+        if self.params is None:
+            raise RuntimeError("no parameters: fit first or set module.params")
+        return gpt_generate(
+            self.params, self.config, prompt, max_new_tokens,
+            temperature=temperature, generator=generator, top_k=top_k,
+            top_p=top_p, device=self.params["wte"].device,
+        )
+
+    def configure_optimizers(self):
+        sched = warmup_cosine_decay_schedule(
+            0.0, self.lr, self.warmup_steps, max(self.warmup_steps + 1, 10_000)
+        )
+        wd = self.weight_decay
+
+        def adamw(leaves):
+            # optax.adamw's math: one group, every leaf decayed, the decay
+            # scaled by the scheduled lr (set by the loop before each
+            # update), eps outside the square root.
+            return torch.optim.AdamW(
+                leaves, lr=0.0, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd
+            )
+
+        return {"optimizer": adamw, "lr_schedule": sched}
+
+    # -- data ------------------------------------------------------------
+    def _data(self) -> Dataset:
+        if self._dataset is None:
+            # Full max_seq-length sequences, so tokens per step are
+            # batch * max_seq, as throughput numbers assume.
+            self._dataset = make_fake_text(
+                self.n_train,
+                seq_len=self.config.max_seq,
+                vocab=self.config.vocab_size,
+            )
+        return self._dataset
+
+    def train_dataloader(self) -> DataLoader:
+        return DataLoader(self._data(), batch_size=self.batch_size, shuffle=True)
+
+    def val_dataloader(self) -> DataLoader:
+        return DataLoader(
+            make_fake_text(
+                64,
+                seq_len=self.config.max_seq,
+                vocab=self.config.vocab_size,
+                seed=7,
+            ),
+            batch_size=self.batch_size,
+        )

@@ -1,5 +1,6 @@
-"""Attention ops of the port: the plain reference and the flash forward
-(a hand-written CUDA kernel for Hopper, with its plain PyTorch version).
+"""Attention ops of the port: the plain reference and flash attention
+(hand-written CUDA kernels for Hopper, forward and backward, each with its
+plain PyTorch version).
 
 Kernels are built at first use (``_build.py``), never at import.
 """
@@ -10,6 +11,7 @@ from ray_lightning_tpu_torch.ops.attention import (
 )
 from ray_lightning_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd_plain,
     flash_attention_plain,
 )
 
@@ -18,5 +20,6 @@ __all__ = [
     "band_allowed",
     "causal_mask_allowed",
     "flash_attention",
+    "flash_attention_bwd_plain",
     "flash_attention_plain",
 ]

@@ -159,15 +159,33 @@ def test_flash_argument_checks_match_jax():
 
 
 def test_kernel_is_not_built_on_import():
-    """The CUDA library is loaded only when a CUDA tensor needs it."""
+    """The CUDA libraries are loaded only when a CUDA tensor needs them."""
     assert torch_fa._fn is None
+    assert torch_fa._bwd_fns is None
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys; import ray_lightning_tpu_torch.serve.engine, "
         "ray_lightning_tpu_torch.serve.scheduler, "
-        "ray_lightning_tpu_torch.models.weights; "
+        "ray_lightning_tpu_torch.models.weights, "
+        "ray_lightning_tpu_torch.models.gpt, "
+        "ray_lightning_tpu_torch.models.boring, "
+        "ray_lightning_tpu_torch.trainer, "
+        "ray_lightning_tpu_torch.trainer.trainer, "
+        "ray_lightning_tpu_torch.trainer.loop, "
+        "ray_lightning_tpu_torch.trainer.data, "
+        "ray_lightning_tpu_torch.trainer.module, "
+        "ray_lightning_tpu_torch.trainer.callbacks, "
+        "ray_lightning_tpu_torch.trainer.optim, "
+        "ray_lightning_tpu_torch.strategies, "
+        "ray_lightning_tpu_torch.strategies.base, "
+        "ray_lightning_tpu_torch.utils.seed, "
+        "ray_lightning_tpu_torch.utils.state_stream, "
+        "ray_lightning_tpu_torch.utils.summary, "
+        "ray_lightning_tpu_torch.utils.tree; "
+        "import ray_lightning_tpu_torch as p; "
+        "[getattr(p, n) for n in p.__all__]; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ray_lightning_tpu' or m.startswith('ray_lightning_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
