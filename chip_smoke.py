@@ -15,10 +15,12 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
    the port never calls it) with CUDA events, beside the kernel's bound.
 3. Hold the backward kernels K2 (dK/dV) and K3 (dQ) against
-   ``flash_attention_bwd_plain`` on the same cases, in bf16 and fp32, and
-   time each at the training shape (B=8, S=1024, H=12, D=64, bf16,
-   causal) beside the backward of ``scaled_dot_product_attention`` (a
-   yardstick only) and each kernel's bound.
+   ``flash_attention_bwd_plain`` on the same cases, in bf16 and fp32.
+   Then, at the training call (B=8, S=1024, H=12, D=64, bf16, causal,
+   q/k/v the strided views of the fused projection), hold K1's out/lse
+   and K2/K3's dq/dk/dv against the plain versions, and time K2 and K3
+   beside the backward of ``scaled_dot_product_attention`` (a yardstick
+   only) and each kernel's bound.
 4. Serve GPT-2-small width (random weights from a seeded generator, bf16)
    through ``Scheduler`` -> ``DecodeEngine``: 8 requests with prompts
    spread over the prefill buckets, 32 new tokens each, 6 greedy and 2
@@ -213,6 +215,63 @@ def bwd_inputs(B, S, H, D, dtype, gen, causal, window, sinks):
     return q, k, v, do, out, lse
 
 
+def training_bwd_inputs(gen):
+    """The attention inputs of one GPT-2-small training layer on the card:
+    q, k, v from the port's own fused projection (``gpt._project_qkv``),
+    so they are the strided (B, S, 3, H, D) views the training path hands
+    K1, K2 and K3 (seq stride 3*H*D, batch stride S*3*H*D); a contiguous
+    dO; out and lse from K1."""
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.ops.flash_attention import _flash_fwd_cuda
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    B, S, H, D, dm = 8, cfg.max_seq, cfg.n_head, cfg.head_dim, cfg.d_model
+    dt = torch.bfloat16
+    a = torch.randn((B, S, dm), generator=gen, device="cuda").to(dt)
+    lp = {
+        "wqkv": (torch.randn((dm, 3, H, D), generator=gen, device="cuda")
+                 * dm ** -0.5).to(dt),
+        "bqkv": torch.zeros((3, H, D), device="cuda", dtype=dt),
+    }
+    with torch.no_grad():
+        q, k, v = gpt._project_qkv(a, lp, cfg, dt)
+    do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+    out, lse = _flash_fwd_cuda(q, k, v, True, D ** -0.5, 0, 0)
+    return q, k, v, do, out, lse
+
+
+def check_training_call(fa, q, k, v, do, out, lse, scale):
+    """K1's out/lse and K2/K3's dq/dk/dv at the training call against the
+    plain versions on the same inputs; fails on a miss."""
+    import torch
+
+    B, S, H, D = q.shape
+    atol, rtol = TOL["bfloat16"]
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, True, scale)
+    got = fa._flash_bwd_cuda(q, k, v, out, lse, do, True, scale, 0, 0)
+    ref_grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
+                                             scale)
+    torch.cuda.synchronize()
+    errs = {"lse": float((lse - ref_lse).abs().max())}
+    if not errs["lse"] <= LSE_TOL:
+        fail(f"flash_fwd lse disagrees at the training call: {errs['lse']}")
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (out,) + got,
+                          (ref,) + ref_grads):
+        if not torch.isfinite(a).all():
+            fail(f"non-finite {name} at the training call")
+        err = (a.float() - b.float()).abs()
+        errs[name] = float(err.max())
+        if not bool((err <= atol + rtol * b.float().abs()).all()):
+            fail(f"{name} disagrees with its plain version at the training "
+                 f"call (B={B}, S={S}, H={H}, D={D}, bf16, causal, strided "
+                 f"q/k/v): max abs err {errs[name]}")
+    print(f"[kernel] training call bf16 causal B={B} S={S} H={H} D={D}, q/k/v "
+          f"strides {q.stride()}/{k.stride()}/{v.stride()}: max abs err "
+          f"{json.dumps(errs)} tol=({atol}+{rtol}*|ref|, lse {LSE_TOL})")
+
+
 def bwd_bound(q, causal, n_products, out_tensors):
     """(bound_ms, bound_by) of one backward kernel: q, k, v, dO read once,
     lse and delta (fp32) read once, its outputs written once, over the
@@ -283,13 +342,16 @@ def phase_bwd_kernels():
     print(f"[kernel] flash_bwd: {n_cases} cases held against the plain "
           f"version; worst bf16 {worst['bfloat16']}, fp32 {worst['float32']}")
 
-    # The training call: B=8, H=12, S=1024, D=64, bf16, causal.
-    B, S, H, D = 8, 1024, 12, 64
-    q, k, v, do, out, lse = bwd_inputs(
-        B, S, H, D, torch.bfloat16, gen, True, 0, 0
-    )
+    # The training call: B=8, H=12, S=1024, D=64, bf16, causal, with q/k/v
+    # the strided views of the fused projection that gpt_forward gives the
+    # kernels. Held against the plain versions first, then timed.
+    q, k, v, do, out, lse = training_bwd_inputs(gen)
+    B, S, H, D = q.shape
     scale = D ** -0.5
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    check_training_call(fa, q, k, v, do, out, lse, scale)
+    dq, dk, dv = (
+        torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)
+    )
     args = fa.prepare_bwd(q, k, v, out, lse, do, True, scale, 0, 0)
     qt, kt, vt = (
         x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)

@@ -58,7 +58,6 @@ class TrainerSpec:
     seed: Optional[int] = None
     precision: str = "fp32"
     log_grad_norm: bool = False
-    ship_optimizer_state: bool = True
     enable_model_summary: bool = True
     return_predictions: bool = True
     callbacks: List[Any] = field(default_factory=list)
@@ -410,9 +409,8 @@ class TrainingLoop:
 
         self.state = {"status": "finished", "stage": "fit"}
         self.module.params = tree_map(lambda x: x.detach(), self.params)
-        self.module.opt_state = (
-            self.strategy.gather_state(self.optimizer.state_dict())
-            if self.spec.ship_optimizer_state else None
+        self.module.opt_state = self.strategy.gather_state(
+            self.optimizer.state_dict()
         )
         self.module.on_fit_end()
         self._call_callbacks("on_fit_end")

@@ -99,7 +99,6 @@ class Trainer:
         eval_ema: bool = False,
         async_checkpointing: bool = False,
         log_grad_norm: bool = False,
-        ship_optimizer_state: bool = True,
         device: Union[str, torch.device] = "cuda",
     ) -> None:
         if strategy is not None and type(strategy) is not SingleDeviceStrategy:
@@ -158,9 +157,6 @@ class Trainer:
             tempfile.gettempdir(), "rlt_runs"
         )
         self.log_grad_norm = bool(log_grad_norm)
-        # Keep the optimizer state on the module after a fit, so that
-        # save_checkpoint() writes a resumable file.
-        self.ship_optimizer_state = bool(ship_optimizer_state)
         if enable_checkpointing and not any(
             hasattr(cb, "best_model_path") for cb in self.callbacks
         ):
@@ -200,7 +196,6 @@ class Trainer:
             seed=self.seed,
             precision=self.precision,
             log_grad_norm=self.log_grad_norm,
-            ship_optimizer_state=self.ship_optimizer_state,
             return_predictions=self._return_predictions,
             callbacks=self.callbacks,
         )

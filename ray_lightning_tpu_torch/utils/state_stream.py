@@ -2,78 +2,21 @@
 
 The counterpart of the JAX package's ``utils/state_stream.py``: a
 checkpoint is a nested dict/list/tuple tree whose leaves are tensors,
-numpy arrays or plain Python values. Each array leaf becomes a raw buffer
-with its dtype and shape (bfloat16 included, which numpy has no type for),
-so the payload is self-describing; the container structure and the plain
-leaves are pickled. Files written by one package are not read by the
-other.
+numpy arrays or plain Python values, written with ``torch.save``. Files
+written by one package are not read by the other.
 """
 import io
 import os
-import pickle
 from typing import Any, Optional, Union
 
-import numpy as np
 import torch
-
-_MAGIC = b"RLTT1"
-
-
-class _Array:
-    """One array leaf on the wire: dtype name, shape and raw bytes."""
-
-    __slots__ = ("dtype", "shape", "data", "numpy")
-
-    def __init__(self, dtype: str, shape, data: bytes, numpy: bool) -> None:
-        self.dtype, self.shape, self.data, self.numpy = dtype, shape, data, numpy
-
-    def __getstate__(self):
-        return (self.dtype, self.shape, self.data, self.numpy)
-
-    def __setstate__(self, state):
-        self.dtype, self.shape, self.data, self.numpy = state
-
-
-def _pack(node: Any) -> Any:
-    if isinstance(node, dict):
-        return {k: _pack(v) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_pack(v) for v in node)
-    if isinstance(node, torch.Tensor):
-        t = node.detach().cpu().contiguous()
-        raw = t.reshape(-1).view(torch.uint8)
-        return _Array(str(t.dtype).replace("torch.", ""), tuple(t.shape),
-                      raw.numpy().tobytes(), False)
-    if isinstance(node, np.ndarray):
-        a = np.ascontiguousarray(node)
-        return _Array(a.dtype.str, a.shape, a.tobytes(), True)
-    return node
-
-
-def _unpack(node: Any, device: Optional[torch.device]) -> Any:
-    if isinstance(node, dict):
-        return {k: _unpack(v, device) for k, v in node.items()}
-    if isinstance(node, (list, tuple)):
-        return type(node)(_unpack(v, device) for v in node)
-    if isinstance(node, _Array):
-        if node.numpy:
-            # bytearray: a writable copy (frombuffer on bytes is read-only).
-            return np.frombuffer(bytearray(node.data), np.dtype(node.dtype)).reshape(
-                node.shape
-            )
-        dtype = getattr(torch, node.dtype)
-        if node.data:
-            t = torch.frombuffer(bytearray(node.data), dtype=torch.uint8)
-            t = t.view(dtype).reshape(node.shape)
-        else:
-            t = torch.empty(node.shape, dtype=dtype)
-        return t if device is None else t.to(device)
-    return node
 
 
 def to_state_stream(tree: Any) -> bytes:
     """Serialize a tree of tensors / arrays / plain values to bytes."""
-    return _MAGIC + pickle.dumps(_pack(tree), protocol=5)
+    buf = io.BytesIO()
+    torch.save(tree, buf)
+    return buf.getvalue()
 
 
 def load_state_stream(
@@ -81,10 +24,11 @@ def load_state_stream(
 ) -> Any:
     """Restore a tree from :func:`to_state_stream` bytes; tensor leaves
     land on ``device`` (the CPU by default), numpy leaves stay numpy."""
-    if not stream.startswith(_MAGIC):
-        raise ValueError("not a ray_lightning_tpu_torch state stream")
-    dev = None if device is None else torch.device(device)
-    return _unpack(pickle.loads(stream[len(_MAGIC):]), dev)
+    # weights_only=False: the tree holds numpy arrays and plain values, and
+    # the stream is the trainer's own checkpoint.
+    return torch.load(
+        io.BytesIO(stream), map_location=device or "cpu", weights_only=False
+    )
 
 
 def state_stream_to_file(stream: bytes, path: str) -> None:
