@@ -7,7 +7,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 
 1. Build every kernel of the port from the sources in this checkout
    (``nvcc``, one process per source, all started together) and print the
-   build time and the card's name and power limit.
+   build time and the card's name and power limit. Count the tensor-core
+   instructions (``HMMA``, ``HGMMA``) of each backward kernel in the built
+   library's SASS (``cuobjdump -sass``); the bf16 kernels must have some.
 2. Hold each kernel against its plain PyTorch version on the card, in bf16
    and fp32, causal, non-causal, window and window + sinks, at the serving
    path's shapes (B=1, S in {16, 128, 1024}, H=12, D=64) plus a ragged
@@ -18,9 +20,10 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    ``flash_attention_bwd_plain`` on the same cases, in bf16 and fp32.
    Then, at the training call (B=8, S=1024, H=12, D=64, bf16, causal,
    q/k/v the strided views of the fused projection), hold K1's out/lse
-   and K2/K3's dq/dk/dv against the plain versions, and time K2 and K3
-   beside the backward of ``scaled_dot_product_attention`` (a yardstick
-   only) and each kernel's bound.
+   and K2/K3's dq/dk/dv against the plain versions, run K2 and K3 a
+   second time and require bit-for-bit equal gradients, and time K2 and
+   K3 beside the backward of ``scaled_dot_product_attention`` (a
+   yardstick only) and each kernel's bound, with the achieved TFLOP/s.
 4. Serve GPT-2-small width (random weights from a seeded generator, bf16)
    through ``Scheduler`` -> ``DecodeEngine``: 8 requests with prompts
    spread over the prefill buckets, 32 new tokens each, 6 greedy and 2
@@ -44,6 +47,8 @@ this file.
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -54,9 +59,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 MEM_BYTES_PER_S = 3.35e12
 #: Kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|.
-#: fp32: both sum in fp32 in other orders. bf16: both compute in fp32 from
-#: the same bf16 inputs and round the output once, so they may differ by
-#: about two bf16 units in the last place. lse is fp32 in both dtypes.
+#: fp32: both sum in fp32 in other orders. bf16: both read the same bf16
+#: inputs and round each output once; the plain versions compute in fp32
+#: throughout, K1 too, while K2 and K3 round P and dS to bf16 where they
+#: enter a tensor-core product (sums stay fp32), which adds up to about
+#: one more bf16 unit. lse is fp32 in both dtypes.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = 1e-3
 #: Greedy engine vs solo generate: a token may differ only where the solo
@@ -92,18 +99,51 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sass_tensor_ops(path) -> dict:
+    """Tensor-core instructions (``HMMA``, ``HGMMA``) per kernel function
+    in the SASS of a built library, read with ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\b(HMMA|HGMMA)\b", line):
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
+    """Build every source; return the tensor-core instruction count of the
+    D=64 bf16 backward kernels, by kernel name."""
     from ray_lightning_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.build_all()
+    paths = _build.build_all()
     print(f"[build] kernels {_build.kernel_sources()} built in "
           f"{time.perf_counter() - t0:.3f} s into {_build.BUILD_DIR}")
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {name}: {line.strip()}")
+    counts = sass_tensor_ops(paths["flash_bwd"])
+    for fn, n in sorted(counts.items()):
+        print(f"[build] flash_bwd SASS tensor-core instructions {n}: {fn}")
+    tc = {}
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        for d in (64, 128):
+            hits = [n for fn, n in counts.items()
+                    if f"{name}_bf16_kernel" in fn and f"ILi{d}E" in fn]
+            if len(hits) != 1 or hits[0] == 0:
+                fail(f"the bf16 {name} kernel (D={d}) has no tensor-core "
+                     f"instruction in its SASS: {hits}")
+            if d == 64:
+                tc[name] = hits[0]
     print(f"[card] {card_line()}")
+    return tc
 
 
 def flash_bound(q, window, sinks, causal):
@@ -251,9 +291,15 @@ def check_training_call(fa, q, k, v, do, out, lse, scale):
     atol, rtol = TOL["bfloat16"]
     ref, ref_lse = fa.flash_attention_plain(q, k, v, True, scale)
     got = fa._flash_bwd_cuda(q, k, v, out, lse, do, True, scale, 0, 0)
+    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, True, scale, 0, 0)
     ref_grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
                                              scale)
     torch.cuda.synchronize()
+    # One writer per gradient tile and no atomics: a repeat is bitwise equal.
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            fail(f"{name} differs between two runs of the backward kernels "
+                 f"on the same inputs")
     errs = {"lse": float((lse - ref_lse).abs().max())}
     if not errs["lse"] <= LSE_TOL:
         fail(f"flash_fwd lse disagrees at the training call: {errs['lse']}")
@@ -273,9 +319,9 @@ def check_training_call(fa, q, k, v, do, out, lse, scale):
 
 
 def bwd_bound(q, causal, n_products, out_tensors):
-    """(bound_ms, bound_by) of one backward kernel: q, k, v, dO read once,
-    lse and delta (fp32) read once, its outputs written once, over the
-    memory rate; ``n_products`` products of 2*D FLOPs per visible
+    """(bound_ms, bound_by, flops) of one backward kernel: q, k, v, dO read
+    once, lse and delta (fp32) read once, its outputs written once, over
+    the memory rate; ``n_products`` products of 2*D FLOPs per visible
     (query, key) pair over the peak rate of the input type."""
     B, S, H, D = q.shape
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -284,7 +330,8 @@ def bwd_bound(q, causal, n_products, out_tensors):
     dtype = str(q.dtype).replace("torch.", "")
     t_ops = flops / PEAK_FLOPS[dtype]
     t_mem = nbytes / MEM_BYTES_PER_S
-    return max(t_ops, t_mem) * 1e3, "operations" if t_ops > t_mem else "bytes"
+    bound_by = "operations" if t_ops > t_mem else "bytes"
+    return max(t_ops, t_mem) * 1e3, bound_by, flops
 
 
 def phase_bwd_kernels():
@@ -373,7 +420,10 @@ def phase_bwd_kernels():
     ):
         row = {"ms": cuda_ms(fn), "plain_ms": plain_ms,
                "library_ms": library_ms}
-        row["bound_ms"], row["bound_by"] = bwd_bound(q, True, n_products, n_out)
+        row["bound_ms"], row["bound_by"], flops = bwd_bound(
+            q, True, n_products, n_out
+        )
+        row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
         rows[name] = row
         print(f"[kernel] {name} timing bf16 causal B={B} S={S} H={H} D={D}: "
               f"{json.dumps(row)} (plain_ms and library_ms are the whole "
@@ -629,7 +679,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    phase_build()
+    tensor_ops = phase_build()
     worst, timed = phase_kernels()
     bwd_worst, bwd_rows = phase_bwd_kernels()
     serve_launches = phase_serve()
@@ -667,6 +717,8 @@ def main() -> None:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "tflops": row["tflops"],
+            "sass_tensor_core_instructions": tensor_ops[name],
             "shape": [8, 1024, 12, 64],
         })
     print(json.dumps({"kernels": kernels}))

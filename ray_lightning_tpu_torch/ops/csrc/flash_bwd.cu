@@ -4,51 +4,74 @@
 // Replaces: ray_lightning_tpu/ops/flash_attention.py:_dkv_kernel (K2) and
 // _dq_kernel (K3), both launched by _flash_vjp_bwd through pl.pallas_call.
 //
-//   rlt_flash_bwd_dkv (K2): one block per (64-column key tile, batch*head).
-//     The block keeps its K and V tiles in shared memory and walks the query
-//     tiles that can see them. Per query tile it recomputes
+//   rlt_flash_bwd_dkv (K2): one block per (key tile, batch*head). The block
+//     walks the query tiles that can see its keys. Per query tile it
+//     recomputes
 //       P  = exp(Q K^T * scale - lse)            (0 where masked)
 //       dP = dO V^T
 //       dS = P * (dP - delta) * scale
 //     and accumulates dV += P^T dO and dK += dS^T Q in registers.
-//   rlt_flash_bwd_dq (K3): one block per (64-row query tile, batch*head).
-//     The block keeps Q, dO, lse and delta and walks the key tiles of the
-//     forward's band (the sink tiles first), accumulating dQ += dS K.
+//   rlt_flash_bwd_dq (K3): one block per (query tile, batch*head). The block
+//     walks the key tiles of the forward's band (the sink tiles first) and
+//     accumulates dQ += dS K.
 //
-// The split follows the TPU kernels: each output tile belongs to exactly one
-// block, so there are no atomics and the gradients are bit-for-bit the same
-// from run to run. delta = rowsum(dO * O) is computed by the caller.
+// Each output tile belongs to exactly one block, as in the TPU kernels, so
+// there are no atomics and the gradients are bit-for-bit the same from run
+// to run. delta = rowsum(dO * O) is computed by the caller.
 //
 // What bounds it on the H100. At the GPT-2-small training shape (B=8, H=12,
-// S=1024, D=64, bf16, causal) K2 does four and K3 three products of
-// 2*Sq*Sk*D FLOPs over the causal half: ~20 and ~15 GFLOP against ~50 MB of
-// inputs, far above the ridge point, so the bound is the tensor cores. This
-// first version does its products as fp32 FMAs from shared memory (as K1
-// does), so it runs at a fraction of the fp32 FMA rate, roughly 15x below
-// the bf16 tensor-core rate at best. What the design does about it: each
-// thread holds a 4x4 tile of scores and of dP and a 4x(D/16) tile of each
-// accumulator in registers, so one shared-memory load feeds 4 FMAs; padded
-// rows keep the column reads free of bank conflicts; tiles outside the
-// causal / sliding-window band are never visited. Tensor cores (wgmma), TMA
-// and warp specialisation are left to a later version.
+// S=1024, D=64, bf16, causal) K2 does four and K3 three products of 2*D
+// FLOPs per visible (query, key) pair: 25.8 and 19.3 GFLOP against ~50 MB
+// of inputs, far above the ridge point, so the bound is the bf16 tensor
+// cores: 0.026 and 0.020 ms at 989 TFLOP/s.
+//
+// The bf16 kernels (the training path) run every product on the tensor
+// cores as wgmma (m64nNk16, bf16 in, fp32 accumulate), one warpgroup of 128
+// threads per block owning a 64-row tile. Tiles stay bf16 in shared memory
+// in the 128-byte swizzled layout wgmma reads through descriptors. They
+// arrive by TMA (one thread starts cp.async.bulk.tensor through a tensor
+// map built per launch from the strided global view; the wrapper checks
+// the 16-byte alignment TMA needs) into a two-stage ring whose mbarriers
+// count the bytes, so the next tile loads while this one computes and the
+// compute threads spend no instructions on the copies. One swizzled
+// (rows, D) tile is both a K-major operand and, with wgmma's transpose
+// flag, an MN-major one, so each tile is loaded once and read both ways:
+//   K2: the block holds 64 key rows; per query tile it forms S^T = K Q^T
+//     and dP^T = V dO^T (both operands from shared memory), turns them into
+//     P^T and dS^T in registers (lse and delta of the query columns from
+//     shared memory), and feeds those accumulators, rounded to bf16,
+//     straight back as the register A operand of dV += P^T dO and
+//     dK += dS^T Q (FlashAttention-2's reuse): P and dS never touch shared
+//     memory.
+//   K3: the block holds 64 query rows (Q, dO, their lse and delta loaded
+//     once); per key tile S = Q K^T, dP = dO V^T, dS in registers, and
+//     dQ += dS K with dS as the register A operand. Causal blocks launch
+//     heaviest first (the last query tile sees the most keys).
+// A tile wholly inside the band skips the per-element mask. P and dS are
+// rounded to bf16 where they enter a product, as FlashAttention-2 does;
+// the sums are fp32 and each output is rounded once. At D=128 K2 walks
+// 32-row query tiles, so that dK, dV, S^T and dP^T fit the registers.
+// Left for a later version: warp specialisation (a producer warp, two
+// consumer warpgroups sharing each loaded tile), overlap of the P/dS
+// arithmetic with the next products, persistent blocks.
+//
+// The fp32 kernels keep the SIMT design (fp32 FMAs from padded fp32 tiles,
+// a 4x4 register tile of S and dP per thread): the tensor cores would take
+// fp32 only as TF32, whose 10-bit mantissa cannot meet the fp32 bar of
+// 1e-4 against the plain version.
 //
 // Layout. q, do (B, Sq, H, D) and k, v (B, Sk, H, D) are read through their
 // strides (the last dimension must be contiguous); lse and delta are fp32
 // (B, H, Sq), the layout K1 writes its lse in. dq, dk, dv are written
-// contiguous (B, S, H, D) in the input type, accumulated in fp32.
+// contiguous (B, S, H, D) in the input type.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int T = 64;           // rows of a query tile = columns of a key tile
-constexpr int NT = 16;          // threads along each side of a 64x64 tile
-constexpr int THREADS = NT * NT;
-constexpr int R = T / NT;       // rows (and columns) of a tile per thread
-constexpr int PS = T + 1;       // padded row stride of the P and dS tiles
 
 struct Params {
   const void* q;
@@ -69,29 +92,6 @@ struct Params {
   int causal, window, sinks;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// Stage `rows` rows of a strided (S, D) slab starting at row `r0` into a
-// padded fp32 tile; rows past `n` are zero.
-template <typename Tin, int D>
-__device__ __forceinline__ void load_tile(float* dst, const Tin* src,
-                                          long long row_stride, int r0,
-                                          int n) {
-  constexpr int DP = D + 1;
-  for (int i = threadIdx.x; i < T * D; i += THREADS) {
-    const int r = i / D, d = i % D;
-    const int row = r0 + r;
-    dst[r * DP + d] = row < n ? to_f32(src[row * row_stride + d]) : 0.f;
-  }
-}
-
 // band_allowed of ops/attention.py: col <= row, and with a window
 // col > row - W or col < sinks.
 __device__ __forceinline__ bool visible(const Params& p, int row, int col) {
@@ -99,6 +99,40 @@ __device__ __forceinline__ bool visible(const Params& p, int row, int col) {
   if (!p.causal) return true;
   return col <= row &&
          (!p.window || col > row - p.window || col < p.sinks);
+}
+
+// True when every (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is
+// visible, so the tile needs no per-element mask.
+__device__ __forceinline__ bool tile_visible(const Params& p, int r0, int nr,
+                                             int c0, int nc) {
+  if (r0 + nr > p.Sq || c0 + nc > p.Sk) return false;
+  if (!p.causal) return true;
+  const int cmax = c0 + nc - 1;
+  if (cmax > r0) return false;
+  return !p.window || c0 > r0 + nr - 1 - p.window || cmax < p.sinks;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: SIMT kernels.
+
+constexpr int T = 64;           // rows of a query tile = columns of a key tile
+constexpr int NT = 16;          // threads along each side of a 64x64 tile
+constexpr int THREADS = NT * NT;
+constexpr int R = T / NT;       // rows (and columns) of a tile per thread
+constexpr int PS = T + 1;       // padded row stride of the P and dS tiles
+
+// Stage `rows` rows of a strided (S, D) slab starting at row `r0` into a
+// padded fp32 tile; rows past `n` are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
+                                          long long row_stride, int r0,
+                                          int n) {
+  constexpr int DP = D + 1;
+  for (int i = threadIdx.x; i < T * D; i += THREADS) {
+    const int r = i / D, d = i % D;
+    const int row = r0 + r;
+    dst[r * DP + d] = row < n ? src[row * row_stride + d] : 0.f;
+  }
 }
 
 // dS (and P) of one (query tile q0, key tile c0) pair. Thread (ty, tx)
@@ -151,8 +185,8 @@ __device__ __forceinline__ void score_tile(
   }
 }
 
-// K2: one block per (key tile, batch*head); dK and dV of that tile.
-template <typename Tin, int D>
+// K2, fp32: one block per (key tile, batch*head); dK and dV of that tile.
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int RD = D / NT;    // accumulator columns per thread
@@ -171,16 +205,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   const int b = bh / p.H, h = bh % p.H;
   const int c0 = blockIdx.x * T;
 
-  const Tin* q = static_cast<const Tin*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const Tin* k = static_cast<const Tin*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const Tin* v = static_cast<const Tin*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const Tin* dout =
-      static_cast<const Tin*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* lse = p.lse + static_cast<long long>(bh) * p.Sq;
   const float* delta = p.delta + static_cast<long long>(bh) * p.Sq;
 
-  load_tile<Tin, D>(Ks, k, p.k_ss, c0, p.Sk);
-  load_tile<Tin, D>(Vs, v, p.v_ss, c0, p.Sk);
+  load_tile<D>(Ks, k, p.k_ss, c0, p.Sk);
+  load_tile<D>(Vs, v, p.v_ss, c0, p.Sk);
 
   float dk[R][RD], dv[R][RD];
 #pragma unroll
@@ -204,8 +238,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
   for (int qt = start; qt < end; ++qt) {
     const int q0 = qt * T;
     __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs reads are done
-    load_tile<Tin, D>(Qs, q, p.q_ss, q0, p.Sq);
-    load_tile<Tin, D>(dOs, dout, p.o_ss, q0, p.Sq);
+    load_tile<D>(Qs, q, p.q_ss, q0, p.Sq);
+    load_tile<D>(dOs, dout, p.o_ss, q0, p.Sq);
     for (int i = threadIdx.x; i < T; i += THREADS) {
       const bool ok = q0 + i < p.Sq;
       lse_s[i] = ok ? lse[q0 + i] : 0.f;
@@ -247,8 +281,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
     }
   }
 
-  Tin* dkp = static_cast<Tin*>(p.dk);
-  Tin* dvp = static_cast<Tin*>(p.dv);
+  float* dkp = static_cast<float*>(p.dk);
+  float* dvp = static_cast<float*>(p.dv);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int col = c0 + ty * R + i;
@@ -257,14 +291,14 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(Params p) {
         ((static_cast<long long>(b) * p.Sk + col) * p.H + h) * D;
 #pragma unroll
     for (int j = 0; j < RD; ++j) {
-      store(dkp + off + tx + NT * j, dk[i][j]);
-      store(dvp + off + tx + NT * j, dv[i][j]);
+      dkp[off + tx + NT * j] = dk[i][j];
+      dvp[off + tx + NT * j] = dv[i][j];
     }
   }
 }
 
-// K3: one block per (query tile, batch*head); dQ of that tile.
-template <typename Tin, int D>
+// K3, fp32: one block per (query tile, batch*head); dQ of that tile.
+template <int D>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int RD = D / NT;
@@ -282,16 +316,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   const int b = bh / p.H, h = bh % p.H;
   const int q0 = blockIdx.x * T;
 
-  const Tin* q = static_cast<const Tin*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const Tin* k = static_cast<const Tin*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const Tin* v = static_cast<const Tin*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const Tin* dout =
-      static_cast<const Tin*>(p.dout) + b * p.o_sb + h * p.o_sh;
+  const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* k = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* v = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.o_sb + h * p.o_sh;
   const float* lse = p.lse + static_cast<long long>(bh) * p.Sq;
   const float* delta = p.delta + static_cast<long long>(bh) * p.Sq;
 
-  load_tile<Tin, D>(Qs, q, p.q_ss, q0, p.Sq);
-  load_tile<Tin, D>(dOs, dout, p.o_ss, q0, p.Sq);
+  load_tile<D>(Qs, q, p.q_ss, q0, p.Sq);
+  load_tile<D>(dOs, dout, p.o_ss, q0, p.Sq);
   for (int i = threadIdx.x; i < T; i += THREADS) {
     const bool ok = q0 + i < p.Sq;
     lse_s[i] = ok ? lse[q0 + i] : 0.f;
@@ -319,8 +353,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
   for (int it = 0; it < n_visit; ++it) {
     const int c0 = (it < n_sink ? it : first + it - n_sink) * T;
     __syncthreads();  // the previous tile's Ks/dSs reads are done
-    load_tile<Tin, D>(Ks, k, p.k_ss, c0, p.Sk);
-    load_tile<Tin, D>(Vs, v, p.v_ss, c0, p.Sk);
+    load_tile<D>(Ks, k, p.k_ss, c0, p.Sk);
+    load_tile<D>(Vs, v, p.v_ss, c0, p.Sk);
     __syncthreads();
 
     float P[R][R], dS[R][R];
@@ -346,7 +380,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     }
   }
 
-  Tin* dqp = static_cast<Tin*>(p.dq);
+  float* dqp = static_cast<float*>(p.dq);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int row = q0 + ty * R + i;
@@ -354,45 +388,748 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(Params p) {
     const long long off =
         ((static_cast<long long>(b) * p.Sq + row) * p.H + h) * D;
 #pragma unroll
-    for (int j = 0; j < RD; ++j) store(dqp + off + tx + NT * j, dq[i][j]);
+    for (int j = 0; j < RD; ++j) dqp[off + tx + NT * j] = dq[i][j];
   }
 }
 
-template <typename Tin, int D>
-int launch_dkv(const Params& p, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (4 * T * (D + 1) + 2 * T * PS + 2 * T);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<Tin, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.Sk + T - 1) / T, p.B * p.H);
-  flash_bwd_dkv_kernel<Tin, D><<<grid, THREADS, smem, stream>>>(p);
+// ---------------------------------------------------------------------------
+// bf16: tensor-core kernels (wgmma).
+
+using bf16 = __nv_bfloat16;
+constexpr int WG_THREADS = 128;  // one warpgroup per block
+constexpr int ROWS = 64;         // rows of the tile a block owns (wgmma M)
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte asynchronous copy into shared memory; with `ok` false nothing is
+// read and the destination is zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The tiles in shared memory have the 128-byte swizzled layout that TMA
+// writes and wgmma reads: a (rows, D) tile is D/64 column blocks of
+// (rows, 64), each row 128 bytes, with 16-byte chunk c of row r stored at
+// chunk c ^ (r % 8). Every tile starts on a 1024-byte boundary (eight
+// rows), where the swizzle repeats. The same tile serves as a K-major
+// operand (rows = M or N, columns = K) and, with wgmma's transpose flag,
+// as an MN-major one (rows = K).
+
+// mbarriers: one thread arms a barrier with the bytes its TMA copies will
+// deliver; every thread waits for the phase to complete.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+      smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait for phase `parity` of `bar`. A copy that never lands (a fault in a
+// tensor map) traps after about 2^24 polls instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (int polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls > (1 << 24)) __trap();
+  }
+}
+
+// TMA copy of `rows` rows from `row0` of one (batch b, head h) slab of a
+// (B, S, H, D) tensor into a swizzled tile, one 64-column box per column
+// block; rows past the end arrive as zeros. Completes on `bar`.
+template <int D>
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int row0, int h,
+                                         int b, int rows) {
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+        ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+        ::"r"(smem_addr(dst + cb * rows * 64)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(cb * 64), "r"(h),
+        "r"(row0), "r"(b), "r"(smem_addr(bar))
+        : "memory");
+  }
+}
+
+// `nrows` fp32 values from `src[r0:]` into smem; past n they are zero.
+__device__ __forceinline__ void load_stats(float* dst, const float* src,
+                                           int r0, int nrows, int n) {
+  for (int i = threadIdx.x; i < nrows; i += WG_THREADS) {
+    const bool ok = r0 + i < n;
+    cp_async4(dst + i, ok ? src + r0 + i : src, ok);
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units), layout 1.
+__device__ __forceinline__ uint64_t smem_desc(const bf16* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+// K-major: all rows of a `rows`-row tile, columns [16 ks, 16 ks + 16).
+// Eight-row groups are 1024 bytes apart; a step of 16 columns inside a
+// 64-column block moves the start by 32 bytes.
+template <int rows>
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int ks) {
+  return smem_desc(tile + (ks / 4) * rows * 64 + (ks % 4) * 16, 16, 1024);
+}
+// MN-major: rows [16 ks, 16 ks + 16) of a `rows`-row tile as K, all D
+// columns as N; the 64-column blocks are rows * 128 bytes apart.
+template <int rows>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int ks) {
+  return smem_desc(tile + ks * 16 * 64, rows * 128, 1024);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Pin an accumulator behind the last wg_wait, so that no read of it is
+// scheduled before the products that write it have landed.
+template <int N>
+__device__ __forceinline__ void pin(float* a) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(a[i])::"memory");
+}
+
+// d (64 x N, fp32, in the warpgroup's registers) += a * b over 16 columns
+// of K. ss: a and b from shared memory (K-major both); rs: a from
+// registers, b from shared memory read MN-major (transposed).
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b);
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float* d, const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator layout (per warp of the warpgroup, 16 rows from 16 * warp):
+// element 4j + e lies in row acc_row(e) and column 8j + acc_col(e).
+__device__ __forceinline__ int acc_row(int lane, int e) {
+  return lane / 4 + (e >= 2 ? 8 : 0);
+}
+__device__ __forceinline__ int acc_col(int lane, int e) {
+  return 2 * (lane % 4) + (e & 1);
+}
+
+// The register A operand of columns [16k, 16k + 16) of an accumulator,
+// `c` = its elements from 8k on, rounded to bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float* c) {
+  a[0] = pack_bf16(c[0], c[1]);
+  a[1] = pack_bf16(c[2], c[3]);
+  a[2] = pack_bf16(c[4], c[5]);
+  a[3] = pack_bf16(c[6], c[7]);
+}
+
+// 2^x on the special-function unit (flushing subnormal results to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// K2's P^T (into s) and dS^T (into dp) for a tile of key rows from key0
+// (the warp's) x N query columns from q0: lse and delta are the query
+// columns'. MASK: the tile crosses the band's edge, so each element is
+// checked; masked scores give p = 0 outright (exp(-inf - lse) is never
+// formed).
+template <int N, bool MASK>
+__device__ __forceinline__ void dkv_probs(const Params& p, float* s,
+                                          float* dp, const float* lse,
+                                          const float* delta, int q0,
+                                          int key0, int lane) {
+  const float scale = p.sm_scale, scale_log2 = p.sm_scale * LOG2E;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = j * 8 + acc_col(lane, e);
+      const bool ok =
+          !MASK || visible(p, q0 + col, key0 + acc_row(lane, e));
+      const float pv =
+          ok ? fast_exp2(fmaf(s[4 * j + e], scale_log2, -lse[col] * LOG2E))
+             : 0.f;
+      s[4 * j + e] = pv;
+      dp[4 * j + e] = pv * (dp[4 * j + e] - delta[col]) * scale;
+    }
+}
+
+// K3's dS (into dp) for the warp's query rows from row0 x N key columns
+// from c0; lse2 (times log2 e) and delta of rows row0 + lane / 4 and that
+// + 8. MASK as in dkv_probs.
+template <int N, bool MASK>
+__device__ __forceinline__ void dq_dscores(const Params& p, const float* s,
+                                           float* dp, const float lse2[2],
+                                           const float delta[2], int row0,
+                                           int c0, int lane) {
+  const float scale = p.sm_scale, scale_log2 = p.sm_scale * LOG2E;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int half = e >> 1;
+      const bool ok = !MASK || visible(p, row0 + acc_row(lane, e),
+                                       c0 + j * 8 + acc_col(lane, e));
+      const float pv =
+          ok ? fast_exp2(fmaf(s[4 * j + e], scale_log2, -lse2[half])) : 0.f;
+      dp[4 * j + e] = pv * (dp[4 * j + e] - delta[half]) * scale;
+    }
+}
+
+// Write the warp's 16 rows of a 64 x D accumulator, rounded to bf16, as
+// rows row0 + lane / 4 (and + 8) of head h, batch b of a contiguous
+// (B, S, H, D) tensor; rows past S are not written.
+template <int D>
+__device__ __forceinline__ void store_rows(void* out, const float* acc,
+                                           int S, int H, int b, int h,
+                                           int row0, int lane) {
+  bf16* o = static_cast<bf16*>(out);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + acc_row(lane, 2 * half);
+    if (row >= S) continue;
+    const long long off = ((static_cast<long long>(b) * S + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * half;
+      *reinterpret_cast<__nv_bfloat162*>(o + off + j * 8 + acc_col(lane, 0)) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    }
+  }
+}
+
+// The dynamic shared memory, rounded up to a 1024-byte boundary (the
+// launch asks for 1024 bytes more).
+__device__ __forceinline__ unsigned char* smem_base() {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  return smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+}
+
+// The bf16 kernels' arguments: the TMA maps of q, k, v and dO (boxes of
+// the rows each kernel walks) beside the common parameters.
+struct TmaParams {
+  CUtensorMap q, k, v, o;
+  Params p;
+};
+
+// Query rows the K2 loop walks per iteration: 64, or 32 at D=128 so that
+// dK, dV, S^T and dP^T fit the registers.
+template <int D>
+struct DkvTile {
+  static constexpr int BQ = D == 64 ? 64 : 32;
+  static constexpr size_t smem =
+      sizeof(bf16) * (2 * ROWS * D + 4 * BQ * D) + sizeof(float) * 4 * BQ +
+      2 * sizeof(uint64_t) + 1024;
+};
+
+// K2, bf16: one block (one warpgroup) per (64-row key tile, batch*head);
+// warp w holds key rows [16w, 16w + 16) of every accumulator.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ TmaParams t) {
+  constexpr int BQ = DkvTile<D>::BQ;
+  const Params& p = t.p;
+  bf16* Ks = reinterpret_cast<bf16*>(smem_base());  // (ROWS, D)
+  bf16* Vs = Ks + ROWS * D;                          // (ROWS, D)
+  bf16* Qs = Vs + ROWS * D;                          // 2 x (BQ, D)
+  bf16* dOs = Qs + 2 * BQ * D;                       // 2 x (BQ, D)
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BQ * D);  // 2 x BQ
+  float* delta_s = lse_s + 2 * BQ;                             // 2 x BQ
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + 2 * BQ);  // 2
+
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  // Key tile 0 is seen by the most query tiles: blockIdx.y = 0 launches
+  // first, so the grid starts with its heaviest blocks.
+  const int c0 = blockIdx.y * ROWS;
+
+  const float* lse = p.lse + static_cast<long long>(bh) * p.Sq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.Sq;
+
+  // Query tiles that can see this key tile, as in the fp32 kernel, for
+  // BQ-row tiles.
+  int start = 0, end = (p.Sq + BQ - 1) / BQ;
+  if (p.causal) {
+    start = c0 / BQ;
+    if (p.window && !(p.sinks && c0 < p.sinks)) {
+      end = min(end, (c0 + ROWS - 1 + p.window - 1) / BQ + 1);
+    }
+  }
+
+  // Q and dO of a query tile by TMA onto full[buf] (thread 0 starts the
+  // copies), lse and delta by cp.async (every thread).
+  constexpr uint32_t tile_bytes = 2 * BQ * D * sizeof(bf16);
+  auto load_query_tile = [&](int qt, int buf) {
+    const int q0 = qt * BQ;
+    if (threadIdx.x == 0) {
+      tma_rows<D>(Qs + buf * BQ * D, &t.q, &full[buf], q0, h, b, BQ);
+      tma_rows<D>(dOs + buf * BQ * D, &t.o, &full[buf], q0, h, b, BQ);
+    }
+    load_stats(lse_s + buf * BQ, lse, q0, BQ, p.Sq);
+    load_stats(delta_s + buf * BQ, delta, q0, BQ, p.Sq);
+    cp_async_commit();
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+  }
+  __syncthreads();
+  if (start < end) {
+    if (threadIdx.x == 0) {
+      mbar_expect(&full[0], 2 * ROWS * D * sizeof(bf16) + tile_bytes);
+      tma_rows<D>(Ks, &t.k, &full[0], c0, h, b, ROWS);
+      tma_rows<D>(Vs, &t.v, &full[0], c0, h, b, ROWS);
+    }
+    load_query_tile(start, 0);
+  }
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  const int r0 = w * 16;  // the warp's first key row in the tile
+  for (int qt = start; qt < end; ++qt) {
+    const int buf = (qt - start) & 1;
+    if (qt + 1 < end) {
+      if (threadIdx.x == 0) mbar_expect(&full[buf ^ 1], tile_bytes);
+      load_query_tile(qt + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    mbar_wait(&full[buf], ((qt - start) >> 1) & 1);
+    __syncthreads();  // lse and delta from every thread's cp.async
+    const bf16* Qb = Qs + buf * BQ * D;
+    const bf16* dOb = dOs + buf * BQ * D;
+    const float* lse_b = lse_s + buf * BQ;
+    const float* delta_b = delta_s + buf * BQ;
+    const int q0 = qt * BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 key rows x BQ query columns.
+    float s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_ss<BQ>(s, desc_k<ROWS>(Ks, ks), desc_k<BQ>(Qb, ks));
+      wgmma_ss<BQ>(dp, desc_k<ROWS>(Vs, ks), desc_k<BQ>(dOb, ks));
+    }
+    wg_commit();
+    wg_wait();
+    pin<BQ / 2>(s);
+    pin<BQ / 2>(dp);
+
+    // P^T into s, dS^T into dp; only tiles across the band's edge mask.
+    if (tile_visible(p, q0, BQ, c0, ROWS)) {
+      dkv_probs<BQ, false>(p, s, dp, lse_b, delta_b, q0, c0 + r0, lane);
+    } else {
+      dkv_probs<BQ, true>(p, s, dp, lse_b, delta_b, q0, c0 + r0, lane);
+    }
+
+    // dV += P^T dO and dK += dS^T Q, the reduction over the BQ queries:
+    // P^T and dS^T are the register A operands, dO and Q are read
+    // transposed from the tiles that fed S^T and dP^T.
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+      uint32_t pa[4], da[4];
+      acc_to_a(pa, s + 8 * kq);
+      acc_to_a(da, dp + 8 * kq);
+      wgmma_rs<D>(dv, pa, desc_mn<BQ>(dOb, kq));
+      wgmma_rs<D>(dk, da, desc_mn<BQ>(Qb, kq));
+    }
+    wg_commit();
+    wg_wait();
+    pin<D / 2>(dv);
+    pin<D / 2>(dk);
+    __syncthreads();  // buffer `buf` is refilled by the next iteration
+  }
+
+  store_rows<D>(p.dk, dk, p.Sk, p.H, b, h, c0 + r0, lane);
+  store_rows<D>(p.dv, dv, p.Sk, p.H, b, h, c0 + r0, lane);
+}
+
+// Key columns the K3 loop walks per iteration.
+template <int D>
+struct DqTile {
+  static constexpr int BK = 64;
+  static constexpr size_t smem =
+      sizeof(bf16) * (2 * ROWS * D + 4 * BK * D) +
+      sizeof(float) * 2 * ROWS + 2 * sizeof(uint64_t) + 1024;
+};
+
+// K3, bf16: one block (one warpgroup) per (64-row query tile,
+// batch*head); warp w holds query rows [16w, 16w + 16).
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ TmaParams t) {
+  constexpr int BK = DqTile<D>::BK;
+  const Params& p = t.p;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_base());  // (ROWS, D)
+  bf16* dOs = Qs + ROWS * D;                         // (ROWS, D)
+  bf16* Ks = dOs + ROWS * D;                         // 2 x (BK, D)
+  bf16* Vs = Ks + 2 * BK * D;                        // 2 x (BK, D)
+  float* lse_s = reinterpret_cast<float*>(Vs + 2 * BK * D);  // ROWS
+  float* delta_s = lse_s + ROWS;                             // ROWS
+  uint64_t* full = reinterpret_cast<uint64_t*>(delta_s + ROWS);  // 2
+
+  const int lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H, h = bh % p.H;
+  // Causal: the last query tile sees the most key tiles, so it launches
+  // first (blockIdx.y = 0) and the grid ends on its lightest blocks.
+  const int qt = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * ROWS;
+
+  const float* lse = p.lse + static_cast<long long>(bh) * p.Sq;
+  const float* delta = p.delta + static_cast<long long>(bh) * p.Sq;
+
+  // The forward's band, as in the fp32 kernel, for BK-column tiles.
+  const int n_tiles = (p.Sk + BK - 1) / BK;
+  int end = n_tiles;
+  if (p.causal) end = min(end, (q0 + ROWS - 1) / BK + 1);
+  const int first = p.window ? max(0, q0 - p.window + 1) / BK : 0;
+  const int n_sink =
+      (p.window && p.sinks) ? min((p.sinks + BK - 1) / BK, first) : 0;
+  const int n_visit = n_sink + max(0, end - first);
+  auto tile_col = [&](int it) {
+    return (it < n_sink ? it : first + it - n_sink) * BK;
+  };
+  // K and V of a key tile by TMA onto full[buf]; thread 0 starts them.
+  constexpr uint32_t tile_bytes = 2 * BK * D * sizeof(bf16);
+  auto load_key_tile = [&](int it, int buf) {
+    const int c0 = tile_col(it);
+    tma_rows<D>(Ks + buf * BK * D, &t.k, &full[buf], c0, h, b, BK);
+    tma_rows<D>(Vs + buf * BK * D, &t.v, &full[buf], c0, h, b, BK);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0]);
+    mbar_init(&full[1]);
+  }
+  __syncthreads();
+  if (n_visit > 0) {
+    if (threadIdx.x == 0) {
+      mbar_expect(&full[0], 2 * ROWS * D * sizeof(bf16) + tile_bytes);
+      tma_rows<D>(Qs, &t.q, &full[0], q0, h, b, ROWS);
+      tma_rows<D>(dOs, &t.o, &full[0], q0, h, b, ROWS);
+      load_key_tile(0, 0);
+    }
+    load_stats(lse_s, lse, q0, ROWS, p.Sq);
+    load_stats(delta_s, delta, q0, ROWS, p.Sq);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // lse and delta from every thread's cp.async
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+
+  const int r0 = w * 16;  // the warp's first query row in the tile
+  // The warp's rows' lse (times log2 e) and delta, kept in registers.
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    lse_r[half] = lse_s[r0 + acc_row(lane, 2 * half)] * LOG2E;
+    delta_r[half] = delta_s[r0 + acc_row(lane, 2 * half)];
+  }
+  for (int it = 0; it < n_visit; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_visit && threadIdx.x == 0) {
+      mbar_expect(&full[buf ^ 1], tile_bytes);
+      load_key_tile(it + 1, buf ^ 1);
+    }
+    mbar_wait(&full[buf], (it >> 1) & 1);
+    const bf16* Kb = Ks + buf * BK * D;
+    const bf16* Vb = Vs + buf * BK * D;
+    const int c0 = tile_col(it);
+
+    // S = Q K^T and dP = dO V^T: 64 query rows x BK key columns.
+    float s[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_ss<BK>(s, desc_k<ROWS>(Qs, ks), desc_k<BK>(Kb, ks));
+      wgmma_ss<BK>(dp, desc_k<ROWS>(dOs, ks), desc_k<BK>(Vb, ks));
+    }
+    wg_commit();
+    wg_wait();
+    pin<BK / 2>(s);
+    pin<BK / 2>(dp);
+
+    // dS into dp (P only feeds it here); only tiles across the band's
+    // edge mask.
+    if (tile_visible(p, q0, ROWS, c0, BK)) {
+      dq_dscores<BK, false>(p, s, dp, lse_r, delta_r, q0 + r0, c0, lane);
+    } else {
+      dq_dscores<BK, true>(p, s, dp, lse_r, delta_r, q0 + r0, c0, lane);
+    }
+
+    // dQ += dS K, the reduction over the BK keys: dS is the register A
+    // operand, K is read transposed from the tile that fed S.
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t da[4];
+      acc_to_a(da, dp + 8 * kk);
+      wgmma_rs<D>(dq, da, desc_mn<BK>(Kb, kk));
+    }
+    wg_commit();
+    wg_wait();
+    pin<D / 2>(dq);
+    __syncthreads();  // buffer `buf` is refilled by the next iteration
+  }
+
+  store_rows<D>(p.dq, dq, p.Sq, p.H, b, h, q0 + r0, lane);
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+
+// Launch `Kernel`, raising its dynamic shared memory limit on the first
+// call only (once per instantiation; the port drives one device per
+// process): later calls reuse the first call's result.
+template <typename Arg, void (*Kernel)(Arg)>
+int launch(dim3 grid, int threads, size_t smem, const Arg& arg,
+           cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  Kernel<<<grid, threads, smem, stream>>>(arg);
   // A launch refused for its shared memory or block size never runs, and a
   // later synchronize does not report it: read the launch error here.
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin, int D>
-int launch_dq(const Params& p, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * T * (D + 1) + T * PS + 2 * T);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<Tin, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.Sq + T - 1) / T, p.B * p.H);
-  flash_bwd_dq_kernel<Tin, D><<<grid, THREADS, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime's
+// entry-point query (so the library needs no link against libcuda).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
 }
 
-template <typename Tin>
-int dispatch(const Params& p, int head_dim, bool dkv, cudaStream_t s) {
-  switch (head_dim) {
-    case 64: return dkv ? launch_dkv<Tin, 64>(p, s) : launch_dq<Tin, 64>(p, s);
-    case 128:
-      return dkv ? launch_dkv<Tin, 128>(p, s) : launch_dq<Tin, 128>(p, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// The TMA map of a strided (B, S, H, D) bf16 tensor, in boxes of `rows`
+// rows x 64 columns of one (batch, head), 128-byte swizzled; the strides
+// are in elements. False when the encoder refuses it (the wrapper has
+// checked the 16-byte alignment it needs).
+bool tile_map(CUtensorMap* map, const void* base, int B, int S, int H,
+              int D, long long sb, long long ss, long long sh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 kernels' arguments: q and dO in boxes of `q_rows` rows, k and v
+// in boxes of `k_rows` rows.
+template <int D>
+bool tma_params(TmaParams* t, const Params& p, int q_rows, int k_rows) {
+  t->p = p;
+  return tile_map(&t->q, p.q, p.B, p.Sq, p.H, D, p.q_sb, p.q_ss, p.q_sh,
+                  q_rows) &&
+         tile_map(&t->o, p.dout, p.B, p.Sq, p.H, D, p.o_sb, p.o_ss, p.o_sh,
+                  q_rows) &&
+         tile_map(&t->k, p.k, p.B, p.Sk, p.H, D, p.k_sb, p.k_ss, p.k_sh,
+                  k_rows) &&
+         tile_map(&t->v, p.v, p.B, p.Sk, p.H, D, p.v_sb, p.v_ss, p.v_sh,
+                  k_rows);
+}
+
+template <int D>
+int launch_dkv(const Params& p, bool bf16_in, cudaStream_t s) {
+  if (bf16_in) {
+    TmaParams t;
+    if (!tma_params<D>(&t, p, DkvTile<D>::BQ, ROWS)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid(p.B * p.H, (p.Sk + ROWS - 1) / ROWS);
+    return launch<TmaParams, flash_bwd_dkv_bf16_kernel<D>>(
+        grid, WG_THREADS, DkvTile<D>::smem, t, s);
   }
+  const size_t smem =
+      sizeof(float) * (4 * T * (D + 1) + 2 * T * PS + 2 * T);
+  const dim3 grid((p.Sk + T - 1) / T, p.B * p.H);
+  return launch<Params, flash_bwd_dkv_kernel<D>>(grid, THREADS, smem, p, s);
+}
+
+template <int D>
+int launch_dq(const Params& p, bool bf16_in, cudaStream_t s) {
+  if (bf16_in) {
+    TmaParams t;
+    if (!tma_params<D>(&t, p, ROWS, DqTile<D>::BK)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const dim3 grid(p.B * p.H, (p.Sq + ROWS - 1) / ROWS);
+    return launch<TmaParams, flash_bwd_dq_bf16_kernel<D>>(
+        grid, WG_THREADS, DqTile<D>::smem, t, s);
+  }
+  const size_t smem = sizeof(float) * (4 * T * (D + 1) + T * PS + 2 * T);
+  const dim3 grid((p.Sq + T - 1) / T, p.B * p.H);
+  return launch<Params, flash_bwd_dq_kernel<D>>(grid, THREADS, smem, p, s);
 }
 
 int run(const void* q, const void* k, const void* v, const void* dout,
@@ -400,8 +1137,11 @@ int run(const void* q, const void* k, const void* v, const void* dout,
         int batch, int heads, int seq_q, int seq_k, int head_dim,
         const long long* strides, float sm_scale, int causal, int window,
         int sinks, int dtype, int device, void* stream, bool dkv) {
-  cudaError_t err = cudaSetDevice(device);
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
@@ -425,16 +1165,24 @@ int run(const void* q, const void* k, const void* v, const void* dout,
   p.window = window;
   p.sinks = sinks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(p, head_dim, dkv, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(p, head_dim, dkv, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool bf16_in = dtype == 1;
+  switch (head_dim) {
+    case 64:
+      return dkv ? launch_dkv<64>(p, bf16_in, s) : launch_dq<64>(p, bf16_in, s);
+    case 128:
+      return dkv ? launch_dkv<128>(p, bf16_in, s)
+                 : launch_dq<128>(p, bf16_in, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Each returns a cudaError_t (0 on
 // success). dtype: 0 = float32, 1 = bfloat16. strides: the (batch, seq,
-// head) strides of q, k, v and dout, in elements, twelve in all.
+// head) strides of q, k, v and dout, in elements, twelve in all. bf16
+// inputs need 16-byte aligned base pointers and strides (the wrapper
+// checks).
 extern "C" int rlt_flash_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int batch,

@@ -13,7 +13,10 @@ tensor's device decides each pass:
   in interpret mode);
 - a CUDA tensor goes to the kernel in ``csrc/flash_fwd.cu`` forward (K1)
   and to the two kernels in ``csrc/flash_bwd.cu`` backward (K2: dK/dV,
-  K3: dQ), or raises. There is no fallback.
+  K3: dQ), or raises. There is no fallback. In bf16 the backward kernels
+  run on the tensor cores (wgmma) and load their tiles by TMA, so bf16 q,
+  k, v must have 16-byte aligned base pointers and (batch, seq, head)
+  strides; fp32 runs on the SIMT kernels and has no such rule.
 """
 from __future__ import annotations
 
@@ -271,6 +274,23 @@ def _check_cuda_inputs(q, k, v, causal):
         raise ValueError("the last (head_dim) axis of q/k/v must be contiguous")
     if batch * heads > 65535:
         raise ValueError("batch * heads must be <= 65535 (grid y limit)")
+    if q.dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            if not _aligned16(x):
+                raise ValueError(
+                    f"bf16 {name} must have a 16-byte aligned base pointer "
+                    f"and batch, seq and head strides that are multiples of "
+                    f"8 elements (the backward kernels' TMA copies need "
+                    f"them), got pointer {x.data_ptr()} strides {x.stride()}"
+                )
+
+
+def _aligned16(x: torch.Tensor) -> bool:
+    """True when the base pointer and the (batch, seq, head) strides of a
+    (B, S, H, D) tensor are multiples of 16 bytes."""
+    return x.data_ptr() % 16 == 0 and all(
+        x.stride(i) * x.element_size() % 16 == 0 for i in range(3)
+    )
 
 
 def _flash_fwd_cuda(q, k, v, causal, sm_scale, window, sinks):
@@ -345,9 +365,12 @@ def prepare_bwd(q, k, v, out, lse, do, causal, sm_scale, window, sinks):
     if {do.device, out.device, lse.device} != {q.device}:
         raise ValueError("do, out and lse must be on q's device")
     # Autograd may hand a gradient of any layout or dtype; the kernels read
-    # dO strided in q's dtype with a contiguous last axis.
+    # dO strided in q's dtype with a contiguous last axis (and in bf16 with
+    # the 16-byte alignment of q, k, v).
     do = do.to(q.dtype)
-    if do.stride(-1) != 1:
+    if do.stride(-1) != 1 or (
+        do.dtype == torch.bfloat16 and not _aligned16(do)
+    ):
         do = do.contiguous()
     delta = (do.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     strides = (ctypes.c_longlong * 12)(
