@@ -8,25 +8,27 @@ Phases, in order; any failure exits non-zero (nothing is caught):
 1. Build every kernel of the port from the sources in this checkout
    (``nvcc``, one process per source, all started together) and print the
    build time and the card's name and power limit. Count the tensor-core
-   instructions (``HMMA``, ``HGMMA``) of each backward kernel in the built
-   library's SASS (``cuobjdump -sass``); the bf16 kernels must have some.
-2. Hold each kernel against its plain PyTorch version on the card, in bf16
-   and fp32, causal, non-causal, window and window + sinks, at the serving
-   path's shapes (B=1, S in {16, 128, 1024}, H=12, D=64) plus a ragged
-   S=40 and a D=128 shape; time the kernel, the plain version and
+   instructions (``HMMA``, ``HGMMA``) of each kernel in the built
+   libraries' SASS (``cuobjdump -sass``): every bf16 kernel (K1, K2, K3 at
+   D=64 and D=128) must have some, every fp32 kernel none.
+2. Hold K1 (the forward) against its plain PyTorch version on the card, in
+   bf16 and fp32, causal, non-causal, window and window + sinks, at the
+   serving path's shapes (B=1, S in {16, 128, 1024}, H=12, D=64) plus a
+   ragged S=40 and a D=128 shape; time the kernel, the plain version and
    ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
-   the port never calls it) with CUDA events, beside the kernel's bound.
+   the port never calls it) with CUDA events, beside the kernel's bound;
+   print the host microseconds of one call at S=16.
 3. Hold the backward kernels K2 (dK/dV) and K3 (dQ) against
    ``flash_attention_bwd_plain`` on the same cases, in bf16 and fp32.
    Then, at the training call (B=8, S=1024, H=12, D=64, bf16, causal,
    q/k/v the strided views of the fused projection), hold K1's out/lse
-   and K2/K3's dq/dk/dv against the plain versions, run K2 and K3 a
-   second time and require bit-for-bit equal gradients, and time K2 and
-   K3 beside the backward of ``scaled_dot_product_attention`` (a
-   yardstick only) and each kernel's bound, with the achieved TFLOP/s.
+   and K2/K3's dq/dk/dv against the plain versions, run K1, K2 and K3 a
+   second time and require bit-for-bit equal outputs, and time K1 beside
+   the SDPA forward and K2 and K3 beside the SDPA backward (yardsticks
+   only) and each kernel's bound, with the achieved TFLOP/s.
 4. Serve GPT-2-small width (random weights from a seeded generator, bf16)
    through ``Scheduler`` -> ``DecodeEngine``: 8 requests with prompts
-   spread over the prefill buckets, 32 new tokens each, 6 greedy and 2
+   of 5 to 896 tokens, 32 new tokens each, 6 greedy and 2
    sampled (temperature 0.8, top-k 50, top-p 0.9). Every request must
    finish with its token count, the caches must stay finite, the flash
    kernel must have run once per layer per admission and the reference
@@ -61,14 +63,20 @@ MEM_BYTES_PER_S = 3.35e12
 #: Kernel vs plain version: |kernel - plain| <= ATOL + RTOL * |plain|.
 #: fp32: both sum in fp32 in other orders. bf16: both read the same bf16
 #: inputs and round each output once; the plain versions compute in fp32
-#: throughout, K1 too, while K2 and K3 round P and dS to bf16 where they
-#: enter a tensor-core product (sums stay fp32), which adds up to about
-#: one more bf16 unit. lse is fp32 in both dtypes.
+#: throughout, while the kernels round P (K1, K2, K3) and dS (K2, K3) to
+#: bf16 where they enter a tensor-core product (sums stay fp32), which
+#: adds up to about one more bf16 unit. lse is fp32 in both dtypes.
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 LSE_TOL = 1e-3
 #: Greedy engine vs solo generate: a token may differ only where the solo
 #: run's top-2 logit margin is below this.
 MARGIN = 1e-3
+#: The serve phase's requests: prompt lengths (prompts drawn from numpy
+#: seed 0), which ones sample, new tokens each; and its engine.
+SERVE_LENGTHS = (5, 24, 40, 96, 200, 384, 768, 896)
+SERVE_SAMPLED = {0, 4}
+SERVE_NEW = 32
+SERVE_ENGINE = dict(num_slots=8, max_seq=1024, decode_fold=8)
 
 
 def fail(msg: str) -> None:
@@ -85,12 +93,25 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds of one call of ``fn``: CUDA events around
+    ``iters`` calls after ``warmup``. The stream is first held behind a
+    spin kernel that outlasts twice the host's time for the ``iters``
+    calls, so every launch is queued before the first event fires and the
+    events time the device's work, not the host's enqueue."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    # One call with its device work is an upper bound of its host time;
+    # the spin is counted in cycles of a clock of at most 2 GHz.
+    spin_s = 2.0 * iters * (time.perf_counter() - t0)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_s * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -118,7 +139,7 @@ def sass_tensor_ops(path) -> dict:
 
 def phase_build():
     """Build every source; return the tensor-core instruction count of the
-    D=64 bf16 backward kernels, by kernel name."""
+    D=64 bf16 kernels, by kernel name (K1 ``flash_fwd``, K2, K3)."""
     from ray_lightning_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -129,17 +150,24 @@ def phase_build():
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build] {name}: {line.strip()}")
-    counts = sass_tensor_ops(paths["flash_bwd"])
-    for fn, n in sorted(counts.items()):
-        print(f"[build] flash_bwd SASS tensor-core instructions {n}: {fn}")
+    counts = {}
+    for src in ("flash_fwd", "flash_bwd"):
+        for fn, n in sorted(sass_tensor_ops(paths[src]).items()):
+            print(f"[build] {src} SASS tensor-core instructions {n}: {fn}")
+            counts[fn] = n
     tc = {}
-    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+    for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
         for d in (64, 128):
             hits = [n for fn, n in counts.items()
                     if f"{name}_bf16_kernel" in fn and f"ILi{d}E" in fn]
             if len(hits) != 1 or hits[0] == 0:
                 fail(f"the bf16 {name} kernel (D={d}) has no tensor-core "
                      f"instruction in its SASS: {hits}")
+            simt = [n for fn, n in counts.items()
+                    if f"{name}_kernel" in fn and f"ILi{d}E" in fn]
+            if len(simt) != 1 or simt[0] != 0:
+                fail(f"the fp32 {name} kernel (D={d}) should be SIMT only: "
+                     f"tensor-core instructions {simt}")
             if d == 64:
                 tc[name] = hits[0]
     print(f"[card] {card_line()}")
@@ -147,9 +175,10 @@ def phase_build():
 
 
 def flash_bound(q, window, sinks, causal):
-    """(bound_ms, bound_by): each input read once and each output written
-    once over the memory rate; 4*D FLOPs per visible (query, key) pair
-    (QK^T and PV) over the peak rate of the input type."""
+    """(bound_ms, bound_by, flops) of K1: each input read once and each
+    output written once over the memory rate; 4*D FLOPs per visible
+    (query, key) pair (QK^T and PV) over the peak rate of the input
+    type."""
     import torch
 
     from ray_lightning_tpu_torch.ops.attention import band_allowed
@@ -165,7 +194,24 @@ def flash_bound(q, window, sinks, causal):
     dtype = str(q.dtype).replace("torch.", "")
     t_ops = flops / PEAK_FLOPS[dtype]
     t_mem = nbytes / MEM_BYTES_PER_S
-    return max(t_ops, t_mem) * 1e3, "operations" if t_ops > t_mem else "bytes"
+    bound_by = "operations" if t_ops > t_mem else "bytes"
+    return max(t_ops, t_mem) * 1e3, bound_by, flops
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds of one call of ``fn`` (the enqueue, not the
+    device's work): ``n`` calls back to back after one warm-up, read
+    before the device is synchronised."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def phase_kernels():
@@ -233,10 +279,22 @@ def phase_kernels():
                         )
                     ),
                 }
-                row["bound_ms"], row["bound_by"] = flash_bound(q, 0, 0, True)
+                row["bound_ms"], row["bound_by"], flops = flash_bound(
+                    q, 0, 0, True
+                )
+                row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
                 print(f"[kernel] flash_fwd timing bf16 causal B={B} S={S} "
                       f"H={H} D={D}: {json.dumps(row)}")
+                if S == 16:
+                    # At serving's short buckets the host's cost of a call,
+                    # not the kernel, sets the time.
+                    short_us = host_us(
+                        lambda: _flash_fwd_cuda(q, k, v, True, scale, 0, 0)
+                    )
+                    print(f"[kernel] flash_fwd host time of one call at "
+                          f"S=16: {short_us} us")
                 timed = row
+    timed["host_us_s16"] = short_us
     return worst, timed
 
 
@@ -396,6 +454,7 @@ def phase_bwd_kernels():
     B, S, H, D = q.shape
     scale = D ** -0.5
     check_training_call(fa, q, k, v, do, out, lse, scale)
+    rows = {"flash_fwd": time_fwd_training_call(fa, q, k, v, out, lse, scale)}
     dq, dk, dv = (
         torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)
     )
@@ -413,7 +472,6 @@ def phase_bwd_kernels():
         lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot,
                                     retain_graph=True)
     )
-    rows = {}
     for name, fn, n_products, n_out in (
         ("flash_bwd_dkv", lambda: fa.launch_bwd_dkv(args, dk, dv), 4, 2),
         ("flash_bwd_dq", lambda: fa.launch_bwd_dq(args, dq), 3, 1),
@@ -429,6 +487,37 @@ def phase_bwd_kernels():
               f"{json.dumps(row)} (plain_ms and library_ms are the whole "
               f"backward: dq, dk and dv)")
     return worst, rows
+
+
+def time_fwd_training_call(fa, q, k, v, out, lse, scale):
+    """K1 at the training call: a second run must give bitwise-equal
+    out/lse (one writer per output tile); then its time beside the SDPA
+    forward on the same strided views (a yardstick only) and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    again = fa._flash_fwd_cuda(q, k, v, True, scale, 0, 0)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
+        fail("flash_fwd out/lse differ between two runs on the same inputs")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with torch.no_grad():
+        row = {
+            "ms": cuda_ms(
+                lambda: fa._flash_fwd_cuda(q, k, v, True, scale, 0, 0)
+            ),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True)
+            ),
+        }
+    row["bound_ms"], row["bound_by"], flops = flash_bound(q, 0, 0, True)
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    B, S, H, D = q.shape
+    print(f"[kernel] flash_fwd timing at the training call bf16 causal B={B} "
+          f"S={S} H={H} D={D}, strided q/k/v: {json.dumps(row)} (library_ms:"
+          f" the SDPA forward on the same views)")
+    return row
 
 
 def greedy_margin(params, cfg, tokens):
@@ -462,23 +551,18 @@ def phase_serve():
         torch.Generator(device="cuda").manual_seed(0), cfg
     )
     t0 = time.perf_counter()
-    engine = DecodeEngine(
-        params, cfg, num_slots=8, max_seq=1024, decode_fold=8, device="cuda"
-    )
+    engine = DecodeEngine(params, cfg, device="cuda", **SERVE_ENGINE)
     torch.cuda.synchronize()
     print(f"[serve] engine built in {time.perf_counter() - t0:.3f} s, "
           f"buckets {engine.prefill_buckets}")
     sched = Scheduler(engine)
     rng = np.random.default_rng(0)
-    # One prompt per prefill bucket (16 ... 1024), two in the last. The
-    # greedy ones have lengths at which the solo gpt_generate's prefill
-    # takes the flash kernel too (the shape rule sends other lengths to the
-    # reference, whose bf16 probabilities round differently), so solo and
-    # engine share their attention arithmetic; the engine still pads them
-    # to their bucket. The two sampled ones have unaligned lengths.
-    lengths = (5, 24, 40, 96, 200, 384, 768, 896)
-    n_new = 32
-    sampled = {0, 4}
+    # The greedy prompts have lengths at which the solo gpt_generate's
+    # prefill takes the flash kernel too (the shape rule sends other
+    # lengths to the reference, whose bf16 probabilities round
+    # differently), so solo and engine share their attention arithmetic.
+    # The two sampled ones have unaligned lengths.
+    lengths, n_new, sampled = SERVE_LENGTHS, SERVE_NEW, SERVE_SAMPLED
     reqs = []
     for i, n in enumerate(lengths):
         prompt = rng.integers(0, cfg.vocab_size, n).tolist()
@@ -700,7 +784,12 @@ def main() -> None:
         "bound_ms": timed["bound_ms"],
         "bound_by": timed["bound_by"],
         "library_ms": timed["library_ms"],
+        "tflops": timed["tflops"],
+        "sass_tensor_core_instructions": tensor_ops["flash_fwd"],
+        "host_us_s16": timed["host_us_s16"],
         "shape": [1, timed["S"], 12, 64],
+        "train": {key: bwd_rows["flash_fwd"][key]
+                  for key in ("ms", "library_ms", "bound_ms", "tflops")},
     }]
     for name, line in (("flash_bwd_dkv", 189), ("flash_bwd_dq", 254)):
         row = bwd_rows[name]

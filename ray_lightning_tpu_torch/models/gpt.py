@@ -20,6 +20,9 @@ Differences that follow from PyTorch:
 - Dense configs only: ``n_experts > 0`` raises (MoE is ROADMAP queue 1 item 13).
 - ``remat`` recomputes each block in the backward through
   ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``).
+- The decode step is batch-invariant on the card: its row-wise work runs
+  in fixed blocks of ``DECODE_ROWS`` rows and its attention in fp64, so a
+  slot's logits do not depend on its batchmates or on the cache's length.
 """
 from __future__ import annotations
 
@@ -697,6 +700,30 @@ def gpt_prefill(
     return h, torch.stack(ks), torch.stack(vs)
 
 
+#: The decode step runs its row-wise work (norms, matrix products, the LM
+#: head) on blocks of this many rows, the last block padded with zeros, so
+#: each of those kernels sees one shape whatever the batch. On the card a
+#: GEMM's kernel, and with it the order of its sums, follows its row
+#: count: without the blocks a slot's logits would round differently with
+#: other batchmates.
+DECODE_ROWS = 8
+
+
+def _in_row_blocks(fn, *xs: torch.Tensor) -> Any:
+    """``fn`` on each ``DECODE_ROWS``-row block of ``xs`` (whose row count
+    is a multiple of it); a tensor result, or each one of a tuple, joined
+    along the rows."""
+    outs = [
+        fn(*(x[i : i + DECODE_ROWS] for x in xs))
+        for i in range(0, xs[0].shape[0], DECODE_ROWS)
+    ]
+    if len(outs) == 1:
+        return outs[0]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
 def gpt_decode_step(
     params: Dict[str, Any],
     cfg: GPTConfig,
@@ -730,6 +757,7 @@ def gpt_decode_step(
     Hkv = cfg.kv_head
     rep = H // Hkv
     B = cur.shape[0]
+    Bp = -(-B // DECODE_ROWS) * DECODE_ROWS
     S = k_cache.shape[2]
     pos_w = pos.clamp(max=S - 1)
     slots = torch.arange(B, device=cur.device)
@@ -737,7 +765,8 @@ def gpt_decode_step(
     x = embed_rows(params["wte"], cur)
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][pos.clamp(max=cfg.max_seq - 1)]
-    h = x.to(cdt)  # (B, D)
+    # (Bp, D): the rows past B are zeros, carried along and never read.
+    h = F.pad(x.to(cdt), (0, 0, 0, Bp - B))
     if cfg.pos_embed == "rope":
         cos, sin = _rope_tables(pos, cfg.rope_theta, hd)  # (B, half)
         cos, sin = cos[:, None, :], sin[:, None, :]
@@ -749,20 +778,23 @@ def gpt_decode_step(
     )  # (B, 1, 1, S)
     for li in range(cfg.n_layer):
         lp = _layer(params["blocks"], li)
-        a = norm_fn(h[:, None], lp["ln1_g"], lp["ln1_b"])[:, 0]
-        if Hkv == H:
-            qkv = torch.einsum(
-                "bd,dthk->bthk", a, dequant(lp["wqkv"], cdt)
-            ) + lp["bqkv"].to(cdt)
-            q, k_new, v_new = qkv[:, 0], qkv[:, 1], qkv[:, 2]
-        else:
+
+        def project(hb):
+            a = norm_fn(hb[:, None], lp["ln1_g"], lp["ln1_b"])[:, 0]
+            if Hkv == H:
+                qkv = torch.einsum(
+                    "bd,dthk->bthk", a, dequant(lp["wqkv"], cdt)
+                ) + lp["bqkv"].to(cdt)
+                return qkv[:, 0], qkv[:, 1], qkv[:, 2]
             q = torch.einsum("bd,dhk->bhk", a, dequant(lp["wq"], cdt)) + lp[
                 "bq"
             ].to(cdt)
             kv = torch.einsum(
                 "bd,dthk->bthk", a, dequant(lp["wkv"], cdt)
             ) + lp["bkv"].to(cdt)
-            k_new, v_new = kv[:, 0], kv[:, 1]
+            return q, kv[:, 0], kv[:, 1]
+
+        q, k_new, v_new = (t[:B] for t in _in_row_blocks(project, h))
         if cfg.pos_embed == "rope":
             q = _rotate(q, cos, sin)
             k_new = _rotate(k_new, cos, sin)
@@ -771,20 +803,34 @@ def gpt_decode_step(
         kc[slots, pos_w] = k_new.to(kc.dtype)
         vc[slots, pos_w] = v_new.to(vc.dtype)
         # Grouped attention against the Hkv-headed cache: head h reads kv
-        # head h // rep, matching the prefill's repeat_interleave.
-        qg = q.reshape(B, Hkv, rep, hd).float()
-        s = torch.einsum("bgrk,bsgk->bgrs", qg * (1.0 / np.sqrt(hd)), kc.float())
+        # head h // rep, matching the prefill's repeat_interleave. It runs
+        # in fp64, which rounds 2^29 times finer than fp32: the order in
+        # which the kernels (chosen by B and S) add the terms then does not
+        # reach the compute-dtype result.
+        qg = q.reshape(B, Hkv, rep, hd).double()
+        s = torch.einsum(
+            "bgrk,bsgk->bgrs", qg * (1.0 / np.sqrt(hd)), kc.double()
+        )
         s = s.masked_fill(~allowed, float("-inf"))
         p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bgrs,bsgk->bgrk", p, vc.float()).reshape(B, H, hd)
-        o = o.to(cdt)
-        h = h + torch.einsum("bhk,hkd->bd", o, dequant(lp["wo"], cdt)) + lp[
-            "bo"
-        ].to(cdt)
-        m = norm_fn(h[:, None], lp["ln2_g"], lp["ln2_b"])[:, 0]
-        h = h + _dense_mlp(m, lp, cfg, cdt)
-    h = norm_fn(h[:, None], params["lnf_g"], params["lnf_b"])[:, 0]
-    logits = _lm_head(h, _head_weight(params, cfg))
+        o = torch.einsum("bgrs,bsgk->bgrk", p, vc.double()).reshape(B, H, hd)
+        o = F.pad(o.to(cdt), (0, 0, 0, 0, 0, Bp - B))
+
+        def out_and_mlp(hb, ob):
+            hb = hb + torch.einsum(
+                "bhk,hkd->bd", ob, dequant(lp["wo"], cdt)
+            ) + lp["bo"].to(cdt)
+            m = norm_fn(hb[:, None], lp["ln2_g"], lp["ln2_b"])[:, 0]
+            return hb + _dense_mlp(m, lp, cfg, cdt)
+
+        h = _in_row_blocks(out_and_mlp, h, o)
+    w_head = _head_weight(params, cfg)
+
+    def head(hb):
+        hb = norm_fn(hb[:, None], params["lnf_g"], params["lnf_b"])[:, 0]
+        return _lm_head(hb, w_head)
+
+    logits = _in_row_blocks(head, h)[:B]
     return logits, k_cache, v_cache
 
 

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exports plain C functions and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` under the repository root (a
-directory ``.gitignore`` lists). The hash covers the source and the flags,
-so an edited source rebuilds and an unchanged one loads the library left by
-an earlier run. Nothing here runs at import time: the CPU tests import
-every module, and this machine class has no ``nvcc``.
+directory ``.gitignore`` lists). The sources include the shared headers
+``csrc/*.cuh``. The hash covers the source, every header and the flags, so
+an edited source or header rebuilds and an unchanged tree loads the library
+left by an earlier run. Nothing here runs at import time: the CPU tests
+import every module, and this machine class has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -53,10 +54,19 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_command(src: Path, out: Path) -> List[str]:
+    """The ``nvcc`` command that builds ``src`` into the library ``out``;
+    ``src`` may be a copy outside ``csrc`` (its headers are found there)."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(out),
+            str(src)]
+
+
 def _lib_path(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build_all(names: Iterable[str] = ()) -> Dict[str, Path]:
@@ -79,8 +89,7 @@ def build_all(names: Iterable[str] = ()) -> Dict[str, Path]:
         procs[n] = (
             tmp,
             subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                 str(SRC_DIR / f"{n}.cu")],
+                nvcc_command(SRC_DIR / f"{n}.cu", tmp),
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
                 text=True,

@@ -13,10 +13,11 @@ tensor's device decides each pass:
   in interpret mode);
 - a CUDA tensor goes to the kernel in ``csrc/flash_fwd.cu`` forward (K1)
   and to the two kernels in ``csrc/flash_bwd.cu`` backward (K2: dK/dV,
-  K3: dQ), or raises. There is no fallback. In bf16 the backward kernels
-  run on the tensor cores (wgmma) and load their tiles by TMA, so bf16 q,
-  k, v must have 16-byte aligned base pointers and (batch, seq, head)
-  strides; fp32 runs on the SIMT kernels and has no such rule.
+  K3: dQ), or raises. There is no fallback. In bf16 all three run on the
+  tensor cores (wgmma) and load their tiles by TMA, so bf16 q, k, v must
+  have 16-byte aligned base pointers and (batch, seq, head) strides, and
+  the forward takes sm_scale > 0; fp32 runs on the SIMT kernels and has
+  no such rule.
 """
 from __future__ import annotations
 
@@ -280,7 +281,7 @@ def _check_cuda_inputs(q, k, v, causal):
                 raise ValueError(
                     f"bf16 {name} must have a 16-byte aligned base pointer "
                     f"and batch, seq and head strides that are multiples of "
-                    f"8 elements (the backward kernels' TMA copies need "
+                    f"8 elements (the kernels' TMA copies need "
                     f"them), got pointer {x.data_ptr()} strides {x.stride()}"
                 )
 
@@ -295,6 +296,11 @@ def _aligned16(x: torch.Tensor) -> bool:
 
 def _flash_fwd_cuda(q, k, v, causal, sm_scale, window, sinks):
     _check_cuda_inputs(q, k, v, causal)
+    if q.dtype == torch.bfloat16 and not sm_scale > 0:
+        raise ValueError(
+            f"the bf16 forward kernel takes sm_scale > 0 (it keeps the "
+            f"running max of the unscaled scores), got {sm_scale}"
+        )
     batch, seq_q, heads, head_dim = q.shape
     seq_k = k.shape[1]
     out = torch.empty(

@@ -13,7 +13,10 @@ Exactness: a greedy request decodes the same tokens as a solo
 each slot to ``position <= pos[slot]`` with exact ``-inf`` masking and the
 bucketed prefill's padded rows never reach a real row (causal attention).
 On the CPU, under ``attn_impl="reference"`` and fp32, this holds token for
-token; on the card, matmuls with other batch sizes may round differently.
+token. On the card it holds too for a prompt whose length the flash kernel
+takes: the default buckets leave such a prompt unpadded, and the decode
+step rounds a slot's row the same whatever the batch and the cache length
+(``models/gpt.py:DECODE_ROWS``).
 
 What the JAX engine also offers and this port does not yet (each raises
 ``NotImplementedError`` naming its ROADMAP item): chunked prefill and the
@@ -44,6 +47,7 @@ from ray_lightning_tpu_torch.models.gpt import (
     params_to,
     sample_logits_batched,
 )
+from ray_lightning_tpu_torch.ops.flash_attention import takes_reference_path
 from ray_lightning_tpu_torch.utils.device import resolve_device
 
 #: Constructor options of the JAX engine that the port does not run yet:
@@ -81,15 +85,22 @@ class SlotInfo:
     eos_token: int  # -1 = disabled
 
 
-def default_buckets(max_seq: int, lo: int = 16) -> Tuple[int, ...]:
-    """Power-of-two prefill buckets up to ``max_seq`` (inclusive)."""
-    out: List[int] = []
-    b = lo
-    while b < max_seq:
-        out.append(b)
-        b *= 2
-    out.append(max_seq)
-    return tuple(sorted(set(out)))
+def default_buckets(max_seq: int) -> Tuple[int, ...]:
+    """Prefill lengths up to ``max_seq``: each length the flash kernel's
+    shape rule takes (``takes_reference_path``: multiples of 8 up to 128,
+    then of 128) and ``max_seq`` itself.
+
+    A prompt is padded to the next of these, so one whose length the kernel
+    takes is not padded at all and its prefill is the solo
+    ``gpt_generate``'s, shapes included: on the card a GEMM over more rows
+    may round differently. The JAX engine's power-of-two buckets bound its
+    compiles; eager PyTorch compiles nothing.
+    """
+    out = [
+        n for n in range(8, max_seq + 1, 8)
+        if not takes_reference_path(n, n, causal=True)
+    ]
+    return tuple(sorted(set(out + [max_seq])))
 
 
 class DecodeEngine:

@@ -3,10 +3,16 @@ held against the JAX package on the CPU, on inputs made with numpy.
 
 The JAX flash kernel runs in Pallas interpret mode (its own CPU path); the
 port's flash wrapper takes the plain version for CPU tensors. Tolerance
-2e-5 in fp32, the reference's own bar (tests/test_ops.py).
+2e-5 in fp32, the reference's own bar (tests/test_ops.py). Ahead of the
+card, the bf16 forward kernel's arithmetic (64-key tiles, exp2 with the
+scale in the exponent, P rounded to bf16 before P V) is emulated in plain
+PyTorch and held at ``chip_smoke.py``'s bf16 bar; and the kernel build is
+checked to follow its shared headers.
 """
 import importlib
+import math
 import os
+import shutil
 import subprocess
 import sys
 
@@ -16,8 +22,13 @@ import pytest
 import torch
 
 from ray_lightning_tpu.ops.attention import attention_reference as jax_reference
-from ray_lightning_tpu_torch.ops.attention import attention_reference
+from ray_lightning_tpu_torch.ops import _build
+from ray_lightning_tpu_torch.ops.attention import (
+    attention_reference,
+    band_allowed,
+)
 from ray_lightning_tpu_torch.ops.flash_attention import (
+    _flash_fwd_cuda,
     counters,
     flash_attention,
     flash_attention_plain,
@@ -156,6 +167,101 @@ def test_flash_argument_checks_match_jax():
         flash_attention(q, k, v, window=-1)
     with pytest.raises(ValueError, match="sinks only apply"):
         flash_attention(q, k, v, sinks=2)
+
+
+def _fwd_kernel_arithmetic(q, k, v, causal, scale, window, sinks):
+    """The bf16 forward kernel's arithmetic in plain PyTorch: raw scores
+    Q K^T in fp32 from the bf16 inputs, key tiles of 64 walked with the
+    online softmax, the running max kept in units of s * scale * log2 e and
+    p = exp2(s * scale * log2 e - m), P rounded to bf16 where it enters
+    P V, l and O in fp32, out rounded once, lse in natural-log units."""
+    seq_q, seq_k = q.shape[1], k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    if causal:
+        row = torch.arange(seq_q)[:, None]
+        col = torch.arange(seq_k)[None, :]
+        s = s.masked_fill(~band_allowed(row, col, window, sinks), -math.inf)
+    scale_log2 = scale * math.log2(math.e)
+    m = torch.full(s.shape[:-1], -math.inf)
+    l = torch.zeros(s.shape[:-1])
+    o = torch.zeros(s.shape[:-1] + (q.shape[-1],))
+    for c0 in range(0, seq_k, 64):
+        st = s[..., c0:c0 + 64]
+        m_new = torch.maximum(m, st.amax(-1) * scale_log2)
+        alpha = torch.where(m == -math.inf, 0.0, torch.exp2(m - m_new))
+        p = torch.where(st == -math.inf, 0.0,
+                        torch.exp2(st * scale_log2 - m_new[..., None]))
+        l = l * alpha + p.sum(-1)
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(torch.bfloat16).float(),
+                          v[:, c0:c0 + 64].float())
+        o = o * alpha[..., None] + pv
+        m = m_new
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    out = (o / l_safe[..., None]).permute(0, 2, 1, 3).to(torch.bfloat16)
+    return out, m * math.log(2.0) + torch.log(l_safe)
+
+
+#: chip_smoke.py's bf16 bar for a kernel against its plain version.
+BF16_ATOL, BF16_RTOL, LSE_TOL = 1e-2, 1e-2, 1e-3
+
+
+@pytest.mark.parametrize("causal,window,sinks",
+                         [(True, 0, 0), (False, 0, 0), (True, 1, 0),
+                          (True, 1, 4)])
+@pytest.mark.parametrize("seq,head_dim", [(256, 64), (40, 64), (128, 128)])
+def test_bf16_fwd_kernel_arithmetic_meets_the_card_bar(
+    seq, head_dim, causal, window, sinks
+):
+    """The bf16 forward kernel's arithmetic, emulated, stays within
+    chip_smoke.py's bf16 tolerance of the fp32 plain version: causal,
+    non-causal, window and window + sinks (window S // 4 at least 5, as
+    chip_smoke.py), a ragged S=40 and D=128 (B=1, H=2)."""
+    window = max(5, seq // 4) if window else 0
+    q, k, v = (
+        torch.from_numpy(a).to(torch.bfloat16)
+        for a in _qkv(seq, batch=1, heads=2, head_dim=head_dim, seed=5)
+    )
+    scale = head_dim ** -0.5
+    out, lse = _fwd_kernel_arithmetic(q, k, v, causal, scale, window, sinks)
+    ref, ref_lse = flash_attention_plain(q, k, v, causal, scale, window,
+                                         sinks)
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= BF16_ATOL + BF16_RTOL * ref.float().abs()).all()), (
+        float(err.max())
+    )
+    assert float((lse - ref_lse).abs().max()) <= LSE_TOL
+
+
+def test_bf16_fwd_kernel_takes_a_positive_scale():
+    """The bf16 kernel keeps the running max of the unscaled scores, which
+    is the scaled max only for a positive scale: the wrapper raises before
+    any launch otherwise (fp32 takes any scale)."""
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _qkv(64, batch=1, heads=1, head_dim=64))
+    for bad in (0.0, -0.125, float("nan")):
+        with pytest.raises(ValueError, match="sm_scale > 0"):
+            _flash_fwd_cuda(q, k, v, True, bad, 0, 0)
+    assert torch_fa._fn is None
+
+
+def test_kernel_build_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by the hash of its source, every shared header
+    and the flags: an edited header rebuilds, and nvcc is told where the
+    headers are (a copy of a source elsewhere still finds them)."""
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    headers = sorted(src.glob("*.cuh"))
+    assert headers
+    before = {n: _build._lib_path(n) for n in ("flash_fwd", "flash_bwd")}
+    assert before == {n: _build._lib_path(n) for n in before}
+    headers[0].write_bytes(headers[0].read_bytes() + b"\n")
+    after = {n: _build._lib_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    cmd = _build.nvcc_command(tmp_path / "copy.cu", tmp_path / "lib.so")
+    assert cmd[cmd.index("-I") + 1] == str(src)
 
 
 def test_kernel_is_not_built_on_import():

@@ -23,6 +23,7 @@ import torch
 from ray_lightning_tpu_torch.ops.attention import band_allowed
 from ray_lightning_tpu_torch.ops.flash_attention import (
     _check_cuda_inputs,
+    _flash_fwd_cuda,
     counters,
     flash_attention,
     flash_attention_bwd_plain,
@@ -230,3 +231,33 @@ def test_kernels_match_plain_on_the_card(causal, window, sinks, dtype):
     torch.testing.assert_close(out, p_out, atol=tol, rtol=tol)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda_hw
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("causal,window,sinks", [(True, 0, 0), (False, 0, 0),
+                                                 (True, 40, 0), (True, 40, 4)])
+def test_forward_matches_plain_at_the_training_layout_on_the_card(
+    causal, window, sinks, head_dim
+):
+    """K1 in bf16 on q/k/v that are the strided views of a fused
+    (B, S, 3, H, D) projection, the layout the training step and the
+    serving prefill hand it: out and lse against the plain version at
+    chip_smoke.py's bar, and a second launch bitwise equal (needs a CUDA
+    card and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    fused = torch.randn((2, 256, 3, 4, head_dim), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    q, k, v = fused.unbind(2)
+    scale = head_dim ** -0.5
+    before = counters.launches
+    out, lse = _flash_fwd_cuda(q, k, v, causal, scale, window, sinks)
+    again = _flash_fwd_cuda(q, k, v, causal, scale, window, sinks)
+    assert counters.launches == before + 2
+    ref, ref_lse = flash_attention_plain(q, k, v, causal, scale, window, sinks)
+    torch.testing.assert_close(out.float(), ref.float(), atol=BF16_ATOL,
+                               rtol=BF16_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0.0)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])

@@ -315,3 +315,58 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
         except json.JSONDecodeError:
             last = None
         assert not (isinstance(last, dict) and last.get("ok"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda_hw)]
+)
+def test_decode_step_rows_do_not_depend_on_batch_or_cache_length(
+    weights, dtype, device
+):
+    """One decode step gives a slot bitwise the same logits and new cache
+    row alone, in a cache just long enough, as among ten batchmates in a
+    longer cache: the property that lets the engine's greedy tokens equal
+    solo gpt_generate's on the card. Slots 0 and 9 sit in the first and
+    the second block of DECODE_ROWS rows."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cfg = dataclasses.replace(CFG, compute_dtype=dtype)
+    params = tgpt.cast_params(tgpt.params_to(weights[1], torch.device(device)),
+                              cfg)
+    cdt = tgpt.compute_dtype(cfg)
+    rng = np.random.default_rng(3)
+    B, S = 11, CFG.max_seq
+    shape = (cfg.n_layer, B, S, cfg.kv_head, cfg.head_dim)
+    kc, vc = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              .to(device=device, dtype=cdt) for _ in range(2))
+    cur = torch.from_numpy(rng.integers(0, cfg.vocab_size, B)).to(device)
+    pos = torch.from_numpy(rng.integers(4, 40, B)).to(device)
+    with torch.no_grad():
+        full, k_full, _ = tgpt.gpt_decode_step(params, cfg, cur, pos,
+                                               kc.clone(), vc.clone())
+        for b in (0, 9):
+            n = int(pos[b]) + 1
+            alone, k_alone, _ = tgpt.gpt_decode_step(
+                params, cfg, cur[b:b + 1], pos[b:b + 1],
+                kc[:, b:b + 1, :n].clone(), vc[:, b:b + 1, :n].clone(),
+            )
+            assert torch.equal(alone[0], full[b]), b
+            assert torch.equal(k_alone[:, 0], k_full[:, b, :n]), b
+
+
+def test_default_buckets_leave_flash_lengths_unpadded(weights):
+    """The default prefill buckets are the lengths the flash kernel takes,
+    so the engine pads such a prompt not at all (its prefill shapes are
+    solo gpt_generate's) and any other prompt to the next of them."""
+    from ray_lightning_tpu_torch.ops.flash_attention import takes_reference_path
+    from ray_lightning_tpu_torch.serve.engine import default_buckets
+
+    assert default_buckets(1024) == (
+        tuple(range(8, 129, 8)) + tuple(range(256, 1025, 128))
+    )
+    assert default_buckets(100)[-1] == 100
+    assert not any(takes_reference_path(n, n, causal=True)
+                   for n in default_buckets(1024))
+    eng = DecodeEngine(weights[1], CFG, num_slots=1, device="cpu")
+    assert [eng.bucket_for(n) for n in (5, 40, 41, 64)] == [8, 40, 48, 64]

@@ -63,33 +63,36 @@ EDITS = {
 }
 
 
-def variant_sources(src: str) -> dict:
+def variant_sources(src: str, edits: dict = EDITS,
+                    stem: str = "flash_bwd") -> dict:
+    """The source as it stands (``base``) and one variant per entry of
+    ``edits``; exits if an edit no longer applies to ``stem``.cu."""
     out = {"base": src}
-    for name, edits in EDITS.items():
+    for name, variant_edits in edits.items():
         text = src
-        for old, new, count in edits:
+        for old, new, count in variant_edits:
             found = text.count(old)
             if found != count:
                 sys.exit(f"variant {name}: expected {count} of {old!r} in "
-                         f"flash_bwd.cu, found {found}")
+                         f"{stem}.cu, found {found}")
             text = text.replace(old, new)
         out[name] = text
     return out
 
 
-def build(sources: dict, out_dir: str) -> dict:
+def build(sources: dict, out_dir: str, stem: str = "flash_bwd") -> dict:
     """One nvcc per variant, all started together; name -> library path."""
     from ray_lightning_tpu_torch.ops import _build
 
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for name, text in sources.items():
-        cu = os.path.join(out_dir, f"flash_bwd_{name}.cu")
+        cu = os.path.join(out_dir, f"{stem}_{name}.cu")
         with open(cu, "w") as f:
             f.write(text)
-        lib = os.path.join(out_dir, f"libflash_bwd_{name}.so")
+        lib = os.path.join(out_dir, f"lib{stem}_{name}.so")
         procs[name] = (lib, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, cu],
+            _build.nvcc_command(cu, lib),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (lib, proc) in procs.items():

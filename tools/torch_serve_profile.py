@@ -9,7 +9,9 @@ and two decode folds with all 8 slots busy. For each it prints the host
 wall time, the summed device time of the kernels and their count, the
 device's idle share (1 - device time / wall; the profiler's own host cost
 is in the wall) and the kernels that took the most device time; then the
-wall time of one more fold without the profiler. Needs a CUDA device;
+wall time of each of five more folds without the profiler, and their
+median (the host sets a fold's time, and its clock varies from fold to
+fold). Needs a CUDA device;
 prints the card's name and power limit.
 """
 import os
@@ -82,7 +84,7 @@ def main():
     engine.step()
 
     for s in range(engine.num_slots):
-        admit(16, f"d{s}", 8 * 4 + 1)
+        admit(16, f"d{s}", 8 * 8 + 1)
     engine.step()
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
@@ -92,10 +94,14 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _report("2 decode folds, 8 slots", prof, wall)
-    t0 = time.perf_counter()
-    n = len(engine.step())
-    print(f"[decode unprofiled] one fold: {(time.perf_counter() - t0) * 1e3:.3f}"
-          f" ms, {n} tokens")
+    folds_ms = []
+    while engine.num_active:
+        t0 = time.perf_counter()
+        n = len(engine.step())
+        folds_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[decode unprofiled] {len(folds_ms)} folds of {n} tokens, ms: "
+          f"{[round(t, 3) for t in folds_ms]}, median "
+          f"{sorted(folds_ms)[len(folds_ms) // 2]:.3f}")
 
 
 if __name__ == "__main__":
