@@ -34,13 +34,38 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    kernel must have run once per layer per admission and the reference
    path never. Greedy requests are compared with the port's solo
    ``gpt_generate``; then a full batch decodes alone, its folds timed.
-5. Train GPT-2 small at full width and depth for 20 steps through
+   The step that admits the 896-token prompt is timed.
+5. serve-chunked: the same width through a chunked, prefix-cached,
+   tiered engine (``prefill_chunk=256``, a 64-block device pool of 16
+   positions, a 9 MiB host tier, a 64 MiB disk tier under
+   ``build/smoke_prefix_disk``; two admissions and two chunks per step).
+   Wave A: a 512-token system prompt with 6 greedy and 2 sampled
+   suffixes, and an unrelated 896-token prompt prefilled in 4 chunks
+   between folds; a flood of unrelated 512-token prompts; wave B: wave
+   A's greedy prompts again, a flood prompt again and one never sent,
+   whose admissions must hit the device pool and promote blocks from the
+   host and the disk tier, and miss all three. Every request must finish
+   with its 32 tokens, the caches and pool stay finite, no tier exceed
+   its budget, no flash call run; pool blocks copied to the host after
+   the first prefill, after wave A and after the flood must come back bit
+   for bit, in the pool and in the rows they seed; each wave-B prompt's
+   K/V rows in the engine must agree with the flash prefill (K1, none of
+   the chunk's code) within ``KV_ROW_TOL``; greedy requests must equal the
+   solo ``gpt_generate`` under ``attn_impl="reference"`` (the chunk's op
+   order) except at near-ties. Prints TTFT and its queue and prefill
+   shares, chunks per admission, the hit rate, each tier's counters and
+   bytes, the refill time, each wave-B request's TTFT beside the same
+   prompt's sent alone into an idle engine without the cache and beside
+   its wave-A twin's, the tokens that differ from the flash solo, and the
+   longest step while the 896-token prompt prefills beside its monolithic
+   admission step in phase 4.
+6. Train GPT-2 small at full width and depth for 20 steps through
    ``Trainer.fit`` (B=8, S=1024, bf16 compute, flash attention, AdamW
    with warmup): every step's loss must be finite and the last below the
    first, each backward kernel must have run once per layer per step and
    the reference path never. Prints step time, tokens/s, MFU and peak
    memory.
-6. Print the ``{"kernels": [...]}`` line, the card line, and last
+7. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a CUDA device, and when the package is not beside
@@ -71,12 +96,53 @@ LSE_TOL = 1e-3
 #: Greedy engine vs solo generate: a token may differ only where the solo
 #: run's top-2 logit margin is below this.
 MARGIN = 1e-3
+#: The chunked engine's K/V rows vs the flash prefill (K1, no chunk code):
+#: the largest relative L2 error of one (layer, position) row over its
+#: heads. Flash and the chunk's reference attention round differently in
+#: bf16, which grows to about 0.012 by layer 12 at GPT-2-small width; a
+#: chunk at wrong positions, blind to earlier chunks, seeing one row ahead
+#: or writing K one row late gives 0.2 to 1.5.
+KV_ROW_TOL = 0.05
 #: The serve phase's requests: prompt lengths (prompts drawn from numpy
 #: seed 0), which ones sample, new tokens each; and its engine.
 SERVE_LENGTHS = (5, 24, 40, 96, 200, 384, 768, 896)
 SERVE_SAMPLED = {0, 4}
 SERVE_NEW = 32
 SERVE_ENGINE = dict(num_slots=8, max_seq=1024, decode_fold=8)
+#: The chunked serve phase. One pool block holds 16 positions x 12 layers
+#: x 12 heads x 64 x 2 bytes, for K and for V: 576 KiB. The pool holds 64
+#: blocks (36 MiB), the host tier 9 MiB = 16 blocks, and the disk tier
+#: 64 MiB = 113 blocks, a block's three .npy files taking 590,288 bytes.
+CHUNKED_ENGINE = dict(
+    num_slots=8, max_seq=1024, decode_fold=8, prefill_chunk=256,
+    prefix_blocks=64, prefix_block=16, prefix_host_mb=9, prefix_disk_mb=64,
+)
+CHUNKED_SCHED = dict(max_prefills_per_step=2, max_prefill_chunks_per_step=2)
+#: Wave A: one 512-token system prompt (32 blocks) with a suffix of each
+#: of these lengths, greedy, and two sampled ones; then a long unrelated
+#: greedy prompt (896 tokens: 4 chunks).
+CHUNKED_SYSTEM = 512
+CHUNKED_SUFFIXES = (16, 40, 96, 130, 200, 300)
+CHUNKED_SAMPLED_SUFFIXES = (24, 72)
+CHUNKED_LONG = 896
+#: The flood: unrelated 512-token greedy prompts (32 blocks each); wave B
+#: sends the first of them again. Wave A inserts 140 blocks (the system
+#: prompt's 32, the long prompt's 56, 52 of suffixes) into 64 + 16 blocks
+#: of pool and host tier, so its older blocks reach the disk already. One
+#: flood prompt leaves the system prompt's first 4 blocks and the last
+#: suffix's newest 12 in the host tier, the rest of it in the pool, and the
+#: long prompt and the other suffixes on disk. Wave B's first request then
+#: promotes the system prompt from the host tier (each promotion evicts
+#: the pool's least recent block, the prompt's own next one, into the host
+#: tier just ahead of the walk: 32 host promotions) and its suffix from
+#: the disk; the others hit the system prompt in the pool and promote
+#: their suffixes from the disk (160 device hits, 46 disk promotions); the
+#: flood prompt comes back from the disk (32 blocks, the last capped so the
+#: final chunk runs); the prompt never sent misses. A second flood prompt
+#: would push the system prompt to disk, and no wave-B block would come
+#: from the host tier. tools/torch_prefix_cascade.py replays this on the
+#: CPU at a tiny width, where the pool decides the same.
+CHUNKED_FLOODS = 1
 
 
 def fail(msg: str) -> None:
@@ -520,6 +586,16 @@ def time_fwd_training_call(fa, q, k, v, out, lse, scale):
     return row
 
 
+def kv_row_err(got, want) -> float:
+    """Largest relative L2 error over (layer, position) rows of K or V
+    caches (L, P, Hkv, hd)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    norm = w.norm(dim=(-2, -1)).clamp_min(torch.finfo(torch.float32).tiny)
+    return ((g - w).norm(dim=(-2, -1)) / norm).max().item()
+
+
 def greedy_margin(params, cfg, tokens):
     """Top-2 logit margin of the next token after ``tokens``."""
     import torch
@@ -577,7 +653,20 @@ def phase_serve():
     t0 = time.perf_counter()
     for rid, prompt, sp in reqs:
         sched.submit(prompt, sp, request_id=rid)
-    events = sched.run_until_idle()
+    # Stepped by hand to time the step that admits the longest prompt
+    # (every step ends in a token read, a device sync).
+    longest, admit_step_s = f"r{len(lengths) - 1}", None
+    events = []
+    while sched.has_work():
+        ts = time.perf_counter()
+        step_events = sched.step()
+        step_s = time.perf_counter() - ts
+        events += step_events
+        if admit_step_s is None and any(
+            ev.request_id == longest and ev.token is not None
+            for ev in step_events
+        ):
+            admit_step_s = step_s
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, ref_calls = counters.launches, counters.reference
@@ -648,8 +737,352 @@ def phase_serve():
         "wall_s": wall,
         "decode_only": decode,
         "near_tie_mismatches": near_ties,
+        "admit_step_s_longest_prompt": admit_step_s,
+        "longest_prompt": lengths[-1],
     }
     print(f"[serve] {json.dumps(serve)} on {card_line()}")
+    return launches, admit_step_s
+
+
+def chunked_workload(vocab: int) -> dict:
+    """The chunked phase's prompts, drawn from numpy seed 0: wave A's
+    greedy and sampled prompts (one system prompt plus a suffix each), the
+    long unrelated prompt, the flood and a prompt never sent before wave
+    B."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+
+    def draw(n):
+        return rng.integers(0, vocab, n).tolist()
+
+    system = draw(CHUNKED_SYSTEM)
+    return {
+        "greedy": [system + draw(n) for n in CHUNKED_SUFFIXES],
+        "sampled": [system + draw(n) for n in CHUNKED_SAMPLED_SUFFIXES],
+        "long": draw(CHUNKED_LONG),
+        "flood": [draw(CHUNKED_SYSTEM) for _ in range(CHUNKED_FLOODS)],
+        "fresh": draw(CHUNKED_SYSTEM),
+    }
+
+
+def serve_chunked_run(engine, sched, work: dict, n_new: int) -> dict:
+    """Drive wave A, the flood and wave B through ``sched`` and hold the
+    prefix cache's bytes: every pool block is copied to the host, keyed by
+    its digest, after the first prefill, after wave A and after the flood;
+    a copy taken twice must not change, the rows each wave-B admission
+    seeded must equal the copies of their digests, and so must every
+    copied block back in the pool after wave B. Tier budgets are checked
+    after every step. The K/V rows of each wave-B request's prompt are
+    kept (``kv_rows``). Returns what the phase prints and checks."""
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    toks, reasons, t_submit, t_first, prompts = {}, {}, {}, {}, {}
+    long_steps = []  # wall seconds of the steps while "long" prefills
+    long_task = []
+
+    def submit(rid, prompt, sp=None):
+        sched.submit(prompt, sp or SamplingParams(max_new_tokens=n_new),
+                     request_id=rid)
+        t_submit[rid] = time.perf_counter()
+        toks[rid], prompts[rid] = [], prompt
+
+    def prefilling():
+        return {t.request_id: t for t in engine._prefills.values()}
+
+    def step():
+        before = prefilling()
+        ts = time.perf_counter()
+        events = sched.step()
+        te = time.perf_counter()
+        for ev in events:
+            if ev.token is not None:
+                toks[ev.request_id].append(ev.token)
+                t_first.setdefault(ev.request_id, te)
+            if ev.done:
+                reasons[ev.request_id] = ev.reason
+        after = prefilling()
+        if "long" in after and not long_task:
+            long_task.append(after["long"])
+        if "long" in before or "long" in after:
+            long_steps.append(te - ts)
+        for tier, row in engine.prefix_tier_stats().items():
+            if row["bytes"] > row["budget_bytes"]:
+                fail(f"the {tier} tier holds {row['bytes']} bytes over its "
+                     f"budget of {row['budget_bytes']}")
+
+    def run(until=None):
+        while sched.has_work() and not (until and until()):
+            step()
+
+    saved = {}  # digest -> (k, v) on the host
+
+    def snapshot(when):
+        n_new_copies = 0
+        for d, idx in engine._pool_map.items():
+            blk = tuple(t[:, idx].to("cpu", copy=True)
+                        for t in (engine._pool_k, engine._pool_v))
+            if d in saved:
+                if not all(torch.equal(a, b) for a, b in zip(saved[d], blk)):
+                    fail(f"pool block {d.hex()} changed between copies "
+                         f"({when})")
+            else:
+                saved[d] = blk
+                n_new_copies += 1
+        print(f"[serve-chunked] {when}: pool holds "
+              f"{len(engine._pool_map)} blocks, {n_new_copies} copied")
+
+    greedy, sampled = work["greedy"], work["sampled"]
+    # Wave A. The first request prefills the system prompt alone, so the
+    # others find it in the pool. The long prompt arrives while it
+    # decodes, ahead of the rest, and is prefilled in chunks between folds.
+    submit("a0", greedy[0])
+    run(until=lambda: "a0" in t_first)
+    snapshot("after the first prefill")
+    submit("long", work["long"])
+    for i, p in enumerate(greedy[1:], 1):
+        submit(f"a{i}", p)
+    for i, p in enumerate(sampled):
+        submit(f"s{i}", p, SamplingParams(
+            max_new_tokens=n_new, temperature=0.8, top_k=50, top_p=0.9,
+            seed=100 + i))
+    run()
+    snapshot("after wave A")
+    for i, p in enumerate(work["flood"]):
+        submit(f"f{i}", p)
+    run()
+    snapshot("after the flood")
+
+    # Wave B, one request at a time, each into the lowest free slot.
+    bs = engine.prefix_block
+    wave_b = [(f"b{i}", p) for i, p in enumerate(greedy)]
+    wave_b += [("bf", work["flood"][0]),
+               ("bn", work["fresh"])]
+    sources, seeded_rows, kv_rows = {}, 0, {}
+    for rid, p in wave_b:
+        slot = engine.free_slots()[0]
+        c0, hit0 = engine.prefix_tier_counters(), engine.prefix_hit_tokens
+        submit(rid, p)
+        run()
+        c1 = engine.prefix_tier_counters()
+        src = {
+            f"{tier}_{kind}": c1[tier][kind] - c0[tier][kind]
+            for tier, kind in (("device", "hits"), ("host", "hits"),
+                               ("host", "promotions"), ("disk", "hits"),
+                               ("disk", "promotions"))
+        }
+        src["seeded_blocks"] = (engine.prefix_hit_tokens - hit0) // bs
+        src["prompt_blocks"] = len(p) // bs
+        sources[rid] = src
+        print(f"[serve-chunked] wave B {rid} ({len(p)} tokens) into slot "
+              f"{slot}: {json.dumps(src)}")
+        kv_rows[rid] = tuple(t[:, slot, :len(p)].clone()
+                             for t in (engine._k, engine._v))
+        digests = engine._block_digests(np.asarray(p))
+        for j in range(src["seeded_blocks"]):
+            copy = saved.get(digests[j])
+            if copy is None:
+                continue
+            rows = slice(j * bs, (j + 1) * bs)
+            if not (torch.equal(engine._k[:, slot, rows].cpu(), copy[0])
+                    and torch.equal(engine._v[:, slot, rows].cpu(), copy[1])):
+                fail(f"{rid}: seeded rows of block {j} differ from the copy "
+                     f"of digest {digests[j].hex()}")
+            seeded_rows += bs
+    pool_checked = 0
+    for d, idx in engine._pool_map.items():
+        if d not in saved:
+            continue
+        k, v = saved[d]
+        if not (torch.equal(engine._pool_k[:, idx].cpu(), k)
+                and torch.equal(engine._pool_v[:, idx].cpu(), v)):
+            fail(f"pool block {d.hex()} differs from its copy after wave B")
+        pool_checked += 1
+    for name in ("_k", "_v", "_pool_k", "_pool_v"):
+        if not torch.isfinite(getattr(engine, name)).all():
+            fail(f"non-finite values in engine.{name}")
+    return {
+        "toks": toks, "reasons": reasons, "prompts": prompts,
+        "t_submit": t_submit, "t_first": t_first, "sources": sources,
+        "long_steps": long_steps,
+        "long_chunks": long_task[0].chunks if long_task else 0,
+        "saved_blocks": len(saved), "checked_pool_blocks": pool_checked,
+        "checked_seeded_rows": seeded_rows, "kv_rows": kv_rows,
+        "wave_b": wave_b,
+    }
+
+
+def cold_ttfts(params, cfg, requests) -> dict:
+    """TTFT of each (request id, prompt) sent alone into an idle chunked
+    engine without the prefix cache, as wave B sends them into the cached
+    one and timed as it times them (to the end of the step that yields the
+    first token, whose fold then runs too): what the cache saves, at the
+    same load. A first request warms the engine up."""
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams, Scheduler
+
+    kw = {k: v for k, v in CHUNKED_ENGINE.items()
+          if not k.startswith("prefix_")}
+    sched = Scheduler(DecodeEngine(params, cfg, device="cuda", **kw),
+                      **CHUNKED_SCHED)
+    out = {}
+    for rid, prompt in [("warm-up", requests[-1][1])] + list(requests):
+        sched.submit(prompt, SamplingParams(max_new_tokens=SERVE_NEW),
+                     request_id=rid)
+        t0 = time.perf_counter()
+        while sched.has_work():
+            if any(ev.token is not None for ev in sched.step()):
+                out.setdefault(rid, time.perf_counter() - t0)
+    del out["warm-up"]
+    return out
+
+
+def phase_serve_chunked(mono_step_s: float) -> int:
+    """Chunked prefill and the tiered prefix cache at GPT-2-small width
+    (see ``serve_chunked_run``); returns the flash launches of its traffic,
+    which must be 0: the chunk path runs the reference op order."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init_gpt_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg
+    )
+    disk = os.path.join(HERE, "build", "smoke_prefix_disk")
+    shutil.rmtree(disk, ignore_errors=True)
+    engine = DecodeEngine(params, cfg, device="cuda", prefix_disk_dir=disk,
+                          **CHUNKED_ENGINE)
+    sched = Scheduler(engine, **CHUNKED_SCHED)
+    work = chunked_workload(cfg.vocab_size)
+    counters.reset()
+    t0 = time.perf_counter()
+    res = serve_chunked_run(engine, sched, work, SERVE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, ref_calls = counters.launches, counters.reference
+    shutil.rmtree(disk, ignore_errors=True)
+
+    for rid, got in res["toks"].items():
+        if res["reasons"].get(rid) != "finished" or len(got) != SERVE_NEW:
+            fail(f"{rid}: {res['reasons'].get(rid)} with {len(got)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in got):
+            fail(f"{rid}: token out of range")
+    print(f"[serve-chunked] {len(res['toks'])} requests, flash launches "
+          f"{launches}, reference-path calls {ref_calls}, wall {wall:.3f} s")
+    if launches or ref_calls:
+        fail("the chunked path called the flash wrapper")
+    snap = sched.metrics.snapshot()
+    tiers = snap.get("prefix_tiers", {})
+    if not snap.get("prefix_hit_rate", 0.0) > 0.0:
+        fail(f"prefix hit rate {snap.get('prefix_hit_rate')}")
+    for tier, kind in (("device", "hits"), ("host", "promotions"),
+                       ("disk", "promotions")):
+        if not tiers.get(tier, {}).get(kind, 0) > 0:
+            fail(f"no {tier} {kind} in the run: {tiers}")
+    bn = res["sources"]["bn"]
+    if any(bn[f"{t}_hits"] for t in ("device", "host", "disk")):
+        fail(f"the prompt never sent hit a tier: {bn}")
+    if not (res["checked_pool_blocks"] and res["checked_seeded_rows"]):
+        fail("the byte checks compared nothing")
+    print(f"[serve-chunked] bytes: {res['saved_blocks']} blocks copied, "
+          f"{res['checked_pool_blocks']} back in the pool and "
+          f"{res['checked_seeded_rows']} seeded rows equal to their copies")
+
+    # The solo run below prefills through gpt_prefill_chunk too, so it
+    # shows only that chunking and seeding change nothing. Hold the rows
+    # the engine computed against a prefill that runs none of the chunk's
+    # code: flash attention (K1) over the whole prompt.
+    kv_err = {}
+    with torch.no_grad():
+        for rid, prompt in res["wave_b"]:
+            _, fk, fv = gpt.gpt_prefill(
+                engine.params, cfg, torch.tensor([prompt], device="cuda")
+            )
+            k, v = res["kv_rows"][rid]
+            kv_err[rid] = max(kv_row_err(k, fk[:, 0]), kv_row_err(v, fv[:, 0]))
+    print(f"[serve-chunked] wave-B K/V rows vs the flash prefill, largest "
+          f"relative row error (bar {KV_ROW_TOL}): {json.dumps(kv_err)}")
+    for rid, err in kv_err.items():
+        if not err <= KV_ROW_TOL:
+            fail(f"{rid}: K/V rows differ from the flash prefill by {err}")
+
+    # Greedy requests against the port's solo gpt_generate under the
+    # reference attention (the chunk's op order); the flash solo is only
+    # reported.
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    solos = {}
+    near_ties = flash_diffs = flash_reqs = 0
+    greedy = [rid for rid in res["toks"] if not rid.startswith("s")]
+    for rid in greedy:
+        prompt = res["prompts"][rid]
+        key = tuple(prompt)
+        if key not in solos:
+            solos[key] = [
+                gpt.gpt_generate(params, c, [prompt], SERVE_NEW,
+                                 device="cuda")[0, len(prompt):].tolist()
+                for c in (ref_cfg, cfg)
+            ]
+        solo, flash = solos[key]
+        got = res["toks"][rid]
+        diff = sum(a != b for a, b in zip(got, flash))
+        flash_diffs += diff
+        flash_reqs += diff > 0
+        if got == solo:
+            continue
+        j = next(j for j, (a, b) in enumerate(zip(got, solo)) if a != b)
+        margin = greedy_margin(params, ref_cfg, prompt + solo[:j])
+        print(f"[serve-chunked] {rid}: engine and solo differ first at token "
+              f"{j}, solo top-2 margin {margin}")
+        if margin >= MARGIN:
+            fail(f"{rid}: greedy mismatch at token {j} with margin {margin}")
+        near_ties += 1
+    print(f"[serve-chunked] greedy vs solo gpt_generate (reference "
+          f"attention): {len(greedy)} requests, mismatches at near-ties "
+          f"(margin < {MARGIN}): {near_ties}; vs the flash solo: "
+          f"{flash_diffs} tokens differ in {flash_reqs} requests (reported)")
+
+    def ttft(rid):
+        return res["t_first"][rid] - res["t_submit"][rid]
+
+    twins = {f"b{i}": f"a{i}" for i in range(len(CHUNKED_SUFFIXES))}
+    twins["bf"] = "f0"
+    cold = cold_ttfts(params, cfg, res["wave_b"])
+    chunked = {
+        key: snap.get(key) for key in (
+            "ttft_p50_s", "ttft_max_s", "ttft_prefill_p50_s",
+            "ttft_queue_p50_s", "prefill_chunks_per_admit", "prefix_hit_rate",
+        )
+    }
+    chunked.update({
+        "tiers": engine.prefix_tier_stats(),
+        "refill_s": engine.refill_s,
+        "wave_b_ttft_s": {b: {"wave_b": ttft(b), "cold": cold[b],
+                              "wave_a_twin": ttft(a)}
+                          for b, a in twins.items()},
+        "kv_vs_flash_max_row_err": max(kv_err.values()),
+        "never_sent_ttft_s": ttft("bn"),
+        "flash_solo_token_diffs": flash_diffs,
+        "near_tie_mismatches": near_ties,
+        "wall_s": wall,
+    })
+    print(f"[serve-chunked] {json.dumps(chunked)} on {card_line()}")
+    long_max = max(res["long_steps"])
+    print(f"[serve-chunked] the {CHUNKED_LONG}-token prompt prefilled in "
+          f"{res['long_chunks']} chunks over {len(res['long_steps'])} steps; "
+          f"longest step meanwhile {long_max} s; its monolithic admission "
+          f"step in the serve phase {mono_step_s} s; on {card_line()}")
+    if res["long_chunks"] != -(-CHUNKED_LONG // CHUNKED_ENGINE["prefill_chunk"]):
+        fail(f"the long prompt took {res['long_chunks']} chunks")
     return launches
 
 
@@ -766,7 +1199,8 @@ def main() -> None:
     tensor_ops = phase_build()
     worst, timed = phase_kernels()
     bwd_worst, bwd_rows = phase_bwd_kernels()
-    serve_launches = phase_serve()
+    serve_launches, mono_step_s = phase_serve()
+    chunked_launches = phase_serve_chunked(mono_step_s)
     train_launches, _ = phase_train()
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
@@ -776,6 +1210,7 @@ def main() -> None:
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
         "launches": serve_launches + train_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
+                             "serve_chunked": chunked_launches,
                              "train": train_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],

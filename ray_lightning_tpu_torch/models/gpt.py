@@ -1,5 +1,5 @@
-"""GPT in PyTorch: the training forward, losses and ``GPTLM``; prefill,
-cached decode, sampling and generate.
+"""GPT in PyTorch: the training forward, losses and ``GPTLM``; prefill
+(whole and chunked), cached decode, sampling and generate.
 
 Port of ``ray_lightning_tpu/models/gpt.py``'s dense paths. The parameter
 tree keeps the JAX package's names and its stacked layout (every block leaf
@@ -23,6 +23,8 @@ Differences that follow from PyTorch:
 - The decode step is batch-invariant on the card: its row-wise work runs
   in fixed blocks of ``DECODE_ROWS`` rows and its attention in fp64, so a
   slot's logits do not depend on its batchmates or on the cache's length.
+  The prefill on the reference path is chunk-invariant the same way
+  (``PREFILL_ROWS``, :func:`gpt_prefill_chunk`).
 """
 from __future__ import annotations
 
@@ -653,19 +655,23 @@ def gpt_prefill(
     so row ``i`` depends only on ``prompt[:, :i+1]``: callers may
     right-pad prompts to a bucket length and read row ``true_len - 1``.
     With ``attn_impl="flash"`` each layer's attention is one flash call.
+    Otherwise the prefill is one :func:`gpt_prefill_chunk` at position 0
+    into an empty cache, so a prompt prefilled whole and one prefilled in
+    chunks (or seeded from the prefix cache) get the same rows bit for bit.
     """
-    from ray_lightning_tpu_torch.ops import attention_reference, flash_attention
+    from ray_lightning_tpu_torch.ops import flash_attention
 
     cfg.validate_variants()
     cdt = compute_dtype(cfg)
-    norm_fn = _make_norm(cfg)
     H, hd = cfg.n_head, cfg.head_dim
     Hkv = cfg.kv_head
     rep = H // Hkv
-    _, P = prompt.shape
-    attn_fn = (
-        flash_attention if cfg.attn_impl == "flash" else attention_reference
-    )
+    B, P = prompt.shape
+    if cfg.attn_impl != "flash":
+        shape = (cfg.n_layer, B, P, Hkv, hd)
+        k = torch.zeros(shape, dtype=cdt, device=prompt.device)
+        return gpt_prefill_chunk(params, cfg, prompt, k, torch.zeros_like(k), 0)
+    norm_fn = _make_norm(cfg)
     pf_tables = (
         _rope_tables(torch.arange(P, device=prompt.device), cfg.rope_theta, hd)
         if cfg.pos_embed == "rope"
@@ -686,7 +692,7 @@ def gpt_prefill(
             v_att = v_kv.repeat_interleave(rep, dim=2)
         else:
             k_att, v_att = k_kv, v_kv
-        o = attn_fn(
+        o = flash_attention(
             q, k_att, v_att, causal=True, window=cfg.attn_window,
             sinks=cfg.attn_sinks,
         )
@@ -709,19 +715,180 @@ def gpt_prefill(
 DECODE_ROWS = 8
 
 
-def _in_row_blocks(fn, *xs: torch.Tensor) -> Any:
-    """``fn`` on each ``DECODE_ROWS``-row block of ``xs`` (whose row count
-    is a multiple of it); a tensor result, or each one of a tuple, joined
-    along the rows."""
+#: The prefill on the reference path (:func:`gpt_prefill_chunk`) runs its
+#: row-wise work on blocks of this many rows, for the same reason: a row's
+#: K/V and hidden state then come out the same whether the prompt is
+#: prefilled whole, in chunks, or after a prefix-cache hit.
+PREFILL_ROWS = 256
+
+
+def _in_row_blocks(fn, *xs: torch.Tensor, rows: int = DECODE_ROWS) -> Any:
+    """``fn`` on each ``rows``-row block of ``xs`` (whose row count is a
+    multiple of it); a tensor result, or each one of a tuple, joined along
+    the rows."""
     outs = [
-        fn(*(x[i : i + DECODE_ROWS] for x in xs))
-        for i in range(0, xs[0].shape[0], DECODE_ROWS)
+        fn(*(x[i : i + rows] for x in xs))
+        for i in range(0, xs[0].shape[0], rows)
     ]
     if len(outs) == 1:
         return outs[0]
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(parts) for parts in zip(*outs))
     return torch.cat(outs)
+
+
+def _in_prefill_rows(fn, *xs: torch.Tensor) -> Any:
+    """``fn`` on the (B*C) rows of (B, C, ...) tensors in blocks of
+    ``PREFILL_ROWS``, the last padded with zero rows; results come back as
+    (B, C, ...)."""
+    B, C = xs[0].shape[:2]
+    n = B * C
+    pad = -n % PREFILL_ROWS
+    flat = [
+        torch.cat([x.reshape(n, *x.shape[2:]),
+                   x.new_zeros((pad, *x.shape[2:]))])
+        for x in xs
+    ]
+    out = _in_row_blocks(fn, *flat, rows=PREFILL_ROWS)
+
+    def cut(t):
+        return t[:n].reshape(B, C, *t.shape[1:])
+
+    return tuple(cut(t) for t in out) if isinstance(out, tuple) else cut(out)
+
+
+def _qkv_rows(hb, lp, cfg, cdt, norm_fn):
+    """Rows (R, D) -> the first norm and the projections: q (R, H, hd) and
+    k, v (R, Hkv, hd)."""
+    a = norm_fn(hb[:, None], lp["ln1_g"], lp["ln1_b"])[:, 0]
+    if cfg.kv_head == cfg.n_head:
+        qkv = torch.einsum(
+            "bd,dthk->bthk", a, dequant(lp["wqkv"], cdt)
+        ) + lp["bqkv"].to(cdt)
+        return qkv[:, 0], qkv[:, 1], qkv[:, 2]
+    q = torch.einsum("bd,dhk->bhk", a, dequant(lp["wq"], cdt)) + lp[
+        "bq"
+    ].to(cdt)
+    kv = torch.einsum(
+        "bd,dthk->bthk", a, dequant(lp["wkv"], cdt)
+    ) + lp["bkv"].to(cdt)
+    return q, kv[:, 0], kv[:, 1]
+
+
+def _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn):
+    """Rows (R, D) and their attention output (R, H, hd) -> the block's
+    output rows: out projection, residual, second norm, MLP, residual."""
+    hb = hb + torch.einsum(
+        "bhk,hkd->bd", ob, dequant(lp["wo"], cdt)
+    ) + lp["bo"].to(cdt)
+    m = norm_fn(hb[:, None], lp["ln2_g"], lp["ln2_b"])[:, 0]
+    return hb + _dense_mlp(m, lp, cfg, cdt)
+
+
+def _attend_cache(
+    q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+    allowed: torch.Tensor, sm_scale: float,
+) -> torch.Tensor:
+    """Attention of q (B, C, H, hd) over the Hkv-headed cache rows kc, vc
+    (B, K, Hkv, hd) where ``allowed`` (C, K) holds, in the reference op
+    order (``ops/attention.py:attention_reference``): fp32 scores, scaled,
+    ``-inf`` outside the band, fp32 softmax, the probabilities rounded to
+    v's dtype for the second product, whose sums are rounded once to fp32
+    and then to v's dtype. Both products and the softmax's normaliser sum
+    in fp64 before that rounding, so the result does not depend on the
+    order in which a kernel (chosen by C and K) adds the terms. Head h
+    reads kv head h // (H / Hkv), as after ``repeat_interleave``."""
+    B, C, H, hd = q.shape
+    Hkv = kc.shape[2]
+    qg = q.reshape(B, C, Hkv, H // Hkv, hd).double()
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg, kc.double()).float() * sm_scale
+    s = s.masked_fill(~allowed, float("-inf"))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.double().sum(-1, keepdim=True).float()
+    o = torch.einsum(
+        "bgrqk,bkgd->bqgrd", p.to(vc.dtype).double(), vc.double()
+    )
+    return o.float().to(vc.dtype).reshape(B, C, H, hd).to(q.dtype)
+
+
+def gpt_prefill_chunk(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    chunk: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    start_pos: int,
+    true_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cache-seeded chunked prefill: extend an existing KV range
+    (``gpt.py:1114`` of the JAX package).
+
+    ``chunk`` (B, C) holds the next C prompt tokens, right-padded: only the
+    first ``true_len`` are real. ``k_cache``/``v_cache`` (L, B, S, Hkv, hd)
+    already hold the K/V of positions ``[0, start_pos)``. The chunk runs one
+    causal forward at absolute positions ``start_pos + i``: each layer
+    writes the chunk's K/V into rows ``[start_pos, start_pos + true_len)``
+    (a padded row is never written; rows past S are dropped) and then
+    attends each query to the cache rows its band allows
+    (:func:`_attend_cache`). Returns the pre-final-norm hidden states
+    (B, C, D) and the caches, written in place.
+
+    The learned position rows are a per-row gather, clipped, so a padded
+    row past the table end reads a real row and the real rows stay exact.
+    Only rows ``[0, start_pos + C)`` of the cache are attended: the masked
+    rows after them would add exact zeros. The row-wise work runs on
+    blocks of ``PREFILL_ROWS`` rows, and the attention's sums in fp64, so a
+    row comes out bit for bit the same whatever the chunking: the property
+    the serving engine's chunked prefill and prefix cache rest on.
+    """
+    from ray_lightning_tpu_torch.ops.attention import band_allowed
+
+    cfg.validate_variants()
+    cdt = compute_dtype(cfg)
+    norm_fn = _make_norm(cfg)
+    B, C = chunk.shape
+    S = k_cache.shape[2]
+    start = int(start_pos)
+    tl = C if true_len is None else int(true_len)
+    if start < 0 or not 1 <= tl <= C:
+        raise ValueError(
+            f"need start_pos >= 0 and 1 <= true_len <= {C}, got "
+            f"start_pos={start}, true_len={tl}"
+        )
+    end = min(S, start + tl)
+    kend = min(S, start + C)
+    dev = chunk.device
+    positions = start + torch.arange(C, device=dev)
+    x = embed_rows(params["wte"], chunk)
+    if cfg.pos_embed == "learned":
+        x = x + params["wpe"][positions.clamp(max=cfg.max_seq - 1)]
+    h = x.to(cdt)
+    if cfg.pos_embed == "rope":
+        cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    allowed = band_allowed(
+        positions[:, None], torch.arange(kend, device=dev)[None, :],
+        cfg.attn_window, cfg.attn_sinks,
+    )
+    sm_scale = 1.0 / (cfg.head_dim**0.5)
+    for li in range(cfg.n_layer):
+        lp = _layer(params["blocks"], li)
+        q, k_new, v_new = _in_prefill_rows(
+            lambda hb: _qkv_rows(hb, lp, cfg, cdt, norm_fn), h
+        )
+        if cfg.pos_embed == "rope":
+            q = _rotate(q, cos, sin)
+            k_new = _rotate(k_new, cos, sin)
+        # Write before attending: the chunk's own rows are part of what
+        # it attends to.
+        kc, vc = k_cache[li], v_cache[li]
+        kc[:, start:end] = k_new[:, : end - start].to(kc.dtype)
+        vc[:, start:end] = v_new[:, : end - start].to(vc.dtype)
+        o = _attend_cache(q, kc[:, :kend], vc[:, :kend], allowed, sm_scale)
+        h = _in_prefill_rows(
+            lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
+        )
+    return h, k_cache, v_cache
 
 
 def gpt_decode_step(
@@ -778,23 +945,12 @@ def gpt_decode_step(
     )  # (B, 1, 1, S)
     for li in range(cfg.n_layer):
         lp = _layer(params["blocks"], li)
-
-        def project(hb):
-            a = norm_fn(hb[:, None], lp["ln1_g"], lp["ln1_b"])[:, 0]
-            if Hkv == H:
-                qkv = torch.einsum(
-                    "bd,dthk->bthk", a, dequant(lp["wqkv"], cdt)
-                ) + lp["bqkv"].to(cdt)
-                return qkv[:, 0], qkv[:, 1], qkv[:, 2]
-            q = torch.einsum("bd,dhk->bhk", a, dequant(lp["wq"], cdt)) + lp[
-                "bq"
-            ].to(cdt)
-            kv = torch.einsum(
-                "bd,dthk->bthk", a, dequant(lp["wkv"], cdt)
-            ) + lp["bkv"].to(cdt)
-            return q, kv[:, 0], kv[:, 1]
-
-        q, k_new, v_new = (t[:B] for t in _in_row_blocks(project, h))
+        q, k_new, v_new = (
+            t[:B]
+            for t in _in_row_blocks(
+                lambda hb: _qkv_rows(hb, lp, cfg, cdt, norm_fn), h
+            )
+        )
         if cfg.pos_embed == "rope":
             q = _rotate(q, cos, sin)
             k_new = _rotate(k_new, cos, sin)
@@ -815,15 +971,9 @@ def gpt_decode_step(
         p = torch.softmax(s, dim=-1)
         o = torch.einsum("bgrs,bsgk->bgrk", p, vc.double()).reshape(B, H, hd)
         o = F.pad(o.to(cdt), (0, 0, 0, 0, 0, Bp - B))
-
-        def out_and_mlp(hb, ob):
-            hb = hb + torch.einsum(
-                "bhk,hkd->bd", ob, dequant(lp["wo"], cdt)
-            ) + lp["bo"].to(cdt)
-            m = norm_fn(hb[:, None], lp["ln2_g"], lp["ln2_b"])[:, 0]
-            return hb + _dense_mlp(m, lp, cfg, cdt)
-
-        h = _in_row_blocks(out_and_mlp, h, o)
+        h = _in_row_blocks(
+            lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
+        )
     w_head = _head_weight(params, cfg)
 
     def head(hb):

@@ -1,6 +1,6 @@
-"""Slot-based continuous-batching decode engine (PyTorch port, plain path).
+"""Slot-based continuous-batching decode engine (PyTorch port).
 
-Port of ``ray_lightning_tpu/serve/engine.py``'s plain configuration: a
+Port of ``ray_lightning_tpu/serve/engine.py``'s dense configuration: a
 fixed ``(L, num_slots, max_seq, Hkv, hd)`` KV cache; requests are admitted
 into free slots between folds (one fused admission each: bucketed prefill,
 cache write, first-token sample, slot-state write); each :meth:`step` runs
@@ -16,20 +16,48 @@ On the CPU, under ``attn_impl="reference"`` and fp32, this holds token for
 token. On the card it holds too for a prompt whose length the flash kernel
 takes: the default buckets leave such a prompt unpadded, and the decode
 step rounds a slot's row the same whatever the batch and the cache length
-(``models/gpt.py:DECODE_ROWS``).
+(``models/gpt.py:DECODE_ROWS``). A chunked or prefix-seeded prompt holds
+it against a solo ``gpt_generate`` under ``attn_impl="reference"``, whose
+prefill is the same chunk function run once over the whole prompt.
+
+Chunked prefill (``prefill_chunk=C``): admission becomes a per-slot state
+machine. :meth:`admit_many` parks the slot inactive with its ``pos`` at the
+first row not yet prefilled and returns no token; each
+:meth:`prefill_step` extends one slot's cache by a C-token chunk
+(``models/gpt.py:gpt_prefill_chunk``), so the scheduler interleaves chunks
+with decode folds instead of stalling them behind one long prefill. An
+interleaved fold writes a parked slot's row at ``pos`` only, and the next
+chunk writes that row before it attends to it. The final chunk samples
+the first token, from a generator seeded there, and arms the slot.
+
+Prefix cache (``prefix_blocks=N``): a device pool of N blocks of
+``prefix_block`` positions, (L, N, block, Hkv, hd) K and V, keyed by
+chained digests of the prompt's full blocks. Admission walks the longest
+cached prefix, copies it into the slot's rows and prefills only the rest;
+a finished prefill inserts its new full blocks. Blocks are pinned while a
+matching prefill runs and evicted least recently used. With
+``prefix_host_mb`` and ``prefix_disk_dir`` an evicted block spills to a
+byte-budgeted host-RAM tier and from there to ``.npy`` files on disk; a
+hit in either is promoted back into the pool. K/V of a position are a
+function of the token prefix alone, and copies and tiers move bytes, so
+a seeded slot decodes as a cold prefill would.
 
 What the JAX engine also offers and this port does not yet (each raises
-``NotImplementedError`` naming its ROADMAP item): chunked prefill and the
-prefix cache with its spill tiers, paged KV, the KV object store,
-speculative decoding, piggybacked prefill chunks, a fold ladder, a device
-mesh, and the double-buffered ``pipeline=True`` dispatch. The JAX
-engine's compile-count contract has no eager counterpart.
+``NotImplementedError`` naming its ROADMAP item): paged KV, the KV object
+store, speculative decoding, piggybacked prefill chunks, a fold ladder, a
+device mesh, the double-buffered ``pipeline=True`` dispatch, and the
+fleet's prefix export, import and eviction. The JAX engine's
+compile-count contract has no eager counterpart.
 
 All methods must be driven from one thread (the scheduler loop).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import time
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,10 +72,12 @@ from ray_lightning_tpu_torch.models.gpt import (
     compute_dtype,
     gpt_decode_fold,
     gpt_prefill,
+    gpt_prefill_chunk,
     params_to,
     sample_logits_batched,
 )
 from ray_lightning_tpu_torch.ops.flash_attention import takes_reference_path
+from ray_lightning_tpu_torch.serve.metrics import TIER_COUNTERS
 from ray_lightning_tpu_torch.utils.device import resolve_device
 
 #: Constructor options of the JAX engine that the port does not run yet:
@@ -55,12 +85,6 @@ from ray_lightning_tpu_torch.utils.device import resolve_device
 _UNPORTED: Dict[str, Tuple[Any, str]] = {
     "fold_ladder": (None, "queue 1 item 6 (fold ladder)"),
     "piggyback_chunks": (0, "queue 1 item 6 (piggyback)"),
-    "prefill_chunk": (0, "queue 1 item 3 (chunked prefill)"),
-    "prefix_blocks": (0, "queue 1 item 3 (prefix cache)"),
-    "prefix_block": (16, "queue 1 item 3 (prefix cache)"),
-    "prefix_host_mb": (0.0, "queue 1 item 3 (prefix cache tiers)"),
-    "prefix_disk_dir": (None, "queue 1 item 3 (prefix cache tiers)"),
-    "prefix_disk_mb": (0.0, "queue 1 item 3 (prefix cache tiers)"),
     "kvstore_dir": (None, "queue 1 item 9 (KV object store)"),
     "kvstore_mb": (0.0, "queue 1 item 9 (KV object store)"),
     "kvstore_namespace": (None, "queue 1 item 9 (KV object store)"),
@@ -74,6 +98,9 @@ _UNPORTED: Dict[str, Tuple[Any, str]] = {
     "mesh": (None, "queue 1 item 11 (mesh serving)"),
 }
 
+#: The tiers of the prefix cache, warmest first.
+TIERS = ("device", "host", "disk")
+
 
 @dataclasses.dataclass
 class SlotInfo:
@@ -83,6 +110,37 @@ class SlotInfo:
     max_new_tokens: int
     n_generated: int
     eos_token: int  # -1 = disabled
+
+
+@dataclasses.dataclass
+class PrefillTask:
+    """Host-side state machine of one in-progress chunked admission."""
+
+    request_id: str
+    tokens: np.ndarray  # (P,) prompt
+    next: int  # first position not yet prefilled (cache rows [0, next) live)
+    max_new_tokens: int
+    eos_token: int
+    temperature: float
+    top_k: int
+    top_p: float
+    #: Seed of the request's generator, made on the final chunk (the JAX
+    #: engine carries the request's PRNG key here).
+    seed: int
+    #: Tokens seeded from the prefix pool (suffix prefill starts there).
+    matched_tokens: int = 0
+    #: Pool block indices pinned (ref-counted) for this prefill's lifetime.
+    block_refs: List[int] = dataclasses.field(default_factory=list)
+    chunks: int = 0  # chunk dispatches so far
+
+
+@dataclasses.dataclass
+class _PoolBlock:
+    """Host metadata of one occupied prefix-pool block."""
+
+    digest: bytes
+    refs: int = 0
+    stamp: int = 0  # LRU clock (higher = more recently used)
 
 
 def default_buckets(max_seq: int) -> Tuple[int, ...]:
@@ -103,12 +161,25 @@ def default_buckets(max_seq: int) -> Tuple[int, ...]:
     return tuple(sorted(set(out + [max_seq])))
 
 
+def chunk_buckets(prefill_chunk: int) -> Tuple[int, ...]:
+    """Chunk lengths a chunk is padded to: powers of two from
+    ``min(16, prefill_chunk)`` and ``prefill_chunk`` itself (the JAX
+    engine's ``default_buckets(prefill_chunk, lo=min(16, prefill_chunk))``).
+    """
+    out, b = [], min(16, prefill_chunk)
+    while b < prefill_chunk:
+        out.append(b)
+        b *= 2
+    return tuple(sorted(set(out + [prefill_chunk])))
+
+
 class DecodeEngine:
     """Continuous-batching decode over a fixed slot-indexed KV cache.
 
-    The caches and every per-slot scalar (current token, position,
-    sampling knobs, active/remaining/eos) live on ``device`` and are
-    updated there; the host keeps request bookkeeping (``SlotInfo``) and
+    The caches, the prefix pool and every per-slot scalar (current token,
+    position, sampling knobs, active/remaining/eos) live on ``device`` and
+    are updated there; the host keeps request bookkeeping (``SlotInfo``,
+    ``PrefillTask``), the pool's digest map and LRU, the spill tiers, and
     each sampling slot's ``torch.Generator``. :meth:`device_state` is the
     explicit sync point that copies the slot state to the host.
     """
@@ -122,6 +193,12 @@ class DecodeEngine:
         prefill_buckets: Optional[Sequence[int]] = None,
         decode_fold: int = 1,
         pipeline: bool = False,
+        prefill_chunk: int = 0,
+        prefix_blocks: int = 0,
+        prefix_block: int = 16,
+        prefix_host_mb: float = 0.0,
+        prefix_disk_dir: Optional[str] = None,
+        prefix_disk_mb: float = 0.0,
         device: Any = "cuda",
         **options: Any,
     ) -> None:
@@ -167,6 +244,45 @@ class DecodeEngine:
                 f"max_seq {self.max_seq}"
             )
         self.prefill_buckets = buckets
+        # Chunked mode: prefill_chunk > 0, or any prefix pool (a suffix-only
+        # prefill needs the cache-seeded chunk path).
+        self.prefix_blocks = int(prefix_blocks)
+        self.prefix_block = int(prefix_block)
+        if self.prefix_blocks and not prefill_chunk:
+            prefill_chunk = buckets[-1]
+        self.prefill_chunk = int(prefill_chunk)
+        self.chunked = self.prefill_chunk > 0
+        if self.chunked:
+            if self.prefill_chunk > self.max_seq:
+                raise ValueError(
+                    f"prefill_chunk {self.prefill_chunk} exceeds max_seq "
+                    f"{self.max_seq}"
+                )
+            self.chunk_buckets = chunk_buckets(self.prefill_chunk)
+        else:
+            self.chunk_buckets = ()
+        if self.prefix_blocks and not 1 <= self.prefix_block <= self.max_seq:
+            raise ValueError(
+                f"prefix_block {self.prefix_block} must be in "
+                f"[1, max_seq={self.max_seq}]"
+            )
+        # Spill tiers below the device pool: host RAM (prefix_host_mb MiB),
+        # then an optional disk tier (prefix_disk_dir; its budget defaults
+        # to 1 GiB when only the directory is given).
+        self.prefix_host_mb = float(prefix_host_mb)
+        self.prefix_disk_dir = str(prefix_disk_dir) if prefix_disk_dir else None
+        self.prefix_disk_mb = float(prefix_disk_mb)
+        if self.prefix_host_mb < 0 or self.prefix_disk_mb < 0:
+            raise ValueError("prefix tier budgets must be >= 0")
+        if self.prefix_disk_dir and self.prefix_disk_mb == 0:
+            self.prefix_disk_mb = 1024.0
+        if (
+            self.prefix_host_mb > 0 or self.prefix_disk_dir
+        ) and not self.prefix_blocks:
+            raise ValueError(
+                "prefix tiers (prefix_host_mb / prefix_disk_dir) need a "
+                "device prefix pool (prefix_blocks > 0) to spill from"
+            )
         # The compute-dtype copy of the weights, made once here (see
         # models/gpt.py:cast_params): the JAX engine casts inside its
         # compiled step, where XLA fuses the cast into the matmul.
@@ -178,6 +294,54 @@ class DecodeEngine:
         dev = self.device
         self._k = torch.zeros((L, B, S, Hkv, hd), dtype=cdt, device=dev)
         self._v = torch.zeros_like(self._k)
+        # Prefix pool: device K/V blocks + the host digest map and LRU.
+        pool_shape = (L, self.prefix_blocks, self.prefix_block, Hkv, hd)
+        self._pool_k = torch.zeros(pool_shape, dtype=cdt, device=dev)
+        self._pool_v = torch.zeros_like(self._pool_k)
+        self._pool_map: Dict[bytes, int] = {}
+        self._pool_meta: List[Optional[_PoolBlock]] = [None] * self.prefix_blocks
+        self._pool_free: List[int] = list(range(self.prefix_blocks))
+        self._pool_tick = 0
+        self.prefix_lookups = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_prompt_tokens = 0
+        self.prefix_inserts = 0
+        self.prefix_evictions = 0
+        # -- spill tiers (host RAM, then disk) ---------------------------
+        # Budgets hold on logical block bytes (one K + one V block).
+        self._blk_shape = (L, 1, self.prefix_block, Hkv, hd)
+        self._blk_dtype = cdt
+        self._blk_nbytes = (
+            2 * int(np.prod(self._blk_shape)) * cdt.itemsize
+        )
+        self._host_budget = int(self.prefix_host_mb * (1 << 20))
+        self._disk_budget = (
+            int(self.prefix_disk_mb * (1 << 20)) if self.prefix_disk_dir else 0
+        )
+        self._tiered = self._host_budget > 0 or self._disk_budget > 0
+        #: digest -> (k, v) CPU blocks, oldest first (the tier's LRU).
+        self._host_map: "OrderedDict[bytes, Tuple[torch.Tensor, torch.Tensor]]" = (
+            OrderedDict()
+        )
+        #: digest -> on-disk bytes, oldest first; files live under
+        #: ``prefix_disk_dir`` as ``<digest-hex>.{keys,k,v}.npy``.
+        self._disk_map: "OrderedDict[bytes, int]" = OrderedDict()
+        self._disk_bytes = 0
+        if self._disk_budget:
+            os.makedirs(self.prefix_disk_dir, exist_ok=True)
+            self._disk_prune_stale()
+        #: Cumulative per-tier accounting (the scheduler diffs these into
+        #: ServeMetrics): hits/misses are digest-walk probes; spills are
+        #: blocks moved one tier colder (still alive); promotions are
+        #: blocks moved back into the device pool; evictions are blocks
+        #: dropped from the tier entirely.
+        self.tier_counters: Dict[str, Dict[str, int]] = {
+            t: {c: 0 for c in TIER_COUNTERS} for t in TIERS
+        }
+        #: Host seconds spent refilling promoted blocks (payload read +
+        #: the host-to-device copy): what a cold hit costs.
+        self.refill_s = 0.0
+
         self._cur = torch.zeros(B, dtype=torch.long, device=dev)
         self._pos = torch.zeros(B, dtype=torch.long, device=dev)
         self._temps = torch.zeros(B, dtype=torch.float32, device=dev)
@@ -187,8 +351,12 @@ class DecodeEngine:
         self._remaining = torch.zeros(B, dtype=torch.long, device=dev)
         self._eos = torch.full((B,), -1, dtype=torch.long, device=dev)
         #: Per slot: the generator of a sampling request (None = greedy).
+        #: A slot mid-prefill has none: the fold draws from every
+        #: generator it is given, and a parked slot must not consume draws.
         self._gens: List[Optional[torch.Generator]] = [None] * B
         self._slots: List[Optional[SlotInfo]] = [None] * B
+        #: slot -> in-progress chunked admission (chunked mode only).
+        self._prefills: Dict[int, PrefillTask] = {}
         self._norm = _make_norm(config)
 
     # -- introspection ---------------------------------------------------
@@ -205,11 +373,21 @@ class DecodeEngine:
 
     @property
     def num_active(self) -> int:
-        """Occupied slots."""
-        return sum(1 for s in self._slots if s is not None)
+        """Occupied slots: decoding residents plus in-progress chunked
+        prefills (both hold their slot and still need engine work)."""
+        return sum(1 for s in self._slots if s is not None) + len(
+            self._prefills
+        )
+
+    @property
+    def num_prefilling(self) -> int:
+        return len(self._prefills)
 
     def free_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self._slots) if s is None]
+        return [
+            i for i, s in enumerate(self._slots)
+            if s is None and i not in self._prefills
+        ]
 
     def bucket_for(self, prompt_len: int) -> int:
         for b in self.prefill_buckets:
@@ -221,8 +399,26 @@ class DecodeEngine:
         )
 
     def check_prompt_len(self, prompt_len: int) -> None:
-        """Raise when a prompt can never be admitted (over every bucket)."""
+        """Raise when a prompt can never be admitted: over every bucket
+        (monolithic) or leaving no room for a generated token (chunked:
+        chunking lifts the bucket cap; prompts go up to max_seq - 1)."""
+        if self.chunked:
+            if prompt_len >= self.max_seq:
+                raise ValueError(
+                    f"prompt length {prompt_len} leaves no room for a "
+                    f"generated token (engine max_seq {self.max_seq})"
+                )
+            return
         self.bucket_for(prompt_len)
+
+    def _chunk_bucket_for(self, n: int) -> int:
+        for b in self.chunk_buckets:
+            if b >= n:
+                return b
+        raise ValueError(
+            f"chunk length {n} exceeds largest chunk bucket "
+            f"{self.chunk_buckets[-1]}"
+        )
 
     # -- request lifecycle -----------------------------------------------
     def admit(
@@ -236,9 +432,12 @@ class DecodeEngine:
         top_p: Optional[float] = None,
         seed: int = 0,
         eos_token: Optional[int] = None,
-    ) -> Tuple[int, int, bool]:
+    ) -> Tuple[int, Optional[int], bool]:
         """Prefill ``prompt`` into a free slot; returns (slot, first_token,
-        done). Raises when no slot is free or the request cannot fit."""
+        done). Raises when no slot is free or the request cannot fit.
+        Chunked mode only seeds the slot and returns ``(slot, None,
+        False)``: the first token comes from a later :meth:`prefill_step`.
+        """
         return self.admit_many(
             [
                 dict(
@@ -256,11 +455,13 @@ class DecodeEngine:
 
     def admit_many(
         self, requests: Sequence[Dict[str, Any]]
-    ) -> List[Tuple[int, int, bool]]:
+    ) -> List[Tuple[int, Optional[int], bool]]:
         """Admit a burst of requests between folds; returns ``(slot,
         first_token, done)`` per request, in order. Every request is
-        validated before any device state moves, and every admission is
-        queued on the device before the first token is read back."""
+        validated before any device state moves. Monolithic mode queues
+        every admission on the device before the first token is read back;
+        chunked mode walks the prefix cache, seeds and parks each slot and
+        returns ``(slot, None, False)``."""
         free = self.free_slots()
         if len(requests) > len(free):
             raise RuntimeError(
@@ -283,91 +484,589 @@ class DecodeEngine:
                 )
             eos = r.get("eos_token")
             staged.append(
-                (slot, r, prompt, P, n_new, self.bucket_for(P),
+                (slot, r, prompt, P, n_new,
+                 None if self.chunked else self.bucket_for(P),
                  -1 if eos is None else int(eos))
             )
-        pending = []
         with torch.no_grad():
+            if self.chunked:
+                return [
+                    self._admit_chunked(slot, r, prompt, P, n_new, eos)
+                    for slot, r, prompt, P, n_new, _, eos in staged
+                ]
+            pending = []
             for slot, r, prompt, P, n_new, pb, eos in staged:
                 tok = self._admit_one(slot, r, prompt, P, n_new, pb, eos)
                 pending.append((slot, r, n_new, eos, tok))
             toks = torch.stack([t for *_, t in pending]).tolist()
-        out: List[Tuple[int, int, bool]] = []
+        out: List[Tuple[int, Optional[int], bool]] = []
         for (slot, r, n_new, eos, _), tok in zip(pending, toks):
-            # Mirrors the device-side `live` predicate: a request done at
-            # its first token never occupies the slot.
-            done = n_new == 1 or tok == eos
-            if done:
-                self._gens[slot] = None
-            else:
-                self._slots[slot] = SlotInfo(
-                    request_id=r["request_id"],
-                    max_new_tokens=n_new,
-                    n_generated=1,
-                    eos_token=eos,
-                )
-            out.append((slot, tok, done))
+            out.append((slot, tok, self._arm(slot, r["request_id"], n_new,
+                                             eos, tok)))
         return out
+
+    def _arm(self, slot: int, request_id: str, n_new: int, eos: int,
+             tok: int) -> bool:
+        """Host bookkeeping once a slot's first token is read; returns
+        whether the request is done. Mirrors the device-side ``live``
+        predicate: a request done at its first token never occupies the
+        slot."""
+        done = n_new == 1 or tok == eos
+        if done:
+            self._gens[slot] = None
+        else:
+            self._slots[slot] = SlotInfo(
+                request_id=request_id,
+                max_new_tokens=n_new,
+                n_generated=1,
+                eos_token=eos,
+            )
+        return done
 
     def _admit_one(self, slot, r, prompt, P, n_new, pb, eos) -> torch.Tensor:
         """The fused admission of one request: bucketed prefill, cache
         write into the slot's rows [0, pb), first-token sample and the
         slot's state write, all queued on the device."""
-        dev = self.device
-        params = self.params
         padded = torch.zeros((1, pb), dtype=torch.long)
         padded[0, :P] = torch.from_numpy(prompt)
-        h, pf_k, pf_v = gpt_prefill(params, self.cfg, padded.to(dev))
-        h_last = self._norm(h[:, P - 1 : P], params["lnf_g"], params["lnf_b"])
-        logits = _lm_head(h_last[:, 0], _head_weight(params, self.cfg))
+        h, pf_k, pf_v = gpt_prefill(self.params, self.cfg,
+                                    padded.to(self.device))
         # In place: the slot's rows of the one cache.
         self._k[:, slot, :pb] = pf_k[:, 0]
         self._v[:, slot, :pb] = pf_v[:, 0]
         temp = float(r.get("temperature", 0.0))
-        top_k = r.get("top_k")
-        top_p = r.get("top_p")
-        gen = None
-        if temp > 0.0:
-            gen = torch.Generator(device=dev).manual_seed(int(r.get("seed", 0)))
-        self._gens[slot] = gen
-        knobs = torch.tensor(
-            [temp, 1.0 if top_p is None else float(top_p)], device=dev
-        )
+        top_k, top_p = r.get("top_k"), r.get("top_p")
+        self._set_knobs(slot, temp, 0 if top_k is None else int(top_k),
+                        1.0 if top_p is None else float(top_p), eos)
+        return self._first_token(slot, h[:, P - 1 : P], P, n_new, eos, temp,
+                                 int(r.get("seed", 0)))
+
+    def _set_knobs(self, slot: int, temp: float, top_k: int, top_p: float,
+                   eos: int) -> None:
+        knobs = torch.tensor([temp, top_p], device=self.device)
         self._temps[slot] = knobs[0]
         self._top_ps[slot] = knobs[1]
-        self._top_ks[slot] = 0 if top_k is None else int(top_k)
+        self._top_ks[slot] = top_k
+        self._eos[slot] = eos
+
+    def _first_token(self, slot: int, h_last: torch.Tensor, end: int,
+                     n_new: int, eos: int, temp: float,
+                     seed: int) -> torch.Tensor:
+        """Sample the first token from ``h_last`` (1, 1, D), the hidden
+        state of the prompt's last position, and arm the slot on the
+        device (``cur``, ``pos = end``, ``active``, ``remaining``). A
+        sampling slot's generator is made here, so the first draw is this
+        token's on either admission path."""
+        params = self.params
+        h_last = self._norm(h_last, params["lnf_g"], params["lnf_b"])
+        logits = _lm_head(h_last[:, 0], _head_weight(params, self.cfg))
+        gen = None
+        if temp > 0.0:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._gens[slot] = gen
         tok = sample_logits_batched(
             logits, self._temps[slot : slot + 1],
             self._top_ks[slot : slot + 1], self._top_ps[slot : slot + 1],
             [gen],
         )[0]
         self._cur[slot] = tok
-        self._pos[slot] = P
+        self._pos[slot] = end
         self._active[slot] = (n_new > 1) & (tok != eos)
         self._remaining[slot] = n_new - 1
-        self._eos[slot] = eos
         return tok
+
+    def _admit_chunked(self, slot, r, prompt, P, n_new, eos):
+        """Walk the prefix cache, pin and copy the matched blocks into the
+        slot's rows, park the slot inactive with ``pos`` at the first row
+        not seeded (the only row an interleaved fold writes; the first
+        chunk writes it again before reading it) and queue its state
+        machine. Returns ``(slot, None, False)``."""
+        matched_idxs = self._match_prefix(prompt)
+        matched = len(matched_idxs) * self.prefix_block
+        if self.prefix_blocks:
+            self.prefix_lookups += 1
+            self.prefix_hit_tokens += matched
+            self.prefix_prompt_tokens += P
+        for b in matched_idxs:
+            self._pool_meta[b].refs += 1  # pinned until done or cancel
+        temp = float(r.get("temperature", 0.0))
+        top_k, top_p = r.get("top_k"), r.get("top_p")
+        task = PrefillTask(
+            request_id=r["request_id"],
+            tokens=prompt,
+            next=matched,
+            max_new_tokens=n_new,
+            eos_token=eos,
+            temperature=temp,
+            top_k=0 if top_k is None else int(top_k),
+            top_p=1.0 if top_p is None else float(top_p),
+            seed=int(r.get("seed", 0)),
+            matched_tokens=matched,
+            block_refs=list(matched_idxs),
+        )
+        self._park(slot, matched, task.temperature, task.top_k, task.top_p,
+                   eos)
+        for j, b in enumerate(matched_idxs):
+            self._copy_block(b, slot, j * self.prefix_block, to_slot=True)
+        self._prefills[slot] = task
+        return slot, None, False
+
+    def prefill_step(
+        self, max_chunks: int = 1
+    ) -> List[Tuple[int, PrefillTask, int, bool]]:
+        """Advance up to ``max_chunks`` prefill chunks, round-robin across
+        prefilling slots; returns ``(slot, task, first_token, done)`` for
+        every prefill that completed (its final chunk sampled the first
+        token and armed the slot for the next fold, or finished the
+        request outright). The scheduler calls this between decode folds:
+        the chunk-vs-fold interleave that keeps a long prompt from stalling
+        resident decodes for its whole prefill."""
+        out: List[Tuple[int, PrefillTask, int, bool]] = []
+        budget = int(max_chunks)
+        while budget > 0 and self._prefills:
+            progressed = False
+            for slot in sorted(self._prefills):
+                if budget <= 0:
+                    break
+                task = self._prefills.get(slot)
+                if task is None:  # completed earlier in this sweep
+                    continue
+                progressed = True
+                budget -= 1
+                tok = self._run_chunk(slot, task)
+                if tok is None:
+                    continue
+                del self._prefills[slot]
+                self._unref_blocks(task)
+                # Insert the finished prompt's full blocks before any new
+                # tenant can overwrite the slot's rows (decode writes only
+                # at pos >= P, so the prompt rows stay intact).
+                self._insert_prefix(slot, task.tokens)
+                tok = int(tok)  # the one device-to-host read per admission
+                done = self._arm(slot, task.request_id,
+                                 task.max_new_tokens, task.eos_token, tok)
+                out.append((slot, task, tok, done))
+            if not progressed:
+                break
+        return out
+
+    def _run_chunk(self, slot: int, task: PrefillTask) -> Optional[torch.Tensor]:
+        """One chunk of one slot: the cache-seeded forward over the next
+        ``prefill_chunk`` prompt tokens (padded to their chunk bucket) into
+        the slot's rows, then on the final chunk the first token (see
+        :meth:`_first_token`); a chunk before it leaves the slot parked at
+        the next row. Returns the first token on the device, or None."""
+        P = len(task.tokens)
+        start = task.next
+        this_len = min(self.prefill_chunk, P - start)
+        padded = torch.zeros((1, self._chunk_bucket_for(this_len)),
+                             dtype=torch.long)
+        padded[0, :this_len] = torch.from_numpy(
+            task.tokens[start : start + this_len]
+        )
+        with torch.no_grad():
+            h, _, _ = gpt_prefill_chunk(
+                self.params, self.cfg, padded.to(self.device),
+                self._k[:, slot : slot + 1], self._v[:, slot : slot + 1],
+                start, this_len,
+            )
+            task.next += this_len
+            task.chunks += 1
+            if task.next < P:
+                self._pos[slot] = task.next
+                return None
+            return self._first_token(
+                slot, h[:, this_len - 1 : this_len], P, task.max_new_tokens,
+                task.eos_token, task.temperature, task.seed,
+            )
 
     def release(self, slot: int) -> None:
         """Evict a slot (cancelled, or host-observed finished); it is
         reusable at once. Its stale cache rows are invisible behind the
-        slot masks and are overwritten by the next tenant."""
-        if self._slots[slot] is None:
+        slot masks and are overwritten by the next tenant. A slot released
+        mid-prefill drops its state machine and unpins its prefix blocks."""
+        task = self._prefills.pop(slot, None)
+        if task is not None:
+            self._unref_blocks(task)
+        elif self._slots[slot] is None:
             return
         self._slots[slot] = None
+        self._park(slot)
+
+    def _park(self, slot: int, pos: int = 0, temp: float = 0.0,
+              top_k: int = 0, top_p: float = 1.0, eos: int = -1) -> None:
+        """The slot inactive on the device at ``pos``, with these knobs and
+        no generator: a chunked admission's parking write (with the
+        request's knobs) and a release's deactivation (the defaults)."""
         self._gens[slot] = None
+        self._cur[slot] = 0
+        self._pos[slot] = pos
         self._active[slot] = False
         self._remaining[slot] = 0
-        self._eos[slot] = -1
-        self._temps[slot] = 0.0
-        self._top_ks[slot] = 0
-        self._top_ps[slot] = 1.0
+        self._set_knobs(slot, temp, top_k, top_p, eos)
+
+    # -- prefix pool -----------------------------------------------------
+    def _block_digests(self, tokens: np.ndarray) -> List[bytes]:
+        """Chained digests of the prompt's full blocks: digest i commits
+        to tokens[0:(i+1)*bs], so block i can only hit behind its exact
+        prefix chain. The same bytes as the JAX engine's (int32 tokens)."""
+        bs = self.prefix_block
+        out: List[bytes] = []
+        d = b""
+        for i in range(len(tokens) // bs):
+            d = hashlib.blake2b(
+                d + np.asarray(
+                    tokens[i * bs : (i + 1) * bs], np.int32
+                ).tobytes(),
+                digest_size=16,
+            ).digest()
+            out.append(d)
+        return out
+
+    def _match_prefix(self, tokens: np.ndarray) -> List[int]:
+        """Longest cached prefix walk across all tiers: device-pool hits
+        are free; host and disk hits are promoted back into the pool
+        first. Returns the pool block indices, capped so the final chunk
+        always runs (the first token needs the last prompt position's
+        hidden state, which no tier stores). Blocks matched earlier in the
+        walk are shielded from eviction by a later promotion."""
+        if not self.prefix_blocks:
+            return []
+        matched: List[int] = []
+        tc = self.tier_counters
+        for d in self._block_digests(tokens):
+            idx = self._pool_map.get(d)
+            if idx is not None:
+                tc["device"]["hits"] += 1
+            else:
+                tc["device"]["misses"] += 1
+                tier = None
+                if self._host_budget:
+                    if d in self._host_map:
+                        tc["host"]["hits"] += 1
+                        tier = "host"
+                    else:
+                        tc["host"]["misses"] += 1
+                if tier is None and self._disk_budget:
+                    if d in self._disk_map:
+                        tc["disk"]["hits"] += 1
+                        tier = "disk"
+                    else:
+                        tc["disk"]["misses"] += 1
+                if tier is None:
+                    break
+                idx = self._promote(d, tier, frozenset(matched))
+                if idx is None:
+                    # No allocatable block (all pinned) or an unreadable
+                    # disk entry: the rest is prefilled uncached.
+                    break
+            matched.append(idx)
+        while matched and len(matched) * self.prefix_block >= len(tokens):
+            matched.pop()
+        for idx in matched:
+            self._pool_tick += 1
+            self._pool_meta[idx].stamp = self._pool_tick
+        return matched
+
+    def _pool_alloc(self, avoid: frozenset = frozenset()) -> Optional[int]:
+        """A free pool block, else the least recently used unpinned one,
+        whose contents spill one tier down when tiers are on; None when
+        every block is pinned or in ``avoid``."""
+        if self._pool_free:
+            return self._pool_free.pop()
+        victim = None
+        for i, m in enumerate(self._pool_meta):
+            if m is None or m.refs > 0 or i in avoid:
+                continue
+            if victim is None or m.stamp < self._pool_meta[victim].stamp:
+                victim = i
+        if victim is None:
+            return None
+        vm = self._pool_meta[victim]
+        if self._tiered:
+            self._spill_block(victim, vm.digest)
+        del self._pool_map[vm.digest]
+        self._pool_meta[victim] = None
+        self.prefix_evictions += 1
+        self.tier_counters["device"]["evictions"] += 1
+        return victim
+
+    def _insert_prefix(self, slot: int, tokens: np.ndarray) -> None:
+        """Insert the freshly prefilled prompt's full blocks (slot rows ->
+        pool). Chain-ordered: stop at the first block that cannot be
+        allocated, since a later block without its ancestors can never be
+        matched."""
+        if not self.prefix_blocks:
+            return
+        bs = self.prefix_block
+        for i, d in enumerate(self._block_digests(tokens)):
+            idx = self._pool_map.get(d)
+            if idx is not None:
+                self._pool_tick += 1
+                self._pool_meta[idx].stamp = self._pool_tick
+                continue
+            idx = self._pool_alloc()
+            if idx is None:
+                break
+            self._copy_block(idx, slot, i * bs, to_slot=False)
+            self._pool_tick += 1
+            self._pool_map[d] = idx
+            self._pool_meta[idx] = _PoolBlock(
+                digest=d, refs=0, stamp=self._pool_tick
+            )
+            self.prefix_inserts += 1
+            # A fresh device copy supersedes a spilled copy of the same
+            # digest (the same bytes): dropping it keeps the budgets honest.
+            if self._tiered:
+                self._host_map.pop(d, None)
+                if d in self._disk_map:
+                    self._disk_drop(d)
+
+    def _copy_block(self, block: int, slot: int, row: int,
+                    to_slot: bool) -> None:
+        """Pool block -> slot rows ``[row, row + prefix_block)`` when
+        ``to_slot`` (seeding a prefix hit), slot rows -> pool block
+        otherwise (insertion)."""
+        rows = slice(row, row + self.prefix_block)
+        if to_slot:
+            self._k[:, slot, rows] = self._pool_k[:, block]
+            self._v[:, slot, rows] = self._pool_v[:, block]
+        else:
+            self._pool_k[:, block] = self._k[:, slot, rows]
+            self._pool_v[:, block] = self._v[:, slot, rows]
+
+    def _unref_blocks(self, task: PrefillTask) -> None:
+        for b in task.block_refs:
+            meta = self._pool_meta[b]
+            if meta is not None:
+                meta.refs -= 1
+        task.block_refs = []
+
+    # -- spill tiers (host RAM + disk) -----------------------------------
+    def _spill_block(self, victim: int, digest: bytes) -> None:
+        """Copy the evicted block to the host (a sync, off the decode hot
+        path: eviction only happens at admission and insertion) and push
+        it one tier down: host RAM, else disk."""
+        k = self._pool_k[:, victim : victim + 1].to("cpu", copy=True)
+        v = self._pool_v[:, victim : victim + 1].to("cpu", copy=True)
+        self.tier_counters["device"]["spills"] += 1
+        if self._host_budget:
+            self._host_insert(digest, k, v)
+        else:
+            self._disk_insert(digest, k, v)
+
+    def _host_bytes(self) -> int:
+        return len(self._host_map) * self._blk_nbytes
+
+    def _host_insert(self, digest: bytes, k: torch.Tensor,
+                     v: torch.Tensor) -> None:
+        """Insert one spilled block into the host tier, pushing the oldest
+        blocks down to disk (or dropping them) until the byte budget holds:
+        the tier is never over budget."""
+        self._host_map.pop(digest, None)
+        if self._blk_nbytes > self._host_budget:
+            # A block the tier can never hold goes straight down.
+            if self._disk_budget:
+                self.tier_counters["host"]["spills"] += 1
+                self._disk_insert(digest, k, v)
+            else:
+                self.tier_counters["host"]["evictions"] += 1
+            return
+        while self._host_map and (
+            self._host_bytes() + self._blk_nbytes > self._host_budget
+        ):
+            old_d, (ok, ov) = self._host_map.popitem(last=False)
+            if self._disk_budget:
+                self.tier_counters["host"]["spills"] += 1
+                self._disk_insert(old_d, ok, ov)
+            else:
+                self.tier_counters["host"]["evictions"] += 1
+        self._host_map[digest] = (k, v)
+
+    def _disk_paths(self, digest: bytes) -> Tuple[str, str, str]:
+        hexd = digest.hex()
+        return tuple(
+            os.path.join(self.prefix_disk_dir, f"{hexd}.{part}.npy")
+            for part in ("keys", "k", "v")
+        )
+
+    def _disk_prune_stale(self) -> None:
+        """Start the disk tier empty: block files left by an earlier engine
+        are removed, not adopted, so pool decisions depend on the op
+        stream alone."""
+        for name in os.listdir(self.prefix_disk_dir):
+            if name.endswith((".keys.npy", ".k.npy", ".v.npy")):
+                try:
+                    os.remove(os.path.join(self.prefix_disk_dir, name))
+                except OSError:
+                    pass
+
+    def _disk_insert(self, digest: bytes, k: torch.Tensor,
+                     v: torch.Tensor) -> None:
+        """Write one block to the disk tier (atomic per file: tmp +
+        rename), then hold the byte budget on the measured file sizes:
+        oldest entries drop first, and the tier is never over budget.
+
+        The JAX engine's file form: ``keys`` (1, 5, 2) int64, the block's
+        (start, stop) per dim, and K and V as (1, L, 1, block, Hkv,
+        hd * itemsize) uint8, the bytes of the compute dtype (numpy has no
+        bfloat16; the load views them back)."""
+        if not self._disk_budget:
+            return
+        if digest in self._disk_map:
+            self._disk_map.move_to_end(digest)
+            return
+        keys = np.asarray([[(0, n) for n in self._blk_shape]], np.int64)
+        parts = [t[None].contiguous().view(torch.uint8).numpy() for t in (k, v)]
+        size = 0
+        paths = self._disk_paths(digest)
+        try:
+            for path, arr in zip(paths, [keys] + parts):
+                tmp = path + ".tmp"
+                with open(tmp, "wb") as f:
+                    np.save(f, arr)
+                os.replace(tmp, path)
+                size += os.path.getsize(path)
+        except OSError:
+            # Best-effort tier: a full or failing disk drops the block.
+            self._remove_files(paths)
+            self.tier_counters["disk"]["evictions"] += 1
+            return
+        while self._disk_map and self._disk_bytes + size > self._disk_budget:
+            self._disk_drop(next(iter(self._disk_map)))
+            self.tier_counters["disk"]["evictions"] += 1
+        if self._disk_bytes + size > self._disk_budget:
+            # One block alone exceeds the whole budget.
+            self._remove_files(paths)
+            self.tier_counters["disk"]["evictions"] += 1
+            return
+        self._disk_map[digest] = size
+        self._disk_bytes += size
+
+    @staticmethod
+    def _remove_files(paths: Sequence[str]) -> None:
+        for path in paths:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+    def _disk_drop(self, digest: bytes) -> None:
+        self._disk_bytes -= self._disk_map.pop(digest, 0)
+        self._remove_files(self._disk_paths(digest))
+
+    def _disk_load(self, digest: bytes) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """Read one block back (memory-mapped); an unreadable entry is
+        dropped and reported as a failed promotion, never raised on the
+        admission path."""
+        kpath, kfile, vfile = self._disk_paths(digest)
+        try:
+            np.load(kpath)
+            out = []
+            for path in (kfile, vfile):
+                raw = np.array(np.load(path, mmap_mode="r")[0])
+                t = torch.from_numpy(raw).view(self._blk_dtype)
+                if tuple(t.shape) != self._blk_shape:
+                    raise ValueError(f"block of shape {tuple(t.shape)}")
+                out.append(t)
+            return out[0], out[1]
+        except (OSError, ValueError, RuntimeError):
+            self._disk_drop(digest)
+            return None
+
+    def _promote(self, digest: bytes, tier: str,
+                 avoid: frozenset) -> Optional[int]:
+        """Move one cold-tier block back into the device pool; returns its
+        pool index, or None when no block can be allocated (every block
+        pinned) or the disk entry is unreadable."""
+        # Take the payload before allocating: the allocation's spill
+        # cascade can push this digest out of the host map. On failure it
+        # goes back as the tier's newest entry.
+        if tier == "host":
+            payload = self._host_map.pop(digest, None)
+        else:
+            payload = self._disk_load(digest)
+        if payload is None:
+            return None
+        idx = self._pool_alloc(avoid)
+        if idx is None:
+            if tier == "host":
+                self._host_map[digest] = payload
+            elif digest in self._disk_map:
+                self._disk_map.move_to_end(digest)
+            return None
+        t0 = time.monotonic()
+        k, v = payload
+        self._pool_k[:, idx : idx + 1] = k.to(self.device)
+        self._pool_v[:, idx : idx + 1] = v.to(self.device)
+        if tier != "host":
+            self._disk_drop(digest)
+        self._pool_tick += 1
+        self._pool_map[digest] = idx
+        self._pool_meta[idx] = _PoolBlock(
+            digest=digest, refs=0, stamp=self._pool_tick
+        )
+        self.tier_counters[tier]["promotions"] += 1
+        self.refill_s += time.monotonic() - t0
+        return idx
+
+    def _pool_used(self) -> int:
+        return self.prefix_blocks - len(self._pool_free)
+
+    def prefix_stats(self) -> Dict[str, Any]:
+        """Pool counters; with a pool, the per-tier breakdown, and with
+        tiers on, the cumulative refill seconds."""
+        out: Dict[str, Any] = {
+            "lookups": self.prefix_lookups,
+            "hit_tokens": self.prefix_hit_tokens,
+            "prompt_tokens": self.prefix_prompt_tokens,
+            "inserts": self.prefix_inserts,
+            "evictions": self.prefix_evictions,
+            "blocks_used": self._pool_used(),
+            "blocks_total": self.prefix_blocks,
+        }
+        if self.prefix_blocks:
+            out["tiers"] = self.prefix_tier_stats()
+        if self._tiered:
+            out["refill_s"] = self.refill_s
+        return out
+
+    def prefix_tier_stats(self) -> Dict[str, Dict[str, int]]:
+        """Per-tier cumulative counters plus resident and budget bytes
+        (the device always; host and disk when budgeted)."""
+        out = {}
+        for tier, nbytes in self.prefix_tier_bytes().items():
+            out[tier] = {
+                **self.tier_counters[tier],
+                "bytes": nbytes,
+                "budget_bytes": {
+                    "device": self.prefix_blocks * self._blk_nbytes,
+                    "host": self._host_budget,
+                    "disk": self._disk_budget,
+                }[tier],
+            }
+        return out
+
+    def prefix_tier_counters(self) -> Dict[str, Dict[str, int]]:
+        """Cumulative per-tier event counters (all three tiers, zeros for
+        disabled ones): the scheduler diffs consecutive snapshots."""
+        return {t: dict(c) for t, c in self.tier_counters.items()}
+
+    def prefix_tier_bytes(self) -> Dict[str, int]:
+        """Resident bytes per enabled tier."""
+        out = {"device": self._pool_used() * self._blk_nbytes}
+        if self._host_budget:
+            out["host"] = self._host_bytes()
+        if self._disk_budget:
+            out["disk"] = self._disk_bytes
+        return out
 
     # -- the hot loop ----------------------------------------------------
     def step(self) -> List[Tuple[int, str, int, bool]]:
-        """One fold: up to ``decode_fold`` tokens per occupied slot, in fold
+        """One fold: up to ``decode_fold`` tokens per decoding slot, in fold
         order; returns ``(slot, request_id, token, done)`` per emitted
-        token. Finished slots are released before returning."""
+        token. Finished slots are released before returning. Parked
+        (prefilling) slots are inactive: the fold emits nothing for them."""
         if not any(s is not None for s in self._slots):
             return []
         with torch.no_grad():

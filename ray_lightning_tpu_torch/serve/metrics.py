@@ -1,14 +1,19 @@
-"""Serving metrics: queue depth, TTFT, occupancy, tokens/s.
+"""Serving metrics: queue depth, TTFT and its queue/prefill split,
+occupancy, tokens/s, chunks per admission and the prefix cache's tiers.
 
 The subset of the JAX package's ``serve/metrics.py:ServeMetrics`` that the
-scheduler core records. Metrics are recorded per step and per request
-lifecycle event and aggregated over a bounded sliding window.
+ported scheduler records (no metrics registry: ROADMAP queue 1 item 9).
+Metrics are recorded per step and per request lifecycle event and
+aggregated over a bounded sliding window.
 """
 from __future__ import annotations
 
 import threading
 from collections import deque
 from typing import Any, Dict
+
+#: The prefix cache's per-tier event counters.
+TIER_COUNTERS = ("hits", "misses", "spills", "promotions", "evictions")
 
 
 def _pct(sorted_vals, q: float) -> float:
@@ -33,6 +38,18 @@ class ServeMetrics:
         self.cancelled = 0
         self.expired = 0
         self._ttft_s: deque = deque(maxlen=window)
+        #: TTFT split: time queued (submit -> slot) and time prefilling
+        #: (slot -> first token). With chunked prefill the two diverge,
+        #: and only the second is the prefill path's to improve.
+        self._ttft_queue_s: deque = deque(maxlen=window)
+        self._ttft_prefill_s: deque = deque(maxlen=window)
+        #: Chunk dispatches per admission (1 on the monolithic path).
+        self._prefill_chunks: deque = deque(maxlen=window)
+        #: (prefix_hit_tokens, prompt_tokens) per admission.
+        self._prefix_tokens: deque = deque(maxlen=window)
+        #: Cumulative prefix-cache tier counters (device/host/disk),
+        #: accumulated from the scheduler's per-step deltas.
+        self._prefix_tiers: Dict[str, Dict[str, int]] = {}
         #: (wall_s, active_slots, tokens_emitted) per engine step.
         self._steps: deque = deque(maxlen=window)
         self._queue_depth = 0
@@ -48,14 +65,43 @@ class ServeMetrics:
             self.submitted += 1
             self._set_queue_depth(queue_depth)
 
-    def record_admit(self, queue_depth: int) -> None:
+    def record_admit(self, queue_s: float, queue_depth: int) -> None:
+        """A request entered a slot after ``queue_s`` in the queue (its
+        prefill may still be running: see record_first_token)."""
         with self._lock:
             self.admitted += 1
+            self._ttft_queue_s.append(float(queue_s))
             self._set_queue_depth(queue_depth)
 
-    def record_first_token(self, ttft_s: float) -> None:
+    def record_first_token(
+        self,
+        ttft_s: float,
+        prefill_s: float,
+        chunks: int,
+        prefix_hit_tokens: int,
+        prompt_tokens: int,
+    ) -> None:
+        """A request produced its first token: full TTFT, its prefill
+        component, chunk dispatches spent, and the prefix-cache hit."""
         with self._lock:
             self._ttft_s.append(float(ttft_s))
+            self._ttft_prefill_s.append(float(prefill_s))
+            self._prefill_chunks.append(int(chunks))
+            self._prefix_tokens.append(
+                (int(prefix_hit_tokens), int(prompt_tokens))
+            )
+
+    def record_prefix_tiers(self, deltas: Dict[str, Dict[str, int]]) -> None:
+        """One step's prefix-cache tier delta (the engine's cumulative
+        counters diffed by the scheduler), accumulated for the snapshot's
+        ``prefix_tiers`` block."""
+        with self._lock:
+            for tier, kv in deltas.items():
+                cum = self._prefix_tiers.setdefault(
+                    tier, {k: 0 for k in TIER_COUNTERS}
+                )
+                for k in TIER_COUNTERS:
+                    cum[k] += int(kv.get(k, 0))
 
     def record_finish(self, n: int = 1, queue_depth=None) -> None:
         with self._lock:
@@ -112,4 +158,35 @@ class ServeMetrics:
                 out["ttft_p50_s"] = _pct(ttft, 0.50)
                 out["ttft_p95_s"] = _pct(ttft, 0.95)
                 out["ttft_max_s"] = ttft[-1]
+            # A long queue wait wants more slots; a long prefill wants
+            # chunking and the prefix cache.
+            for name, window in (("queue", self._ttft_queue_s),
+                                 ("prefill", self._ttft_prefill_s)):
+                vals = sorted(window)
+                if vals:
+                    out[f"ttft_{name}_p50_s"] = _pct(vals, 0.50)
+                    out[f"ttft_{name}_p95_s"] = _pct(vals, 0.95)
+            if self._prefill_chunks:
+                out["prefill_chunks_per_admit"] = (
+                    sum(self._prefill_chunks) / len(self._prefill_chunks)
+                )
+            if self._prefix_tokens:
+                hit = sum(h for h, _ in self._prefix_tokens)
+                tot = sum(p for _, p in self._prefix_tokens)
+                # Fraction of prompt tokens served from the prefix cache
+                # instead of prefill compute (0.0 with the cache off).
+                out["prefix_hit_rate"] = hit / tot if tot else 0.0
+            # Per-tier probe counters with each tier's share of all block
+            # probes (the walk probes the device first, so its hits +
+            # misses are the probe total).
+            if self._prefix_tiers:
+                dev = self._prefix_tiers.get("device", {})
+                probes = dev.get("hits", 0) + dev.get("misses", 0)
+                out["prefix_tiers"] = {
+                    tier: {
+                        **kv,
+                        "hit_rate": kv["hits"] / probes if probes else 0.0,
+                    }
+                    for tier, kv in self._prefix_tiers.items()
+                }
             return out

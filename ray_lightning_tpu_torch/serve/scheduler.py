@@ -5,7 +5,9 @@ Port of the core of ``ray_lightning_tpu/serve/scheduler.py``. At every
 step boundary the scheduler (1) drops cancelled and expired work, (2)
 admits queued requests into free engine slots, bounded by
 ``max_prefills_per_step`` so a burst of prompt prefills cannot starve
-in-flight decode, and (3) runs one decode fold for everything resident.
+in-flight decode, (3) on a chunked engine advances up to
+``max_prefill_chunks_per_step`` prefill chunks (the chunk-vs-fold
+interleave), and (4) runs one decode fold for everything resident.
 Requests carry per-request sampling params, a priority (lower value is
 served first; FIFO within a priority, with optional aging toward priority
 0 via ``priority_age_s``) and an optional deadline.
@@ -56,6 +58,7 @@ class Request:
     #: it are expired, in-flight ones are cancelled at the next boundary.
     deadline_s: Optional[float] = None
     submitted_at: float = 0.0
+    admitted_at: float = 0.0
 
     def expired(self, now: float) -> bool:
         return (
@@ -81,11 +84,17 @@ class Scheduler:
         engine: "DecodeEngine",
         metrics: Optional[ServeMetrics] = None,
         max_prefills_per_step: int = 1,
+        max_prefill_chunks_per_step: int = 1,
         priority_age_s: Optional[float] = None,
     ) -> None:
         self.engine = engine
         self.metrics = metrics or ServeMetrics(engine.num_slots)
         self.max_prefills_per_step = max(1, int(max_prefills_per_step))
+        #: Chunk-vs-fold interleave budget: prefill chunks advanced per
+        #: step (chunked engines only).
+        self.max_prefill_chunks_per_step = max(
+            1, int(max_prefill_chunks_per_step)
+        )
         #: Aging rate: a queued request's effective priority drops by 1
         #: toward 0 every ``priority_age_s`` seconds, so low-priority work
         #: cannot starve forever. None = pure (priority, seq) ordering.
@@ -101,6 +110,8 @@ class Scheduler:
         #: Requests popped for admission but not yet in _slot_req (admit
         #: runs outside the lock); cancel() must still find them.
         self._admitting: set = set()
+        #: The engine's cumulative prefix-tier counters at the last diff.
+        self._prefix_seen: Dict[str, Dict[str, int]] = {}
 
     # -- intake (thread-safe) --------------------------------------------
     def submit(
@@ -167,8 +178,9 @@ class Scheduler:
 
     # -- the loop ---------------------------------------------------------
     def step(self) -> List[TokenEvent]:
-        """One iteration: evict cancelled/expired, admit (bounded), run one
-        engine fold. Queue decisions happen under the lock; every engine
+        """One iteration: evict cancelled/expired, admit (bounded), advance
+        prefill chunks (chunked engines, bounded), run one engine fold.
+        Queue decisions happen under the lock; every engine
         call runs outside it."""
         events: List[TokenEvent] = []
         t0 = time.monotonic()
@@ -228,7 +240,9 @@ class Scheduler:
         newly: Dict[int, Request] = {}
         finished_rids: List[str] = []
         finished_slots: List[int] = []
+        admit_tokens = 0
         if admits:
+            t_admit = time.monotonic()
             results = self.engine.admit_many(
                 [
                     dict(
@@ -246,8 +260,18 @@ class Scheduler:
             )
             now = time.monotonic()
             for req, (slot, first_tok, done) in zip(admits, results):
-                self.metrics.record_admit(self.queue_depth())
-                self.metrics.record_first_token(now - req.submitted_at)
+                req.admitted_at = t_admit
+                self.metrics.record_admit(
+                    t_admit - req.submitted_at, self.queue_depth()
+                )
+                if first_tok is None:
+                    newly[slot] = req  # chunked prefill in progress
+                    continue
+                admit_tokens += 1
+                self.metrics.record_first_token(
+                    now - req.submitted_at, now - t_admit, 1, 0,
+                    len(req.prompt),
+                )
                 events.append(
                     TokenEvent(
                         req.request_id, first_tok, done,
@@ -259,6 +283,11 @@ class Scheduler:
                     finished_rids.append(req.request_id)
                 else:
                     newly[slot] = req
+        # Chunked prefills advance between the admissions and the fold.
+        prefilled = self._finish_prefills(
+            self.engine.prefill_step(self.max_prefill_chunks_per_step),
+            newly, events, finished_rids, finished_slots,
+        )
         active = self.engine.num_active
         fold_results = self.engine.step()
         for slot, rid, tok, done in fold_results:
@@ -269,6 +298,17 @@ class Scheduler:
                 self.metrics.record_finish(queue_depth=self.queue_depth())
                 finished_slots.append(slot)
                 finished_rids.append(rid)
+        if self.engine.prefix_blocks:
+            # One record per step that saw tier traffic (admissions walk
+            # the tiers; steady decode never does).
+            tiers = self.engine.prefix_tier_counters()
+            if tiers != self._prefix_seen:
+                seen = self._prefix_seen
+                self.metrics.record_prefix_tiers({
+                    t: {k: n - seen.get(t, {}).get(k, 0) for k, n in kv.items()}
+                    for t, kv in tiers.items()
+                })
+                self._prefix_seen = tiers
         with self._lock:
             self._slot_req.update(newly)
             for req in admits:
@@ -280,9 +320,40 @@ class Scheduler:
             self._cancelled.difference_update(finished_rids)
         self.metrics.record_step(
             time.monotonic() - t0, active,
-            len(fold_results) + len(admits), self.queue_depth(),
+            len(fold_results) + prefilled + admit_tokens, self.queue_depth(),
         )
         return events
+
+    def _finish_prefills(
+        self,
+        chunk_events: List[Any],
+        newly: Dict[int, Request],
+        events: List[TokenEvent],
+        finished_rids: List[str],
+        finished_slots: List[int],
+    ) -> int:
+        """First-token metrics and TokenEvents of the prefills that
+        completed this step; returns how many."""
+        for slot, task, tok, done in chunk_events:
+            now = time.monotonic()
+            req = newly.get(slot) or self._slot_req.get(slot)
+            if req is not None:
+                self.metrics.record_first_token(
+                    now - req.submitted_at, now - req.admitted_at,
+                    task.chunks, task.matched_tokens, len(task.tokens),
+                )
+            events.append(
+                TokenEvent(
+                    task.request_id, tok, done,
+                    "finished" if done else "token",
+                )
+            )
+            if done:
+                self.metrics.record_finish(queue_depth=self.queue_depth())
+                finished_rids.append(task.request_id)
+                finished_slots.append(slot)
+                newly.pop(slot, None)
+        return len(chunk_events)
 
     def run_until_idle(self, max_steps: int = 100_000) -> List[TokenEvent]:
         """Drive step() until queue and slots drain (tests, smoke runs)."""

@@ -274,6 +274,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys; import ray_lightning_tpu_torch.serve.engine, "
         "ray_lightning_tpu_torch.serve.scheduler, "
+        "ray_lightning_tpu_torch.serve.metrics, "
         "ray_lightning_tpu_torch.models.weights, "
         "ray_lightning_tpu_torch.models.gpt, "
         "ray_lightning_tpu_torch.models.boring, "

@@ -264,18 +264,25 @@ def test_scheduler_cancel_in_flight_frees_the_slot(weights):
 
 
 def test_engine_options_not_ported_raise(weights):
+    """Each option still unported raises naming its ROADMAP item; the
+    chunked prefill and prefix cache options (item 3) now construct."""
     _, params = weights
-    for kw in (
-        {"prefill_chunk": 8}, {"prefix_blocks": 4}, {"kv_pages": 8},
-        {"spec": "ngram"}, {"piggyback_chunks": 1}, {"fold_ladder": [1, 2]},
-        {"kvstore_dir": "x"}, {"mesh": object()}, {"pipeline": True},
+    for kw, item in (
+        ({"kv_pages": 8}, 4), ({"kv_page": 16}, 4), ({"spec": "ngram"}, 5),
+        ({"spec_depth": 2}, 5), ({"piggyback_chunks": 1}, 6),
+        ({"fold_ladder": [1, 2]}, 6), ({"pipeline": True}, 7),
+        ({"kvstore_dir": "x"}, 9), ({"mesh": object()}, 11),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1 item {item}"):
             _engine(params, **kw)
     with pytest.raises(TypeError):
         _engine(params, no_such_option=1)
     # The JAX defaults of the unported options are accepted.
     _engine(params, prefix_block=16, spec="off", fold_ladder=None)
+    for kw in ({"prefill_chunk": 8}, {"prefix_blocks": 4},
+               {"prefix_blocks": 4, "prefix_host_mb": 1.0}):
+        assert _engine(params, **kw).chunked
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(weights):

@@ -11,8 +11,13 @@ device's idle share (1 - device time / wall; the profiler's own host cost
 is in the wall) and the kernels that took the most device time; then the
 wall time of each of five more folds without the profiler, and their
 median (the host sets a fold's time, and its clock varies from fold to
-fold). Needs a CUDA device;
-prints the card's name and power limit.
+fold). Then the chunked engine of ``chip_smoke.py``'s serve-chunked phase
+(``CHUNKED_ENGINE``, its disk tier in a temporary directory under
+``build/``): a 256-token chunk at position 512, a final chunk with the
+first token and the insertion of 62 blocks into a pool with room, and the
+same into a full pool, whose 62 evictions spill to the host and the disk
+tier; each traced as above, then the same three untraced on the host
+clock. Needs a CUDA device; prints the card's name and power limit.
 """
 import os
 import subprocess
@@ -102,6 +107,70 @@ def main():
     print(f"[decode unprofiled] {len(folds_ms)} folds of {n} tokens, ms: "
           f"{[round(t, 3) for t in folds_ms]}, median "
           f"{sorted(folds_ms)[len(folds_ms) // 2]:.3f}")
+    chunked(params, cfg, rng, acts)
+
+
+def chunked(params, cfg, rng, acts):
+    """A chunk, a final chunk with its insertion into a pool with room,
+    and one whose insertion evicts and spills: 1000-token prompts, 4
+    chunks each, 62 full blocks of 16 positions into a 64-block pool.
+    Three passes: untraced (warm-up), traced, untraced."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import profile
+
+    import chip_smoke
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "build")
+    os.makedirs(root, exist_ok=True)
+    disk = tempfile.mkdtemp(prefix="profile_prefix_", dir=root)
+
+    def run(name, fn, traced):
+        torch.cuda.synchronize()
+        if not traced:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _report(name, prof, wall)
+        return wall * 1e3
+
+    try:
+        for traced in (False, True, False):
+            # A new engine starts with an empty pool and an empty disk tier.
+            engine = DecodeEngine(params, cfg, device="cuda",
+                                  prefix_disk_dir=disk,
+                                  **chip_smoke.CHUNKED_ENGINE)
+            times = {}
+            for label in ("empty pool", "full pool"):
+                engine.admit(rng.integers(0, cfg.vocab_size, 1000).tolist(),
+                             request_id=label, max_new_tokens=2)
+                engine.prefill_step(2)
+                times[f"chunk at 512, {label}"] = run(
+                    "chunk of 256 at 512", lambda: engine.prefill_step(1),
+                    traced and label == "empty pool")
+                spills = engine.tier_counters["device"]["spills"]
+                times[f"final chunk + insert, {label}"] = run(
+                    f"final chunk + insert, {label}",
+                    lambda: engine.prefill_step(1), traced)
+                print(f"[chunked] {label}: {engine.prefix_inserts} inserts "
+                      f"so far, spills in the final chunk "
+                      f"{engine.tier_counters['device']['spills'] - spills}")
+                while engine.num_active:
+                    engine.step()
+            print(f"[chunked] host-clock ms ({'traced' if traced else 'untraced'}): "
+                  f"{times}")
+    finally:
+        shutil.rmtree(disk, ignore_errors=True)
 
 
 if __name__ == "__main__":
