@@ -59,14 +59,38 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    its wave-A twin's, the tokens that differ from the flash solo, and the
    longest step while the 896-token prompt prefills beside its monolithic
    admission step in phase 4.
-6. Train GPT-2 small at full width and depth for 20 steps through
+6. serve-paged: the same width through a paged engine (16 slots sharing
+   256 usable pages of 16 positions, the K/V of 4 dense slots;
+   ``prefill_chunk=256``, ``decode_fold=8``): 12 requests on one 512-token
+   system prompt and 12 unrelated ones, 32-64 new tokens each, 2 sampled,
+   needing more pages in all than the pool holds. Every request must
+   finish with its token count; more than 4 must be resident at once, the
+   scheduler must have held the queue for pages at least once and prefix
+   pages must have been aliased; at idle no page may be referenced and
+   the page ledger must balance; no flash call may run; greedy tokens must
+   equal a dense chunked engine's (16 slots) except at near-ties. Prints
+   the page stats, TTFT, and the ms of a fold with every slot decoding in
+   the paged and the dense engine.
+7. serve-spec: (a) the paged engine with ``spec="ngram"`` (depth 4, fold
+   4) on 8 greedy and 2 sampled prompts of tiled spans, (b) a dense
+   monolithic engine (8 slots, fold 4) with ``spec="model"``: a draft of
+   distilgpt2's widths (GPT-2 small's embeddings, final norm and first 6
+   blocks) prefilling a 32-token window per verify through the flash
+   kernel. Each beside the same engine with ``spec="off"``: greedy tokens
+   equal except at near-ties, sampled tokens equal; the n-gram drafter must
+   have accepted tokens; (b)'s flash launches must be 12 per admission
+   plus 6 per verify. K1 is then held against its plain version at the
+   draft prefill's shape and timed beside SDPA and its bound. Prints the
+   accept rates, tokens per verify and ms per fold beside spec="off".
+8. Train GPT-2 small at full width and depth for 20 steps through
    ``Trainer.fit`` (B=8, S=1024, bf16 compute, flash attention, AdamW
    with warmup): every step's loss must be finite and the last below the
    first, each backward kernel must have run once per layer per step and
    the reference path never. Prints step time, tokens/s, MFU and peak
    memory.
-7. Print the ``{"kernels": [...]}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+9. Print the ``{"kernels": [...]}`` line, the card line, and last
+   ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
+   as it ends.
 
 Exits non-zero without a CUDA device, and when the package is not beside
 this file.
@@ -143,6 +167,29 @@ CHUNKED_LONG = 896
 #: from the host tier. tools/torch_prefix_cascade.py replays this on the
 #: CPU at a tiny width, where the pool decides the same.
 CHUNKED_FLOODS = 1
+#: The serve-paged phase: 257 pages of 16 positions, page 0 the scratch
+#: page: 256 usable pages, a 4096-token budget, 144 MiB of K/V (12 layers x
+#: 12 heads x 64 x 2 bytes x 2 per position), the K/V of 4 dense slots at
+#: max_seq 1024, shared by 16 slots.
+PAGED_ENGINE = dict(num_slots=16, max_seq=1024, kv_page=16, kv_pages=257,
+                    prefill_chunk=256, decode_fold=8)
+PAGED_SCHED = dict(max_prefills_per_step=16, max_prefill_chunks_per_step=4)
+#: 12 requests on one 512-token system prompt with 16-64-token suffixes (its
+#: 32 pages alias) and 12 unrelated prompts of 64-384 tokens, 32-64 new
+#: tokens each; these two sample.
+PAGED_SYSTEM = 512
+PAGED_SAMPLED = ("a3", "u5")
+#: The serve-spec phase: (a) the paged engine with the n-gram drafter on
+#: prompts of tiled spans, (b) a dense monolithic engine with a draft model
+#: of distilgpt2's widths: GPT-2 small's embeddings, final norm and first 6
+#: blocks. Both beside the same engine with spec="off".
+SPEC_DEPTH = 4
+SPEC_FOLD = 4
+SPEC_WINDOW = 32
+SPEC_DRAFT_LAYERS = 6
+SPEC_NEW = 48
+SPEC_MODEL_ENGINE = dict(num_slots=8, max_seq=1024, decode_fold=SPEC_FOLD)
+SPEC_SCHED = dict(max_prefills_per_step=2, max_prefill_chunks_per_step=2)
 
 
 def fail(msg: str) -> None:
@@ -1086,6 +1133,415 @@ def phase_serve_chunked(mono_step_s: float) -> int:
     return launches
 
 
+def serve_traffic(engine, sched, reqs, lead: bool = False) -> dict:
+    """Drive ``reqs`` ((request id, prompt, SamplingParams)) through
+    ``sched`` until idle; with ``lead`` the first request goes alone until
+    its first token, so its prompt is cached before the rest arrive. Fails
+    unless every request finishes with its token count. Returns the tokens
+    of each request, the largest number of requests resident at once and,
+    on a paged engine, the page stats at that step."""
+    toks = {rid: [] for rid, _, _ in reqs}
+    reasons = {}
+    peak = {"resident": 0, "kv_pages": None}
+
+    def step():
+        for ev in sched.step():
+            if ev.token is not None:
+                toks[ev.request_id].append(ev.token)
+            if ev.done:
+                reasons[ev.request_id] = ev.reason
+        if engine.num_active > peak["resident"]:
+            peak["resident"] = engine.num_active
+            if engine.paged:
+                peak["kv_pages"] = engine.kv_page_stats()
+
+    rest = reqs
+    if lead:
+        rid, prompt, sp = reqs[0]
+        sched.submit(prompt, sp, request_id=rid)
+        while not toks[rid]:
+            step()
+        rest = reqs[1:]
+    for rid, prompt, sp in rest:
+        sched.submit(prompt, sp, request_id=rid)
+    while sched.has_work():
+        step()
+    for rid, _, sp in reqs:
+        got = toks[rid]
+        if reasons.get(rid) != "finished" or len(got) != sp.max_new_tokens:
+            fail(f"{rid}: {reasons.get(rid)} with {len(got)} tokens")
+        if not all(0 <= t < engine.cfg.vocab_size for t in got):
+            fail(f"{rid}: token out of range")
+    return {"toks": toks, "peak": peak}
+
+
+def time_folds(engine) -> list:
+    """Record (seconds, tokens emitted) of every fold ``engine.step`` runs
+    from now on (a step with no decoding slot runs none). Each fold ends in
+    its token-block read, a device sync, so the host clock times it."""
+    folds, step = [], engine.step
+
+    def timed():
+        if not any(s is not None for s in engine._slots):
+            return step()
+        t0 = time.perf_counter()
+        out = step()
+        folds.append((time.perf_counter() - t0, len(out)))
+        return out
+
+    engine.step = timed
+    return folds
+
+
+def fold_summary(folds) -> dict:
+    """Median ms per fold and mean tokens per fold."""
+    import statistics
+
+    return {"ms_per_fold": 1e3 * statistics.median(t for t, _ in folds),
+            "tokens_per_fold": sum(n for _, n in folds) / len(folds),
+            "folds": len(folds)}
+
+
+def decode_fold_ms(engine, prompts, n_new: int) -> float:
+    """Median host ms of a fold with every slot decoding: one short prompt
+    per slot, prefilled, one fold to warm up, then the folds timed until
+    the slots drain."""
+    import statistics
+
+    engine.admit_many([dict(prompt=p, request_id=f"d{i}", max_new_tokens=n_new)
+                       for i, p in enumerate(prompts)])
+    while engine.num_prefilling:
+        engine.prefill_step(engine.num_slots)
+    engine.step()
+    times = []
+    while engine.num_active:
+        t0 = time.perf_counter()
+        engine.step()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def compare_greedy(tag, reqs, got, want, params, cfg) -> int:
+    """Greedy requests of ``got`` against ``want``, token for token; a
+    difference is allowed only where ``want``'s top-2 margin under ``cfg``
+    is below MARGIN. Returns how many requests differ."""
+    near_ties = 0
+    for rid, prompt, sp in reqs:
+        a, b = got[rid], want[rid]
+        if sp.temperature > 0 or a == b:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        margin = greedy_margin(params, cfg, prompt + b[:j])
+        print(f"[{tag}] {rid}: tokens differ first at {j}, top-2 margin "
+              f"{margin}")
+        if margin >= MARGIN:
+            fail(f"{tag} {rid}: greedy mismatch at token {j} with margin "
+                 f"{margin}")
+        near_ties += 1
+    return near_ties
+
+
+def paged_workload(vocab: int) -> list:
+    """The serve-paged phase's requests, drawn from numpy seed 0, in the
+    order they are sent: aliasing (a*) and unrelated (u*) requests in turn,
+    a0 first."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    rng = np.random.default_rng(0)
+    system = rng.integers(0, vocab, PAGED_SYSTEM).tolist()
+    alias = [system + rng.integers(0, vocab, int(n)).tolist()
+             for n in rng.integers(16, 65, 12)]
+    other = [rng.integers(0, vocab, int(n)).tolist()
+             for n in rng.integers(64, 385, 12)]
+    news = rng.integers(32, 65, 24)
+    reqs = []
+    for i in range(12):
+        for j, (rid, prompt) in enumerate(((f"a{i}", alias[i]),
+                                           (f"u{i}", other[i]))):
+            sp = SamplingParams(max_new_tokens=int(news[2 * i + j]))
+            if rid in PAGED_SAMPLED:
+                sp = SamplingParams(max_new_tokens=sp.max_new_tokens,
+                                    temperature=0.8, top_k=50, top_p=0.9,
+                                    seed=i)
+            reqs.append((rid, prompt, sp))
+    return reqs
+
+
+def serve_paged_run(params, cfg, device) -> dict:
+    """The serve-paged traffic through a paged engine and through a dense
+    chunked engine of as many slots; the page checks; and the ms of a fold
+    with every slot decoding in each. Returns what the phase prints."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    reqs = paged_workload(cfg.vocab_size)
+    engine = DecodeEngine(params, cfg, device=device, **PAGED_ENGINE)
+    need = sum(engine.pages_for(len(p), sp.max_new_tokens) for _, p, sp in reqs)
+    if need <= PAGED_ENGINE["kv_pages"] - 1:
+        fail(f"the traffic needs {need} pages, no more than the pool holds")
+    sched = Scheduler(engine, **PAGED_SCHED)
+    counters.reset()
+    t0 = time.perf_counter()
+    res = serve_traffic(engine, sched, reqs, lead=True)
+    wall = time.perf_counter() - t0
+    if counters.launches or counters.reference:
+        fail("the paged path called the flash wrapper")
+    for i, m in enumerate(engine._pool_meta):
+        if m is not None and m.refs:
+            fail(f"page {i} still has {m.refs} references at idle")
+    idle = engine.kv_page_stats()
+    if idle["aliased"] or idle["allocs"] - idle["frees"] != idle["resident"]:
+        fail(f"the page ledger does not balance at idle: {idle}")
+    if not (res["peak"]["resident"] > 4 and sched.kv_backpressure_steps > 0
+            and engine.page_alias_hits > 0):
+        fail(f"largest residency {res['peak']['resident']}, backpressure "
+             f"steps {sched.kv_backpressure_steps}, alias hits "
+             f"{engine.page_alias_hits}: want > 4, > 0 and > 0")
+    if not torch.isfinite(engine._pool_k).all() or not torch.isfinite(
+            engine._pool_v).all():
+        fail("non-finite values in the page pool")
+    dense_kw = {k: v for k, v in PAGED_ENGINE.items() if not k.startswith("kv_")}
+    dense = DecodeEngine(params, cfg, device=device, **dense_kw)
+    dres = serve_traffic(dense, Scheduler(dense, **PAGED_SCHED), reqs,
+                         lead=True)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    near_ties = compare_greedy("serve-paged", reqs, res["toks"], dres["toks"],
+                               params, ref_cfg)
+    rng = np.random.default_rng(1)
+    short = [rng.integers(0, cfg.vocab_size, 16).tolist()
+             for _ in range(PAGED_ENGINE["num_slots"])]
+    n_new = 6 * PAGED_ENGINE["decode_fold"] + 1
+    snap = sched.metrics.snapshot()
+    return {
+        "requests": len(reqs), "pages_needed": need,
+        "max_resident": res["peak"]["resident"],
+        "kv_pages_at_max_residency": res["peak"]["kv_pages"],
+        "kv_pages_idle": idle,
+        "backpressure_steps": sched.kv_backpressure_steps,
+        "alias_hits": engine.page_alias_hits,
+        "ttft_p50_s": snap["ttft_p50_s"], "ttft_max_s": snap["ttft_max_s"],
+        "near_tie_mismatches_vs_dense": near_ties,
+        "fold_ms_paged": decode_fold_ms(engine, short, n_new),
+        "fold_ms_dense": decode_fold_ms(dense, short, n_new),
+        "wall_s": wall,
+    }
+
+
+def phase_serve_paged() -> int:
+    """Paged KV at GPT-2-small width through Scheduler -> DecodeEngine (see
+    ``serve_paged_run``); returns the flash launches of its traffic: 0,
+    the chunked path runs none."""
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init_gpt_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg
+    )
+    out = serve_paged_run(params, cfg, "cuda")
+    print(f"[serve-paged] {json.dumps(out)} on {card_line()}")
+    return 0
+
+
+def spec_workload(vocab: int) -> list:
+    """The serve-spec phase's requests, drawn from numpy seed 0: 8 greedy
+    prompts of 96-256 tokens, each a span of 8-32 tokens tiled, so the
+    n-gram drafter finds its continuations; 2 sampled ones alike."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(10):
+        span = rng.integers(0, vocab, int(rng.integers(8, 33))).tolist()
+        n = int(rng.integers(96, 257))
+        prompt = (span * (n // len(span) + 1))[:n]
+        if i < 8:
+            reqs.append((f"g{i}", prompt, SamplingParams(max_new_tokens=SPEC_NEW)))
+        else:
+            reqs.append((f"s{i}", prompt, SamplingParams(
+                max_new_tokens=SPEC_NEW, temperature=0.8, top_k=50, top_p=0.9,
+                seed=i)))
+    return reqs
+
+
+def draft_params_of(params, n_layer: int) -> dict:
+    """A truncated self-draft: the main model's embeddings, final norm and
+    first ``n_layer`` blocks."""
+    draft = {k: v for k, v in params.items() if k != "blocks"}
+    draft["blocks"] = {k: v[:n_layer] for k, v in params["blocks"].items()}
+    return draft
+
+
+def serve_spec_run(params, cfg, device) -> dict:
+    """The serve-spec traffic: (a) the paged engine with spec="ngram" and
+    with spec="off", (b) a dense monolithic engine with spec="model" and
+    with spec="off". Greedy tokens must be equal except at near-ties,
+    sampled ones equal; the n-gram drafter must have accepted tokens; the
+    flash launches of (b)'s spec run (admissions and draft prefills) are
+    counted. Returns what the phase prints and the launch count."""
+    import dataclasses
+
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    reqs = spec_workload(cfg.vocab_size)
+    dcfg = dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS)
+    draft = draft_params_of(params, SPEC_DRAFT_LAYERS)
+    setups = {
+        ("ngram", "paged"): dict(PAGED_ENGINE, decode_fold=SPEC_FOLD,
+                                 spec="ngram", spec_depth=SPEC_DEPTH),
+        ("off", "paged"): dict(PAGED_ENGINE, decode_fold=SPEC_FOLD),
+        ("model", "dense"): dict(SPEC_MODEL_ENGINE, spec="model",
+                                 spec_depth=SPEC_DEPTH, spec_params=draft,
+                                 spec_config=dcfg, spec_window=SPEC_WINDOW),
+        ("off", "dense"): dict(SPEC_MODEL_ENGINE),
+    }
+    runs = {}
+    for key, kw in setups.items():
+        engine = DecodeEngine(params, cfg, device=device, **kw)
+        sched = Scheduler(engine, **SPEC_SCHED)
+        folds = time_folds(engine)
+        counters.reset()
+        t0 = time.perf_counter()
+        res = serve_traffic(engine, sched, reqs)
+        runs[key] = dict(
+            res, engine=engine, folds=folds, wall=time.perf_counter() - t0,
+            launches=counters.launches, reference=counters.reference,
+            admitted=sched.metrics.admitted, snap=sched.metrics.snapshot(),
+        )
+    out = {}
+    for spec, kind in (("ngram", "paged"), ("model", "dense")):
+        on, off = runs[(spec, kind)], runs[("off", kind)]
+        tag = f"serve-spec {spec}"
+        margin_cfg = (dataclasses.replace(cfg, attn_impl="reference")
+                      if kind == "paged" else cfg)
+        near = compare_greedy(tag, reqs, on["toks"], off["toks"], params,
+                              margin_cfg)
+        sampled_diff = sum(
+            a != b
+            for rid, _, sp in reqs if sp.temperature > 0
+            for a, b in zip(on["toks"][rid], off["toks"][rid])
+        )
+        print(f"[{tag}] sampled tokens that differ from spec=\"off\": "
+              f"{sampled_diff}")
+        if sampled_diff:
+            fail(f"{tag}: {sampled_diff} sampled tokens differ from "
+                 "spec=\"off\"")
+        out[spec] = {
+            "engine": kind,
+            "spec_stats": on["engine"].spec_stats(),
+            "snapshot_accept_rate": on["snap"].get("spec_accept_rate"),
+            "fold": fold_summary(on["folds"]),
+            "fold_spec_off": fold_summary(off["folds"]),
+            "near_tie_mismatches": near,
+            "wall_s": on["wall"], "wall_s_spec_off": off["wall"],
+        }
+    ngram = runs[("ngram", "paged")]
+    if ngram["launches"] or ngram["reference"]:
+        fail("the paged n-gram path called the flash wrapper")
+    if not ngram["engine"].spec_accepted_tokens > 0:
+        fail("the n-gram drafter had no token accepted")
+    model = runs[("model", "dense")]
+    verifies = len(model["folds"]) * SPEC_FOLD
+    expect = cfg.n_layer * model["admitted"] + SPEC_DRAFT_LAYERS * verifies
+    print(f"[serve-spec model] flash launches {model['launches']}, expected "
+          f"{expect}: {cfg.n_layer} layers x {model['admitted']} admissions "
+          f"+ {SPEC_DRAFT_LAYERS} draft layers x {verifies} draft window "
+          f"prefills; reference-path calls {model['reference']}")
+    if model["launches"] != expect or model["reference"]:
+        fail(f"flash launches {model['launches']} != {expect}, or reference "
+             f"calls {model['reference']}")
+    out["model"]["draft_prefill_launches"] = SPEC_DRAFT_LAYERS * verifies
+    return {"runs": out, "launches": model["launches"], "draft": draft,
+            "draft_cfg": dcfg}
+
+
+def check_draft_prefill(draft, dcfg) -> dict:
+    """K1 at the draft model's window prefill: B = the spec engine's slots,
+    S = SPEC_WINDOW, its first layer's q/k/v (strided views of the fused
+    projection) from a batch of windows. Held against
+    ``flash_attention_plain``, then timed beside it, SDPA and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.ops.flash_attention import (
+        _flash_fwd_cuda,
+        flash_attention_plain,
+    )
+
+    B, W = SPEC_MODEL_ENGINE["num_slots"], SPEC_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    toks = torch.randint(0, dcfg.vocab_size, (B, W), generator=gen,
+                         device="cuda")
+    cdt = gpt.compute_dtype(dcfg)
+    lp = gpt._layer(draft["blocks"], 0)
+    with torch.no_grad():
+        h = (draft["wte"][toks] + draft["wpe"][:W]).to(cdt)
+        a = gpt._make_norm(dcfg)(h, lp["ln1_g"], lp["ln1_b"])
+        q, k, v = gpt._project_qkv(a, lp, dcfg, cdt)
+    scale = dcfg.head_dim ** -0.5
+    out, lse = _flash_fwd_cuda(q, k, v, True, scale, 0, 0)
+    ref, ref_lse = flash_attention_plain(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    atol, rtol = TOL["bfloat16"]
+    err = (out.float() - ref.float()).abs()
+    lse_err = float((lse - ref_lse).abs().max())
+    if not (bool((err <= atol + rtol * ref.float().abs()).all())
+            and lse_err <= LSE_TOL):
+        fail(f"flash_fwd disagrees with its plain version at the draft "
+             f"prefill: max abs err {float(err.max())}, lse {lse_err}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    with torch.no_grad():
+        row = {
+            "shape": list(q.shape),
+            "max_abs_err": float(err.max()),
+            "lse_err": lse_err,
+            "ms": cuda_ms(lambda: _flash_fwd_cuda(q, k, v, True, scale, 0, 0)),
+            "plain_ms": cuda_ms(
+                lambda: flash_attention_plain(q, k, v, True, scale)),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True)),
+        }
+    row["bound_ms"], row["bound_by"], flops = flash_bound(q, 0, 0, True)
+    row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
+    print(f"[serve-spec model] flash_fwd at the draft window prefill, bf16 "
+          f"causal, strided q/k/v {q.stride()}: {json.dumps(row)} "
+          f"tol=({atol}+{rtol}*|ref|, lse {LSE_TOL})")
+    return row
+
+
+def phase_serve_spec():
+    """Speculative decoding at GPT-2-small width (see ``serve_spec_run``);
+    returns K1's launches on the spec="model" path and its draft-prefill
+    row (``check_draft_prefill``)."""
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init_gpt_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg
+    )
+    res = serve_spec_run(params, cfg, "cuda")
+    print(f"[serve-spec] {json.dumps(res['runs'])} on {card_line()}")
+    row = check_draft_prefill(res["draft"], res["draft_cfg"])
+    return res["launches"], row
+
+
 def phase_train(n_steps: int = 20):
     """GPT-2 small at full width and depth through ``Trainer.fit``: bf16
     compute over fp32 master weights, flash attention forward (K1) and
@@ -1196,21 +1652,33 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    tensor_ops = phase_build()
-    worst, timed = phase_kernels()
-    bwd_worst, bwd_rows = phase_bwd_kernels()
-    serve_launches, mono_step_s = phase_serve()
-    chunked_launches = phase_serve_chunked(mono_step_s)
-    train_launches, _ = phase_train()
+    def timed_phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] phase {name}: {time.perf_counter() - t0:.3f} s")
+        return out
+
+    tensor_ops = timed_phase("build", phase_build)
+    worst, timed = timed_phase("kernels", phase_kernels)
+    bwd_worst, bwd_rows = timed_phase("bwd-kernels", phase_bwd_kernels)
+    serve_launches, mono_step_s = timed_phase("serve", phase_serve)
+    chunked_launches = timed_phase("serve-chunked", phase_serve_chunked,
+                                   mono_step_s)
+    paged_launches = timed_phase("serve-paged", phase_serve_paged)
+    spec_launches, draft_row = timed_phase("serve-spec", phase_serve_spec)
+    train_launches, _ = timed_phase("train", phase_train)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": src + "flash_fwd.cu",
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
-        "launches": serve_launches + train_launches["flash_fwd"],
+        "launches": serve_launches + spec_launches
+        + train_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
+                             "serve_paged": paged_launches,
+                             "serve_spec": spec_launches,
                              "train": train_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],
@@ -1225,6 +1693,7 @@ def main() -> None:
         "shape": [1, timed["S"], 12, 64],
         "train": {key: bwd_rows["flash_fwd"][key]
                   for key in ("ms", "library_ms", "bound_ms", "tflops")},
+        "serve_spec": draft_row,
     }]
     for name, line in (("flash_bwd_dkv", 189), ("flash_bwd_dq", 254)):
         row = bwd_rows[name]

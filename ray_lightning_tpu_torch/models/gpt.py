@@ -1,5 +1,6 @@
 """GPT in PyTorch: the training forward, losses and ``GPTLM``; prefill
-(whole and chunked), cached decode, sampling and generate.
+(whole and chunked), cached decode (dense and paged), speculative
+decoding's verify, drafters and fold, sampling and generate.
 
 Port of ``ray_lightning_tpu/models/gpt.py``'s dense paths. The parameter
 tree keeps the JAX package's names and its stacked layout (every block leaf
@@ -24,12 +25,15 @@ Differences that follow from PyTorch:
   in fixed blocks of ``DECODE_ROWS`` rows and its attention in fp64, so a
   slot's logits do not depend on its batchmates or on the cache's length.
   The prefill on the reference path is chunk-invariant the same way
-  (``PREFILL_ROWS``, :func:`gpt_prefill_chunk`).
+  (``PREFILL_ROWS``, :func:`gpt_prefill_chunk`). The verify of
+  speculative decoding is the decode step with a query axis, and the
+  paged functions gather pages into the dense layout and run the dense
+  functions: both give bitwise the dense step's rows.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -920,9 +924,7 @@ def gpt_decode_step(
     cfg.validate_variants()
     cdt = compute_dtype(cfg)
     norm_fn = _make_norm(cfg)
-    H, hd = cfg.n_head, cfg.head_dim
-    Hkv = cfg.kv_head
-    rep = H // Hkv
+    hd = cfg.head_dim
     B = cur.shape[0]
     Bp = -(-B // DECODE_ROWS) * DECODE_ROWS
     S = k_cache.shape[2]
@@ -958,30 +960,44 @@ def gpt_decode_step(
         kc, vc = k_cache[li], v_cache[li]
         kc[slots, pos_w] = k_new.to(kc.dtype)
         vc[slots, pos_w] = v_new.to(vc.dtype)
-        # Grouped attention against the Hkv-headed cache: head h reads kv
-        # head h // rep, matching the prefill's repeat_interleave. It runs
-        # in fp64, which rounds 2^29 times finer than fp32: the order in
-        # which the kernels (chosen by B and S) add the terms then does not
-        # reach the compute-dtype result.
-        qg = q.reshape(B, Hkv, rep, hd).double()
-        s = torch.einsum(
-            "bgrk,bsgk->bgrs", qg * (1.0 / np.sqrt(hd)), kc.double()
-        )
-        s = s.masked_fill(~allowed, float("-inf"))
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bgrs,bsgk->bgrk", p, vc.double()).reshape(B, H, hd)
-        o = F.pad(o.to(cdt), (0, 0, 0, 0, 0, Bp - B))
+        o = _decode_attend(q, kc.double(), vc.double(), allowed, cdt)
+        o = F.pad(o, (0, 0, 0, 0, 0, Bp - B))
         h = _in_row_blocks(
             lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
         )
+    return _decode_logits(params, cfg, h, norm_fn)[:B], k_cache, v_cache
+
+
+def _decode_attend(
+    q: torch.Tensor, kd: torch.Tensor, vd: torch.Tensor,
+    allowed: torch.Tensor, cdt: torch.dtype,
+) -> torch.Tensor:
+    """One query per slot: q (B, H, hd) against the fp64 copy of the
+    Hkv-headed cache kd, vd (B, S, Hkv, hd) where ``allowed`` (B, 1, 1, S)
+    holds; returns (B, H, hd) in ``cdt``. Head h reads kv head
+    h // (H / Hkv), matching the prefill's repeat_interleave. It runs in
+    fp64, which rounds 2^29 times finer than fp32: the order in which the
+    kernels (chosen by B and S) add the terms then does not reach the
+    compute-dtype result."""
+    B, H, hd = q.shape
+    Hkv = kd.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, hd).double()
+    s = torch.einsum("bgrk,bsgk->bgrs", qg * (1.0 / np.sqrt(hd)), kd)
+    s = s.masked_fill(~allowed, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bgrs,bsgk->bgrk", p, vd).reshape(B, H, hd).to(cdt)
+
+
+def _decode_logits(params, cfg, h, norm_fn) -> torch.Tensor:
+    """Final norm and LM head of decode rows h (R, D), R a multiple of
+    ``DECODE_ROWS``, in blocks of that many rows: fp32 logits (R, V)."""
     w_head = _head_weight(params, cfg)
 
     def head(hb):
         hb = norm_fn(hb[:, None], params["lnf_g"], params["lnf_b"])[:, 0]
         return _lm_head(hb, w_head)
 
-    logits = _in_row_blocks(head, h)[:B]
-    return logits, k_cache, v_cache
+    return _in_row_blocks(head, h)
 
 
 def gpt_decode_fold(
@@ -1000,6 +1016,8 @@ def gpt_decode_fold(
     v_cache: torch.Tensor,
     *,
     fold: int,
+    page_table: Optional[torch.Tensor] = None,
+    page_size: int = 0,
 ) -> Tuple[torch.Tensor, ...]:
     """``fold`` decode+sample iterations with per-slot termination on the
     device: the serving engine's hot loop.
@@ -1012,15 +1030,25 @@ def gpt_decode_fold(
     its slot: while the slot is active that is once per emitted token,
     and after it froze the draws are never used.
 
+    With ``page_table`` set, ``k_cache``/``v_cache`` are the page pools
+    (L, P, page_size, Hkv, hd) and each iteration runs
+    :func:`gpt_decode_step_paged`: gather, the same dense step, scatter.
+
     Returns ``(tok_block (fold, B) int with -1 at non-emitted lanes,
     emit_block (fold, B) bool, cur, pos, active, remaining, k_cache,
     v_cache)``.
     """
     toks_out, emits_out = [], []
     for _ in range(int(fold)):
-        logits, k_cache, v_cache = gpt_decode_step(
-            params, cfg, cur, pos, k_cache, v_cache
-        )
+        if page_table is None:
+            logits, k_cache, v_cache = gpt_decode_step(
+                params, cfg, cur, pos, k_cache, v_cache
+            )
+        else:
+            logits, k_cache, v_cache = gpt_decode_step_paged(
+                params, cfg, cur, pos, k_cache, v_cache, page_table,
+                page_size,
+            )
         toks = sample_logits_batched(logits, temps, top_ks, top_ps, generators)
         toks = toks.to(cur.dtype)
         emit = active
@@ -1033,6 +1061,433 @@ def gpt_decode_fold(
     return (
         torch.stack(toks_out), torch.stack(emits_out), cur, pos, active,
         remaining, k_cache, v_cache,
+    )
+
+
+def gpt_decode_verify(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    toks: torch.Tensor,
+    pos: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One forward over Q candidate tokens per slot: the verify half of
+    speculative decoding (``gpt.py:1697`` of the JAX package).
+
+    ``toks`` (B, Q) holds each slot's current token followed by Q - 1
+    draft tokens; ``pos`` (B,) is the position of the current token, so
+    row i sits at position ``pos + i``. The K/V of every row are written
+    into the cache rows ``[pos, pos + Q)`` (in place); rows at or past
+    the cache end are dropped, never clamped, since a clamp would
+    overwrite row S - 1, a real row. Row i attends to ``position <= pos +
+    i``. Returns fp32 logits (B, Q, V): ``logits[:, i]`` predicts the
+    token after row i, and the caches.
+
+    This is :func:`gpt_decode_step` with a query axis, op for op: the
+    B * Q rows' row-wise work runs in ``DECODE_ROWS`` blocks and each
+    query's attention through the step's own fp64 attention at batch B,
+    so ``logits[:, i]`` is bitwise what i + 1 sequential decode steps
+    give. Rows of rejected drafts leave K/V above the slot's accepted
+    position: masked there, and rewritten by the next verify before any
+    query reads them.
+    """
+    from ray_lightning_tpu_torch.ops.attention import band_allowed
+
+    cfg.validate_variants()
+    cdt = compute_dtype(cfg)
+    norm_fn = _make_norm(cfg)
+    B, Q = toks.shape
+    R = B * Q
+    Rp = -(-R // DECODE_ROWS) * DECODE_ROWS
+    S = k_cache.shape[2]
+    dev = toks.device
+    positions = pos[:, None] + torch.arange(Q, device=dev)[None]  # (B, Q)
+    flat = positions.reshape(-1)
+    x = embed_rows(params["wte"], toks.reshape(-1))
+    if cfg.pos_embed == "learned":
+        x = x + params["wpe"][flat.clamp(max=cfg.max_seq - 1)]
+    # (Rp, D), row b * Q + i; the rows past R are zeros, never read.
+    h = F.pad(x.to(cdt), (0, 0, 0, Rp - R))
+    if cfg.pos_embed == "rope":
+        cos, sin = _rope_tables(flat, cfg.rope_theta, cfg.head_dim)
+        cos, sin = cos[:, None, :], sin[:, None, :]
+    valid = positions < S
+    w_slot = torch.arange(B, device=dev)[:, None].expand(B, Q)[valid]
+    w_pos = positions[valid]
+    cols = torch.arange(S, device=dev)[None, None, None]
+    allowed = [
+        band_allowed(positions[:, i, None, None, None], cols,
+                     cfg.attn_window, cfg.attn_sinks)
+        for i in range(Q)
+    ]  # each (B, 1, 1, S), as the step's
+    for li in range(cfg.n_layer):
+        lp = _layer(params["blocks"], li)
+        q, k_new, v_new = (
+            t[:R]
+            for t in _in_row_blocks(
+                lambda hb: _qkv_rows(hb, lp, cfg, cdt, norm_fn), h
+            )
+        )
+        if cfg.pos_embed == "rope":
+            q = _rotate(q, cos, sin)
+            k_new = _rotate(k_new, cos, sin)
+        kc, vc = k_cache[li], v_cache[li]
+        kc[w_slot, w_pos] = k_new.reshape(B, Q, *k_new.shape[1:])[valid].to(
+            kc.dtype
+        )
+        vc[w_slot, w_pos] = v_new.reshape(B, Q, *v_new.shape[1:])[valid].to(
+            vc.dtype
+        )
+        kd, vd = kc.double(), vc.double()
+        qb = q.reshape(B, Q, *q.shape[1:])
+        o = torch.stack(
+            [_decode_attend(qb[:, i].contiguous(), kd, vd, allowed[i], cdt)
+             for i in range(Q)],
+            dim=1,
+        )
+        o = F.pad(o.reshape(R, *o.shape[2:]), (0, 0, 0, 0, 0, Rp - R))
+        h = _in_row_blocks(
+            lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
+        )
+    logits = _decode_logits(params, cfg, h, norm_fn)[:R]
+    return logits.reshape(B, Q, -1), k_cache, v_cache
+
+
+# -- Paged KV: block-table attention over a shared page pool ---------------
+# A paged engine gives each slot a page table: ``table[b, i]`` names the pool
+# page holding positions [i * page, (i + 1) * page) of slot b. Each function
+# gathers the slots' pages into the dense layout, runs the dense function
+# unchanged, and scatters the rows that function wrote back through the
+# table. The gathered view is a copy, so writes into it never reach the pool
+# by themselves. Pool page 0 is the scratch page: released and unallocated
+# table entries point there, and so do rows that are not to be kept.
+
+
+def paged_gather(pool: torch.Tensor, table: torch.Tensor, page: int) -> torch.Tensor:
+    """Dense view of each slot's paged cache (``gpt.py:1880`` of the JAX
+    package): ``pool`` (L, P, page, Hkv, hd) gathered through ``table``
+    (B, n) into a new (L, B, n * page, Hkv, hd) tensor."""
+    L, _, pg, Hkv, hd = pool.shape
+    B, n = table.shape
+    return pool.index_select(1, table.reshape(-1)).reshape(L, B, n * pg, Hkv, hd)
+
+
+def paged_put_rows(
+    pool: torch.Tensor,
+    table: torch.Tensor,
+    rows: torch.Tensor,
+    vals: torch.Tensor,
+    valid: torch.Tensor,
+    page: int,
+) -> torch.Tensor:
+    """Scatter per-slot cache rows into the pool in place (``gpt.py:1894``
+    of the JAX package): ``rows`` (B, R) positions, ``vals`` (L, B, R, Hkv,
+    hd), ``valid`` (B, R). Invalid rows (padding, positions past the view)
+    go to row 0 of the scratch page, which nothing reads. Returns
+    ``pool``."""
+    n = table.shape[1]
+    rows_cl = rows.clamp(0, n * page - 1)
+    pidx = torch.gather(table, 1, rows_cl // page)
+    pidx = torch.where(valid, pidx, 0)
+    off = torch.where(valid, rows_cl % page, 0)
+    pool[:, pidx, off] = vals.to(pool.dtype)
+    return pool
+
+
+def gpt_decode_step_paged(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    cur: torch.Tensor,
+    pos: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    table: torch.Tensor,
+    page: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`gpt_decode_step` over a paged cache (``gpt.py:1916`` of the
+    JAX package): gather each slot's pages, run the dense step unchanged
+    (the same logits, bit for bit), and scatter the one row per slot it
+    wrote, at ``min(pos, S - 1)``, the dense step's own clamp, back to its
+    page. Returns the logits and the pools, written in place."""
+    S = table.shape[1] * int(page)
+    k_view = paged_gather(pool_k, table, page)
+    v_view = paged_gather(pool_v, table, page)
+    logits, k_view, v_view = gpt_decode_step(
+        params, cfg, cur, pos, k_view, v_view
+    )
+    p = pos.clamp(0, S - 1)
+    slots = torch.arange(cur.shape[0], device=cur.device)
+    rows = p[:, None]
+    valid = torch.ones_like(rows, dtype=torch.bool)
+    paged_put_rows(pool_k, table, rows, k_view[:, slots, p][:, :, None],
+                   valid, page)
+    paged_put_rows(pool_v, table, rows, v_view[:, slots, p][:, :, None],
+                   valid, page)
+    return logits, pool_k, pool_v
+
+
+def gpt_decode_verify_paged(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    toks: torch.Tensor,
+    pos: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    table: torch.Tensor,
+    page: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`gpt_decode_verify` over a paged cache (``gpt.py:1948`` of the
+    JAX package): gather, the dense verify unchanged, and scatter rows
+    ``[pos, pos + Q)`` back; rows past the view's end go to scratch, as
+    the dense verify drops them."""
+    B, Q = toks.shape
+    S = table.shape[1] * int(page)
+    k_view = paged_gather(pool_k, table, page)
+    v_view = paged_gather(pool_v, table, page)
+    logits, k_view, v_view = gpt_decode_verify(
+        params, cfg, toks, pos, k_view, v_view
+    )
+    rows = pos[:, None] + torch.arange(Q, device=toks.device)[None]
+    valid = rows < S
+    cl = rows.clamp(0, S - 1)
+    b = torch.arange(B, device=toks.device)[:, None]
+    paged_put_rows(pool_k, table, rows, k_view[:, b, cl], valid, page)
+    paged_put_rows(pool_v, table, rows, v_view[:, b, cl], valid, page)
+    return logits, pool_k, pool_v
+
+
+def gpt_prefill_chunk_paged(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    chunk: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    table_row: torch.Tensor,
+    start_pos: int,
+    true_len: Optional[int] = None,
+    *,
+    page: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`gpt_prefill_chunk` for one paged slot (``gpt.py:1981`` of the
+    JAX package): ``table_row`` (1, n) is that slot's page table. Gather
+    the slot's view, run the dense chunk unchanged, and scatter rows
+    ``[start_pos, start_pos + true_len)`` back; padded rows and rows past
+    the view go to scratch (the dense chunk never writes them)."""
+    C = chunk.shape[1]
+    S = table_row.shape[1] * int(page)
+    tl = C if true_len is None else int(true_len)
+    k_view = paged_gather(pool_k, table_row, page)
+    v_view = paged_gather(pool_v, table_row, page)
+    h, k_view, v_view = gpt_prefill_chunk(
+        params, cfg, chunk, k_view, v_view, start_pos, tl
+    )
+    offs = torch.arange(C, device=chunk.device)
+    rows = (int(start_pos) + offs)[None]  # (1, C)
+    valid = (offs < tl)[None] & (rows < S)
+    cl = rows.clamp(0, S - 1)[0]
+    paged_put_rows(pool_k, table_row, rows, k_view[:, :, cl], valid, page)
+    paged_put_rows(pool_v, table_row, rows, v_view[:, :, cl], valid, page)
+    return h, pool_k, pool_v
+
+
+# -- Speculative decoding: drafters and the verify fold ---------------------
+
+
+def ngram_propose(
+    hist: torch.Tensor, pos: torch.Tensor, cur: torch.Tensor, *, depth: int
+) -> torch.Tensor:
+    """The n-gram (prompt-lookup) drafter, no weights (``gpt.py:2017`` of
+    the JAX package): ``hist`` (B, S) is each slot's token history (live
+    at positions ``<= pos``), ``cur`` (B,) the token at ``pos``. Finds the
+    latest earlier occurrence of the bigram ending at ``cur`` and proposes
+    the ``depth`` tokens that followed it; else the latest occurrence of
+    ``cur`` alone; else repeats ``cur``. Continuations past ``pos`` are
+    ``cur``. Returns (B, depth)."""
+    B, S = hist.shape
+    dev = hist.device
+    rows = torch.arange(S, device=dev)[None]
+    # Clamped gathers: a frozen slot's pos may sit past the history's end
+    # (XLA clamps its gathers; that slot's drafts are never emitted).
+    prev = torch.gather(hist, 1, (pos - 1).clamp(0, S - 1)[:, None])[:, 0]
+    hist_prev = torch.cat([hist.new_zeros((B, 1)), hist[:, :-1]], dim=1)
+    in_past = (rows >= 1) & (rows <= pos[:, None] - 1)
+    uni = in_past & (hist == cur[:, None])
+    bi = uni & (hist_prev == prev[:, None])
+    j_bi = torch.where(bi, rows, -1).amax(dim=1)
+    j_uni = torch.where(uni, rows, -1).amax(dim=1)
+    j = torch.where(j_bi >= 0, j_bi, j_uni)
+    cont = j[:, None] + 1 + torch.arange(depth, device=dev)[None]
+    ok = (j[:, None] >= 0) & (cont <= pos[:, None])
+    drafts = torch.gather(hist, 1, cont.clamp(0, S - 1))
+    return torch.where(ok, drafts, cur[:, None])
+
+
+def model_propose(
+    draft_params: Dict[str, Any],
+    draft_cfg: GPTConfig,
+    hist: torch.Tensor,
+    pos: torch.Tensor,
+    cur: torch.Tensor,
+    *,
+    depth: int,
+    window: int,
+) -> torch.Tensor:
+    """The draft-model drafter (``gpt.py:2057`` of the JAX package): a
+    small GPT prefills each slot's last ``window`` history tokens (at
+    positions 0..window-1, through :func:`gpt_prefill`, so under
+    ``attn_impl="flash"`` the flash kernel) and then proposes ``depth``
+    greedy tokens through :func:`gpt_decode_step` on a throwaway cache.
+    Stateless: nothing to keep in step with accepts, recycles or prefix
+    seeds. A history shorter than the window is left-filled with its
+    first token. ``cur`` is already in ``hist`` at ``pos``. Returns (B,
+    depth)."""
+    B, S = hist.shape
+    dev = hist.device
+    idx = pos[:, None] - window + 1 + torch.arange(window, device=dev)[None]
+    toks_w = torch.gather(hist, 1, idx.clamp(0, S - 1))
+    toks_w = torch.where(idx >= 0, toks_w, hist[:, :1])
+    h_pf, pf_k, pf_v = gpt_prefill(draft_params, draft_cfg, toks_w)
+    norm_fn = _make_norm(draft_cfg)
+    shape = (draft_cfg.n_layer, B, window + depth, draft_cfg.kv_head,
+             draft_cfg.head_dim)
+    kc = torch.zeros(shape, dtype=compute_dtype(draft_cfg), device=dev)
+    vc = torch.zeros_like(kc)
+    kc[:, :, :window] = pf_k
+    vc[:, :, :window] = pf_v
+    h_last = norm_fn(h_pf[:, window - 1 : window], draft_params["lnf_g"],
+                     draft_params["lnf_b"])[:, 0]
+    t = torch.argmax(
+        _lm_head(h_last, _head_weight(draft_params, draft_cfg)), dim=-1
+    )
+    drafts = [t]
+    for i in range(depth - 1):
+        logits, kc, vc = gpt_decode_step(
+            draft_params, draft_cfg, t,
+            torch.full((B,), window + i, dtype=torch.long, device=dev), kc, vc,
+        )
+        t = torch.argmax(logits, dim=-1)
+        drafts.append(t)
+    return torch.stack(drafts, dim=1)
+
+
+def _hist_write_at(
+    hist: torch.Tensor, pos: torch.Tensor, tok: torch.Tensor
+) -> torch.Tensor:
+    """``hist[b, pos[b]] = tok[b]`` for every slot whose ``pos`` lies in
+    the history (``gpt.py:2264`` of the JAX package)."""
+    rows = torch.arange(hist.shape[1], device=hist.device)[None]
+    return torch.where(rows == pos[:, None], tok[:, None], hist)
+
+
+def gpt_decode_fold_spec(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    cur: torch.Tensor,
+    pos: torch.Tensor,
+    generators: Sequence[Optional[torch.Generator]],
+    temps: torch.Tensor,
+    top_ks: torch.Tensor,
+    top_ps: torch.Tensor,
+    active: torch.Tensor,
+    remaining: torch.Tensor,
+    eos_toks: torch.Tensor,
+    hist: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    *,
+    fold: int,
+    depth: int,
+    draft_fn: Any,
+    page_table: Optional[torch.Tensor] = None,
+    page_size: int = 0,
+) -> Tuple[torch.Tensor, ...]:
+    """Speculative :func:`gpt_decode_fold` (``gpt.py:2113`` of the JAX
+    package): each of the ``fold`` iterations drafts ``depth`` tokens per
+    slot (``draft_fn(hist, pos, cur)``), scores positions ``pos .. pos +
+    depth`` with one :func:`gpt_decode_verify` (the paged one with
+    ``page_table``), and accepts the longest prefix whose samples match
+    the drafts: 1 to depth + 1 emitted tokens per slot and verify.
+
+    The accept scan samples index i from ``logits[:, i]``, which saw only
+    inputs already verified, and stops at the first sample that differs
+    from its draft; that sample is itself the right next token. EOS and
+    the budget freeze a slot mid-scan, as in :func:`gpt_decode_fold`.
+
+    Draws: a slot's n-th emitted token must use its generator's n-th
+    draw, whatever the accept lengths, so a sampled request gives the
+    same tokens with and without speculation and with any batchmates.
+    Every sampling slot's generator draws at each of the depth + 1 scan
+    indices, its state kept before each draw; after the scan the host
+    reads the emitted counts (one device-to-host read per verify, made
+    only while a slot samples) and puts each generator back to its state
+    before the first draw that emitted nothing.
+
+    ``hist`` (B, S) is the token history the drafters read: the fold
+    writes ``cur`` at ``pos`` and every emitted token at its position.
+    Returns ``(tok_block (fold * (depth + 1), B) with -1 at non-emitted
+    lanes, emit_block, cur, pos, active, remaining, hist, k_cache,
+    v_cache)``.
+    """
+    D = int(depth)
+    B = cur.shape[0]
+    dev = cur.device
+    rows = torch.arange(hist.shape[1], device=dev)[None]
+    sampled = [b for b, g in enumerate(generators) if g is not None]
+    no_draft = torch.full((B, 1), -1, dtype=cur.dtype, device=dev)
+    toks_out, emits_out = [], []
+    for _ in range(int(fold)):
+        # The current token enters the history before drafting (it covers
+        # a token sampled at admission; later it rewrites the same value).
+        hist = _hist_write_at(hist, pos, cur)
+        drafts = draft_fn(hist, pos, cur).to(cur.dtype)
+        toks_in = torch.cat([cur[:, None], drafts], dim=1)
+        if page_table is None:
+            logits, k_cache, v_cache = gpt_decode_verify(
+                params, cfg, toks_in, pos, k_cache, v_cache
+            )
+        else:
+            logits, k_cache, v_cache = gpt_decode_verify_paged(
+                params, cfg, toks_in, pos, k_cache, v_cache, page_table,
+                page_size,
+            )
+        pos0 = pos
+        # The last index has no draft to match: the -1 sentinel stops the
+        # scan there (tokens are >= 0).
+        drafts_pad = torch.cat([drafts, no_draft], dim=1)
+        states: Dict[int, List[torch.Tensor]] = {b: [] for b in sampled}
+        accepting = torch.ones_like(active)
+        emitted = []
+        for i in range(D + 1):
+            for b in sampled:
+                states[b].append(generators[b].get_state())
+            emit = active & accepting
+            toks = sample_logits_batched(
+                logits[:, i], temps, top_ks, top_ps, generators
+            ).to(cur.dtype)
+            cur = torch.where(emit, toks, cur)
+            pos = torch.where(emit, pos + 1, pos)
+            remaining = torch.where(emit, remaining - 1, remaining)
+            live = (remaining > 0) & (toks != eos_toks)
+            active = torch.where(emit, live, active)
+            accepting = emit & live & (toks == drafts_pad[:, i])
+            emitted.append(torch.where(emit, toks, -1))
+            emits_out.append(emit)
+        toks_out += emitted
+        n_emit = pos - pos0
+        if sampled:
+            counts = n_emit.tolist()
+            for b in sampled:
+                if counts[b] <= D:
+                    generators[b].set_state(states[b][counts[b]])
+        # Emitted tokens enter the history at positions pos0 + 1 .. pos.
+        offs = rows - (pos0[:, None] + 1)
+        hvalid = (offs >= 0) & (offs < n_emit[:, None])
+        em = torch.stack(emitted, dim=1)  # (B, D + 1)
+        hist = torch.where(hvalid, torch.gather(em, 1, offs.clamp(0, D)), hist)
+    return (
+        torch.stack(toks_out), torch.stack(emits_out), cur, pos, active,
+        remaining, hist, k_cache, v_cache,
     )
 
 

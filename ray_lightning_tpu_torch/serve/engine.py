@@ -42,12 +42,32 @@ hit in either is promoted back into the pool. K/V of a position are a
 function of the token prefix alone, and copies and tiers move bytes, so
 a seeded slot decodes as a cold prefill would.
 
+Paged KV (``kv_pages=N``, ``kv_page=P``): the slots' dense strips and the
+prefix pool become one pool of N pages of P positions, with page 0 kept
+as a scratch page. Each slot holds a page table; attention gathers the
+slot's pages into the dense layout and runs the dense functions
+(``models/gpt.py:gpt_decode_step_paged``), so paged and dense rows are
+bitwise equal. A prefix hit aliases the cached pages into the new slot's
+table (a refcount, no copy), and admission allocates the rest of the
+request's pages for its whole life up front. Capacity becomes a token
+budget of (N - 1) * P shared by all slots. Paging implies chunked
+prefill and rides the prefix pool's digests, LRU and tiers.
+
+Speculative decoding (``spec="ngram"`` or ``"model"``): each fold
+iteration drafts ``spec_depth`` tokens per slot from its token history
+(prompt lookup, or a small draft model's window prefill and greedy
+steps), verifies them in one forward and emits the longest matching
+prefix plus one token (``models/gpt.py:gpt_decode_fold_spec``). The
+verify is the decode step with a query axis, so the tokens are those of
+the plain engine; a sampled slot's n-th token uses its generator's n-th
+draw either way.
+
 What the JAX engine also offers and this port does not yet (each raises
-``NotImplementedError`` naming its ROADMAP item): paged KV, the KV object
-store, speculative decoding, piggybacked prefill chunks, a fold ladder, a
-device mesh, the double-buffered ``pipeline=True`` dispatch, and the
-fleet's prefix export, import and eviction. The JAX engine's
-compile-count contract has no eager counterpart.
+``NotImplementedError`` naming its ROADMAP item): the KV object store,
+piggybacked prefill chunks, a fold ladder, a device mesh, the
+double-buffered ``pipeline=True`` dispatch, and the fleet's prefix
+export, import and eviction. The JAX engine's compile-count contract has
+no eager counterpart.
 
 All methods must be driven from one thread (the scheduler loop).
 """
@@ -71,8 +91,12 @@ from ray_lightning_tpu_torch.models.gpt import (
     cast_params,
     compute_dtype,
     gpt_decode_fold,
+    gpt_decode_fold_spec,
     gpt_prefill,
     gpt_prefill_chunk,
+    gpt_prefill_chunk_paged,
+    model_propose,
+    ngram_propose,
     params_to,
     sample_logits_batched,
 )
@@ -88,13 +112,6 @@ _UNPORTED: Dict[str, Tuple[Any, str]] = {
     "kvstore_dir": (None, "queue 1 item 9 (KV object store)"),
     "kvstore_mb": (0.0, "queue 1 item 9 (KV object store)"),
     "kvstore_namespace": (None, "queue 1 item 9 (KV object store)"),
-    "kv_page": (0, "queue 1 item 4 (paged KV)"),
-    "kv_pages": (0, "queue 1 item 4 (paged KV)"),
-    "spec": ("off", "queue 1 item 5 (speculative decoding)"),
-    "spec_depth": (4, "queue 1 item 5 (speculative decoding)"),
-    "spec_params": (None, "queue 1 item 5 (speculative decoding)"),
-    "spec_config": (None, "queue 1 item 5 (speculative decoding)"),
-    "spec_window": (32, "queue 1 item 5 (speculative decoding)"),
     "mesh": (None, "queue 1 item 11 (mesh serving)"),
 }
 
@@ -136,9 +153,10 @@ class PrefillTask:
 
 @dataclasses.dataclass
 class _PoolBlock:
-    """Host metadata of one occupied prefix-pool block."""
+    """Host metadata of one occupied prefix-pool block (or page)."""
 
-    digest: bytes
+    #: None for a paged slot's private page until its prompt registers it.
+    digest: Optional[bytes]
     refs: int = 0
     stamp: int = 0  # LRU clock (higher = more recently used)
 
@@ -199,6 +217,13 @@ class DecodeEngine:
         prefix_host_mb: float = 0.0,
         prefix_disk_dir: Optional[str] = None,
         prefix_disk_mb: float = 0.0,
+        kv_page: int = 0,
+        kv_pages: int = 0,
+        spec: str = "off",
+        spec_depth: int = 4,
+        spec_params: Optional[Dict[str, Any]] = None,
+        spec_config: Optional[GPTConfig | Dict[str, Any]] = None,
+        spec_window: int = 32,
         device: Any = "cuda",
         **options: Any,
     ) -> None:
@@ -244,8 +269,44 @@ class DecodeEngine:
                 f"max_seq {self.max_seq}"
             )
         self.prefill_buckets = buckets
-        # Chunked mode: prefill_chunk > 0, or any prefix pool (a suffix-only
-        # prefill needs the cache-seeded chunk path).
+        # Paged KV (kv_pages > 0): one refcounted page pool in place of the
+        # slot strips and the prefix pool; page 0 is the scratch page.
+        self.kv_pages = int(kv_pages)
+        self.kv_page = int(kv_page) if kv_page else (16 if kv_pages else 0)
+        self.paged = self.kv_pages > 0
+        if kv_page and not self.paged:
+            raise ValueError(
+                "kv_page needs kv_pages > 0 (the paged-KV page budget); "
+                "the dense engine takes neither"
+            )
+        if self.paged:
+            if prefix_blocks:
+                raise ValueError(
+                    "paged KV (kv_pages > 0) unifies the prefix pool into "
+                    "the page allocator: prefix sharing is built in and "
+                    "keyed per kv_page-sized page; drop prefix_blocks/"
+                    "prefix_block"
+                )
+            if not 1 <= self.kv_page <= self.max_seq or (
+                self.max_seq % self.kv_page
+            ):
+                raise ValueError(
+                    f"kv_page {self.kv_page} must divide the bucket sizes: "
+                    f"a divisor of max_seq {self.max_seq} in "
+                    f"[1, {self.max_seq}]"
+                )
+            min_pages = self.max_seq // self.kv_page + 1
+            if self.kv_pages < min_pages:
+                raise ValueError(
+                    f"kv_pages {self.kv_pages} cannot hold one max-length "
+                    f"request: need >= {min_pages} (max_seq {self.max_seq} "
+                    f"/ kv_page {self.kv_page} + the reserved scratch page)"
+                )
+            # The page pool rides the prefix pool's machinery (digests,
+            # LRU, refcounts, tiers) on kv_page-sized pages.
+            prefix_blocks, prefix_block = self.kv_pages, self.kv_page
+        # Chunked mode: prefill_chunk > 0, or any prefix pool or paging (a
+        # suffix-only prefill needs the cache-seeded chunk path).
         self.prefix_blocks = int(prefix_blocks)
         self.prefix_block = int(prefix_block)
         if self.prefix_blocks and not prefill_chunk:
@@ -283,25 +344,61 @@ class DecodeEngine:
                 "prefix tiers (prefix_host_mb / prefix_disk_dir) need a "
                 "device prefix pool (prefix_blocks > 0) to spill from"
             )
+        self._check_spec(spec, spec_depth, spec_params, spec_config, spec_window)
         # The compute-dtype copy of the weights, made once here (see
         # models/gpt.py:cast_params): the JAX engine casts inside its
         # compiled step, where XLA fuses the cast into the matmul.
         self.params = cast_params(params_to(params, self.device), config)
+        self._spec_params = (
+            cast_params(params_to(spec_params, self.device), self._spec_cfg)
+            if self.spec == "model"
+            else None
+        )
+        #: Accept accounting (spec_stats, the scheduler's metrics diff).
+        self.spec_verifies = 0
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_emitted_tokens = 0
 
         cdt = compute_dtype(config)
         L, Hkv, hd = config.n_layer, config.kv_head, config.head_dim
         B, S = self.num_slots, self.max_seq
         dev = self.device
-        self._k = torch.zeros((L, B, S, Hkv, hd), dtype=cdt, device=dev)
-        self._v = torch.zeros_like(self._k)
+        if self.paged:
+            # No dense strips: the page pool is the KV cache, and each
+            # slot's view of it is its table row (all scratch until
+            # admission gives it pages).
+            self._k = self._v = None
+            self._table = torch.zeros((B, S // self.kv_page),
+                                      dtype=torch.long, device=dev)
+        else:
+            self._k = torch.zeros((L, B, S, Hkv, hd), dtype=cdt, device=dev)
+            self._v = torch.zeros_like(self._k)
+            self._table = None
         # Prefix pool: device K/V blocks + the host digest map and LRU.
         pool_shape = (L, self.prefix_blocks, self.prefix_block, Hkv, hd)
         self._pool_k = torch.zeros(pool_shape, dtype=cdt, device=dev)
         self._pool_v = torch.zeros_like(self._pool_k)
         self._pool_map: Dict[bytes, int] = {}
         self._pool_meta: List[Optional[_PoolBlock]] = [None] * self.prefix_blocks
-        self._pool_free: List[int] = list(range(self.prefix_blocks))
+        # Paged mode keeps page 0 as the scratch page: never allocated,
+        # never read, its meta None for good.
+        self._pool_free: List[int] = list(
+            range(1 if self.paged else 0, self.prefix_blocks)
+        )
         self._pool_tick = 0
+        #: Paged bookkeeping: each slot's pages (aliased prefix pages
+        #: first), the token span its allocation covers (min(P + new,
+        #: S - 1) + 1, the fragmentation stat's denominator), and the
+        #: quarantine of freed private pages. The port has no fold in
+        #: flight when a slot is released, so the quarantine is flushed at
+        #: once; with a pipelined dispatch it waits for the fold's harvest.
+        self._slot_pages: List[List[int]] = [[] for _ in range(B)]
+        self._slot_span: List[int] = [0] * B
+        self._quarantine: List[int] = []
+        self.page_allocs = 0
+        self.page_frees = 0
+        self.page_alias_hits = 0
         self.prefix_lookups = 0
         self.prefix_hit_tokens = 0
         self.prefix_prompt_tokens = 0
@@ -350,6 +447,13 @@ class DecodeEngine:
         self._active = torch.zeros(B, dtype=torch.bool, device=dev)
         self._remaining = torch.zeros(B, dtype=torch.long, device=dev)
         self._eos = torch.full((B,), -1, dtype=torch.long, device=dev)
+        #: Per-slot token history (hist[b, p] = the token at position p),
+        #: what the drafters read; None with spec off.
+        self._hist = (
+            torch.zeros((B, S), dtype=torch.long, device=dev)
+            if self.spec != "off"
+            else None
+        )
         #: Per slot: the generator of a sampling request (None = greedy).
         #: A slot mid-prefill has none: the fold draws from every
         #: generator it is given, and a parked slot must not consume draws.
@@ -359,17 +463,55 @@ class DecodeEngine:
         self._prefills: Dict[int, PrefillTask] = {}
         self._norm = _make_norm(config)
 
+    def _check_spec(self, spec, spec_depth, spec_params, spec_config,
+                    spec_window) -> None:
+        """Validate the speculative-decoding options and set ``spec``,
+        ``spec_depth``, ``spec_window`` and the draft config."""
+        self.spec = str(spec)
+        if self.spec not in ("off", "ngram", "model"):
+            raise ValueError(
+                f"unknown spec mode {spec!r}; use 'off', 'ngram', or 'model'"
+            )
+        self.spec_depth = int(spec_depth)
+        if self.spec != "off" and self.spec_depth < 1:
+            raise ValueError("spec_depth must be >= 1")
+        self.spec_window = int(spec_window)
+        self._spec_cfg: Optional[GPTConfig] = None
+        if self.spec != "model":
+            return
+        if spec_params is None or spec_config is None:
+            raise ValueError(
+                "spec='model' needs spec_params and spec_config (the draft "
+                "model's weights and GPTConfig)"
+            )
+        if isinstance(spec_config, dict):
+            spec_config = GPTConfig(**spec_config)
+        spec_config.validate_variants()
+        if spec_config.vocab_size != self.cfg.vocab_size:
+            raise ValueError(
+                f"draft model vocab {spec_config.vocab_size} != main vocab "
+                f"{self.cfg.vocab_size}"
+            )
+        if self.spec_window < 1:
+            raise ValueError("spec_window must be >= 1")
+        if self.spec_window + self.spec_depth > spec_config.max_seq:
+            raise ValueError(
+                f"spec_window ({self.spec_window}) + spec_depth "
+                f"({self.spec_depth}) exceeds the draft model's max_seq "
+                f"({spec_config.max_seq})"
+            )
+        self._spec_cfg = spec_config
+
     # -- introspection ---------------------------------------------------
     def device_state(self) -> Dict[str, np.ndarray]:
-        """Host snapshot of the device-resident per-slot state (a sync
-        point: tests and debugging only)."""
-        return {
-            name: getattr(self, f"_{name}").cpu().numpy()
-            for name in (
-                "cur", "pos", "temps", "top_ks", "top_ps", "active",
-                "remaining", "eos",
-            )
-        }
+        """Host snapshot of the device-resident per-slot state, the token
+        history included with spec on (a sync point: tests and debugging
+        only)."""
+        names = ["cur", "pos", "temps", "top_ks", "top_ps", "active",
+                 "remaining", "eos"]
+        if self._hist is not None:
+            names.append("hist")
+        return {name: getattr(self, f"_{name}").cpu().numpy() for name in names}
 
     @property
     def num_active(self) -> int:
@@ -513,7 +655,11 @@ class DecodeEngine:
         slot."""
         done = n_new == 1 or tok == eos
         if done:
+            # Done at its first token: the slot never decodes, so its pages
+            # go back now (the JAX engine keeps them until the slot's next
+            # admission overwrites its page list).
             self._gens[slot] = None
+            self._release_pages(slot)
         else:
             self._slots[slot] = SlotInfo(
                 request_id=request_id,
@@ -529,6 +675,9 @@ class DecodeEngine:
         slot's state write, all queued on the device."""
         padded = torch.zeros((1, pb), dtype=torch.long)
         padded[0, :P] = torch.from_numpy(prompt)
+        if self._hist is not None:
+            # The fold writes the first token itself (hist[pos] = cur).
+            self._hist_seed(slot, prompt)
         h, pf_k, pf_v = gpt_prefill(self.params, self.cfg,
                                     padded.to(self.device))
         # In place: the slot's rows of the one cache.
@@ -577,18 +726,22 @@ class DecodeEngine:
 
     def _admit_chunked(self, slot, r, prompt, P, n_new, eos):
         """Walk the prefix cache, pin and copy the matched blocks into the
-        slot's rows, park the slot inactive with ``pos`` at the first row
-        not seeded (the only row an interleaved fold writes; the first
-        chunk writes it again before reading it) and queue its state
-        machine. Returns ``(slot, None, False)``."""
+        slot's rows (paged: alias the matched pages into its table and
+        allocate the rest of its pages), park the slot inactive with
+        ``pos`` at the first row not seeded (the only row an interleaved
+        fold writes; the first chunk writes it again before reading it)
+        and queue its state machine. Returns ``(slot, None, False)``."""
         matched_idxs = self._match_prefix(prompt)
         matched = len(matched_idxs) * self.prefix_block
         if self.prefix_blocks:
             self.prefix_lookups += 1
             self.prefix_hit_tokens += matched
             self.prefix_prompt_tokens += P
-        for b in matched_idxs:
-            self._pool_meta[b].refs += 1  # pinned until done or cancel
+        if self.paged:
+            self._alloc_pages(slot, matched_idxs, P, n_new)
+        else:
+            for b in matched_idxs:
+                self._pool_meta[b].refs += 1  # pinned until done or cancel
         temp = float(r.get("temperature", 0.0))
         top_k, top_p = r.get("top_k"), r.get("top_p")
         task = PrefillTask(
@@ -602,14 +755,58 @@ class DecodeEngine:
             top_p=1.0 if top_p is None else float(top_p),
             seed=int(r.get("seed", 0)),
             matched_tokens=matched,
-            block_refs=list(matched_idxs),
+            # Paged: the slot's page list holds the alias refs until
+            # release, not the prefill task until its end.
+            block_refs=[] if self.paged else list(matched_idxs),
         )
         self._park(slot, matched, task.temperature, task.top_k, task.top_p,
                    eos)
-        for j, b in enumerate(matched_idxs):
-            self._copy_block(b, slot, j * self.prefix_block, to_slot=True)
+        if self._hist is not None:
+            # The whole prompt, matched prefix included (the pool holds no
+            # tokens); each chunk heals its own rows again.
+            self._hist_seed(slot, prompt)
+        if not self.paged:
+            for j, b in enumerate(matched_idxs):
+                self._copy_block(b, slot, j * self.prefix_block, to_slot=True)
         self._prefills[slot] = task
         return slot, None, False
+
+    def _alloc_pages(self, slot: int, matched_idxs: List[int], P: int,
+                     n_new: int) -> None:
+        """Give a paged slot its pages for the request's whole life: the
+        matched prefix pages aliased (refcount up, no copy) and the private
+        rest (suffix and decode reserve) allocated now, so decode never
+        runs out mid-request. Raises "out of KV pages" when they cannot all
+        be had; the scheduler admits only when ``pages_available()``
+        covers ``pages_for()``, so through it that never happens."""
+        total = self.pages_for(P, n_new)
+        avoid = set(matched_idxs)
+        private: List[int] = []
+        for _ in range(total - len(matched_idxs)):
+            pg = self._pool_alloc(frozenset(avoid))
+            if pg is None:
+                break
+            avoid.add(pg)
+            private.append(pg)
+        if len(matched_idxs) + len(private) < total:
+            self._pool_free.extend(private)
+            self.page_frees += len(private)
+            raise RuntimeError(
+                f"out of KV pages: request needs {total}, only "
+                f"{len(matched_idxs) + len(private)} allocatable (check "
+                "pages_available() before admitting)"
+            )
+        for b in matched_idxs:
+            self._pool_meta[b].refs += 1
+            self.page_alias_hits += 1
+        for pg in private:
+            self._pool_tick += 1
+            self._pool_meta[pg] = _PoolBlock(digest=None, refs=1,
+                                             stamp=self._pool_tick)
+        pages = list(matched_idxs) + private
+        self._slot_pages[slot] = pages
+        self._slot_span[slot] = min(P + n_new, self.max_seq - 1) + 1
+        self._table_write(slot, pages)
 
     def prefill_step(
         self, max_chunks: int = 1
@@ -664,12 +861,25 @@ class DecodeEngine:
         padded[0, :this_len] = torch.from_numpy(
             task.tokens[start : start + this_len]
         )
+        chunk = padded.to(self.device)
         with torch.no_grad():
-            h, _, _ = gpt_prefill_chunk(
-                self.params, self.cfg, padded.to(self.device),
-                self._k[:, slot : slot + 1], self._v[:, slot : slot + 1],
-                start, this_len,
-            )
+            if self.paged:
+                h, _, _ = gpt_prefill_chunk_paged(
+                    self.params, self.cfg, chunk, self._pool_k, self._pool_v,
+                    self._table[slot : slot + 1], start, this_len,
+                    page=self.kv_page,
+                )
+            else:
+                h, _, _ = gpt_prefill_chunk(
+                    self.params, self.cfg, chunk,
+                    self._k[:, slot : slot + 1], self._v[:, slot : slot + 1],
+                    start, this_len,
+                )
+            if self._hist is not None:
+                # Heal the history rows an interleaved fold wrote while
+                # the slot was parked (the chunk's own KV rewrite, for
+                # tokens).
+                self._hist[slot, start : start + this_len] = chunk[0, :this_len]
             task.next += this_len
             task.chunks += 1
             if task.next < P:
@@ -691,6 +901,7 @@ class DecodeEngine:
         elif self._slots[slot] is None:
             return
         self._slots[slot] = None
+        self._release_pages(slot)
         self._park(slot)
 
     def _park(self, slot: int, pos: int = 0, temp: float = 0.0,
@@ -773,6 +984,7 @@ class DecodeEngine:
         whose contents spill one tier down when tiers are on; None when
         every block is pinned or in ``avoid``."""
         if self._pool_free:
+            self.page_allocs += 1
             return self._pool_free.pop()
         victim = None
         for i, m in enumerate(self._pool_meta):
@@ -789,14 +1001,22 @@ class DecodeEngine:
         self._pool_meta[victim] = None
         self.prefix_evictions += 1
         self.tier_counters["device"]["evictions"] += 1
+        # An evicted-and-reused page is one free plus one alloc in the page
+        # ledger (allocs - frees = live pages stays an invariant).
+        self.page_frees += 1
+        self.page_allocs += 1
         return victim
 
     def _insert_prefix(self, slot: int, tokens: np.ndarray) -> None:
         """Insert the freshly prefilled prompt's full blocks (slot rows ->
         pool). Chain-ordered: stop at the first block that cannot be
         allocated, since a later block without its ancestors can never be
-        matched."""
+        matched. Paged: no copy, the slot's own prompt pages take their
+        digests (see :meth:`_register_pages`)."""
         if not self.prefix_blocks:
+            return
+        if self.paged:
+            self._register_pages(slot, tokens)
             return
         bs = self.prefix_block
         for i, d in enumerate(self._block_digests(tokens)):
@@ -816,6 +1036,36 @@ class DecodeEngine:
             )
             self.prefix_inserts += 1
             # A fresh device copy supersedes a spilled copy of the same
+            # digest (the same bytes): dropping it keeps the budgets honest.
+            if self._tiered:
+                self._host_map.pop(d, None)
+                if d in self._disk_map:
+                    self._disk_drop(d)
+
+    def _register_pages(self, slot: int, tokens: np.ndarray) -> None:
+        """Paged insertion: the slot's prompt pages hold the bytes a pool
+        insert would copy, so they gain digests in the pool map, become
+        shareable at once and outlive the slot's release as evictable
+        cache pages."""
+        pages = self._slot_pages[slot]
+        for i, d in enumerate(self._block_digests(tokens)):
+            existing = self._pool_map.get(d)
+            if existing is not None:
+                # The alias this slot was admitted with, or the page of a
+                # twin prefill that finished first (ours stays private and
+                # dies at release).
+                self._pool_tick += 1
+                self._pool_meta[existing].stamp = self._pool_tick
+                continue
+            meta = self._pool_meta[pages[i]]
+            if meta is None or meta.digest is not None:
+                continue
+            self._pool_tick += 1
+            meta.digest = d
+            meta.stamp = self._pool_tick
+            self._pool_map[d] = pages[i]
+            self.prefix_inserts += 1
+            # A fresh device page supersedes a spilled copy of the same
             # digest (the same bytes): dropping it keeps the budgets honest.
             if self._tiered:
                 self._host_map.pop(d, None)
@@ -1011,7 +1261,140 @@ class DecodeEngine:
         return idx
 
     def _pool_used(self) -> int:
-        return self.prefix_blocks - len(self._pool_free)
+        """Occupied pool blocks (paged: pages, less the scratch page and
+        the quarantine, which hold nothing live)."""
+        used = self.prefix_blocks - len(self._pool_free)
+        if self.paged:
+            used -= 1 + len(self._quarantine)
+        return max(0, used)
+
+    # -- paged KV --------------------------------------------------------
+    def _table_write(self, slot: int, pages: Sequence[int]) -> None:
+        """One slot's page-table row: ``pages`` first, the scratch page
+        (0) after them."""
+        row = torch.zeros(self._table.shape[1], dtype=torch.long)
+        row[: len(pages)] = torch.as_tensor(list(pages), dtype=torch.long)
+        self._table[slot] = row.to(self.device)
+
+    def pages_for(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Pages one request needs for its whole life: the prompt, every
+        generated token and the frozen slot's last (masked) write at
+        ``min(P + new, S - 1)``. Admission reserves them all up front."""
+        last = min(prompt_len + max_new_tokens, self.max_seq - 1)
+        return last // self.kv_page + 1
+
+    def free_pages(self) -> int:
+        """Pages allocatable at once (the free list)."""
+        return len(self._pool_free)
+
+    def pages_available(self) -> int:
+        """Allocatable pages: the free list plus the evictable cache pages
+        (digest-keyed, unreferenced: the LRU victims an allocation may
+        spill or drop). Quarantined pages are not counted."""
+        evictable = sum(
+            1 for m in self._pool_meta
+            if m is not None and m.refs == 0 and m.digest is not None
+        )
+        return len(self._pool_free) + evictable
+
+    def _flush_quarantine(self) -> None:
+        """Recycle the quarantined private pages. Call only when no fold
+        dispatched before their slots' table resets can still write them:
+        always so here, since the port runs no fold in flight."""
+        if self._quarantine:
+            self._pool_free.extend(self._quarantine)
+            self._quarantine = []
+
+    def _release_pages(self, slot: int) -> None:
+        """Drop one slot's claim on its pages (paged mode): each page's
+        refcount falls; a private page that reaches zero goes to the
+        quarantine, a digest-keyed one stays resident as evictable cache.
+        The slot's table row is reset to scratch, so no later fold writes
+        its old pages."""
+        if not self.paged:
+            return
+        pages = self._slot_pages[slot]
+        self._slot_pages[slot] = []
+        self._slot_span[slot] = 0
+        for pg in pages:
+            m = self._pool_meta[pg]
+            if m is None:
+                continue
+            m.refs -= 1
+            if m.refs <= 0 and m.digest is None:
+                self._pool_meta[pg] = None
+                self._quarantine.append(pg)
+                self.page_frees += 1
+        self._table_write(slot, ())
+        self._flush_quarantine()
+
+    def kv_page_counters(self) -> Dict[str, int]:
+        """Cumulative page-allocator counters (the scheduler diffs them)."""
+        return {
+            "allocs": self.page_allocs,
+            "frees": self.page_frees,
+            "alias_hits": self.page_alias_hits,
+        }
+
+    def kv_page_stats(self) -> Dict[str, Any]:
+        """The ``kv_pages`` block: pages by state (free, resident, aliased),
+        the token budget, occupancy, and fragmentation: tokens inside
+        allocated pages that no position of their slot's span can use."""
+        usable = self.kv_pages - 1  # less the scratch page
+        aliased = sum(1 for m in self._pool_meta if m is not None and m.refs > 1)
+        allocated = sum(1 for m in self._pool_meta if m is not None)
+        frag = sum(
+            len(self._slot_pages[b]) * self.kv_page - self._slot_span[b]
+            for b in range(self.num_slots) if self._slot_span[b]
+        )
+        return {
+            "page_size": self.kv_page,
+            "pages_total": usable,
+            "token_budget": usable * self.kv_page,
+            "free": len(self._pool_free) + len(self._quarantine),
+            "resident": allocated - aliased,
+            "aliased": aliased,
+            "occupancy": round(allocated / usable, 4) if usable else 0.0,
+            "fragmentation_tokens": frag,
+            **self.kv_page_counters(),
+        }
+
+    # -- speculative decoding --------------------------------------------
+    def _hist_seed(self, slot: int, prompt: np.ndarray) -> None:
+        """The slot's token history rows [0, P) from its prompt."""
+        self._hist[slot, : len(prompt)] = torch.from_numpy(
+            np.asarray(prompt, np.int64)
+        ).to(self.device)
+
+    def _draft(self, hist: torch.Tensor, pos: torch.Tensor,
+               cur: torch.Tensor) -> torch.Tensor:
+        """The configured drafter's (B, spec_depth) proposals."""
+        if self.spec == "ngram":
+            return ngram_propose(hist, pos, cur, depth=self.spec_depth)
+        return model_propose(
+            self._spec_params, self._spec_cfg, hist, pos, cur,
+            depth=self.spec_depth, window=self.spec_window,
+        )
+
+    def spec_stats(self) -> Dict[str, Any]:
+        """Speculative-decoding counters: accept_rate = accepted draft
+        tokens / proposed ones, in [0, 1]; tokens_per_verify = emitted
+        tokens per (verify, slot), in [1, spec_depth + 1]."""
+        v, d = self.spec_verifies, self.spec_drafted_tokens
+        return {
+            "mode": self.spec,
+            "depth": self.spec_depth,
+            "verifies": v,
+            "drafted_tokens": d,
+            "accepted_tokens": self.spec_accepted_tokens,
+            "emitted_tokens": self.spec_emitted_tokens,
+            "accept_rate": (
+                round(self.spec_accepted_tokens / d, 4) if d else 0.0
+            ),
+            "tokens_per_verify": (
+                round(self.spec_emitted_tokens / v, 4) if v else 0.0
+            ),
+        }
 
     def prefix_stats(self) -> Dict[str, Any]:
         """Pool counters; with a pool, the per-tier breakdown, and with
@@ -1063,22 +1446,39 @@ class DecodeEngine:
 
     # -- the hot loop ----------------------------------------------------
     def step(self) -> List[Tuple[int, str, int, bool]]:
-        """One fold: up to ``decode_fold`` tokens per decoding slot, in fold
-        order; returns ``(slot, request_id, token, done)`` per emitted
-        token. Finished slots are released before returning. Parked
-        (prefilling) slots are inactive: the fold emits nothing for them."""
+        """One fold: up to ``decode_fold`` tokens per decoding slot (with
+        spec, up to ``spec_depth + 1`` per fold iteration), in order;
+        returns ``(slot, request_id, token, done)`` per emitted token.
+        Finished slots are released before returning. Parked (prefilling)
+        slots are inactive: the fold emits nothing for them."""
         if not any(s is not None for s in self._slots):
             return []
+        # The paged fold reads the pools through the page table.
+        if self.paged:
+            caches, paging = (self._pool_k, self._pool_v), dict(
+                page_table=self._table, page_size=self.kv_page)
+        else:
+            caches, paging = (self._k, self._v), {}
+        state = (self._cur, self._pos, self._gens, self._temps, self._top_ks,
+                 self._top_ps, self._active, self._remaining, self._eos)
         with torch.no_grad():
-            (
-                tok_block, emit_block, self._cur, self._pos, self._active,
-                self._remaining, self._k, self._v,
-            ) = gpt_decode_fold(
-                self.params, self.cfg, self._cur, self._pos, self._gens,
-                self._temps, self._top_ks, self._top_ps, self._active,
-                self._remaining, self._eos, self._k, self._v,
-                fold=self.decode_fold,
-            )
+            if self.spec == "off":
+                (
+                    tok_block, emit_block, self._cur, self._pos, self._active,
+                    self._remaining, *_,
+                ) = gpt_decode_fold(
+                    self.params, self.cfg, *state, *caches,
+                    fold=self.decode_fold, **paging,
+                )
+            else:
+                (
+                    tok_block, emit_block, self._cur, self._pos, self._active,
+                    self._remaining, self._hist, *_,
+                ) = gpt_decode_fold_spec(
+                    self.params, self.cfg, *state, self._hist, *caches,
+                    fold=self.decode_fold, depth=self.spec_depth,
+                    draft_fn=self._draft, **paging,
+                )
             # The one device-to-host read per fold.
             block = torch.stack([tok_block, emit_block.long()]).cpu().numpy()
         return self._harvest(block[0], block[1].astype(bool))
@@ -1088,6 +1488,9 @@ class DecodeEngine:
     ) -> List[Tuple[int, str, int, bool]]:
         out: List[Tuple[int, str, int, bool]] = []
         snapshot = list(self._slots)
+        spec_on = self.spec != "off"
+        #: (fold iteration, slot) -> tokens that verify emitted (spec on).
+        counts: Dict[Tuple[int, int], int] = {}
         for kk in range(toks.shape[0]):
             for slot, info in enumerate(snapshot):
                 # The device froze a finished slot on the same condition
@@ -1101,9 +1504,23 @@ class DecodeEngine:
                     or tok == info.eos_token
                 )
                 out.append((slot, info.request_id, tok, done))
+                if spec_on:
+                    key = (kk // (self.spec_depth + 1), slot)
+                    counts[key] = counts.get(key, 0) + 1
                 if done:
                     # The fold already froze the slot on the device at
-                    # exactly this token: host bookkeeping only.
+                    # exactly this token: host bookkeeping only, and its
+                    # pages back (frozen slots write at their last
+                    # position; the table reset sends that to scratch).
                     self._slots[slot] = None
                     self._gens[slot] = None
+                    self._release_pages(slot)
+        if counts:
+            # Per (verify, slot): spec_depth drafted, all but the last
+            # emitted token accepted (the last is the verify's own sample:
+            # a mismatch, the bonus token or an EOS).
+            self.spec_verifies += len(counts)
+            self.spec_drafted_tokens += self.spec_depth * len(counts)
+            self.spec_emitted_tokens += sum(counts.values())
+            self.spec_accepted_tokens += sum(m - 1 for m in counts.values())
         return out

@@ -1,5 +1,6 @@
 """Serving metrics: queue depth, TTFT and its queue/prefill split,
-occupancy, tokens/s, chunks per admission and the prefix cache's tiers.
+occupancy, tokens/s, chunks per admission, the prefix cache's tiers, the
+KV page pool and speculative decoding's accept rate.
 
 The subset of the JAX package's ``serve/metrics.py:ServeMetrics`` that the
 ported scheduler records (no metrics registry: ROADMAP queue 1 item 9).
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import threading
 from collections import deque
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 #: The prefix cache's per-tier event counters.
 TIER_COUNTERS = ("hits", "misses", "spills", "promotions", "evictions")
@@ -50,6 +51,11 @@ class ServeMetrics:
         #: Cumulative prefix-cache tier counters (device/host/disk),
         #: accumulated from the scheduler's per-step deltas.
         self._prefix_tiers: Dict[str, Dict[str, int]] = {}
+        #: The paged engine's latest ``kv_page_stats`` block (None until a
+        #: paged engine reports).
+        self._kv_pages: Optional[Dict[str, Any]] = None
+        #: (verifies, drafted, accepted) per engine step with spec on.
+        self._spec: deque = deque(maxlen=window)
         #: (wall_s, active_slots, tokens_emitted) per engine step.
         self._steps: deque = deque(maxlen=window)
         self._queue_depth = 0
@@ -102,6 +108,25 @@ class ServeMetrics:
                 )
                 for k in TIER_COUNTERS:
                     cum[k] += int(kv.get(k, 0))
+
+    def record_kv_pages(self, stats: Dict[str, Any]) -> None:
+        """The page pool's state block (``DecodeEngine.kv_page_stats``:
+        pages by state, fragmentation and the cumulative alloc, free and
+        alias counters), recorded by the scheduler at each step whose
+        counters moved and kept for the snapshot's ``kv_pages``. The JAX
+        package also feeds the step's deltas to its metrics registry,
+        which is not ported yet (ROADMAP queue 1 item 9)."""
+        with self._lock:
+            self._kv_pages = dict(stats)
+
+    def record_spec(self, verifies: int, drafted: int, accepted: int) -> None:
+        """One step's speculative-decoding delta: ``verifies`` (verify,
+        slot) pairs proposed ``drafted`` draft tokens, of which
+        ``accepted`` matched."""
+        if not verifies:
+            return
+        with self._lock:
+            self._spec.append((int(verifies), int(drafted), int(accepted)))
 
     def record_finish(self, n: int = 1, queue_depth=None) -> None:
         with self._lock:
@@ -189,4 +214,16 @@ class ServeMetrics:
                     }
                     for tier, kv in self._prefix_tiers.items()
                 }
+            # Paged KV: the pool's latest state (occupancy, fragmentation,
+            # the cumulative counters); absent on dense engines.
+            if self._kv_pages is not None:
+                out["kv_pages"] = dict(self._kv_pages)
+            # Speculative decoding, when it ran in the window: accepted
+            # draft tokens per proposed one, and draft tokens per verify.
+            if self._spec:
+                v = sum(x[0] for x in self._spec)
+                d = sum(x[1] for x in self._spec)
+                a = sum(x[2] for x in self._spec)
+                out["spec_accept_rate"] = round(a / d, 4) if d else 0.0
+                out["draft_tokens_per_verify"] = round(d / v, 4) if v else 0.0
             return out

@@ -7,14 +7,19 @@ admits queued requests into free engine slots, bounded by
 ``max_prefills_per_step`` so a burst of prompt prefills cannot starve
 in-flight decode, (3) on a chunked engine advances up to
 ``max_prefill_chunks_per_step`` prefill chunks (the chunk-vs-fold
-interleave), and (4) runs one decode fold for everything resident.
+interleave), and (4) runs one decode fold for everything resident. On a
+paged engine a request is admitted only when the engine's allocatable
+pages cover its whole life; otherwise the queue head waits in place
+(backpressure), and an admission never runs out of pages in the engine.
 Requests carry per-request sampling params, a priority (lower value is
 served first; FIFO within a priority, with optional aging toward priority
 0 via ``priority_age_s``) and an optional deadline.
 
 Not ported yet (ROADMAP queue 1 item 9): the cost ledger, the request
-tracer, the workload journal, preemption drain and session parking, the
-fleet KV plane and KV store, and fault injection.
+tracer, the workload journal and its events (``kv_pages_backpressure``
+among them: ``kv_backpressure_steps`` counts those steps instead),
+preemption drain and session parking, the fleet KV plane and KV store,
+and fault injection.
 
 The scheduler owns no threads: ``step()`` is driven by whoever hosts the
 engine. ``submit``/``cancel`` are thread-safe; the lock guards only the
@@ -110,8 +115,13 @@ class Scheduler:
         #: Requests popped for admission but not yet in _slot_req (admit
         #: runs outside the lock); cancel() must still find them.
         self._admitting: set = set()
-        #: The engine's cumulative prefix-tier counters at the last diff.
+        #: The engine's cumulative prefix-tier, page and spec counters at
+        #: the last diff.
         self._prefix_seen: Dict[str, Dict[str, int]] = {}
+        self._kv_seen: Dict[str, int] = {}
+        self._spec_seen = (0, 0, 0)
+        #: Steps whose queue head waited for KV pages (paged engines).
+        self.kv_backpressure_steps = 0
 
     # -- intake (thread-safe) --------------------------------------------
     def submit(
@@ -214,20 +224,38 @@ class Scheduler:
                 self.max_prefills_per_step,
                 len(self.engine.free_slots()) + len(to_evict),
             )
+            # A paged engine adds a page budget: the head is admitted only
+            # while the allocatable pages cover its whole life, else it
+            # waits in place (priority order kept) for residents to finish.
+            paged = self.engine.paged
+            pages_left = self.engine.pages_available() if paged else 0
+            parked = False
             while len(admits) < budget and self._pending:
-                _, _, req = heapq.heappop(self._pending)
+                req = self._pending[0][2]
                 rid = req.request_id
                 if rid in self._cancelled:
+                    heapq.heappop(self._pending)
                     self._cancelled.discard(rid)
                     self.metrics.record_cancel(queue_depth=len(self._pending))
                     events.append(TokenEvent(rid, None, True, "cancelled"))
                     continue
                 if req.expired(t0):
+                    heapq.heappop(self._pending)
                     self.metrics.record_expire(queue_depth=len(self._pending))
                     events.append(TokenEvent(rid, None, True, "expired"))
                     continue
+                if paged:
+                    need = self.engine.pages_for(
+                        len(req.prompt), req.sampling.max_new_tokens
+                    )
+                    if need > pages_left:
+                        parked = True
+                        break
+                    pages_left -= need
+                heapq.heappop(self._pending)
                 admits.append(req)
                 self._admitting.add(rid)
+            self.kv_backpressure_steps += int(parked)
         # -- engine work, lock NOT held --------------------------------
         for slot, req, kind in to_evict:
             self.engine.release(slot)
@@ -298,17 +326,7 @@ class Scheduler:
                 self.metrics.record_finish(queue_depth=self.queue_depth())
                 finished_slots.append(slot)
                 finished_rids.append(rid)
-        if self.engine.prefix_blocks:
-            # One record per step that saw tier traffic (admissions walk
-            # the tiers; steady decode never does).
-            tiers = self.engine.prefix_tier_counters()
-            if tiers != self._prefix_seen:
-                seen = self._prefix_seen
-                self.metrics.record_prefix_tiers({
-                    t: {k: n - seen.get(t, {}).get(k, 0) for k, n in kv.items()}
-                    for t, kv in tiers.items()
-                })
-                self._prefix_seen = tiers
+        self._diff_counters()
         with self._lock:
             self._slot_req.update(newly)
             for req in admits:
@@ -323,6 +341,35 @@ class Scheduler:
             len(fold_results) + prefilled + admit_tokens, self.queue_depth(),
         )
         return events
+
+    def _diff_counters(self) -> None:
+        """Diff the engine's cumulative counters (spec accepts, prefix
+        tiers, KV pages) into this step's metrics records."""
+        eng = self.engine
+        if eng.spec != "off":
+            seen = (eng.spec_verifies, eng.spec_drafted_tokens,
+                    eng.spec_accepted_tokens)
+            if seen[0] != self._spec_seen[0]:
+                self.metrics.record_spec(
+                    *(n - m for n, m in zip(seen, self._spec_seen))
+                )
+            self._spec_seen = seen
+        if eng.prefix_blocks:
+            # One record per step that saw tier traffic (admissions walk
+            # the tiers; steady decode never does).
+            tiers = eng.prefix_tier_counters()
+            if tiers != self._prefix_seen:
+                seen = self._prefix_seen
+                self.metrics.record_prefix_tiers({
+                    t: {k: n - seen.get(t, {}).get(k, 0) for k, n in kv.items()}
+                    for t, kv in tiers.items()
+                })
+                self._prefix_seen = tiers
+        if eng.paged:
+            kv = eng.kv_page_counters()
+            if kv != self._kv_seen:
+                self.metrics.record_kv_pages(eng.kv_page_stats())
+                self._kv_seen = kv
 
     def _finish_prefills(
         self,

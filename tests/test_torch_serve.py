@@ -265,11 +265,11 @@ def test_scheduler_cancel_in_flight_frees_the_slot(weights):
 
 def test_engine_options_not_ported_raise(weights):
     """Each option still unported raises naming its ROADMAP item; the
-    chunked prefill and prefix cache options (item 3) now construct."""
+    chunked prefill and prefix cache options (item 3), paged KV (item 4)
+    and speculative decoding (item 5) now construct."""
     _, params = weights
     for kw, item in (
-        ({"kv_pages": 8}, 4), ({"kv_page": 16}, 4), ({"spec": "ngram"}, 5),
-        ({"spec_depth": 2}, 5), ({"piggyback_chunks": 1}, 6),
+        ({"piggyback_chunks": 1}, 6),
         ({"fold_ladder": [1, 2]}, 6), ({"pipeline": True}, 7),
         ({"kvstore_dir": "x"}, 9), ({"mesh": object()}, 11),
     ):
@@ -281,8 +281,14 @@ def test_engine_options_not_ported_raise(weights):
     # The JAX defaults of the unported options are accepted.
     _engine(params, prefix_block=16, spec="off", fold_ladder=None)
     for kw in ({"prefill_chunk": 8}, {"prefix_blocks": 4},
-               {"prefix_blocks": 4, "prefix_host_mb": 1.0}):
+               {"prefix_blocks": 4, "prefix_host_mb": 1.0},
+               {"kv_pages": 8, "kv_page": 16}):
         assert _engine(params, **kw).chunked
+    assert _engine(params, kv_pages=8, kv_page=16).paged
+    for kw in ({"spec": "ngram"}, {"spec": "ngram", "spec_depth": 2},
+               {"spec": "model", "spec_params": params, "spec_config": CFG,
+                "spec_window": 8}):
+        assert _engine(params, **kw).spec == kw["spec"]
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(weights):
