@@ -82,13 +82,38 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    plus 6 per verify. K1 is then held against its plain version at the
    draft prefill's shape and timed beside SDPA and its bound. Prints the
    accept rates, tokens per verify and ms per fold beside spec="off".
-8. Train GPT-2 small at full width and depth for 20 steps through
+   Phases 4-7 build their engines with ``pipeline=False``.
+8. serve-fused: piggybacked prefill chunks, the fold-depth ladder and the
+   pipelined (double-buffered) dispatch. (a) The serve-paged engine with
+   ``piggyback_chunks=4``, ``fold_ladder=[1, 2, 4, 8]``, ``pipeline=True``
+   on the serve-paged traffic and, 4 steps later, 4 unrelated prompts of
+   768-896 tokens (one sampled) arriving while every slot decodes; the
+   same engine with ``pipeline=False``, and the serve-paged engine, on the
+   same traffic. Every request must finish with its token count; chunk
+   rows must have ridden dispatches and two rungs at least been used; at
+   idle no page referenced, the quarantine empty and the ledger balanced;
+   no flash call; greedy tokens equal the serve-paged engine's except at
+   near-ties, sampled tokens equal. The stream syncs of each dispatch are
+   counted (``torch.cuda.set_sync_debug_mode``) over a greedy and a
+   sampled batch: a greedy dispatch must make none. (b) A dense chunked
+   n-gram engine (8 slots, depth 4, fold 4, ``piggyback_chunks=2``),
+   pipelined and not, on the serve-spec traffic; then a greedy request is
+   cancelled while the verify after its first harvested fold is queued,
+   and a new request takes its slot: none of the cancelled request's
+   tokens may surface, and the new tenant's and a sampled survivor's
+   tokens must equal each served alone. (c) The serve phase's engine and
+   traffic with ``pipeline=True``: tokens equal the serve phase's, 12 K1
+   launches per admission, K1 held against its plain version at the
+   longest admission. Prints wall ms per token pipelined and not, the
+   longest step while a second-wave prompt prefills beside the serve-paged
+   engine's, TTFT, dispatches per rung and syncs per dispatch.
+9. Train GPT-2 small at full width and depth for 20 steps through
    ``Trainer.fit`` (B=8, S=1024, bf16 compute, flash attention, AdamW
    with warmup): every step's loss must be finite and the last below the
    first, each backward kernel must have run once per layer per step and
    the reference path never. Prints step time, tokens/s, MFU and peak
    memory.
-9. Print the ``{"kernels": [...]}`` line, the card line, and last
+10. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
@@ -132,7 +157,7 @@ KV_ROW_TOL = 0.05
 SERVE_LENGTHS = (5, 24, 40, 96, 200, 384, 768, 896)
 SERVE_SAMPLED = {0, 4}
 SERVE_NEW = 32
-SERVE_ENGINE = dict(num_slots=8, max_seq=1024, decode_fold=8)
+SERVE_ENGINE = dict(num_slots=8, max_seq=1024, decode_fold=8, pipeline=False)
 #: The chunked serve phase. One pool block holds 16 positions x 12 layers
 #: x 12 heads x 64 x 2 bytes, for K and for V: 576 KiB. The pool holds 64
 #: blocks (36 MiB), the host tier 9 MiB = 16 blocks, and the disk tier
@@ -140,6 +165,7 @@ SERVE_ENGINE = dict(num_slots=8, max_seq=1024, decode_fold=8)
 CHUNKED_ENGINE = dict(
     num_slots=8, max_seq=1024, decode_fold=8, prefill_chunk=256,
     prefix_blocks=64, prefix_block=16, prefix_host_mb=9, prefix_disk_mb=64,
+    pipeline=False,
 )
 CHUNKED_SCHED = dict(max_prefills_per_step=2, max_prefill_chunks_per_step=2)
 #: Wave A: one 512-token system prompt (32 blocks) with a suffix of each
@@ -172,7 +198,7 @@ CHUNKED_FLOODS = 1
 #: 12 heads x 64 x 2 bytes x 2 per position), the K/V of 4 dense slots at
 #: max_seq 1024, shared by 16 slots.
 PAGED_ENGINE = dict(num_slots=16, max_seq=1024, kv_page=16, kv_pages=257,
-                    prefill_chunk=256, decode_fold=8)
+                    prefill_chunk=256, decode_fold=8, pipeline=False)
 PAGED_SCHED = dict(max_prefills_per_step=16, max_prefill_chunks_per_step=4)
 #: 12 requests on one 512-token system prompt with 16-64-token suffixes (its
 #: 32 pages alias) and 12 unrelated prompts of 64-384 tokens, 32-64 new
@@ -188,8 +214,24 @@ SPEC_FOLD = 4
 SPEC_WINDOW = 32
 SPEC_DRAFT_LAYERS = 6
 SPEC_NEW = 48
-SPEC_MODEL_ENGINE = dict(num_slots=8, max_seq=1024, decode_fold=SPEC_FOLD)
+SPEC_MODEL_ENGINE = dict(num_slots=8, max_seq=1024, decode_fold=SPEC_FOLD,
+                         pipeline=False)
 SPEC_SCHED = dict(max_prefills_per_step=2, max_prefill_chunks_per_step=2)
+#: The serve-fused phase: (a) the serve-paged engine with piggybacked chunks,
+#: the fold ladder and the pipelined dispatch, on the serve-paged traffic
+#: and, FUSED_AFTER scheduler steps later, a second wave of long prompts
+#: (FUSED_WAVE2 tokens each, numpy seed 3, the first sampled) arriving while
+#: every slot decodes; (b) a dense chunked n-gram engine with piggybacked
+#: chunks on the serve-spec traffic, and a cancel racing a verify in flight;
+#: (c) the serve phase's engine and traffic with the pipelined dispatch.
+FUSED_PAGED_ENGINE = dict(PAGED_ENGINE, piggyback_chunks=4,
+                          fold_ladder=[1, 2, 4, 8], pipeline=True)
+FUSED_AFTER = 4
+FUSED_WAVE2 = (768, 897)
+FUSED_SPEC_ENGINE = dict(num_slots=8, max_seq=1024, prefill_chunk=256,
+                         decode_fold=SPEC_FOLD, spec="ngram",
+                         spec_depth=SPEC_DEPTH, piggyback_chunks=2,
+                         pipeline=True)
 
 
 def fail(msg: str) -> None:
@@ -665,9 +707,7 @@ def phase_serve():
     import torch
 
     from ray_lightning_tpu_torch.models import gpt
-    from ray_lightning_tpu_torch.ops.flash_attention import counters
     from ray_lightning_tpu_torch.serve.engine import DecodeEngine
-    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams, Scheduler
 
     cfg = gpt.GPTConfig.gpt2_small()
     params = gpt.init_gpt_params(
@@ -678,58 +718,13 @@ def phase_serve():
     torch.cuda.synchronize()
     print(f"[serve] engine built in {time.perf_counter() - t0:.3f} s, "
           f"buckets {engine.prefill_buckets}")
-    sched = Scheduler(engine)
-    rng = np.random.default_rng(0)
-    # The greedy prompts have lengths at which the solo gpt_generate's
-    # prefill takes the flash kernel too (the shape rule sends other
-    # lengths to the reference, whose bf16 probabilities round
-    # differently), so solo and engine share their attention arithmetic.
-    # The two sampled ones have unaligned lengths.
     lengths, n_new, sampled = SERVE_LENGTHS, SERVE_NEW, SERVE_SAMPLED
-    reqs = []
-    for i, n in enumerate(lengths):
-        prompt = rng.integers(0, cfg.vocab_size, n).tolist()
-        sp = (
-            SamplingParams(max_new_tokens=n_new, temperature=0.8, top_k=50,
-                           top_p=0.9, seed=i)
-            if i in sampled else SamplingParams(max_new_tokens=n_new)
-        )
-        reqs.append((f"r{i}", prompt, sp))
-
-    counters.reset()
-    t0 = time.perf_counter()
-    for rid, prompt, sp in reqs:
-        sched.submit(prompt, sp, request_id=rid)
-    # Stepped by hand to time the step that admits the longest prompt
-    # (every step ends in a token read, a device sync).
-    longest, admit_step_s = f"r{len(lengths) - 1}", None
-    events = []
-    while sched.has_work():
-        ts = time.perf_counter()
-        step_events = sched.step()
-        step_s = time.perf_counter() - ts
-        events += step_events
-        if admit_step_s is None and any(
-            ev.request_id == longest and ev.token is not None
-            for ev in step_events
-        ):
-            admit_step_s = step_s
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, ref_calls = counters.launches, counters.reference
-
-    toks = {rid: [] for rid, _, _ in reqs}
-    reasons = {}
-    for ev in events:
-        if ev.token is not None:
-            toks[ev.request_id].append(ev.token)
-        if ev.done:
-            reasons[ev.request_id] = ev.reason
-    for rid, _, _ in reqs:
-        if reasons.get(rid) != "finished" or len(toks[rid]) != n_new:
-            fail(f"{rid}: {reasons.get(rid)} with {len(toks[rid])} tokens")
-        if not all(0 <= t < cfg.vocab_size for t in toks[rid]):
-            fail(f"{rid}: token out of range")
+    rng = np.random.default_rng(0)
+    reqs = serve_workload(cfg.vocab_size, rng)
+    run = serve_run(engine, reqs)
+    launches, ref_calls = run["launches"], run["reference"]
+    toks, wall, admit_step_s = run["toks"], run["wall"], run["admit_step_s"]
+    sched = run["sched"]
     if not (torch.isfinite(engine._k).all() and torch.isfinite(engine._v).all()):
         fail("non-finite values in the KV cache")
     admissions = sched.metrics.admitted
@@ -788,7 +783,78 @@ def phase_serve():
         "longest_prompt": lengths[-1],
     }
     print(f"[serve] {json.dumps(serve)} on {card_line()}")
-    return launches, admit_step_s
+    return launches, admit_step_s, run
+
+
+def serve_workload(vocab: int, rng) -> list:
+    """The serve phase's requests, drawn from ``rng`` (numpy seed 0, whose
+    stream the phase goes on drawing from). The greedy
+    prompts have lengths at which the solo gpt_generate's prefill takes the
+    flash kernel too (the shape rule sends other lengths to the reference,
+    whose bf16 probabilities round differently), so solo and engine share
+    their attention arithmetic. The two sampled ones have unaligned
+    lengths."""
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    reqs = []
+    for i, n in enumerate(SERVE_LENGTHS):
+        prompt = rng.integers(0, vocab, n).tolist()
+        sp = (
+            SamplingParams(max_new_tokens=SERVE_NEW, temperature=0.8,
+                           top_k=50, top_p=0.9, seed=i)
+            if i in SERVE_SAMPLED else SamplingParams(max_new_tokens=SERVE_NEW)
+        )
+        reqs.append((f"r{i}", prompt, sp))
+    return reqs
+
+
+def serve_run(engine, reqs) -> dict:
+    """The serve phase's traffic through a monolithic engine: every request
+    sent at once, the scheduler stepped by hand to time the step that
+    admits the longest prompt. Fails unless every request finishes with its
+    token count. Returns the tokens, the wall seconds, that step's seconds,
+    the flash launches and reference calls counted over the run (counts
+    set to 0 just before it) and the scheduler."""
+    import torch
+
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    sched = Scheduler(engine)
+    counters.reset()
+    t0 = time.perf_counter()
+    for rid, prompt, sp in reqs:
+        sched.submit(prompt, sp, request_id=rid)
+    longest, admit_step_s = reqs[-1][0], None
+    events = []
+    while sched.has_work():
+        ts = time.perf_counter()
+        step_events = sched.step()
+        step_s = time.perf_counter() - ts
+        events += step_events
+        if admit_step_s is None and any(
+            ev.request_id == longest and ev.token is not None
+            for ev in step_events
+        ):
+            admit_step_s = step_s
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, reference = counters.launches, counters.reference
+    toks = {rid: [] for rid, _, _ in reqs}
+    reasons = {}
+    for ev in events:
+        if ev.token is not None:
+            toks[ev.request_id].append(ev.token)
+        if ev.done:
+            reasons[ev.request_id] = ev.reason
+    for rid, _, sp in reqs:
+        if (reasons.get(rid) != "finished"
+                or len(toks[rid]) != sp.max_new_tokens):
+            fail(f"{rid}: {reasons.get(rid)} with {len(toks[rid])} tokens")
+        if not all(0 <= t < engine.cfg.vocab_size for t in toks[rid]):
+            fail(f"{rid}: token out of range")
+    return {"toks": toks, "wall": wall, "admit_step_s": admit_step_s,
+            "launches": launches, "reference": reference, "sched": sched}
 
 
 def chunked_workload(vocab: int) -> dict:
@@ -1133,23 +1199,36 @@ def phase_serve_chunked(mono_step_s: float) -> int:
     return launches
 
 
-def serve_traffic(engine, sched, reqs, lead: bool = False) -> dict:
+def serve_traffic(engine, sched, reqs, lead: bool = False, later=(),
+                  after: int = 0) -> dict:
     """Drive ``reqs`` ((request id, prompt, SamplingParams)) through
     ``sched`` until idle; with ``lead`` the first request goes alone until
-    its first token, so its prompt is cached before the rest arrive. Fails
+    its first token, so its prompt is cached before the rest arrive; the
+    ``later`` requests are sent ``after`` steps after the rest. Fails
     unless every request finishes with its token count. Returns the tokens
     of each request, the largest number of requests resident at once and,
-    on a paged engine, the page stats at that step."""
-    toks = {rid: [] for rid, _, _ in reqs}
+    on a paged engine, the page stats at that step, and each step's host
+    seconds beside whether a ``later`` prompt was prefilling in it (it was
+    parked after the step, or the step gave its first token)."""
+    toks = {rid: [] for rid, _, _ in list(reqs) + list(later)}
+    late = {rid for rid, _, _ in later}
     reasons = {}
     peak = {"resident": 0, "kv_pages": None}
+    steps = []
 
     def step():
-        for ev in sched.step():
+        t0 = time.perf_counter()
+        events = sched.step()
+        dt = time.perf_counter() - t0
+        first = False
+        for ev in events:
             if ev.token is not None:
+                first |= ev.request_id in late and not toks[ev.request_id]
                 toks[ev.request_id].append(ev.token)
             if ev.done:
                 reasons[ev.request_id] = ev.reason
+        steps.append((dt, first or any(
+            t.request_id in late for t in engine._prefills.values())))
         if engine.num_active > peak["resident"]:
             peak["resident"] = engine.num_active
             if engine.paged:
@@ -1164,15 +1243,20 @@ def serve_traffic(engine, sched, reqs, lead: bool = False) -> dict:
         rest = reqs[1:]
     for rid, prompt, sp in rest:
         sched.submit(prompt, sp, request_id=rid)
+    if later:
+        for _ in range(after):
+            step()
+        for rid, prompt, sp in later:
+            sched.submit(prompt, sp, request_id=rid)
     while sched.has_work():
         step()
-    for rid, _, sp in reqs:
+    for rid, _, sp in list(reqs) + list(later):
         got = toks[rid]
         if reasons.get(rid) != "finished" or len(got) != sp.max_new_tokens:
             fail(f"{rid}: {reasons.get(rid)} with {len(got)} tokens")
         if not all(0 <= t < engine.cfg.vocab_size for t in got):
             fail(f"{rid}: token out of range")
-    return {"toks": toks, "peak": peak}
+    return {"toks": toks, "peak": peak, "steps": steps}
 
 
 def time_folds(engine) -> list:
@@ -1468,11 +1552,12 @@ def serve_spec_run(params, cfg, device) -> dict:
             "draft_cfg": dcfg}
 
 
-def check_draft_prefill(draft, dcfg) -> dict:
-    """K1 at the draft model's window prefill: B = the spec engine's slots,
-    S = SPEC_WINDOW, its first layer's q/k/v (strided views of the fused
-    projection) from a batch of windows. Held against
-    ``flash_attention_plain``, then timed beside it, SDPA and its bound."""
+def check_k1_prefill(params, cfg, B: int, S: int, tag: str) -> dict:
+    """K1 at a prefill of B prompts of S tokens (random, from a seeded
+    generator) under ``params``: the first layer's q/k/v (strided views of
+    the fused projection). Held against ``flash_attention_plain``, then
+    timed beside it, SDPA and its bound; ``tag`` names the call site in
+    what it prints."""
     import torch
     import torch.nn.functional as F
 
@@ -1482,17 +1567,16 @@ def check_draft_prefill(draft, dcfg) -> dict:
         flash_attention_plain,
     )
 
-    B, W = SPEC_MODEL_ENGINE["num_slots"], SPEC_WINDOW
     gen = torch.Generator(device="cuda").manual_seed(2)
-    toks = torch.randint(0, dcfg.vocab_size, (B, W), generator=gen,
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
                          device="cuda")
-    cdt = gpt.compute_dtype(dcfg)
-    lp = gpt._layer(draft["blocks"], 0)
+    cdt = gpt.compute_dtype(cfg)
+    lp = gpt._layer(params["blocks"], 0)
     with torch.no_grad():
-        h = (draft["wte"][toks] + draft["wpe"][:W]).to(cdt)
-        a = gpt._make_norm(dcfg)(h, lp["ln1_g"], lp["ln1_b"])
-        q, k, v = gpt._project_qkv(a, lp, dcfg, cdt)
-    scale = dcfg.head_dim ** -0.5
+        h = (params["wte"][toks] + params["wpe"][:S]).to(cdt)
+        a = gpt._make_norm(cfg)(h, lp["ln1_g"], lp["ln1_b"])
+        q, k, v = gpt._project_qkv(a, lp, cfg, cdt)
+    scale = cfg.head_dim ** -0.5
     out, lse = _flash_fwd_cuda(q, k, v, True, scale, 0, 0)
     ref, ref_lse = flash_attention_plain(q, k, v, True, scale)
     torch.cuda.synchronize()
@@ -1501,8 +1585,8 @@ def check_draft_prefill(draft, dcfg) -> dict:
     lse_err = float((lse - ref_lse).abs().max())
     if not (bool((err <= atol + rtol * ref.float().abs()).all())
             and lse_err <= LSE_TOL):
-        fail(f"flash_fwd disagrees with its plain version at the draft "
-             f"prefill: max abs err {float(err.max())}, lse {lse_err}")
+        fail(f"flash_fwd disagrees with its plain version at {tag}: max "
+             f"abs err {float(err.max())}, lse {lse_err}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     with torch.no_grad():
         row = {
@@ -1518,16 +1602,16 @@ def check_draft_prefill(draft, dcfg) -> dict:
         }
     row["bound_ms"], row["bound_by"], flops = flash_bound(q, 0, 0, True)
     row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
-    print(f"[serve-spec model] flash_fwd at the draft window prefill, bf16 "
-          f"causal, strided q/k/v {q.stride()}: {json.dumps(row)} "
-          f"tol=({atol}+{rtol}*|ref|, lse {LSE_TOL})")
+    print(f"[{tag}] flash_fwd, bf16 causal, strided q/k/v {q.stride()}: "
+          f"{json.dumps(row)} tol=({atol}+{rtol}*|ref|, lse {LSE_TOL})")
     return row
 
 
 def phase_serve_spec():
     """Speculative decoding at GPT-2-small width (see ``serve_spec_run``);
     returns K1's launches on the spec="model" path and its draft-prefill
-    row (``check_draft_prefill``)."""
+    row: K1 at the draft's window prefill (B = the engine's slots, S =
+    SPEC_WINDOW; ``check_k1_prefill``)."""
     import torch
 
     from ray_lightning_tpu_torch.models import gpt
@@ -1538,8 +1622,410 @@ def phase_serve_spec():
     )
     res = serve_spec_run(params, cfg, "cuda")
     print(f"[serve-spec] {json.dumps(res['runs'])} on {card_line()}")
-    row = check_draft_prefill(res["draft"], res["draft_cfg"])
+    row = check_k1_prefill(res["draft"], res["draft_cfg"],
+                           SPEC_MODEL_ENGINE["num_slots"], SPEC_WINDOW,
+                           "serve-spec model draft window prefill")
     return res["launches"], row
+
+
+def fused_wave2(vocab: int) -> list:
+    """The serve-fused phase's second wave, drawn from numpy seed 3: 4
+    unrelated prompts of FUSED_WAVE2 tokens, SERVE_NEW new tokens each, the
+    first sampled."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    rng = np.random.default_rng(3)
+    reqs = []
+    for i, n in enumerate(rng.integers(*FUSED_WAVE2, 4)):
+        sp = SamplingParams(max_new_tokens=SERVE_NEW)
+        if i == 0:
+            sp = SamplingParams(max_new_tokens=SERVE_NEW, temperature=0.8,
+                                top_k=50, top_p=0.9, seed=100)
+        reqs.append((f"w{i}", rng.integers(0, vocab, int(n)).tolist(), sp))
+    return reqs
+
+
+def count_syncs(engine, drive) -> tuple:
+    """Run ``drive()`` with each of ``engine``'s dispatches watched by
+    ``torch.cuda.set_sync_debug_mode("warn")``: the synchronizing CUDA
+    calls made inside each dispatch (not the one that switching the mode
+    on may make), and the innermost three Python frames of each."""
+    import traceback
+    import warnings
+
+    import torch
+
+    counts, where = [], set()
+    dispatch = engine._dispatch
+
+    def watched():
+        syncs = []
+
+        def record(message, *args, **kwargs):
+            stack = traceback.extract_stack()[:-1]
+            if "synchroniz" in str(message) and any(
+                    f.name == "_dispatch" for f in stack):
+                frames = [f for f in stack
+                          if not f.filename.endswith("warnings.py")][-3:]
+                syncs.append(" < ".join(
+                    f"{os.path.relpath(f.filename, HERE)}:{f.lineno}"
+                    for f in reversed(frames)))
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fold = dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(len(syncs))
+        where.update(syncs)
+        return fold
+
+    engine._dispatch = watched
+    try:
+        drive()
+    finally:
+        del engine._dispatch
+    return counts, sorted(where)
+
+
+def drain(engine) -> None:
+    """Step ``engine`` until no slot is occupied and no fold is left in
+    flight (a pipelined fold queued after the last token was needed is
+    harvested, and the quarantine it held flushed)."""
+    while engine.num_active or engine._inflight is not None:
+        engine.step()
+        engine.pop_chunk_events()
+
+
+def fused_sync_counts(engine, sampled: bool) -> tuple:
+    """Stream syncs per dispatch of the fused paged engine: one short prompt
+    per slot (numpy seed 5; slot 0's sampled when ``sampled``), their
+    chunks piggybacked, then folds until idle."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    reqs = [dict(prompt=rng.integers(0, engine.cfg.vocab_size, 16).tolist(),
+                 request_id=f"y{i}", max_new_tokens=2 * engine.decode_fold + 1,
+                 temperature=0.8 if sampled and i == 0 else 0.0, top_k=50,
+                 top_p=0.9, seed=i)
+            for i in range(engine.num_slots)]
+
+    def drive():
+        engine.admit_many(reqs)
+        drain(engine)
+
+    return count_syncs(engine, drive)
+
+
+def fused_compare(tag, reqs, got, want, params, cfg) -> dict:
+    """Greedy tokens of ``got`` against ``want`` (a difference allowed only
+    at a near-tie under ``cfg``), sampled ones exactly (fails on any)."""
+    near = compare_greedy(tag, reqs, got, want, params, cfg)
+    sampled_diff = sum(
+        a != b
+        for rid, _, sp in reqs if sp.temperature > 0
+        for a, b in zip(got[rid], want[rid])
+    )
+    print(f"[{tag}] near-tie greedy mismatches {near}, sampled tokens that "
+          f"differ {sampled_diff}")
+    if sampled_diff:
+        fail(f"{tag}: {sampled_diff} sampled tokens differ")
+    return {"near_tie_mismatches": near, "sampled_tokens_differ": sampled_diff}
+
+
+def ms_per_token(run) -> float:
+    """Wall milliseconds per emitted token of a run."""
+    return 1e3 * run["wall"] / sum(len(t) for t in run["toks"].values())
+
+
+def longest_late_step(run):
+    """The longest step while a second-wave prompt prefilled, seconds."""
+    return max((t for t, late in run["steps"] if late), default=None)
+
+
+def in_turns(run, kw: dict) -> tuple:
+    """``run(engine kwargs)`` with ``kw`` pipelined and not, in turns
+    (pipelined, not, not, pipelined), so the two are compared within one
+    call whatever warms up along the way. Returns the pipelined runs and
+    the unpipelined ones, first run first."""
+    nopipe = dict(kw, pipeline=False)
+    a1, b1, b2, a2 = run(kw), run(nopipe), run(nopipe), run(kw)
+    return [a1, a2], [b1, b2]
+
+
+def pipeline_times(pipe, nopipe) -> dict:
+    """Wall ms per token of the runs in turns, pipelined and not."""
+    return {"ms_per_token": [ms_per_token(r) for r in pipe],
+            "ms_per_token_nopipe": [ms_per_token(r) for r in nopipe]}
+
+
+def serve_fused_paged(params, cfg, device) -> dict:
+    """(a) The serve-paged traffic plus the long second wave through the
+    fused paged engine, pipelined and not in turns, and through the
+    serve-paged engine (no piggyback, no ladder, no pipeline): the checks
+    of the fused engine, its tokens against the serve-paged engine's, the
+    wall per token, the longest step while a second-wave prompt prefills,
+    and the stream syncs per dispatch. Returns what the phase prints."""
+    import dataclasses
+
+    import torch
+
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    wave1, wave2 = paged_workload(cfg.vocab_size), fused_wave2(cfg.vocab_size)
+
+    def run(kw):
+        engine = DecodeEngine(params, cfg, device=device, **kw)
+        sched = Scheduler(engine, **PAGED_SCHED)
+        counters.reset()
+        t0 = time.perf_counter()
+        res = serve_traffic(engine, sched, wave1, lead=True, later=wave2,
+                            after=FUSED_AFTER)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res.update(engine=engine, wall=time.perf_counter() - t0,
+                   snap=sched.metrics.snapshot())
+        if counters.launches or counters.reference:
+            fail("serve-fused paged: the chunk path called the flash wrapper")
+        drain(engine)
+        return res
+
+    pipe, nopipe = in_turns(run, FUSED_PAGED_ENGINE)
+    paged = run(PAGED_ENGINE)
+    reqs = wave1 + wave2
+    eng = pipe[0]["engine"]
+    if not (eng.piggyback_dispatches > 0
+            and eng.piggyback_chunk_rows >= eng.piggyback_dispatches):
+        fail(f"piggybacked dispatches {eng.piggyback_dispatches}, rows "
+             f"{eng.piggyback_chunk_rows}")
+    rungs = [k for k, n in eng.fold_dispatches.items() if n]
+    if len(rungs) < 2:
+        fail(f"one rung dispatched: {eng.fold_dispatches}")
+    for i, m in enumerate(eng._pool_meta):
+        if m is not None and m.refs:
+            fail(f"page {i} still has {m.refs} references at idle")
+    idle = eng.kv_page_stats()
+    if (eng._quarantine or idle["aliased"]
+            or idle["allocs"] - idle["frees"] != idle["resident"]):
+        fail(f"the page ledger does not balance at idle: {idle}, "
+             f"quarantine {eng._quarantine}")
+    if not (torch.isfinite(eng._pool_k).all()
+            and torch.isfinite(eng._pool_v).all()):
+        fail("non-finite values in the page pool")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    out = {
+        "vs_serve_paged": fused_compare(
+            "serve-fused paged", reqs, pipe[0]["toks"], paged["toks"],
+            params, ref_cfg),
+        "nopipe_vs_serve_paged": fused_compare(
+            "serve-fused paged nopipe", reqs, nopipe[0]["toks"],
+            paged["toks"], params, ref_cfg),
+    }
+    out.update(requests=len(reqs), **pipeline_times(pipe, nopipe))
+    out.update({
+        "ms_per_token_serve_paged": ms_per_token(paged),
+        "longest_wave2_step_s": [longest_late_step(r) for r in pipe],
+        "longest_wave2_step_s_nopipe": [longest_late_step(r) for r in nopipe],
+        "longest_wave2_step_s_serve_paged": longest_late_step(paged),
+        "ttft_p50_s": [r["snap"]["ttft_p50_s"] for r in pipe],
+        "ttft_max_s": [r["snap"]["ttft_max_s"] for r in pipe],
+        "ttft_p50_s_nopipe": [r["snap"]["ttft_p50_s"] for r in nopipe],
+        "ttft_p50_s_serve_paged": paged["snap"]["ttft_p50_s"],
+        "ttft_max_s_serve_paged": paged["snap"]["ttft_max_s"],
+        "fold_dispatches": eng.fold_dispatches,
+        "fold_dispatches_nopipe": nopipe[0]["engine"].fold_dispatches,
+        "piggyback_dispatches": eng.piggyback_dispatches,
+        "piggyback_chunk_rows": eng.piggyback_chunk_rows,
+        "max_resident": pipe[0]["peak"]["resident"],
+        "wall_s": [r["wall"] for r in pipe],
+        "wall_s_nopipe": [r["wall"] for r in nopipe],
+        "wall_s_serve_paged": paged["wall"],
+    })
+    greedy, greedy_where = fused_sync_counts(eng, sampled=False)
+    sampled, sampled_where = fused_sync_counts(eng, sampled=True)
+    print(f"[serve-fused paged] stream syncs per dispatch: greedy {greedy} "
+          f"at {greedy_where}; sampled {sampled} at {sampled_where}")
+    if max(greedy) != 0:
+        fail(f"a greedy pipelined dispatch synchronized with the stream: "
+             f"{greedy} at {greedy_where}")
+    out.update(syncs_per_dispatch_greedy=greedy,
+               syncs_per_dispatch_sampled=sampled)
+    return out
+
+
+def serve_fused_spec(params, cfg, device) -> dict:
+    """(b) The serve-spec traffic through the dense fused n-gram engine,
+    pipelined and not in turns (tokens compared, wall per token), then a
+    cancel that races a verify in flight: a sampled request s and a greedy
+    batchmate; after one harvested fold the batchmate is cancelled while
+    the next verify is queued and a new request takes its slot. No token
+    of the cancelled request may surface after the cancel; the new
+    tenant's and s's tokens must equal each served alone."""
+    import dataclasses
+
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    reqs = spec_workload(cfg.vocab_size)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+
+    def run(kw):
+        engine = DecodeEngine(params, cfg, device=device, **kw)
+        sched = Scheduler(engine, **SPEC_SCHED)
+        counters.reset()
+        t0 = time.perf_counter()
+        res = serve_traffic(engine, sched, reqs)
+        res.update(engine=engine, wall=time.perf_counter() - t0)
+        if counters.launches or counters.reference:
+            fail("serve-fused spec: the chunk path called the flash wrapper")
+        return res
+
+    pipe, nopipe = in_turns(run, FUSED_SPEC_ENGINE)
+    out = {"pipe_vs_nopipe": fused_compare(
+        "serve-fused spec", reqs, pipe[0]["toks"], nopipe[0]["toks"],
+        params, ref_cfg)}
+    eng = pipe[0]["engine"]
+    if not (eng.piggyback_dispatches > 0 and eng.spec_accepted_tokens > 0):
+        fail(f"serve-fused spec: piggybacked dispatches "
+             f"{eng.piggyback_dispatches}, accepted tokens "
+             f"{eng.spec_accepted_tokens}")
+
+    s_req = next(r for r in reqs if r[2].temperature > 0)
+    cast = [("s", s_req[1], s_req[2]), ("victim", reqs[0][1], reqs[0][2]),
+            ("next", reqs[1][1], reqs[1][2])]
+    engine = DecodeEngine(params, cfg, device=device, **FUSED_SPEC_ENGINE)
+    sched = Scheduler(engine, **SPEC_SCHED)
+    toks = {rid: [] for rid, _, _ in cast}
+    reasons = {}
+
+    def step():
+        for ev in sched.step():
+            if ev.token is not None:
+                toks[ev.request_id].append(ev.token)
+            if ev.done:
+                reasons[ev.request_id] = ev.reason
+
+    for rid, prompt, sp in cast[:2]:
+        sched.submit(prompt, sp, request_id=rid)
+    while len(toks["victim"]) < 2:  # its first token and a harvested fold
+        step()
+    if engine._inflight is None:
+        fail("serve-fused spec: no verify in flight at the cancel")
+    slot_v = next(s for s, r in sched._slot_req.items()
+                  if r.request_id == "victim")
+    at_cancel = len(toks["victim"])
+    sched.cancel("victim")
+    sched.submit(cast[2][1], cast[2][2], request_id="next")
+    step()
+    slot_n = next(s for s, r in sched._slot_req.items()
+                  if r.request_id == "next")
+    while sched.has_work():
+        step()
+    drain(engine)
+    if len(toks["victim"]) != at_cancel or reasons.get("victim") != "cancelled":
+        fail(f"serve-fused spec: the cancelled request has "
+             f"{len(toks['victim']) - at_cancel} tokens after its cancel, "
+             f"terminal {reasons.get('victim')}")
+    if slot_n != slot_v:
+        fail(f"serve-fused spec: the new request took slot {slot_n}, not the "
+             f"cancelled one's {slot_v}")
+    alone = {}
+    for rid, prompt, sp in (cast[0], cast[2]):
+        e = DecodeEngine(params, cfg, device=device,
+                         **dict(FUSED_SPEC_ENGINE, pipeline=False))
+        alone[rid] = serve_traffic(e, Scheduler(e, **SPEC_SCHED),
+                                   [(rid, prompt, sp)])["toks"][rid]
+    if toks["s"] != alone["s"]:
+        fail("serve-fused spec: the sampled survivor's tokens differ from "
+             "its run alone")
+    near = compare_greedy("serve-fused spec cancel", [cast[2]], toks, alone,
+                          params, ref_cfg)
+    out.update(pipeline_times(pipe, nopipe))
+    out.update({
+        "spec_stats": eng.spec_stats(),
+        "piggyback_dispatches": eng.piggyback_dispatches,
+        "fold_dispatches": eng.fold_dispatches,
+        "cancel": {"victim_tokens_at_cancel": at_cancel,
+                   "victim_tokens_after": len(toks["victim"]) - at_cancel,
+                   "slot": slot_v, "next_near_tie_mismatches": near,
+                   "survivor_equal_alone": True},
+        "wall_s": [r["wall"] for r in pipe],
+        "wall_s_nopipe": [r["wall"] for r in nopipe],
+    })
+    return out
+
+
+def serve_fused_mono(params, cfg, serve4: dict) -> dict:
+    """(c) The serve phase's engine and traffic with the pipelined dispatch,
+    in turns with the unpipelined engine: tokens against the serve phase's,
+    K1's launches (12 per admission) counted over the first pipelined run,
+    K1 held against its plain version at the longest admission's shape,
+    and the wall per token pipelined and not."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+
+    def run(kw):
+        engine = DecodeEngine(params, cfg, device="cuda", **kw)
+        return serve_run(
+            engine, serve_workload(cfg.vocab_size, np.random.default_rng(0)))
+
+    pipe, nopipe = in_turns(run, dict(SERVE_ENGINE, pipeline=True))
+    first = pipe[0]
+    admissions = first["sched"].metrics.admitted
+    print(f"[serve-fused mono] flash launches {first['launches']}, "
+          f"{admissions} admissions, reference-path calls "
+          f"{first['reference']}")
+    if first["launches"] != admissions * cfg.n_layer or first["reference"]:
+        fail(f"flash launches {first['launches']} != admissions x layers "
+             f"{admissions * cfg.n_layer}, or reference calls "
+             f"{first['reference']}")
+    reqs = serve_workload(cfg.vocab_size, np.random.default_rng(0))
+    cmp = fused_compare("serve-fused mono", reqs, first["toks"],
+                        serve4["toks"], params, cfg)
+    row = check_k1_prefill(params, cfg, 1, SERVE_LENGTHS[-1],
+                           "serve-fused mono admission")
+    return {"launches": first["launches"], "admissions": admissions,
+            "vs_serve": cmp, **pipeline_times(pipe, nopipe),
+            "admit_step_s_longest_prompt": [r["admit_step_s"] for r in pipe],
+            "admit_step_s_longest_prompt_nopipe": [
+                r["admit_step_s"] for r in nopipe],
+            "k1": row, "wall_s": [r["wall"] for r in pipe],
+            "wall_s_nopipe": [r["wall"] for r in nopipe]}
+
+
+def phase_serve_fused(serve4: dict):
+    """Piggybacked chunks, the fold ladder and the pipelined dispatch at
+    GPT-2-small width (``serve_fused_paged``, ``serve_fused_spec``,
+    ``serve_fused_mono``); returns K1's launches on (c), the one sub-phase
+    that launches it."""
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init_gpt_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg
+    )
+    out = {}
+    for tag, fn, args in (
+        ("paged", serve_fused_paged, (params, cfg, "cuda")),
+        ("spec", serve_fused_spec, (params, cfg, "cuda")),
+        ("mono", serve_fused_mono, (params, cfg, serve4)),
+    ):
+        t0 = time.perf_counter()
+        out[tag] = fn(*args)
+        print(f"[serve-fused {tag}] {json.dumps(out[tag])} on {card_line()}")
+        print(f"[time] serve-fused {tag}: {time.perf_counter() - t0:.3f} s")
+    return out["mono"]["launches"]
 
 
 def phase_train(n_steps: int = 20):
@@ -1661,11 +2147,12 @@ def main() -> None:
     tensor_ops = timed_phase("build", phase_build)
     worst, timed = timed_phase("kernels", phase_kernels)
     bwd_worst, bwd_rows = timed_phase("bwd-kernels", phase_bwd_kernels)
-    serve_launches, mono_step_s = timed_phase("serve", phase_serve)
+    serve_launches, mono_step_s, serve4 = timed_phase("serve", phase_serve)
     chunked_launches = timed_phase("serve-chunked", phase_serve_chunked,
                                    mono_step_s)
     paged_launches = timed_phase("serve-paged", phase_serve_paged)
     spec_launches, draft_row = timed_phase("serve-spec", phase_serve_spec)
+    fused_launches = timed_phase("serve-fused", phase_serve_fused, serve4)
     train_launches, _ = timed_phase("train", phase_train)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
@@ -1673,12 +2160,13 @@ def main() -> None:
         "route": "cuda",
         "source": src + "flash_fwd.cu",
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
-        "launches": serve_launches + spec_launches
+        "launches": serve_launches + spec_launches + fused_launches
         + train_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
                              "serve_paged": paged_launches,
                              "serve_spec": spec_launches,
+                             "serve_fused": fused_launches,
                              "train": train_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],

@@ -1,6 +1,7 @@
 """GPT in PyTorch: the training forward, losses and ``GPTLM``; prefill
-(whole and chunked), cached decode (dense and paged), speculative
-decoding's verify, drafters and fold, sampling and generate.
+(whole, chunked, and piggybacked on a decode fold), cached decode (dense
+and paged), speculative decoding's verify, drafters and fold, sampling
+and generate.
 
 Port of ``ray_lightning_tpu/models/gpt.py``'s dense paths. The parameter
 tree keeps the JAX package's names and its stacked layout (every block leaf
@@ -43,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_lightning_tpu_torch.trainer.data import ArrayDataset, DataLoader, Dataset
 from ray_lightning_tpu_torch.trainer.module import TorchModule
 from ray_lightning_tpu_torch.trainer.optim import warmup_cosine_decay_schedule
-from ray_lightning_tpu_torch.utils.device import resolve_device
+from ray_lightning_tpu_torch.utils.device import host_to, resolve_device
 from ray_lightning_tpu_torch.utils.quantize import dequant, embed_rows
 
 _DTYPES = {
@@ -631,12 +632,14 @@ def sample_logits_batched(
     (B,) int (0 = off); ``top_ps`` (B,) fp32 (>= 1 = off).
     ``generators[b]`` draws row b's noise; rows whose generator is None
     are greedy, so the host knows which rows sample without reading the
-    device. An all-greedy batch is a bare argmax."""
+    device. An all-greedy batch is a bare argmax. The row index reaches
+    the card through :func:`host_to`, so a call does not wait for the
+    work queued before it."""
     greedy = torch.argmax(logits, dim=-1)
     rows = [b for b, g in enumerate(generators) if g is not None]
     if not rows:
         return greedy
-    idx = torch.tensor(rows, device=logits.device)
+    idx = host_to(torch.tensor(rows), logits.device)
     lg = filter_logits_batched(
         logits[idx], temps[idx], top_ks[idx], top_ps[idx]
     )
@@ -1018,6 +1021,7 @@ def gpt_decode_fold(
     fold: int,
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 0,
+    piggyback: Optional[Sequence[ChunkRow]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """``fold`` decode+sample iterations with per-slot termination on the
     device: the serving engine's hot loop.
@@ -1036,7 +1040,8 @@ def gpt_decode_fold(
 
     Returns ``(tok_block (fold, B) int with -1 at non-emitted lanes,
     emit_block (fold, B) bool, cur, pos, active, remaining, k_cache,
-    v_cache)``.
+    v_cache)``. With ``piggyback`` (:func:`piggyback_prefill`) its chunk
+    rows run after the iterations and their ``pb_toks`` are appended.
     """
     toks_out, emits_out = [], []
     for _ in range(int(fold)):
@@ -1058,10 +1063,16 @@ def gpt_decode_fold(
         pos = torch.where(active, pos + 1, pos)
         remaining = torch.where(active, remaining - 1, remaining)
         active = active & (remaining > 0) & (toks != eos_toks)
-    return (
+    out = (
         torch.stack(toks_out), torch.stack(emits_out), cur, pos, active,
         remaining, k_cache, v_cache,
     )
+    if piggyback is None:
+        return out
+    return out + (piggyback_prefill(
+        params, cfg, piggyback, cur, pos, active, remaining, temps, top_ks,
+        top_ps, k_cache, v_cache, page_table=page_table, page_size=page_size,
+    ),)
 
 
 def gpt_decode_verify(
@@ -1291,6 +1302,115 @@ def gpt_prefill_chunk_paged(
     return h, pool_k, pool_v
 
 
+
+# -- Piggybacked prefill chunks ----------------------------------------------
+
+
+def first_token(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    h_last: torch.Tensor,
+    temps: torch.Tensor,
+    top_ks: torch.Tensor,
+    top_ps: torch.Tensor,
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
+    """A prompt's first token from ``h_last`` (1, 1, D), the pre-final-norm
+    hidden state of its last position: final norm, LM head, and one draw
+    of ``generator`` (None = greedy) under the (1,) knobs. Returns a 0-d
+    tensor on the device."""
+    h = _make_norm(cfg)(h_last, params["lnf_g"], params["lnf_b"])
+    logits = _lm_head(h[:, 0], _head_weight(params, cfg))
+    return sample_logits_batched(logits, temps, top_ks, top_ps,
+                                 [generator])[0]
+
+
+@dataclass
+class ChunkRow:
+    """One prefill chunk of a fused dispatch: row r of the JAX package's
+    piggyback arrays (``gpt.py:1459``). ``chunk`` (1, C) holds the slot's
+    next prompt tokens on the cache's device, right-padded; the first
+    ``length`` are real and sit at positions ``start ..``. On the prompt's
+    ``final`` chunk the first token is drawn by ``generator`` (None =
+    greedy) and the slot is armed for ``n_new`` tokens with ``eos`` (-1 =
+    off)."""
+
+    slot: int
+    chunk: torch.Tensor
+    start: int
+    length: int
+    final: bool = False
+    n_new: int = 0
+    eos: int = -1
+    generator: Optional[torch.Generator] = None
+
+
+def piggyback_prefill(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    rows: Sequence[ChunkRow],
+    cur: torch.Tensor,
+    pos: torch.Tensor,
+    active: torch.Tensor,
+    remaining: torch.Tensor,
+    temps: torch.Tensor,
+    top_ks: torch.Tensor,
+    top_ps: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    *,
+    hist: Optional[torch.Tensor] = None,
+    page_table: Optional[torch.Tensor] = None,
+    page_size: int = 0,
+) -> torch.Tensor:
+    """Prefill chunk rows, each on its own slot (``_piggyback_prefill``,
+    ``gpt.py:1459`` of the JAX package): :func:`gpt_prefill_chunk` over
+    the slot's rows ``[start, start + length)`` (the paged one through the
+    slot's table row with ``page_table``), the token history healed over
+    the same rows when ``hist`` is given, and then either the slot parked
+    at the next chunk's first row or, on a final chunk, the first token
+    (:func:`first_token`) and the slot armed: ``cur``, ``pos``, ``active``
+    and ``remaining``. The sampling knobs are the slot's own, which its
+    admission wrote. Caches, state and history are written in place;
+    returns (len(rows),) with the first token at final rows, -1 elsewhere.
+
+    A fold runs this after its iterations: a parked slot's lane writes
+    one cache row at its position during the fold, and the chunk rewrites
+    that row. The JAX block pads to a fixed number of rows, the unused
+    ones no-ops; eager code runs only the rows it is given. The engine's
+    separate chunk is this function with one row, so a piggybacked chunk
+    is that chunk bit for bit."""
+    toks = torch.full((len(rows),), -1, dtype=cur.dtype, device=cur.device)
+    for i, r in enumerate(rows):
+        s, end = r.slot, r.start + r.length
+        if page_table is None:
+            h, _, _ = gpt_prefill_chunk(
+                params, cfg, r.chunk, k_cache[:, s : s + 1],
+                v_cache[:, s : s + 1], r.start, r.length,
+            )
+        else:
+            h, _, _ = gpt_prefill_chunk_paged(
+                params, cfg, r.chunk, k_cache, v_cache,
+                page_table[s : s + 1], r.start, r.length, page=page_size,
+            )
+        if hist is not None:
+            hist[s, r.start : end] = r.chunk[0, : r.length]
+        # fill_, not an assignment of a Python number: that one is a copy
+        # from pageable memory, which waits for the stream.
+        pos[s].fill_(end)
+        if not r.final:
+            continue
+        tok = first_token(
+            params, cfg, h[:, r.length - 1 : r.length], temps[s : s + 1],
+            top_ks[s : s + 1], top_ps[s : s + 1], r.generator,
+        )
+        cur[s] = tok
+        active[s] = (r.n_new > 1) & (tok != r.eos)
+        remaining[s].fill_(r.n_new - 1)
+        toks[i] = tok
+    return toks
+
+
 # -- Speculative decoding: drafters and the verify fold ---------------------
 
 
@@ -1401,6 +1521,7 @@ def gpt_decode_fold_spec(
     draft_fn: Any,
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 0,
+    piggyback: Optional[Sequence[ChunkRow]] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Speculative :func:`gpt_decode_fold` (``gpt.py:2113`` of the JAX
     package): each of the ``fold`` iterations drafts ``depth`` tokens per
@@ -1427,7 +1548,9 @@ def gpt_decode_fold_spec(
     writes ``cur`` at ``pos`` and every emitted token at its position.
     Returns ``(tok_block (fold * (depth + 1), B) with -1 at non-emitted
     lanes, emit_block, cur, pos, active, remaining, hist, k_cache,
-    v_cache)``.
+    v_cache)``; with ``piggyback`` its chunk rows run after the iterations
+    (:func:`piggyback_prefill`, which also heals their history rows) and
+    ``pb_toks`` is appended.
     """
     D = int(depth)
     B = cur.shape[0]
@@ -1485,10 +1608,17 @@ def gpt_decode_fold_spec(
         hvalid = (offs >= 0) & (offs < n_emit[:, None])
         em = torch.stack(emitted, dim=1)  # (B, D + 1)
         hist = torch.where(hvalid, torch.gather(em, 1, offs.clamp(0, D)), hist)
-    return (
+    out = (
         torch.stack(toks_out), torch.stack(emits_out), cur, pos, active,
         remaining, hist, k_cache, v_cache,
     )
+    if piggyback is None:
+        return out
+    return out + (piggyback_prefill(
+        params, cfg, piggyback, cur, pos, active, remaining, temps, top_ks,
+        top_ps, k_cache, v_cache, hist=hist, page_table=page_table,
+        page_size=page_size,
+    ),)
 
 
 def gpt_generate(

@@ -62,12 +62,32 @@ verify is the decode step with a query axis, so the tokens are those of
 the plain engine; a sampled slot's n-th token uses its generator's n-th
 draw either way.
 
+Piggybacked prefill chunks (``piggyback_chunks=C``): up to C prefill
+chunks, one per prefilling slot, ride each decode dispatch after the
+fold's iterations (``models/gpt.py:piggyback_prefill``, the separate
+chunk's own code), so a chunked admission pays no dispatch of its own;
+the scheduler reads their first tokens from :meth:`pop_chunk_events`.
+The fold-depth ladder (``fold_ladder``) picks each dispatch's number of
+iterations: the shallowest rung while prefills wait, else the deepest
+that every resident's remaining budget can use.
+
+Pipelined dispatch (``pipeline=True``, the default): :meth:`step`
+queues fold N+1 on the stream before it reads fold N's tokens, so the
+harvest and the scheduler's host work overlap the card's work. Each
+dispatch copies its token block non-blocking into one of two pinned
+host buffers and records an event; the harvest waits on that event
+alone, not on the fold queued behind it. A slot released between a
+dispatch and its harvest may still decode in that fold: its tokens are
+dropped at harvest by the ``released`` marker of the dispatch-time
+snapshot, its freed pages wait in the quarantine until the harvest, and
+its next tenant's writes queue after the fold on the same stream. A
+sampling slot's generator draws at dispatch; the next tenant of a
+released slot gets a new generator from its own seed.
+
 What the JAX engine also offers and this port does not yet (each raises
 ``NotImplementedError`` naming its ROADMAP item): the KV object store,
-piggybacked prefill chunks, a fold ladder, a device mesh, the
-double-buffered ``pipeline=True`` dispatch, and the fleet's prefix
-export, import and eviction. The JAX engine's compile-count contract has
-no eager counterpart.
+a device mesh, and the fleet's prefix export, import and eviction. The
+JAX engine's compile-count contract has no eager counterpart.
 
 All methods must be driven from one thread (the scheduler loop).
 """
@@ -84,31 +104,26 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.models.gpt import (
+    ChunkRow,
     GPTConfig,
-    _head_weight,
-    _lm_head,
-    _make_norm,
     cast_params,
     compute_dtype,
+    first_token,
     gpt_decode_fold,
     gpt_decode_fold_spec,
     gpt_prefill,
-    gpt_prefill_chunk,
-    gpt_prefill_chunk_paged,
     model_propose,
     ngram_propose,
     params_to,
-    sample_logits_batched,
+    piggyback_prefill,
 )
 from ray_lightning_tpu_torch.ops.flash_attention import takes_reference_path
 from ray_lightning_tpu_torch.serve.metrics import TIER_COUNTERS
-from ray_lightning_tpu_torch.utils.device import resolve_device
+from ray_lightning_tpu_torch.utils.device import host_to, resolve_device
 
 #: Constructor options of the JAX engine that the port does not run yet:
 #: name -> (the JAX default, which the port accepts, and the ROADMAP item).
 _UNPORTED: Dict[str, Tuple[Any, str]] = {
-    "fold_ladder": (None, "queue 1 item 6 (fold ladder)"),
-    "piggyback_chunks": (0, "queue 1 item 6 (piggyback)"),
     "kvstore_dir": (None, "queue 1 item 9 (KV object store)"),
     "kvstore_mb": (0.0, "queue 1 item 9 (KV object store)"),
     "kvstore_namespace": (None, "queue 1 item 9 (KV object store)"),
@@ -127,6 +142,9 @@ class SlotInfo:
     max_new_tokens: int
     n_generated: int
     eos_token: int  # -1 = disabled
+    #: Set when the slot is released: a fold dispatched before the release
+    #: may still emit tokens for this tenant, and the harvest drops them.
+    released: bool = False
 
 
 @dataclasses.dataclass
@@ -149,6 +167,26 @@ class PrefillTask:
     #: Pool block indices pinned (ref-counted) for this prefill's lifetime.
     block_refs: List[int] = dataclasses.field(default_factory=list)
     chunks: int = 0  # chunk dispatches so far
+
+
+#: A piggybacked final chunk of a dispatch: (its row in the dispatch, slot,
+#: task, the SlotInfo armed at dispatch).
+_Final = Tuple[int, int, PrefillTask, SlotInfo]
+
+
+@dataclasses.dataclass
+class _Fold:
+    """One dispatched fold, until its harvest: the host buffer its token
+    block is copied into, the event recorded after that copy (None on the
+    CPU, where the copy is synchronous), the slot snapshot and the
+    piggybacked finals of its dispatch, and its rung."""
+
+    buf: torch.Tensor  # (2 * rows [+ 1], B): tokens, emit mask, first tokens
+    event: Optional[Any]
+    rows: int
+    snapshot: List[Optional[SlotInfo]]
+    finals: List[_Final]
+    k: int
 
 
 @dataclasses.dataclass
@@ -210,7 +248,9 @@ class DecodeEngine:
         max_seq: Optional[int] = None,
         prefill_buckets: Optional[Sequence[int]] = None,
         decode_fold: int = 1,
-        pipeline: bool = False,
+        fold_ladder: Optional[Sequence[int]] = None,
+        piggyback_chunks: int = 0,
+        pipeline: bool = True,
         prefill_chunk: int = 0,
         prefix_blocks: int = 0,
         prefix_block: int = 16,
@@ -233,16 +273,11 @@ class DecodeEngine:
                     f"DecodeEngine got an unexpected keyword argument {name!r}"
                 )
             default, item = _UNPORTED[name]
-            if value != default and not (name == "fold_ladder" and not value):
+            if value != default:
                 raise NotImplementedError(
                     f"DecodeEngine option {name}={value!r} is not ported yet "
                     f"(ROADMAP {item})"
                 )
-        if pipeline:
-            raise NotImplementedError(
-                "DecodeEngine(pipeline=True), the double-buffered dispatch, "
-                "is not ported yet (ROADMAP queue 1 item 7)"
-            )
         if isinstance(config, dict):
             config = GPTConfig(**config)
         config.validate_variants()
@@ -254,6 +289,30 @@ class DecodeEngine:
         self.decode_fold = int(decode_fold)
         if self.decode_fold < 1:
             raise ValueError("decode_fold must be >= 1")
+        # The fold-depth ladder: _pick_fold_k picks a rung per dispatch.
+        if fold_ladder:
+            ladder = tuple(sorted({int(k) for k in fold_ladder}))
+            if ladder[0] < 1:
+                raise ValueError(
+                    f"fold_ladder {list(fold_ladder)} rungs must be >= 1 "
+                    "(decode iterations per dispatch)"
+                )
+            if self.decode_fold not in ladder:
+                raise ValueError(
+                    f"fold_ladder {list(ladder)} must include decode_fold "
+                    f"{self.decode_fold} (the default rung)"
+                )
+        else:
+            ladder = (self.decode_fold,)
+        self.fold_ladder = ladder
+        self.piggyback_chunks = int(piggyback_chunks)
+        if not 0 <= self.piggyback_chunks <= self.num_slots:
+            raise ValueError(
+                f"piggyback_chunks {self.piggyback_chunks} must be in "
+                f"[0, num_slots={self.num_slots}] (prefill-chunk rows fused "
+                "into each decode dispatch; one row per slot)"
+            )
+        self.pipeline = bool(pipeline)
         self.max_seq = int(max_seq or config.max_seq)
         if self.max_seq > config.max_seq:
             raise ValueError(
@@ -313,6 +372,13 @@ class DecodeEngine:
             prefill_chunk = buckets[-1]
         self.prefill_chunk = int(prefill_chunk)
         self.chunked = self.prefill_chunk > 0
+        if self.piggyback_chunks and not self.chunked:
+            raise ValueError(
+                f"piggyback_chunks {self.piggyback_chunks} needs chunked "
+                "prefill (prefill_chunk > 0, or any prefix pool / paged KV): "
+                "only chunk-state-machine admissions can ride a decode "
+                "dispatch"
+            )
         if self.chunked:
             if self.prefill_chunk > self.max_seq:
                 raise ValueError(
@@ -390,9 +456,9 @@ class DecodeEngine:
         #: Paged bookkeeping: each slot's pages (aliased prefix pages
         #: first), the token span its allocation covers (min(P + new,
         #: S - 1) + 1, the fragmentation stat's denominator), and the
-        #: quarantine of freed private pages. The port has no fold in
-        #: flight when a slot is released, so the quarantine is flushed at
-        #: once; with a pipelined dispatch it waits for the fold's harvest.
+        #: quarantine of freed private pages, which a fold in flight may
+        #: still write: it is flushed when no fold is in flight, else at
+        #: the top of the next harvest.
         self._slot_pages: List[List[int]] = [[] for _ in range(B)]
         self._slot_span: List[int] = [0] * B
         self._quarantine: List[int] = []
@@ -461,7 +527,26 @@ class DecodeEngine:
         self._slots: List[Optional[SlotInfo]] = [None] * B
         #: slot -> in-progress chunked admission (chunked mode only).
         self._prefills: Dict[int, PrefillTask] = {}
-        self._norm = _make_norm(config)
+        #: The piggybacked prefill completions of the last harvest that had
+        #: any, for pop_chunk_events.
+        self._pb_events: List[Tuple[int, PrefillTask, int, bool]] = []
+        #: Fused-dispatch accounting.
+        self.piggyback_dispatches = 0
+        self.piggyback_chunk_rows = 0
+        self.fold_dispatches: Dict[int, int] = {k: 0 for k in ladder}
+        #: The fold queued on the stream and not yet harvested.
+        self._inflight: Optional[_Fold] = None
+        # The double buffer: dispatches alternate between two host buffers
+        # (pinned on the card, so the copy does not wait for the stream),
+        # sized for the deepest rung's token and emit rows plus the row of
+        # piggybacked first tokens (piggyback_chunks <= num_slots).
+        group = self.spec_depth + 1 if self.spec != "off" else 1
+        self._host_bufs = [
+            torch.empty((2 * ladder[-1] * group + 1, B), dtype=torch.long,
+                        pin_memory=dev.type == "cuda")
+            for _ in range(2)
+        ]
+        self._buf_next = 0
 
     def _check_spec(self, spec, spec_depth, spec_params, spec_config,
                     spec_window) -> None:
@@ -679,7 +764,7 @@ class DecodeEngine:
             # The fold writes the first token itself (hist[pos] = cur).
             self._hist_seed(slot, prompt)
         h, pf_k, pf_v = gpt_prefill(self.params, self.cfg,
-                                    padded.to(self.device))
+                                    host_to(padded, self.device))
         # In place: the slot's rows of the one cache.
         self._k[:, slot, :pb] = pf_k[:, 0]
         self._v[:, slot, :pb] = pf_v[:, 0]
@@ -692,11 +777,11 @@ class DecodeEngine:
 
     def _set_knobs(self, slot: int, temp: float, top_k: int, top_p: float,
                    eos: int) -> None:
-        knobs = torch.tensor([temp, top_p], device=self.device)
+        knobs = host_to(torch.tensor([temp, top_p]), self.device)
         self._temps[slot] = knobs[0]
         self._top_ps[slot] = knobs[1]
-        self._top_ks[slot] = top_k
-        self._eos[slot] = eos
+        self._top_ks[slot].fill_(top_k)
+        self._eos[slot].fill_(eos)
 
     def _first_token(self, slot: int, h_last: torch.Tensor, end: int,
                      n_new: int, eos: int, temp: float,
@@ -706,23 +791,24 @@ class DecodeEngine:
         device (``cur``, ``pos = end``, ``active``, ``remaining``). A
         sampling slot's generator is made here, so the first draw is this
         token's on either admission path."""
-        params = self.params
-        h_last = self._norm(h_last, params["lnf_g"], params["lnf_b"])
-        logits = _lm_head(h_last[:, 0], _head_weight(params, self.cfg))
-        gen = None
-        if temp > 0.0:
-            gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = self._generator(temp, seed)
         self._gens[slot] = gen
-        tok = sample_logits_batched(
-            logits, self._temps[slot : slot + 1],
-            self._top_ks[slot : slot + 1], self._top_ps[slot : slot + 1],
-            [gen],
-        )[0]
+        tok = first_token(
+            self.params, self.cfg, h_last, self._temps[slot : slot + 1],
+            self._top_ks[slot : slot + 1], self._top_ps[slot : slot + 1], gen,
+        )
         self._cur[slot] = tok
-        self._pos[slot] = end
+        self._pos[slot].fill_(end)
         self._active[slot] = (n_new > 1) & (tok != eos)
-        self._remaining[slot] = n_new - 1
+        self._remaining[slot].fill_(n_new - 1)
         return tok
+
+    def _generator(self, temp: float, seed: int) -> Optional[torch.Generator]:
+        """A sampling request's generator, seeded where its first token is
+        drawn (None for a greedy one)."""
+        if temp > 0.0:
+            return torch.Generator(device=self.device).manual_seed(seed)
+        return None
 
     def _admit_chunked(self, slot, r, prompt, P, n_new, eos):
         """Walk the prefix cache, pin and copy the matched blocks into the
@@ -848,61 +934,84 @@ class DecodeEngine:
         return out
 
     def _run_chunk(self, slot: int, task: PrefillTask) -> Optional[torch.Tensor]:
-        """One chunk of one slot: the cache-seeded forward over the next
-        ``prefill_chunk`` prompt tokens (padded to their chunk bucket) into
-        the slot's rows, then on the final chunk the first token (see
-        :meth:`_first_token`); a chunk before it leaves the slot parked at
-        the next row. Returns the first token on the device, or None."""
+        """One chunk of one slot as a dispatch of its own: the row of
+        :meth:`_chunk_row` through ``models/gpt.py:piggyback_prefill``, the
+        code a piggybacked chunk runs. A chunk before the final one leaves
+        the slot parked at the next row; the final one returns the first
+        token on the device (the slot armed and its generator installed),
+        else None."""
+        row = self._chunk_row(slot, task)
+        caches, paging = self._cache_args()
+        with torch.no_grad():
+            tok = piggyback_prefill(
+                self.params, self.cfg, [row], self._cur, self._pos,
+                self._active, self._remaining, self._temps, self._top_ks,
+                self._top_ps, *caches, hist=self._hist, **paging,
+            )[0]
+        if not row.final:
+            return None
+        self._gens[slot] = row.generator
+        return tok
+
+    def _chunk_row(self, slot: int, task: PrefillTask) -> ChunkRow:
+        """The task's next chunk as a ``ChunkRow``: the next
+        ``prefill_chunk`` prompt tokens padded to their chunk bucket, on
+        the device; on the final chunk the request's budget, eos and
+        generator (seeded here, so its first draw is the first token's).
+        Advances the task past the chunk."""
         P = len(task.tokens)
         start = task.next
-        this_len = min(self.prefill_chunk, P - start)
-        padded = torch.zeros((1, self._chunk_bucket_for(this_len)),
-                             dtype=torch.long)
-        padded[0, :this_len] = torch.from_numpy(
-            task.tokens[start : start + this_len]
+        n = min(self.prefill_chunk, P - start)
+        padded = torch.zeros((1, self._chunk_bucket_for(n)), dtype=torch.long)
+        padded[0, :n] = torch.from_numpy(task.tokens[start : start + n])
+        task.next += n
+        task.chunks += 1
+        final = task.next >= P
+        return ChunkRow(
+            slot=slot, chunk=host_to(padded, self.device), start=start,
+            length=n, final=final, n_new=task.max_new_tokens,
+            eos=task.eos_token,
+            generator=(self._generator(task.temperature, task.seed)
+                       if final else None),
         )
-        chunk = padded.to(self.device)
-        with torch.no_grad():
-            if self.paged:
-                h, _, _ = gpt_prefill_chunk_paged(
-                    self.params, self.cfg, chunk, self._pool_k, self._pool_v,
-                    self._table[slot : slot + 1], start, this_len,
-                    page=self.kv_page,
-                )
-            else:
-                h, _, _ = gpt_prefill_chunk(
-                    self.params, self.cfg, chunk,
-                    self._k[:, slot : slot + 1], self._v[:, slot : slot + 1],
-                    start, this_len,
-                )
-            if self._hist is not None:
-                # Heal the history rows an interleaved fold wrote while
-                # the slot was parked (the chunk's own KV rewrite, for
-                # tokens).
-                self._hist[slot, start : start + this_len] = chunk[0, :this_len]
-            task.next += this_len
-            task.chunks += 1
-            if task.next < P:
-                self._pos[slot] = task.next
-                return None
-            return self._first_token(
-                slot, h[:, this_len - 1 : this_len], P, task.max_new_tokens,
-                task.eos_token, task.temperature, task.seed,
-            )
+
+    def _cache_args(self) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
+                                   Dict[str, Any]]:
+        """The caches a fold or a chunk writes, and its paging keywords:
+        the pools and the page table when paged, else the slot strips."""
+        if self.paged:
+            return (self._pool_k, self._pool_v), dict(
+                page_table=self._table, page_size=self.kv_page)
+        return (self._k, self._v), {}
 
     def release(self, slot: int) -> None:
         """Evict a slot (cancelled, or host-observed finished); it is
         reusable at once. Its stale cache rows are invisible behind the
         slot masks and are overwritten by the next tenant. A slot released
-        mid-prefill drops its state machine and unpins its prefix blocks."""
+        mid-prefill drops its state machine and unpins its prefix blocks.
+        The device-side deactivation queues after any fold in flight, whose
+        tokens for this tenant the harvest drops (``SlotInfo.released``)."""
         task = self._prefills.pop(slot, None)
         if task is not None:
             self._unref_blocks(task)
-        elif self._slots[slot] is None:
-            return
+        else:
+            info = self._slots[slot]
+            if info is None:
+                return
+            info.released = True
         self._slots[slot] = None
         self._release_pages(slot)
         self._park(slot)
+
+    def _release_synced(self, slot: int, info: SlotInfo) -> None:
+        """A completion the fold saw: it froze the slot on the device at
+        exactly this token, so only host bookkeeping and the pages remain
+        (a frozen slot writes at its last position; the table reset sends
+        that to scratch)."""
+        info.released = True
+        self._slots[slot] = None
+        self._gens[slot] = None
+        self._release_pages(slot)
 
     def _park(self, slot: int, pos: int = 0, temp: float = 0.0,
               top_k: int = 0, top_p: float = 1.0, eos: int = -1) -> None:
@@ -910,10 +1019,13 @@ class DecodeEngine:
         no generator: a chunked admission's parking write (with the
         request's knobs) and a release's deactivation (the defaults)."""
         self._gens[slot] = None
-        self._cur[slot] = 0
-        self._pos[slot] = pos
-        self._active[slot] = False
-        self._remaining[slot] = 0
+        # fill_ takes the value as a kernel argument: assigning a Python
+        # number copies it from pageable memory, which waits for the stream
+        # (a fold in flight included).
+        self._cur[slot].fill_(0)
+        self._pos[slot].fill_(pos)
+        self._active[slot].fill_(False)
+        self._remaining[slot].fill_(0)
         self._set_knobs(slot, temp, top_k, top_p, eos)
 
     # -- prefix pool -----------------------------------------------------
@@ -1274,7 +1386,7 @@ class DecodeEngine:
         (0) after them."""
         row = torch.zeros(self._table.shape[1], dtype=torch.long)
         row[: len(pages)] = torch.as_tensor(list(pages), dtype=torch.long)
-        self._table[slot] = row.to(self.device)
+        self._table[slot] = host_to(row, self.device)
 
     def pages_for(self, prompt_len: int, max_new_tokens: int) -> int:
         """Pages one request needs for its whole life: the prompt, every
@@ -1300,7 +1412,8 @@ class DecodeEngine:
     def _flush_quarantine(self) -> None:
         """Recycle the quarantined private pages. Call only when no fold
         dispatched before their slots' table resets can still write them:
-        always so here, since the port runs no fold in flight."""
+        at release with no fold in flight, or at the top of a harvest,
+        after its wait."""
         if self._quarantine:
             self._pool_free.extend(self._quarantine)
             self._quarantine = []
@@ -1310,7 +1423,8 @@ class DecodeEngine:
         refcount falls; a private page that reaches zero goes to the
         quarantine, a digest-keyed one stays resident as evictable cache.
         The slot's table row is reset to scratch, so no later fold writes
-        its old pages."""
+        its old pages; a fold already in flight may, so the quarantine
+        waits for its harvest."""
         if not self.paged:
             return
         pages = self._slot_pages[slot]
@@ -1326,7 +1440,8 @@ class DecodeEngine:
                 self._quarantine.append(pg)
                 self.page_frees += 1
         self._table_write(slot, ())
-        self._flush_quarantine()
+        if self._inflight is None:
+            self._flush_quarantine()
 
     def kv_page_counters(self) -> Dict[str, int]:
         """Cumulative page-allocator counters (the scheduler diffs them)."""
@@ -1362,9 +1477,9 @@ class DecodeEngine:
     # -- speculative decoding --------------------------------------------
     def _hist_seed(self, slot: int, prompt: np.ndarray) -> None:
         """The slot's token history rows [0, P) from its prompt."""
-        self._hist[slot, : len(prompt)] = torch.from_numpy(
-            np.asarray(prompt, np.int64)
-        ).to(self.device)
+        self._hist[slot, : len(prompt)] = host_to(
+            torch.from_numpy(np.asarray(prompt, np.int64)), self.device
+        )
 
     def _draft(self, hist: torch.Tensor, pos: torch.Tensor,
                cur: torch.Tensor) -> torch.Tensor:
@@ -1445,57 +1560,192 @@ class DecodeEngine:
         return out
 
     # -- the hot loop ----------------------------------------------------
-    def step(self) -> List[Tuple[int, str, int, bool]]:
-        """One fold: up to ``decode_fold`` tokens per decoding slot (with
-        spec, up to ``spec_depth + 1`` per fold iteration), in order;
-        returns ``(slot, request_id, token, done)`` per emitted token.
-        Finished slots are released before returning. Parked (prefilling)
-        slots are inactive: the fold emits nothing for them."""
-        if not any(s is not None for s in self._slots):
-            return []
-        # The paged fold reads the pools through the page table.
-        if self.paged:
-            caches, paging = (self._pool_k, self._pool_v), dict(
-                page_table=self._table, page_size=self.kv_page)
-        else:
-            caches, paging = (self._k, self._v), {}
+    def _pick_fold_k(self) -> int:
+        """This dispatch's fold depth from the ladder, a function of the
+        host bookkeeping alone (``serve/engine.py:3218`` of the JAX
+        package): the shallowest rung while prefills wait (piggybacked or
+        interleaved chunks then come round as often as possible), else the
+        deepest rung no longer than the largest remaining budget of a
+        resident (a deeper fold would run frozen iterations)."""
+        ladder = self.fold_ladder
+        if len(ladder) == 1 or self._prefills:
+            return ladder[0]
+        runway = max(
+            (info.max_new_tokens - info.n_generated for info in self._slots
+             if info is not None and not info.released),
+            default=0,
+        )
+        return max([k for k in ladder if k <= runway], default=ladder[0])
+
+    def _plan_piggyback(
+        self,
+    ) -> Tuple[List[ChunkRow], List[_Final], List[Tuple[int, np.ndarray]]]:
+        """The chunk rows of one fused dispatch: up to ``piggyback_chunks``,
+        one per prefilling slot in slot order (``prefill_step``'s order).
+        The host bookkeeping advances now: each task steps past its chunk,
+        and a final leaves ``_prefills`` with its slot armed (a SlotInfo),
+        so a fold dispatched before this one's harvest carries the tenant;
+        only its first token waits for the harvest. Returns the rows, the
+        finals and the prefix insertions to make once the fold is queued
+        (a dense pool copy must read the chunk's rows)."""
+        rows: List[ChunkRow] = []
+        finals: List[_Final] = []
+        inserts: List[Tuple[int, np.ndarray]] = []
+        for slot in sorted(self._prefills):
+            if len(rows) >= self.piggyback_chunks:
+                break
+            task = self._prefills[slot]
+            row = self._chunk_row(slot, task)
+            if row.final:
+                del self._prefills[slot]
+                self._unref_blocks(task)
+                inserts.append((slot, task.tokens))
+                info = SlotInfo(
+                    request_id=task.request_id,
+                    max_new_tokens=task.max_new_tokens,
+                    n_generated=1,
+                    eos_token=task.eos_token,
+                )
+                self._slots[slot] = info
+                finals.append((len(rows), slot, task, info))
+            rows.append(row)
+        return rows, finals, inserts
+
+    def _dispatch(self) -> _Fold:
+        """Queue one fold on the stream: the rung's iterations, then the
+        piggybacked chunk rows, the slot state replaced by the fold's
+        outputs (so a later admission or release writes after it), and a
+        non-blocking copy of the token block into the next host buffer,
+        behind which an event is recorded. Nothing in it waits for the
+        card on a greedy or plain-sampled fold; a sampled speculative fold
+        reads its accept counts once per verify."""
+        k = self._pick_fold_k()
+        self.fold_dispatches[k] += 1
+        rows: List[ChunkRow] = []
+        finals: List[_Final] = []
+        inserts: List[Tuple[int, np.ndarray]] = []
+        if self.piggyback_chunks:
+            rows, finals, inserts = self._plan_piggyback()
+            if rows:
+                self.piggyback_dispatches += 1
+                self.piggyback_chunk_rows += len(rows)
+        caches, paging = self._cache_args()
         state = (self._cur, self._pos, self._gens, self._temps, self._top_ks,
                  self._top_ps, self._active, self._remaining, self._eos)
         with torch.no_grad():
             if self.spec == "off":
                 (
                     tok_block, emit_block, self._cur, self._pos, self._active,
-                    self._remaining, *_,
+                    self._remaining, *rest,
                 ) = gpt_decode_fold(
-                    self.params, self.cfg, *state, *caches,
-                    fold=self.decode_fold, **paging,
+                    self.params, self.cfg, *state, *caches, fold=k,
+                    piggyback=rows or None, **paging,
                 )
             else:
                 (
                     tok_block, emit_block, self._cur, self._pos, self._active,
-                    self._remaining, self._hist, *_,
+                    self._remaining, self._hist, *rest,
                 ) = gpt_decode_fold_spec(
                     self.params, self.cfg, *state, self._hist, *caches,
-                    fold=self.decode_fold, depth=self.spec_depth,
-                    draft_fn=self._draft, **paging,
+                    fold=k, depth=self.spec_depth, draft_fn=self._draft,
+                    piggyback=rows or None, **paging,
                 )
-            # The one device-to-host read per fold.
-            block = torch.stack([tok_block, emit_block.long()]).cpu().numpy()
-        return self._harvest(block[0], block[1].astype(bool))
+            R = tok_block.shape[0]
+            parts = [tok_block, emit_block.long()]
+            if rows:
+                pb = tok_block.new_full((1, self.num_slots), -1)
+                pb[0, : len(rows)] = rest[-1]
+                parts.append(pb)
+            packed = torch.cat(parts)
+            buf = self._host_bufs[self._buf_next][: packed.shape[0]]
+            self._buf_next ^= 1
+            buf.copy_(packed, non_blocking=True)
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record()
+        # A final's generator joins the slots' only now: the fold above
+        # drew from every generator it was given, once per iteration.
+        for row in rows:
+            if row.final:
+                self._gens[row.slot] = row.generator
+        for slot, tokens in inserts:
+            self._insert_prefix(slot, tokens)
+        return _Fold(buf=buf, event=event, rows=R, snapshot=list(self._slots),
+                     finals=finals, k=k)
 
-    def _harvest(
-        self, toks: np.ndarray, emits: np.ndarray
-    ) -> List[Tuple[int, str, int, bool]]:
+    def _want_next(self, snapshot: List[Optional[SlotInfo]], k: int) -> bool:
+        """Whether to queue fold N+1 before harvesting fold N: while
+        piggybacked prefills wait (each fused dispatch advances them), or
+        while some occupied slot can outlive fold N by token count (fold N
+        emits at least ``k`` tokens for each slot of its snapshot; with
+        spec on, at least one per verify). An EOS inside fold N can still
+        leave fold N+1 idle: its frozen slots emit nothing."""
+        if self.piggyback_chunks and self._prefills:
+            return True
+        for slot, info in enumerate(self._slots):
+            if info is None:
+                continue
+            consumed = k if snapshot[slot] is info else 0
+            if info.max_new_tokens - info.n_generated > consumed:
+                return True
+        return False
+
+    def step(self) -> List[Tuple[int, str, int, bool]]:
+        """One fold boundary: queue a fold (with ``pipeline``, the next one
+        too, before reading this one) and fan out its tokens: up to
+        ``k`` per decoding slot for the dispatch's rung ``k`` (with spec, up
+        to ``spec_depth + 1`` per fold iteration), in order; returns
+        ``(slot, request_id, token, done)`` per emitted token. Finished
+        slots are released before returning. Parked (prefilling) slots are
+        inactive: the fold emits nothing for them. Piggybacked prefill
+        completions are read with :meth:`pop_chunk_events` after this."""
+        if self._inflight is None:
+            # Only decoding residents, or with piggyback on pending chunks,
+            # warrant a fold.
+            if not any(s is not None for s in self._slots) and not (
+                self.piggyback_chunks and self._prefills
+            ):
+                return []
+            self._inflight = self._dispatch()
+        fold = self._inflight
+        self._inflight = (
+            self._dispatch()
+            if self.pipeline and self._want_next(fold.snapshot, fold.k)
+            else None
+        )
+        return self._harvest(fold)
+
+    def pop_chunk_events(self) -> List[Tuple[int, PrefillTask, int, bool]]:
+        """The piggybacked prefill completions of the last harvest, as
+        ``(slot, task, first_token, done)`` like :meth:`prefill_step`'s;
+        the buffer is replaced at each harvest that has any."""
+        out = self._pb_events
+        self._pb_events = []
+        return out
+
+    def _harvest(self, fold: _Fold) -> List[Tuple[int, str, int, bool]]:
+        # The one wait per fold: its token block's copy, not the fold
+        # queued behind it.
+        if fold.event is not None:
+            fold.event.synchronize()
+        block = fold.buf.numpy()
+        R = fold.rows
+        toks, emits = block[:R], block[R : 2 * R].astype(bool)
+        # Every fold dispatched up to this one has finished: pages
+        # quarantined before this harvest can be recycled. Those released
+        # below wait for the next one, since a fold may be in flight.
+        self._flush_quarantine()
         out: List[Tuple[int, str, int, bool]] = []
-        snapshot = list(self._slots)
         spec_on = self.spec != "off"
-        #: (fold iteration, slot) -> tokens that verify emitted (spec on).
+        #: (fold iteration, slot) -> tokens that verify emitted (spec on);
+        #: a released tenant's tokens are neither emitted nor counted.
         counts: Dict[Tuple[int, int], int] = {}
-        for kk in range(toks.shape[0]):
-            for slot, info in enumerate(snapshot):
+        for kk in range(R):
+            for slot, info in enumerate(fold.snapshot):
                 # The device froze a finished slot on the same condition
                 # the host tests below, so it emits nothing after `done`.
-                if info is None or not emits[kk, slot]:
+                if info is None or info.released or not emits[kk, slot]:
                     continue
                 tok = int(toks[kk, slot])
                 info.n_generated += 1
@@ -1508,13 +1758,7 @@ class DecodeEngine:
                     key = (kk // (self.spec_depth + 1), slot)
                     counts[key] = counts.get(key, 0) + 1
                 if done:
-                    # The fold already froze the slot on the device at
-                    # exactly this token: host bookkeeping only, and its
-                    # pages back (frozen slots write at their last
-                    # position; the table reset sends that to scratch).
-                    self._slots[slot] = None
-                    self._gens[slot] = None
-                    self._release_pages(slot)
+                    self._release_synced(slot, info)
         if counts:
             # Per (verify, slot): spec_depth drafted, all but the last
             # emitted token accepted (the last is the verify's own sample:
@@ -1523,4 +1767,17 @@ class DecodeEngine:
             self.spec_drafted_tokens += self.spec_depth * len(counts)
             self.spec_emitted_tokens += sum(counts.values())
             self.spec_accepted_tokens += sum(m - 1 for m in counts.values())
+        if fold.finals:
+            events: List[Tuple[int, PrefillTask, int, bool]] = []
+            for r, slot, task, info in fold.finals:
+                if info.released:
+                    # A cancel raced the dispatch: the release tore the slot
+                    # down and its deactivation queued after the fold.
+                    continue
+                tok = int(block[2 * R, r])
+                done = task.max_new_tokens == 1 or tok == task.eos_token
+                if done:
+                    self._release_synced(slot, info)
+                events.append((slot, task, tok, done))
+            self._pb_events = events
         return out

@@ -7,7 +7,9 @@ admits queued requests into free engine slots, bounded by
 ``max_prefills_per_step`` so a burst of prompt prefills cannot starve
 in-flight decode, (3) on a chunked engine advances up to
 ``max_prefill_chunks_per_step`` prefill chunks (the chunk-vs-fold
-interleave), and (4) runs one decode fold for everything resident. On a
+interleave), and (4) runs one decode fold for everything resident. With
+the engine's ``piggyback_chunks`` on, step (3) is skipped: the chunks
+ride the fold's dispatch, and their completions are read after it. On a
 paged engine a request is admitted only when the engine's allocatable
 pages cover its whole life; otherwise the queue head waits in place
 (backpressure), and an admission never runs out of pages in the engine.
@@ -311,13 +313,23 @@ class Scheduler:
                     finished_rids.append(req.request_id)
                 else:
                     newly[slot] = req
-        # Chunked prefills advance between the admissions and the fold.
-        prefilled = self._finish_prefills(
-            self.engine.prefill_step(self.max_prefill_chunks_per_step),
-            newly, events, finished_rids, finished_slots,
-        )
+        # Chunked prefills advance between the admissions and the fold, or,
+        # piggybacked, inside the fold's dispatch: their completions are
+        # read after it and finish the same way.
+        piggyback = self.engine.piggyback_chunks > 0
+        prefilled = 0
+        if not piggyback:
+            prefilled = self._finish_prefills(
+                self.engine.prefill_step(self.max_prefill_chunks_per_step),
+                newly, events, finished_rids, finished_slots,
+            )
         active = self.engine.num_active
         fold_results = self.engine.step()
+        if piggyback:
+            prefilled = self._finish_prefills(
+                self.engine.pop_chunk_events(), newly, events, finished_rids,
+                finished_slots,
+            )
         for slot, rid, tok, done in fold_results:
             events.append(
                 TokenEvent(rid, tok, done, "finished" if done else "token")

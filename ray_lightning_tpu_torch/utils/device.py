@@ -17,3 +17,14 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
             "run on the CPU"
         )
     return dev
+
+
+def host_to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """Copy the host tensor ``t`` to ``device`` without waiting for the
+    stream: on the card it is staged in pinned memory and copied
+    non-blocking (a copy from pageable memory blocks the host until the
+    stream drains, work queued before it included). PyTorch's pinned
+    allocator keeps the staging buffer until the copy has run."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -475,11 +475,12 @@ def jax_op_run(weights):
 
 
 def test_page_decisions_match_the_jax_engine(weights, jax_op_run):
-    """The same op stream through the port's and the JAX engine: after
-    every op the allocs, frees and alias hits, each slot's table row and
-    the free pages are equal, and so are the tokens."""
+    """The same op stream through the port's and the JAX engine, both
+    without the pipelined dispatch: after every op the allocs, frees and
+    alias hits, each slot's table row and the free pages are equal, and so
+    are the tokens."""
     _, params = weights
-    outs, trace = _run_op_stream(_paged(params))
+    outs, trace = _run_op_stream(_paged(params, pipeline=False))
     j_outs, j_trace = jax_op_run
     assert len(trace) == len(j_trace)
     for i, (got, want) in enumerate(zip(trace, j_trace)):

@@ -265,12 +265,11 @@ def test_scheduler_cancel_in_flight_frees_the_slot(weights):
 
 def test_engine_options_not_ported_raise(weights):
     """Each option still unported raises naming its ROADMAP item; the
-    chunked prefill and prefix cache options (item 3), paged KV (item 4)
-    and speculative decoding (item 5) now construct."""
+    chunked prefill and prefix cache options (item 3), paged KV (item 4),
+    speculative decoding (item 5), piggybacked chunks and the fold ladder
+    (item 6) and the pipelined dispatch (item 7) now construct."""
     _, params = weights
     for kw, item in (
-        ({"piggyback_chunks": 1}, 6),
-        ({"fold_ladder": [1, 2]}, 6), ({"pipeline": True}, 7),
         ({"kvstore_dir": "x"}, 9), ({"mesh": object()}, 11),
     ):
         with pytest.raises(NotImplementedError,
@@ -279,7 +278,12 @@ def test_engine_options_not_ported_raise(weights):
     with pytest.raises(TypeError):
         _engine(params, no_such_option=1)
     # The JAX defaults of the unported options are accepted.
-    _engine(params, prefix_block=16, spec="off", fold_ladder=None)
+    _engine(params, prefix_block=16, spec="off", kvstore_dir=None, mesh=None)
+    eng = _engine(params, prefill_chunk=8, piggyback_chunks=1,
+                  fold_ladder=[1, 2], decode_fold=2, pipeline=True)
+    assert (eng.piggyback_chunks, eng.fold_ladder, eng.pipeline) == (
+        1, (1, 2), True)
+    assert _engine(params).pipeline and _engine(params).fold_ladder == (1,)
     for kw in ({"prefill_chunk": 8}, {"prefix_blocks": 4},
                {"prefix_blocks": 4, "prefix_host_mb": 1.0},
                {"kv_pages": 8, "kv_page": 16}):

@@ -320,7 +320,7 @@ def test_engine_spec_cancel_and_recycle_over_stale_history(weights):
     history, decodes exactly, and a sampled batchmate's tokens are those
     of its solo run."""
     _, params = weights
-    kw = dict(decode_fold=4, spec="ngram", spec_depth=3)
+    kw = dict(decode_fold=4, spec="ngram", spec_depth=3, pipeline=False)
     sampled = dict(max_new_tokens=12, temperature=0.8, top_k=20, top_p=0.9,
                    seed=123)
     solo_eng = _engine(params, num_slots=1, **kw)

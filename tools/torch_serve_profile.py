@@ -66,7 +66,8 @@ def main():
         torch.Generator(device="cuda").manual_seed(0), cfg
     )
     engine = DecodeEngine(
-        params, cfg, num_slots=8, max_seq=1024, decode_fold=8, device="cuda"
+        params, cfg, num_slots=8, max_seq=1024, decode_fold=8, pipeline=False,
+        device="cuda"
     )
     rng = np.random.default_rng(0)
 
