@@ -95,7 +95,7 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    no flash call; greedy tokens equal the serve-paged engine's except at
    near-ties, sampled tokens equal. The stream syncs of each dispatch are
    counted (``torch.cuda.set_sync_debug_mode``) over a greedy and a
-   sampled batch: a greedy dispatch must make none. (b) A dense chunked
+   sampled batch: no dispatch may make any. (b) A dense chunked
    n-gram engine (8 slots, depth 4, fold 4, ``piggyback_chunks=2``),
    pipelined and not, on the serve-spec traffic; then a greedy request is
    cancelled while the verify after its first harvested fold is queued,
@@ -113,9 +113,22 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    first, each backward kernel must have run once per layer per step and
    the reference path never. Prints step time, tokens/s, MFU and peak
    memory.
+   It then trains the same 20 steps with ``steps_per_execution=4`` (one
+   CUDA graph of 4 steps per dispatch): each of its losses must equal the
+   K = 1 run's step at the same boundary within 1e-3 relative, with the
+   same kernel launches; prints both step times.
 10. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
+
+Dispatch programs (phases 4-8): every engine captures one CUDA graph per
+key of its ``dispatch_plan`` at construction; each prints its
+``compiled_count``, capture seconds and graph-pool memory as it is built,
+and each phase fails unless every engine it built still has that count
+after its traffic. The flash launch counts are those of the replays. The
+serve phase's full-batch folds and serve-fused (a) and (b) also run with
+the private eager dispatch (``_graphs=False``) in turns with the graphs,
+printing wall ms per fold or per token and the device's idle share.
 
 Exits non-zero without a CUDA device, and when the package is not beside
 this file.
@@ -232,6 +245,59 @@ FUSED_SPEC_ENGINE = dict(num_slots=8, max_seq=1024, prefill_chunk=256,
                          decode_fold=SPEC_FOLD, spec="ngram",
                          spec_depth=SPEC_DEPTH, piggyback_chunks=2,
                          pipeline=True)
+
+
+#: Engines built by the current phase, with their compiled_count at
+#: construction (checked and dropped at the end of the phase).
+ENGINES = []
+
+
+def new_engine(params, cfg, **kw):
+    """A ``DecodeEngine``, its graphs' count, capture seconds and pool
+    memory printed and the engine registered for the phase's check."""
+    import torch
+
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+
+    engine = DecodeEngine(params, cfg, **kw)
+    graphs = kw.get("_graphs", True) and engine.device.type == "cuda"
+    if graphs and engine.compiled_count != len(engine.dispatch_plan):
+        fail(f"{engine.compiled_count} graphs for a plan of "
+             f"{len(engine.dispatch_plan)} keys")
+    print(f"[graphs] engine {len(ENGINES)}: compiled_count "
+          f"{engine.compiled_count}, capture {engine.capture_s:.3f} s, graph "
+          f"pool {engine.graph_bytes / 2**20:.1f} MiB, plan "
+          f"{sorted({k[0] for k in engine.dispatch_plan})}, "
+          f"{'graphs' if graphs else 'eager'}")
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+    ENGINES.append((engine, engine.compiled_count))
+    return engine
+
+
+def check_engines(phase: str) -> dict:
+    """Fail unless every engine the phase built kept its compiled_count
+    through its traffic; returns the phase's totals and drops the
+    engines."""
+    for i, (engine, n) in enumerate(ENGINES):
+        if engine.compiled_count != n:
+            fail(f"{phase}: engine {i} compiled_count moved from {n} to "
+                 f"{engine.compiled_count} after construction")
+    out = {"engines": len(ENGINES),
+           "graphs": sum(n for _, n in ENGINES),
+           "capture_s": sum(e.capture_s for e, _ in ENGINES),
+           "graph_mib": sum(e.graph_bytes for e, _ in ENGINES) / 2**20}
+    print(f"[graphs] {phase}: {json.dumps(out)}, every compiled_count "
+          "unchanged after the traffic")
+    ENGINES.clear()
+    return out
+
+
+def fold_device_ms(engine, k: int) -> float:
+    """Device ms of one replay of ``engine``'s greedy rung-``k`` fold
+    (the work does not depend on which slots are active)."""
+    prog = engine._programs[engine._fold_key(k, False)]
+    return cuda_ms(prog, iters=5, warmup=1)
 
 
 def fail(msg: str) -> None:
@@ -707,14 +773,13 @@ def phase_serve():
     import torch
 
     from ray_lightning_tpu_torch.models import gpt
-    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
 
     cfg = gpt.GPTConfig.gpt2_small()
     params = gpt.init_gpt_params(
         torch.Generator(device="cuda").manual_seed(0), cfg
     )
     t0 = time.perf_counter()
-    engine = DecodeEngine(params, cfg, device="cuda", **SERVE_ENGINE)
+    engine = new_engine(params, cfg, device="cuda", **SERVE_ENGINE)
     torch.cuda.synchronize()
     print(f"[serve] engine built in {time.perf_counter() - t0:.3f} s, "
           f"buckets {engine.prefill_buckets}")
@@ -756,22 +821,35 @@ def phase_serve():
     snap = sched.metrics.snapshot()
 
     # Decode alone: a full batch of short prompts, folds timed on the host
-    # clock (each step ends in its token-block read, a device sync).
-    for s in range(engine.num_slots):
-        engine.admit(rng.integers(0, cfg.vocab_size, 16).tolist(),
-                     request_id=f"d{s}", max_new_tokens=4 * 8 + 1)
-    engine.step()
-    fold_s = []
-    while engine.num_active:
-        t0 = time.perf_counter()
-        n = len(engine.step())
-        fold_s.append((time.perf_counter() - t0, n))
+    # clock (each step ends in its token-block read, a device sync), with
+    # the graphs and with the eager dispatch in turns.
+    eager = new_engine(params, cfg, device="cuda", _graphs=False,
+                       **SERVE_ENGINE)
+    prompts = [rng.integers(0, cfg.vocab_size, 16).tolist()
+               for _ in range(engine.num_slots)]
+    runs = [decode_alone(e, prompts)
+            for e in (engine, eager, eager, engine)]
+    dev_ms = fold_device_ms(engine, engine.decode_fold)
+    graph_ms = [r[0] for r in (runs[0], runs[3])]
+    eager_ms = [r[0] for r in runs[1:3]]
     decode = {
-        "ms_per_fold": 1e3 * sum(t for t, _ in fold_s) / len(fold_s),
-        "tokens_per_s": sum(n for _, n in fold_s) / sum(t for t, _ in fold_s),
+        "ms_per_fold": graph_ms,
+        "ms_per_fold_eager": eager_ms,
+        "device_ms_per_fold": dev_ms,
+        "idle_share": [1 - dev_ms / t for t in graph_ms],
+        "idle_share_eager": [1 - dev_ms / t for t in eager_ms],
+        "tokens_per_s": [r[1] for r in (runs[0], runs[3])],
+        "tokens_per_s_eager": [r[1] for r in runs[1:3]],
         "fold": engine.decode_fold,
         "slots": engine.num_slots,
     }
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    decode["graph_vs_eager_near_ties"] = compare_greedy(
+        "serve decode-alone graphs vs eager",
+        [(f"d{i}", p, SamplingParams(max_new_tokens=1))
+         for i, p in enumerate(prompts)],
+        runs[0][2], runs[1][2], params, cfg)
     serve = {
         "ttft_p50_s": snap["ttft_p50_s"],
         "ttft_max_s": snap["ttft_max_s"],
@@ -784,6 +862,27 @@ def phase_serve():
     }
     print(f"[serve] {json.dumps(serve)} on {card_line()}")
     return launches, admit_step_s, run
+
+
+def decode_alone(engine, prompts) -> tuple:
+    """Every slot of ``engine`` decoding one of ``prompts`` for 4 folds
+    after the first: (host ms per fold, tokens per s, the tokens)."""
+    toks = {}
+    for s, prompt in enumerate(prompts):
+        _, tok, _ = engine.admit(prompt, request_id=f"d{s}",
+                                 max_new_tokens=4 * engine.decode_fold + 1)
+        toks[f"d{s}"] = [tok]
+    engine.step()
+    fold_s = []
+    while engine.num_active:
+        t0 = time.perf_counter()
+        out = engine.step()
+        fold_s.append((time.perf_counter() - t0, len(out)))
+        for _, rid, tok, _ in out:
+            toks.setdefault(rid, []).append(tok)
+    total = sum(t for t, _ in fold_s)
+    return (1e3 * total / len(fold_s), sum(n for _, n in fold_s) / total,
+            toks)
 
 
 def serve_workload(vocab: int, rng) -> list:
@@ -1034,12 +1133,11 @@ def cold_ttfts(params, cfg, requests) -> dict:
     one and timed as it times them (to the end of the step that yields the
     first token, whose fold then runs too): what the cache saves, at the
     same load. A first request warms the engine up."""
-    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
     from ray_lightning_tpu_torch.serve.scheduler import SamplingParams, Scheduler
 
     kw = {k: v for k, v in CHUNKED_ENGINE.items()
           if not k.startswith("prefix_")}
-    sched = Scheduler(DecodeEngine(params, cfg, device="cuda", **kw),
+    sched = Scheduler(new_engine(params, cfg, device="cuda", **kw),
                       **CHUNKED_SCHED)
     out = {}
     for rid, prompt in [("warm-up", requests[-1][1])] + list(requests):
@@ -1064,7 +1162,6 @@ def phase_serve_chunked(mono_step_s: float) -> int:
 
     from ray_lightning_tpu_torch.models import gpt
     from ray_lightning_tpu_torch.ops.flash_attention import counters
-    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
     from ray_lightning_tpu_torch.serve.scheduler import Scheduler
 
     cfg = gpt.GPTConfig.gpt2_small()
@@ -1073,7 +1170,7 @@ def phase_serve_chunked(mono_step_s: float) -> int:
     )
     disk = os.path.join(HERE, "build", "smoke_prefix_disk")
     shutil.rmtree(disk, ignore_errors=True)
-    engine = DecodeEngine(params, cfg, device="cuda", prefix_disk_dir=disk,
+    engine = new_engine(params, cfg, device="cuda", prefix_disk_dir=disk,
                           **CHUNKED_ENGINE)
     sched = Scheduler(engine, **CHUNKED_SCHED)
     work = chunked_workload(cfg.vocab_size)
@@ -1363,11 +1460,10 @@ def serve_paged_run(params, cfg, device) -> dict:
     import torch
 
     from ray_lightning_tpu_torch.ops.flash_attention import counters
-    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
     from ray_lightning_tpu_torch.serve.scheduler import Scheduler
 
     reqs = paged_workload(cfg.vocab_size)
-    engine = DecodeEngine(params, cfg, device=device, **PAGED_ENGINE)
+    engine = new_engine(params, cfg, device=device, **PAGED_ENGINE)
     need = sum(engine.pages_for(len(p), sp.max_new_tokens) for _, p, sp in reqs)
     if need <= PAGED_ENGINE["kv_pages"] - 1:
         fail(f"the traffic needs {need} pages, no more than the pool holds")
@@ -1393,7 +1489,7 @@ def serve_paged_run(params, cfg, device) -> dict:
             engine._pool_v).all():
         fail("non-finite values in the page pool")
     dense_kw = {k: v for k, v in PAGED_ENGINE.items() if not k.startswith("kv_")}
-    dense = DecodeEngine(params, cfg, device=device, **dense_kw)
+    dense = new_engine(params, cfg, device=device, **dense_kw)
     dres = serve_traffic(dense, Scheduler(dense, **PAGED_SCHED), reqs,
                          lead=True)
     ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
@@ -1477,7 +1573,6 @@ def serve_spec_run(params, cfg, device) -> dict:
     import dataclasses
 
     from ray_lightning_tpu_torch.ops.flash_attention import counters
-    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
     from ray_lightning_tpu_torch.serve.scheduler import Scheduler
 
     reqs = spec_workload(cfg.vocab_size)
@@ -1494,7 +1589,7 @@ def serve_spec_run(params, cfg, device) -> dict:
     }
     runs = {}
     for key, kw in setups.items():
-        engine = DecodeEngine(params, cfg, device=device, **kw)
+        engine = new_engine(params, cfg, device=device, **kw)
         sched = Scheduler(engine, **SPEC_SCHED)
         folds = time_folds(engine)
         counters.reset()
@@ -1764,6 +1859,59 @@ def pipeline_times(pipe, nopipe) -> dict:
             "ms_per_token_nopipe": [ms_per_token(r) for r in nopipe]}
 
 
+def in_turns_eager(run, kw: dict) -> tuple:
+    """``in_turns`` with the private eager dispatch (``_graphs=False``,
+    pipelined) in the middle: pipelined, not, eager, eager, not,
+    pipelined. Returns the pipelined, unpipelined and eager runs."""
+    nopipe, eager = dict(kw, pipeline=False), dict(kw, _graphs=False)
+    runs = [run(k) for k in (kw, nopipe, eager, eager, nopipe, kw)]
+    return [runs[0], runs[5]], [runs[1], runs[4]], runs[2:4]
+
+
+def clock_programs(engine) -> list:
+    """Wrap each of ``engine``'s dispatch programs in a pair of CUDA events;
+    returns the list the pairs are appended to. A replay is one launch, so
+    its pair times the graph's device work."""
+    import torch
+
+    pairs = []
+    for key, prog in list(engine._programs.items()):
+        def timed(prog=prog):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            prog()
+            b.record()
+            pairs.append((a, b))
+        engine._programs[key] = timed
+    return pairs
+
+
+def graph_times(pipe, nopipe, eager) -> dict:
+    """Wall ms per token of the graph runs and the eager ones, and the
+    device's idle share: 1 - (device ms of the dispatch replays) / wall.
+    The eager runs launch the same kernels, so their idle share uses the
+    first pipelined graph run's device ms."""
+    dev = pipe[0]["device_ms"]
+    return {
+        "ms_per_token_eager": [ms_per_token(r) for r in eager],
+        "device_ms_dispatches": [r["device_ms"] for r in pipe + nopipe],
+        "idle_share": [1 - r["device_ms"] / (1e3 * r["wall"])
+                       for r in pipe],
+        "idle_share_nopipe": [1 - r["device_ms"] / (1e3 * r["wall"])
+                              for r in nopipe],
+        "idle_share_eager": [1 - dev / (1e3 * r["wall"]) for r in eager],
+        "wall_s_eager": [r["wall"] for r in eager],
+    }
+
+
+def device_ms(pairs) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
 def serve_fused_paged(params, cfg, device) -> dict:
     """(a) The serve-paged traffic plus the long second wave through the
     fused paged engine, pipelined and not in turns, and through the
@@ -1776,13 +1924,13 @@ def serve_fused_paged(params, cfg, device) -> dict:
     import torch
 
     from ray_lightning_tpu_torch.ops.flash_attention import counters
-    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
     from ray_lightning_tpu_torch.serve.scheduler import Scheduler
 
     wave1, wave2 = paged_workload(cfg.vocab_size), fused_wave2(cfg.vocab_size)
 
     def run(kw):
-        engine = DecodeEngine(params, cfg, device=device, **kw)
+        engine = new_engine(params, cfg, device=device, **kw)
+        pairs = clock_programs(engine) if kw.get("_graphs", True) else []
         sched = Scheduler(engine, **PAGED_SCHED)
         counters.reset()
         t0 = time.perf_counter()
@@ -1791,13 +1939,13 @@ def serve_fused_paged(params, cfg, device) -> dict:
         if device == "cuda":
             torch.cuda.synchronize()
         res.update(engine=engine, wall=time.perf_counter() - t0,
-                   snap=sched.metrics.snapshot())
+                   snap=sched.metrics.snapshot(), device_ms=device_ms(pairs))
         if counters.launches or counters.reference:
             fail("serve-fused paged: the chunk path called the flash wrapper")
         drain(engine)
         return res
 
-    pipe, nopipe = in_turns(run, FUSED_PAGED_ENGINE)
+    pipe, nopipe, eager = in_turns_eager(run, FUSED_PAGED_ENGINE)
     paged = run(PAGED_ENGINE)
     reqs = wave1 + wave2
     eng = pipe[0]["engine"]
@@ -1827,8 +1975,12 @@ def serve_fused_paged(params, cfg, device) -> dict:
         "nopipe_vs_serve_paged": fused_compare(
             "serve-fused paged nopipe", reqs, nopipe[0]["toks"],
             paged["toks"], params, ref_cfg),
+        "eager_vs_graphs": fused_compare(
+            "serve-fused paged eager", reqs, eager[0]["toks"],
+            pipe[0]["toks"], params, ref_cfg),
     }
-    out.update(requests=len(reqs), **pipeline_times(pipe, nopipe))
+    out.update(requests=len(reqs), **pipeline_times(pipe, nopipe),
+               **graph_times(pipe, nopipe, eager))
     out.update({
         "ms_per_token_serve_paged": ms_per_token(paged),
         "longest_wave2_step_s": [longest_late_step(r) for r in pipe],
@@ -1852,9 +2004,10 @@ def serve_fused_paged(params, cfg, device) -> dict:
     sampled, sampled_where = fused_sync_counts(eng, sampled=True)
     print(f"[serve-fused paged] stream syncs per dispatch: greedy {greedy} "
           f"at {greedy_where}; sampled {sampled} at {sampled_where}")
-    if max(greedy) != 0:
-        fail(f"a greedy pipelined dispatch synchronized with the stream: "
-             f"{greedy} at {greedy_where}")
+    if max(greedy) != 0 or max(sampled) != 0:
+        fail(f"a pipelined dispatch synchronized with the stream: greedy "
+             f"{greedy} at {greedy_where}, sampled {sampled} at "
+             f"{sampled_where}")
     out.update(syncs_per_dispatch_greedy=greedy,
                syncs_per_dispatch_sampled=sampled)
     return out
@@ -1871,26 +2024,30 @@ def serve_fused_spec(params, cfg, device) -> dict:
     import dataclasses
 
     from ray_lightning_tpu_torch.ops.flash_attention import counters
-    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
     from ray_lightning_tpu_torch.serve.scheduler import Scheduler
 
     reqs = spec_workload(cfg.vocab_size)
     ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
 
     def run(kw):
-        engine = DecodeEngine(params, cfg, device=device, **kw)
+        engine = new_engine(params, cfg, device=device, **kw)
+        pairs = clock_programs(engine) if kw.get("_graphs", True) else []
         sched = Scheduler(engine, **SPEC_SCHED)
         counters.reset()
         t0 = time.perf_counter()
         res = serve_traffic(engine, sched, reqs)
-        res.update(engine=engine, wall=time.perf_counter() - t0)
+        res.update(engine=engine, wall=time.perf_counter() - t0,
+                   device_ms=device_ms(pairs))
         if counters.launches or counters.reference:
             fail("serve-fused spec: the chunk path called the flash wrapper")
         return res
 
-    pipe, nopipe = in_turns(run, FUSED_SPEC_ENGINE)
+    pipe, nopipe, eager = in_turns_eager(run, FUSED_SPEC_ENGINE)
     out = {"pipe_vs_nopipe": fused_compare(
         "serve-fused spec", reqs, pipe[0]["toks"], nopipe[0]["toks"],
+        params, ref_cfg),
+        "eager_vs_graphs": fused_compare(
+        "serve-fused spec eager", reqs, eager[0]["toks"], pipe[0]["toks"],
         params, ref_cfg)}
     eng = pipe[0]["engine"]
     if not (eng.piggyback_dispatches > 0 and eng.spec_accepted_tokens > 0):
@@ -1901,7 +2058,7 @@ def serve_fused_spec(params, cfg, device) -> dict:
     s_req = next(r for r in reqs if r[2].temperature > 0)
     cast = [("s", s_req[1], s_req[2]), ("victim", reqs[0][1], reqs[0][2]),
             ("next", reqs[1][1], reqs[1][2])]
-    engine = DecodeEngine(params, cfg, device=device, **FUSED_SPEC_ENGINE)
+    engine = new_engine(params, cfg, device=device, **FUSED_SPEC_ENGINE)
     sched = Scheduler(engine, **SPEC_SCHED)
     toks = {rid: [] for rid, _, _ in cast}
     reasons = {}
@@ -1939,7 +2096,7 @@ def serve_fused_spec(params, cfg, device) -> dict:
              f"cancelled one's {slot_v}")
     alone = {}
     for rid, prompt, sp in (cast[0], cast[2]):
-        e = DecodeEngine(params, cfg, device=device,
+        e = new_engine(params, cfg, device=device,
                          **dict(FUSED_SPEC_ENGINE, pipeline=False))
         alone[rid] = serve_traffic(e, Scheduler(e, **SPEC_SCHED),
                                    [(rid, prompt, sp)])["toks"][rid]
@@ -1949,6 +2106,7 @@ def serve_fused_spec(params, cfg, device) -> dict:
     near = compare_greedy("serve-fused spec cancel", [cast[2]], toks, alone,
                           params, ref_cfg)
     out.update(pipeline_times(pipe, nopipe))
+    out.update(graph_times(pipe, nopipe, eager))
     out.update({
         "spec_stats": eng.spec_stats(),
         "piggyback_dispatches": eng.piggyback_dispatches,
@@ -1971,10 +2129,9 @@ def serve_fused_mono(params, cfg, serve4: dict) -> dict:
     and the wall per token pipelined and not."""
     import numpy as np
 
-    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
 
     def run(kw):
-        engine = DecodeEngine(params, cfg, device="cuda", **kw)
+        engine = new_engine(params, cfg, device="cuda", **kw)
         return serve_run(
             engine, serve_workload(cfg.vocab_size, np.random.default_rng(0)))
 
@@ -2023,6 +2180,7 @@ def phase_serve_fused(serve4: dict):
     ):
         t0 = time.perf_counter()
         out[tag] = fn(*args)
+        out[tag]["graphs"] = check_engines(f"serve-fused {tag}")
         print(f"[serve-fused {tag}] {json.dumps(out[tag])} on {card_line()}")
         print(f"[time] serve-fused {tag}: {time.perf_counter() - t0:.3f} s")
     return out["mono"]["launches"]
@@ -2122,8 +2280,72 @@ def phase_train(n_steps: int = 20):
         "val_loss": trainer.callback_metrics.get("val_loss"),
         "wall_s": wall,
     }
+    train["steps_per_execution"] = train_folded(n_steps)
     print(f"[train] {json.dumps(train)} on {card_line()}")
     return launches, train
+
+
+def train_folded(n_steps: int, fold: int = 4) -> dict:
+    """The same model and data with 4 batches per epoch and no validation,
+    ``n_steps`` steps one per dispatch and then ``fold`` per dispatch (one
+    CUDA graph of ``fold`` steps): each folded loss must equal the
+    single-step run's at the same step within 1e-3 relative, with the same
+    kernel launches. Returns both step times."""
+    import torch
+
+    from ray_lightning_tpu_torch.models.gpt import GPTLM, GPTConfig
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.trainer import Callback, Trainer
+
+    class StepClock(Callback):
+        def __init__(self):
+            self.ends, self.losses = [], []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.ends.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+
+    runs = {}
+    for k in (1, fold):
+        clock = StepClock()
+        trainer = Trainer(
+            max_steps=n_steps, max_epochs=n_steps, limit_val_batches=0,
+            enable_checkpointing=False, enable_model_summary=False, seed=0,
+            log_every_n_steps=1, callbacks=[clock], steps_per_execution=k,
+        )
+        counters.reset()
+        trainer.fit(GPTLM(GPTConfig.gpt2_small(), batch_size=8,
+                          warmup_steps=2, n_train=4 * 8))
+        torch.cuda.synchronize()
+        per = [(b - a) / k for a, b in zip(clock.ends, clock.ends[1:])]
+        runs[k] = {"losses": clock.losses, "step_ms": [1e3 * x for x in per],
+                   "launches": (counters.launches, counters.bwd_dkv_launches,
+                                counters.bwd_dq_launches),
+                   "graphs": [p.compiled_count for p in
+                              dict.fromkeys(trainer.train_programs)]}
+    one, many = runs[1], runs[fold]
+    want = one["losses"][fold - 1 :: fold]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(many["losses"], want))
+    print(f"[train] steps_per_execution={fold}: losses {many['losses']}, "
+          f"single-step losses at the same steps {want}, worst relative "
+          f"difference {worst}, launches {many['launches']} vs "
+          f"{one['launches']}, graphs {many['graphs']} vs {one['graphs']}")
+    if len(many["losses"]) != n_steps // fold or worst > 1e-3:
+        fail(f"steps_per_execution={fold}: losses {many['losses']} vs {want}")
+    if many["launches"] != one["launches"]:
+        fail(f"steps_per_execution={fold}: kernel launches "
+             f"{many['launches']} != the single-step run's {one['launches']}")
+    return {"fold": fold, "worst_rel_loss_diff": worst,
+            "bitwise": many["losses"] == want,
+            "step_ms_median": statistics_median(many["step_ms"][1:]),
+            "step_ms_median_single": statistics_median(one["step_ms"][2:]),
+            "graphs": many["graphs"]}
+
+
+def statistics_median(xs) -> float:
+    import statistics
+
+    return statistics.median(xs)
 
 
 def main() -> None:
@@ -2141,6 +2363,7 @@ def main() -> None:
     def timed_phase(name, fn, *args):
         t0 = time.perf_counter()
         out = fn(*args)
+        check_engines(name)
         print(f"[time] phase {name}: {time.perf_counter() - t0:.3f} s")
         return out
 

@@ -17,8 +17,10 @@ Differences that follow from PyTorch:
 - Decode writes the K/V cache in place (the JAX step returns a new cache
   that XLA aliases onto the old one); an in-place write keeps one cache in
   memory.
-- Randomness comes from explicit ``torch.Generator``s, not threefry keys:
-  the same seed gives other draws than the JAX package, by design.
+- Sampling draws are a counter-based integer hash of (seed, draw number,
+  vocabulary index) computed on the device (:func:`draw_uniforms`), not
+  threefry keys: the same seed gives other draws than the JAX package, by
+  design. The training step's generator is a ``torch.Generator``.
 - Dense configs only: ``n_experts > 0`` raises (MoE is ROADMAP queue 1 item 13).
 - ``remat`` recomputes each block in the backward through
   ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``).
@@ -34,7 +36,7 @@ Differences that follow from PyTorch:
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_lightning_tpu_torch.trainer.data import ArrayDataset, DataLoader, Dataset
 from ray_lightning_tpu_torch.trainer.module import TorchModule
 from ray_lightning_tpu_torch.trainer.optim import warmup_cosine_decay_schedule
-from ray_lightning_tpu_torch.utils.device import host_to, resolve_device
+from ray_lightning_tpu_torch.utils.device import resolve_device
 from ray_lightning_tpu_torch.utils.quantize import dequant, embed_rows
 
 _DTYPES = {
@@ -544,51 +546,88 @@ def make_fake_text(
     return ArrayDataset(toks)
 
 
+#: The device draw's 32-bit mix: two rounds of xor-shift and a multiply
+#: by an odd constant below 2**27, so every product of a 32-bit value stays
+#: below 2**59 and int64 arithmetic gives the same bits on every device.
+_M32 = 0xFFFFFFFF
+_MIX = 0x45D9F3B
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A 32-bit integer hash of int64 values in [0, 2**32)."""
+    x = x ^ (x >> 16)
+    x = (x * _MIX) & _M32
+    x = x ^ (x >> 16)
+    x = (x * _MIX) & _M32
+    return x ^ (x >> 16)
+
+
+def seed64(seed: int) -> int:
+    """A request's seed as the signed 64-bit value of its low 64 bits (what
+    an int64 seed tensor holds)."""
+    s = int(seed) & (2**64 - 1)
+    return s - 2**64 if s >= 2**63 else s
+
+
+def draw_uniforms(
+    seeds: torch.Tensor, counters: torch.Tensor, n: int
+) -> torch.Tensor:
+    """Row b's draw number ``counters[b]`` of the stream ``seeds[b]``: (B, n)
+    fp32 uniforms in (0, 1), one per vocabulary index.
+
+    A pure integer function of (seed, counter, index) made of int64 ops
+    whose values stay below 2**63, so the CPU and the card give the same
+    bits and a row's draw never depends on its batchmates. The top 24 bits
+    of the hash become ``(bits + 0.5) / 2**24``, exact in fp32. This
+    replaces a per-request generator: the device holds a seed and a draw
+    counter per slot (the JAX engine holds a PRNG key per slot), and the
+    n-th token of a request uses its n-th draw on every path."""
+    lo, hi = seeds & _M32, (seeds >> 32) & _M32
+    key = _mix32(lo ^ _mix32(hi ^ 0x9E3779B9))
+    key = _mix32(key ^ _mix32((counters & _M32) ^ 0x85EBCA6B))
+    col = _mix32(torch.arange(n, device=seeds.device) ^ 0x27D4EB2F)
+    bits = _mix32(key[:, None] ^ col[None])
+    return ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def _gumbel_argmax(
+    logits: torch.Tensor, seeds: torch.Tensor, counters: torch.Tensor
+) -> torch.Tensor:
+    """Categorical draws from (B, V) logits by the Gumbel-max trick, row
+    b's noise from draw ``counters[b]`` of stream ``seeds[b]``."""
+    u = draw_uniforms(seeds, counters, logits.shape[-1])
+    return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
+
+
 def sample_logits(
     logits: torch.Tensor,
     temperature: float = 1.0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
-    generator: Optional[torch.Generator] = None,
+    seeds: Optional[torch.Tensor] = None,
+    counters: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sample token ids from (B, V) logits with static knobs.
 
     ``temperature == 0`` is greedy argmax. top-k keeps the k highest
     logits; top-p (nucleus) keeps the smallest prefix of the sorted
     distribution whose mass reaches p (the crossing token included).
-    Filters compose k first, then p, as in the JAX package.
+    Filters compose k first, then p, as in the JAX package. Row b draws
+    number ``counters[b]`` of stream ``seeds[b]`` (both default to 0):
+    :func:`sample_logits_batched` with the knobs broadcast.
     """
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1)
-    logits = logits / float(temperature)
-    neg = float("-inf")
-    V = logits.shape[-1]
-    if top_k is not None and 0 < int(top_k) < V:
-        kth = torch.topk(logits, int(top_k), dim=-1).values[..., -1:]
-        logits = logits.masked_fill(logits < kth, neg)
-    if top_p is not None and 0.0 < float(top_p) < 1.0:
-        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
-        probs = torch.softmax(sorted_logits, dim=-1)
-        before = torch.cumsum(probs, dim=-1) - probs
-        cutoff = torch.where(
-            before < float(top_p), sorted_logits, float("inf")
-        ).amin(dim=-1, keepdim=True)
-        logits = logits.masked_fill(logits < cutoff, neg)
-    return _gumbel_argmax(logits, [generator] * logits.shape[0])
-
-
-def _gumbel_argmax(
-    logits: torch.Tensor, generators: Sequence[Optional[torch.Generator]]
-) -> torch.Tensor:
-    """Categorical draws from (B, V) logits by the Gumbel-max trick, each
-    row's uniforms from its own generator (so a row's draw never depends
-    on its batchmates)."""
-    V = logits.shape[-1]
-    u = torch.stack(
-        [torch.rand(V, generator=g, device=logits.device) for g in generators]
+    B, dev = logits.shape[0], logits.device
+    zeros = torch.zeros(B, dtype=torch.long, device=dev)
+    return sample_logits_batched(
+        logits,
+        torch.full((B,), float(temperature), device=dev),
+        torch.full((B,), int(top_k or 0), dtype=torch.long, device=dev),
+        torch.full((B,), 1.0 if top_p is None else float(top_p), device=dev),
+        zeros if seeds is None else seeds,
+        zeros if counters is None else counters,
     )
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(logits.float() + gumbel, dim=-1)
 
 
 def filter_logits_batched(
@@ -625,28 +664,25 @@ def sample_logits_batched(
     temps: torch.Tensor,
     top_ks: torch.Tensor,
     top_ps: torch.Tensor,
-    generators: Sequence[Optional[torch.Generator]],
+    seeds: torch.Tensor,
+    counters: torch.Tensor,
+    sampling: bool = True,
 ) -> torch.Tensor:
     """Per-row sampling with tensor knobs: the batched counterpart of
     :func:`sample_logits`. ``temps`` (B,) fp32 (<= 0 = greedy); ``top_ks``
-    (B,) int (0 = off); ``top_ps`` (B,) fp32 (>= 1 = off).
-    ``generators[b]`` draws row b's noise; rows whose generator is None
-    are greedy, so the host knows which rows sample without reading the
-    device. An all-greedy batch is a bare argmax. The row index reaches
-    the card through :func:`host_to`, so a call does not wait for the
-    work queued before it."""
+    (B,) int (0 = off); ``top_ps`` (B,) fp32 (>= 1 = off); row b draws
+    number ``counters[b]`` of stream ``seeds[b]``.
+
+    ``sampling=False`` is the all-greedy variant, a bare argmax: the JAX
+    sampler short-circuits to it through ``lax.cond``; a CUDA graph has no
+    branch, so the caller, who knows on the host which rows sample, picks
+    the variant. Every op has a fixed shape and nothing is read back."""
     greedy = torch.argmax(logits, dim=-1)
-    rows = [b for b, g in enumerate(generators) if g is not None]
-    if not rows:
+    if not sampling:
         return greedy
-    idx = host_to(torch.tensor(rows), logits.device)
-    lg = filter_logits_batched(
-        logits[idx], temps[idx], top_ks[idx], top_ps[idx]
-    )
-    sampled = _gumbel_argmax(lg, [generators[b] for b in rows])
-    out = greedy.clone()
-    out[idx] = torch.where(temps[idx] <= 0.0, greedy[idx], sampled)
-    return out
+    lg = filter_logits_batched(logits, temps, top_ks, top_ps)
+    return torch.where(temps <= 0.0, greedy,
+                       _gumbel_argmax(lg, seeds, counters))
 
 
 def gpt_prefill(
@@ -818,14 +854,23 @@ def _attend_cache(
     return o.float().to(vc.dtype).reshape(B, C, H, hd).to(q.dtype)
 
 
+def _chunk_targets(rows: torch.Tensor, S: int, C: int) -> torch.Tensor:
+    """Distinct cache rows for a chunk's C rows at positions ``rows``: the
+    position itself while it lies in the cache, else ``position - C``, a
+    row below the chunk's first that no other row of it names. A write of
+    all C rows then needs no data-dependent shape: rows not to be written
+    get their old value back."""
+    return torch.where(rows < S, rows, rows - C).clamp(0, S - 1)
+
+
 def gpt_prefill_chunk(
     params: Dict[str, Any],
     cfg: GPTConfig,
     chunk: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
-    start_pos: int,
-    true_len: Optional[int] = None,
+    start_pos: Any,
+    true_len: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cache-seeded chunked prefill: extend an existing KV range
     (``gpt.py:1114`` of the JAX package).
@@ -840,13 +885,16 @@ def gpt_prefill_chunk(
     (:func:`_attend_cache`). Returns the pre-final-norm hidden states
     (B, C, D) and the caches, written in place.
 
-    The learned position rows are a per-row gather, clipped, so a padded
-    row past the table end reads a real row and the real rows stay exact.
-    Only rows ``[0, start_pos + C)`` of the cache are attended: the masked
-    rows after them would add exact zeros. The row-wise work runs on
-    blocks of ``PREFILL_ROWS`` rows, and the attention's sums in fp64, so a
-    row comes out bit for bit the same whatever the chunking: the property
-    the serving engine's chunked prefill and prefix cache rest on.
+    ``start_pos`` and ``true_len`` are ints or 0-d (or one-element) tensors
+    on the chunk's device: with tensors nothing depends on their values on
+    the host, which is how a captured chunk takes them. The learned
+    position rows are a per-row gather, clipped, so a padded row past the
+    table end reads a real row and the real rows stay exact. Every query
+    attends over all S cache rows with the masked ones adding exact zeros.
+    The row-wise work runs on blocks of ``PREFILL_ROWS`` rows, and the
+    attention's sums in fp64, so a row comes out bit for bit the same
+    whatever the chunking: the property the serving engine's chunked
+    prefill and prefix cache rest on.
     """
     from ray_lightning_tpu_torch.ops.attention import band_allowed
 
@@ -855,17 +903,20 @@ def gpt_prefill_chunk(
     norm_fn = _make_norm(cfg)
     B, C = chunk.shape
     S = k_cache.shape[2]
-    start = int(start_pos)
-    tl = C if true_len is None else int(true_len)
-    if start < 0 or not 1 <= tl <= C:
-        raise ValueError(
-            f"need start_pos >= 0 and 1 <= true_len <= {C}, got "
-            f"start_pos={start}, true_len={tl}"
-        )
-    end = min(S, start + tl)
-    kend = min(S, start + C)
     dev = chunk.device
-    positions = start + torch.arange(C, device=dev)
+    tl = C if true_len is None else true_len
+    if isinstance(start_pos, torch.Tensor):
+        start_pos = start_pos.reshape(())
+    elif int(start_pos) < 0:
+        raise ValueError(f"need start_pos >= 0, got {start_pos}")
+    if isinstance(tl, torch.Tensor):
+        tl = tl.reshape(())
+    elif not 1 <= int(tl) <= C:
+        raise ValueError(f"need 1 <= true_len <= {C}, got true_len={tl}")
+    offs = torch.arange(C, device=dev)
+    positions = offs + start_pos
+    tgt = _chunk_targets(positions, S, C)
+    write = ((offs < tl) & (positions < S))[None, :, None, None]
     x = embed_rows(params["wte"], chunk)
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][positions.clamp(max=cfg.max_seq - 1)]
@@ -874,7 +925,7 @@ def gpt_prefill_chunk(
         cos, sin = _rope_tables(positions, cfg.rope_theta, cfg.head_dim)
         cos, sin = cos[None, :, None, :], sin[None, :, None, :]
     allowed = band_allowed(
-        positions[:, None], torch.arange(kend, device=dev)[None, :],
+        positions[:, None], torch.arange(S, device=dev)[None, :],
         cfg.attn_window, cfg.attn_sinks,
     )
     sm_scale = 1.0 / (cfg.head_dim**0.5)
@@ -889,9 +940,9 @@ def gpt_prefill_chunk(
         # Write before attending: the chunk's own rows are part of what
         # it attends to.
         kc, vc = k_cache[li], v_cache[li]
-        kc[:, start:end] = k_new[:, : end - start].to(kc.dtype)
-        vc[:, start:end] = v_new[:, : end - start].to(vc.dtype)
-        o = _attend_cache(q, kc[:, :kend], vc[:, :kend], allowed, sm_scale)
+        kc[:, tgt] = torch.where(write, k_new.to(kc.dtype), kc[:, tgt])
+        vc[:, tgt] = torch.where(write, v_new.to(vc.dtype), vc[:, tgt])
+        o = _attend_cache(q, kc, vc, allowed, sm_scale)
         h = _in_prefill_rows(
             lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
         )
@@ -1008,7 +1059,8 @@ def gpt_decode_fold(
     cfg: GPTConfig,
     cur: torch.Tensor,
     pos: torch.Tensor,
-    generators: Sequence[Optional[torch.Generator]],
+    seeds: torch.Tensor,
+    counters: torch.Tensor,
     temps: torch.Tensor,
     top_ks: torch.Tensor,
     top_ps: torch.Tensor,
@@ -1019,9 +1071,10 @@ def gpt_decode_fold(
     v_cache: torch.Tensor,
     *,
     fold: int,
+    sampling: bool = True,
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 0,
-    piggyback: Optional[Sequence[ChunkRow]] = None,
+    piggyback: Optional[ChunkRows] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """``fold`` decode+sample iterations with per-slot termination on the
     device: the serving engine's hot loop.
@@ -1030,18 +1083,21 @@ def gpt_decode_fold(
     active slots; a slot whose sampled token equals its eos (``eos_toks``
     -1 = off) or whose ``remaining`` budget hits zero freezes mid-fold, so
     no post-EOS token is emitted. The host reads nothing until the fold
-    ends. ``generators[b]`` (None = greedy) draws once per iteration for
-    its slot: while the slot is active that is once per emitted token,
-    and after it froze the draws are never used.
+    ends. A slot's token uses draw ``counters[slot]`` of its stream
+    ``seeds[slot]``, and the counter advances with each emitted token, so
+    a request's n-th token uses its n-th draw. ``sampling=False`` is the
+    all-greedy variant (see :func:`sample_logits_batched`).
 
     With ``page_table`` set, ``k_cache``/``v_cache`` are the page pools
     (L, P, page_size, Hkv, hd) and each iteration runs
     :func:`gpt_decode_step_paged`: gather, the same dense step, scatter.
 
     Returns ``(tok_block (fold, B) int with -1 at non-emitted lanes,
-    emit_block (fold, B) bool, cur, pos, active, remaining, k_cache,
-    v_cache)``. With ``piggyback`` (:func:`piggyback_prefill`) its chunk
-    rows run after the iterations and their ``pb_toks`` are appended.
+    emit_block (fold, B) bool, cur, pos, counters, active, remaining,
+    k_cache, v_cache)``: the JAX fold's outputs with the counters where it
+    returns its keys. With ``piggyback`` (:func:`piggyback_prefill`) its
+    chunk rows run after the iterations and their ``pb_toks`` are
+    appended.
     """
     toks_out, emits_out = [], []
     for _ in range(int(fold)):
@@ -1054,24 +1110,26 @@ def gpt_decode_fold(
                 params, cfg, cur, pos, k_cache, v_cache, page_table,
                 page_size,
             )
-        toks = sample_logits_batched(logits, temps, top_ks, top_ps, generators)
-        toks = toks.to(cur.dtype)
+        toks = sample_logits_batched(logits, temps, top_ks, top_ps, seeds,
+                                     counters, sampling).to(cur.dtype)
         emit = active
         toks_out.append(torch.where(emit, toks, -1))
         emits_out.append(emit)
         cur = torch.where(active, toks, cur)
         pos = torch.where(active, pos + 1, pos)
+        counters = torch.where(active, counters + 1, counters)
         remaining = torch.where(active, remaining - 1, remaining)
         active = active & (remaining > 0) & (toks != eos_toks)
     out = (
-        torch.stack(toks_out), torch.stack(emits_out), cur, pos, active,
-        remaining, k_cache, v_cache,
+        torch.stack(toks_out), torch.stack(emits_out), cur, pos, counters,
+        active, remaining, k_cache, v_cache,
     )
     if piggyback is None:
         return out
     return out + (piggyback_prefill(
-        params, cfg, piggyback, cur, pos, active, remaining, temps, top_ks,
-        top_ps, k_cache, v_cache, page_table=page_table, page_size=page_size,
+        params, cfg, piggyback, cur, pos, counters, active, remaining, temps,
+        top_ks, top_ps, seeds, k_cache, v_cache, sampling=sampling,
+        page_table=page_table, page_size=page_size,
     ),)
 
 
@@ -1123,9 +1181,12 @@ def gpt_decode_verify(
     if cfg.pos_embed == "rope":
         cos, sin = _rope_tables(flat, cfg.rope_theta, cfg.head_dim)
         cos, sin = cos[:, None, :], sin[:, None, :]
-    valid = positions < S
-    w_slot = torch.arange(B, device=dev)[:, None].expand(B, Q)[valid]
-    w_pos = positions[valid]
+    # Every (slot, row) is written: the rows past the cache end get their
+    # old value back at distinct rows below the slot's first (a clamp would
+    # overwrite row S - 1, a real row), so no shape depends on the data.
+    write = (positions < S)[..., None, None]
+    w_slot = torch.arange(B, device=dev)[:, None].expand(B, Q)
+    w_pos = _chunk_targets(positions, S, Q)
     cols = torch.arange(S, device=dev)[None, None, None]
     allowed = [
         band_allowed(positions[:, i, None, None, None], cols,
@@ -1144,11 +1205,13 @@ def gpt_decode_verify(
             q = _rotate(q, cos, sin)
             k_new = _rotate(k_new, cos, sin)
         kc, vc = k_cache[li], v_cache[li]
-        kc[w_slot, w_pos] = k_new.reshape(B, Q, *k_new.shape[1:])[valid].to(
-            kc.dtype
+        kc[w_slot, w_pos] = torch.where(
+            write, k_new.reshape(B, Q, *k_new.shape[1:]).to(kc.dtype),
+            kc[w_slot, w_pos],
         )
-        vc[w_slot, w_pos] = v_new.reshape(B, Q, *v_new.shape[1:])[valid].to(
-            vc.dtype
+        vc[w_slot, w_pos] = torch.where(
+            write, v_new.reshape(B, Q, *v_new.shape[1:]).to(vc.dtype),
+            vc[w_slot, w_pos],
         )
         kd, vd = kc.double(), vc.double()
         qb = q.reshape(B, Q, *q.shape[1:])
@@ -1275,8 +1338,8 @@ def gpt_prefill_chunk_paged(
     pool_k: torch.Tensor,
     pool_v: torch.Tensor,
     table_row: torch.Tensor,
-    start_pos: int,
-    true_len: Optional[int] = None,
+    start_pos: Any,
+    true_len: Any = None,
     *,
     page: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -1287,14 +1350,18 @@ def gpt_prefill_chunk_paged(
     the view go to scratch (the dense chunk never writes them)."""
     C = chunk.shape[1]
     S = table_row.shape[1] * int(page)
-    tl = C if true_len is None else int(true_len)
+    tl = C if true_len is None else true_len
     k_view = paged_gather(pool_k, table_row, page)
     v_view = paged_gather(pool_v, table_row, page)
     h, k_view, v_view = gpt_prefill_chunk(
         params, cfg, chunk, k_view, v_view, start_pos, tl
     )
     offs = torch.arange(C, device=chunk.device)
-    rows = (int(start_pos) + offs)[None]  # (1, C)
+    if isinstance(start_pos, torch.Tensor):
+        start_pos = start_pos.reshape(())
+    if isinstance(tl, torch.Tensor):
+        tl = tl.reshape(())
+    rows = (start_pos + offs)[None]  # (1, C)
     valid = (offs < tl)[None] & (rows < S)
     cl = rows.clamp(0, S - 1)[0]
     paged_put_rows(pool_k, table_row, rows, k_view[:, :, cl], valid, page)
@@ -1313,52 +1380,134 @@ def first_token(
     temps: torch.Tensor,
     top_ks: torch.Tensor,
     top_ps: torch.Tensor,
-    generator: Optional[torch.Generator],
+    seeds: torch.Tensor,
+    counters: torch.Tensor,
+    sampling: bool = True,
 ) -> torch.Tensor:
-    """A prompt's first token from ``h_last`` (1, 1, D), the pre-final-norm
-    hidden state of its last position: final norm, LM head, and one draw
-    of ``generator`` (None = greedy) under the (1,) knobs. Returns a 0-d
-    tensor on the device."""
+    """Prompts' first tokens from ``h_last`` (N, 1, D), the pre-final-norm
+    hidden state of each prompt's last position: final norm, LM head, and
+    draw ``counters`` of streams ``seeds`` under the (N,) knobs (greedy
+    where ``temps`` <= 0). Returns (N,) on the device."""
     h = _make_norm(cfg)(h_last, params["lnf_g"], params["lnf_b"])
     logits = _lm_head(h[:, 0], _head_weight(params, cfg))
-    return sample_logits_batched(logits, temps, top_ks, top_ps,
-                                 [generator])[0]
+    return sample_logits_batched(logits, temps, top_ks, top_ps, seeds,
+                                 counters, sampling)
 
 
 @dataclass
 class ChunkRow:
-    """One prefill chunk of a fused dispatch: row r of the JAX package's
-    piggyback arrays (``gpt.py:1459``). ``chunk`` (1, C) holds the slot's
-    next prompt tokens on the cache's device, right-padded; the first
-    ``length`` are real and sit at positions ``start ..``. On the prompt's
-    ``final`` chunk the first token is drawn by ``generator`` (None =
-    greedy) and the slot is armed for ``n_new`` tokens with ``eos`` (-1 =
-    off)."""
+    """One prefill chunk, as the host plans it: the slot, its next prompt
+    tokens ``tokens`` (a host array of ``length`` real tokens) at positions
+    ``start ..``, and on the prompt's ``final`` chunk the budget ``n_new``
+    and ``eos`` (-1 = off) the slot is armed with."""
 
     slot: int
-    chunk: torch.Tensor
+    tokens: Any
     start: int
     length: int
     final: bool = False
     n_new: int = 0
     eos: int = -1
-    generator: Optional[torch.Generator] = None
+
+
+class ChunkRows:
+    """C chunk rows as device tensors: the JAX package's piggyback arrays
+    (``gpt.py:1459``), packed into one (C, CB + 7) int64 buffer so the host
+    fills them with one copy. ``chunk`` (C, CB) holds each row's tokens,
+    right-padded; ``start``, ``length``, ``slot``, ``n_new`` and ``eos``
+    are (C,) views; ``final`` and ``valid`` (C,) bool. A row that is not
+    ``valid`` is a no-op: a fused dispatch always carries C rows, as the
+    JAX block does, so a captured fold has one shape."""
+
+    _FIELDS = ("start", "length", "slot", "n_new", "eos", "final", "valid")
+
+    def __init__(self, n_rows: int, chunk_len: int, device: Any = "cpu"):
+        self.chunk_len = int(chunk_len)
+        self.buf = torch.zeros((n_rows, self.chunk_len + len(self._FIELDS)),
+                               dtype=torch.long, device=device)
+
+    @property
+    def chunk(self) -> torch.Tensor:
+        return self.buf[:, : self.chunk_len]
+
+    def _col(self, name: str) -> torch.Tensor:
+        return self.buf[:, self.chunk_len + self._FIELDS.index(name)]
+
+    start = property(lambda self: self._col("start"))
+    length = property(lambda self: self._col("length"))
+    slot = property(lambda self: self._col("slot"))
+    n_new = property(lambda self: self._col("n_new"))
+    eos = property(lambda self: self._col("eos"))
+    final = property(lambda self: self._col("final") != 0)
+    valid = property(lambda self: self._col("valid") != 0)
+
+    def fill(self, rows: Sequence[ChunkRow]) -> None:
+        """Write ``rows`` (at most C) into the buffer in place, the rest
+        invalid: one copy, pinned and non-blocking on the card."""
+        from ray_lightning_tpu_torch.utils.graphs import pinned_copy
+
+        C = self.buf.shape[0]
+        if len(rows) > C:
+            raise ValueError(f"{len(rows)} chunk rows for {C} row buffers")
+        host = torch.zeros(self.buf.shape, dtype=torch.long)
+        for i, r in enumerate(rows):
+            host[i, : r.length] = torch.as_tensor(
+                np.asarray(r.tokens[: r.length], np.int64))
+            host[i, self.chunk_len :] = torch.tensor(
+                [r.start, r.length, r.slot, r.n_new, r.eos, int(r.final), 1])
+        pinned_copy(self.buf, host)
+
+
+def _prefill_slot(params, cfg, chunk, k_cache, v_cache, slot, start, length,
+                  page_table, page_size) -> torch.Tensor:
+    """:func:`gpt_prefill_chunk` of one (1, C) chunk on the slot named by
+    the (1,) tensor ``slot``: its view of the cache (its rows, or its pages
+    through its table row) gathered, the chunk run on the view, and the
+    chunk's rows written back (their targets are distinct, so the write is
+    one index_put). Returns the hidden states (1, C, D)."""
+    if page_table is not None:
+        h, _, _ = gpt_prefill_chunk_paged(
+            params, cfg, chunk, k_cache, v_cache,
+            page_table.index_select(0, slot), start, length, page=page_size,
+        )
+        return h
+    kv, vv = k_cache.index_select(1, slot), v_cache.index_select(1, slot)
+    h, kv, vv = gpt_prefill_chunk(params, cfg, chunk, kv, vv, start, length)
+    C, S = chunk.shape[1], k_cache.shape[2]
+    tgt = _chunk_targets(torch.arange(C, device=chunk.device) + start, S, C)
+    rows = slot.expand(C)
+    # The view holds the cache's own values outside the rows the chunk
+    # wrote, so all C targets are written back as they are.
+    k_cache[:, rows, tgt] = kv[:, 0, tgt]
+    v_cache[:, rows, tgt] = vv[:, 0, tgt]
+    return h
+
+
+def _put(state: torch.Tensor, slot: torch.Tensor, when: torch.Tensor,
+         value: Any) -> None:
+    """``state[slot] = value`` where ``when`` holds, else unchanged, with
+    no host read (``slot`` a (1,) tensor)."""
+    old = state.index_select(0, slot)
+    state.index_copy_(0, slot, torch.where(when, value, old).to(state.dtype))
 
 
 def piggyback_prefill(
     params: Dict[str, Any],
     cfg: GPTConfig,
-    rows: Sequence[ChunkRow],
+    rows: ChunkRows,
     cur: torch.Tensor,
     pos: torch.Tensor,
+    counters: torch.Tensor,
     active: torch.Tensor,
     remaining: torch.Tensor,
     temps: torch.Tensor,
     top_ks: torch.Tensor,
     top_ps: torch.Tensor,
+    seeds: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     *,
+    sampling: bool = True,
     hist: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 0,
@@ -1369,46 +1518,49 @@ def piggyback_prefill(
     slot's table row with ``page_table``), the token history healed over
     the same rows when ``hist`` is given, and then either the slot parked
     at the next chunk's first row or, on a final chunk, the first token
-    (:func:`first_token`) and the slot armed: ``cur``, ``pos``, ``active``
-    and ``remaining``. The sampling knobs are the slot's own, which its
-    admission wrote. Caches, state and history are written in place;
-    returns (len(rows),) with the first token at final rows, -1 elsewhere.
+    (:func:`first_token`, the slot's draw 0) and the slot armed: ``cur``,
+    ``pos``, ``active``, ``remaining`` and ``counters`` (1). The sampling
+    knobs and seed are the slot's own, which its admission wrote. Caches,
+    state and history are written in place; returns (C,) with the first
+    token at valid final rows, -1 elsewhere.
 
     A fold runs this after its iterations: a parked slot's lane writes
     one cache row at its position during the fold, and the chunk rewrites
-    that row. The JAX block pads to a fixed number of rows, the unused
-    ones no-ops; eager code runs only the rows it is given. The engine's
-    separate chunk is this function with one row, so a piggybacked chunk
-    is that chunk bit for bit."""
-    toks = torch.full((len(rows),), -1, dtype=cur.dtype, device=cur.device)
-    for i, r in enumerate(rows):
-        s, end = r.slot, r.start + r.length
-        if page_table is None:
-            h, _, _ = gpt_prefill_chunk(
-                params, cfg, r.chunk, k_cache[:, s : s + 1],
-                v_cache[:, s : s + 1], r.start, r.length,
-            )
-        else:
-            h, _, _ = gpt_prefill_chunk_paged(
-                params, cfg, r.chunk, k_cache, v_cache,
-                page_table[s : s + 1], r.start, r.length, page=page_size,
-            )
+    that row. Every row runs whether valid or not, so the work has one
+    shape: an invalid row writes its slot's state and rows back unchanged.
+    The engine's separate chunk is this function with one row, so a
+    piggybacked chunk is that chunk bit for bit."""
+    C = rows.chunk.shape[0]
+    toks = []
+    for i in range(C):
+        s = rows.slot[i : i + 1]
+        ok = rows.valid[i]
+        start, n = rows.start[i], rows.length[i]
+        h = _prefill_slot(params, cfg, rows.chunk[i : i + 1], k_cache,
+                          v_cache, s, start, torch.where(ok, n, 0),
+                          page_table, page_size)
+        end = start + n
         if hist is not None:
-            hist[s, r.start : end] = r.chunk[0, : r.length]
-        # fill_, not an assignment of a Python number: that one is a copy
-        # from pageable memory, which waits for the stream.
-        pos[s].fill_(end)
-        if not r.final:
-            continue
+            cols = torch.arange(hist.shape[1], device=hist.device)
+            src = rows.chunk[i].index_select(
+                0, (cols - start).clamp(0, rows.chunk.shape[1] - 1))
+            inside = ok & (cols >= start) & (cols < end)
+            hist.index_copy_(0, s, torch.where(
+                inside, src, hist.index_select(0, s)[0])[None])
+        _put(pos, s, ok, end)
+        fin = ok & rows.final[i]
+        h_last = h.index_select(1, (n - 1).clamp(min=0).reshape(1))
         tok = first_token(
-            params, cfg, h[:, r.length - 1 : r.length], temps[s : s + 1],
-            top_ks[s : s + 1], top_ps[s : s + 1], r.generator,
-        )
-        cur[s] = tok
-        active[s] = (r.n_new > 1) & (tok != r.eos)
-        remaining[s].fill_(r.n_new - 1)
-        toks[i] = tok
-    return toks
+            params, cfg, h_last, temps.index_select(0, s),
+            top_ks.index_select(0, s), top_ps.index_select(0, s),
+            seeds.index_select(0, s), torch.zeros_like(s), sampling,
+        ).to(cur.dtype)
+        _put(cur, s, fin, tok)
+        _put(active, s, fin, (rows.n_new[i] > 1) & (tok != rows.eos[i]))
+        _put(remaining, s, fin, rows.n_new[i] - 1)
+        _put(counters, s, fin, 1)
+        toks.append(torch.where(fin, tok, -1))
+    return torch.cat(toks)
 
 
 # -- Speculative decoding: drafters and the verify fold ---------------------
@@ -1505,7 +1657,8 @@ def gpt_decode_fold_spec(
     cfg: GPTConfig,
     cur: torch.Tensor,
     pos: torch.Tensor,
-    generators: Sequence[Optional[torch.Generator]],
+    seeds: torch.Tensor,
+    counters: torch.Tensor,
     temps: torch.Tensor,
     top_ks: torch.Tensor,
     top_ps: torch.Tensor,
@@ -1519,9 +1672,10 @@ def gpt_decode_fold_spec(
     fold: int,
     depth: int,
     draft_fn: Any,
+    sampling: bool = True,
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 0,
-    piggyback: Optional[Sequence[ChunkRow]] = None,
+    piggyback: Optional[ChunkRows] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Speculative :func:`gpt_decode_fold` (``gpt.py:2113`` of the JAX
     package): each of the ``fold`` iterations drafts ``depth`` tokens per
@@ -1535,28 +1689,25 @@ def gpt_decode_fold_spec(
     from its draft; that sample is itself the right next token. EOS and
     the budget freeze a slot mid-scan, as in :func:`gpt_decode_fold`.
 
-    Draws: a slot's n-th emitted token must use its generator's n-th
-    draw, whatever the accept lengths, so a sampled request gives the
-    same tokens with and without speculation and with any batchmates.
-    Every sampling slot's generator draws at each of the depth + 1 scan
-    indices, its state kept before each draw; after the scan the host
-    reads the emitted counts (one device-to-host read per verify, made
-    only while a slot samples) and puts each generator back to its state
-    before the first draw that emitted nothing.
+    Draws: a slot's n-th emitted token must use its n-th draw, whatever
+    the accept lengths, so a sampled request gives the same tokens with and
+    without speculation and with any batchmates. Scan index i of a slot
+    that is still emitting follows i emitted tokens of this verify, so it
+    samples with draw ``counters + i``; after the scan the counters advance
+    by the emitted counts on the device. Nothing is read back.
 
     ``hist`` (B, S) is the token history the drafters read: the fold
     writes ``cur`` at ``pos`` and every emitted token at its position.
     Returns ``(tok_block (fold * (depth + 1), B) with -1 at non-emitted
-    lanes, emit_block, cur, pos, active, remaining, hist, k_cache,
-    v_cache)``; with ``piggyback`` its chunk rows run after the iterations
-    (:func:`piggyback_prefill`, which also heals their history rows) and
-    ``pb_toks`` is appended.
+    lanes, emit_block, cur, pos, counters, active, remaining, hist,
+    k_cache, v_cache)``; with ``piggyback`` its chunk rows run after the
+    iterations (:func:`piggyback_prefill`, which also heals their history
+    rows) and ``pb_toks`` is appended.
     """
     D = int(depth)
     B = cur.shape[0]
     dev = cur.device
     rows = torch.arange(hist.shape[1], device=dev)[None]
-    sampled = [b for b, g in enumerate(generators) if g is not None]
     no_draft = torch.full((B, 1), -1, dtype=cur.dtype, device=dev)
     toks_out, emits_out = [], []
     for _ in range(int(fold)):
@@ -1578,15 +1729,13 @@ def gpt_decode_fold_spec(
         # The last index has no draft to match: the -1 sentinel stops the
         # scan there (tokens are >= 0).
         drafts_pad = torch.cat([drafts, no_draft], dim=1)
-        states: Dict[int, List[torch.Tensor]] = {b: [] for b in sampled}
         accepting = torch.ones_like(active)
         emitted = []
         for i in range(D + 1):
-            for b in sampled:
-                states[b].append(generators[b].get_state())
             emit = active & accepting
             toks = sample_logits_batched(
-                logits[:, i], temps, top_ks, top_ps, generators
+                logits[:, i], temps, top_ks, top_ps, seeds, counters + i,
+                sampling,
             ).to(cur.dtype)
             cur = torch.where(emit, toks, cur)
             pos = torch.where(emit, pos + 1, pos)
@@ -1598,26 +1747,22 @@ def gpt_decode_fold_spec(
             emits_out.append(emit)
         toks_out += emitted
         n_emit = pos - pos0
-        if sampled:
-            counts = n_emit.tolist()
-            for b in sampled:
-                if counts[b] <= D:
-                    generators[b].set_state(states[b][counts[b]])
+        counters = counters + n_emit
         # Emitted tokens enter the history at positions pos0 + 1 .. pos.
         offs = rows - (pos0[:, None] + 1)
         hvalid = (offs >= 0) & (offs < n_emit[:, None])
         em = torch.stack(emitted, dim=1)  # (B, D + 1)
         hist = torch.where(hvalid, torch.gather(em, 1, offs.clamp(0, D)), hist)
     out = (
-        torch.stack(toks_out), torch.stack(emits_out), cur, pos, active,
-        remaining, hist, k_cache, v_cache,
+        torch.stack(toks_out), torch.stack(emits_out), cur, pos, counters,
+        active, remaining, hist, k_cache, v_cache,
     )
     if piggyback is None:
         return out
     return out + (piggyback_prefill(
-        params, cfg, piggyback, cur, pos, active, remaining, temps, top_ks,
-        top_ps, k_cache, v_cache, hist=hist, page_table=page_table,
-        page_size=page_size,
+        params, cfg, piggyback, cur, pos, counters, active, remaining, temps,
+        top_ks, top_ps, seeds, k_cache, v_cache, sampling=sampling, hist=hist,
+        page_table=page_table, page_size=page_size,
     ),)
 
 
@@ -1627,7 +1772,7 @@ def gpt_generate(
     prompt: Any,
     max_new_tokens: int,
     temperature: float = 0.0,
-    generator: Optional[torch.Generator] = None,
+    seed: int = 0,
     top_k: Optional[int] = None,
     top_p: Optional[float] = None,
     device: Any = "cuda",
@@ -1638,7 +1783,9 @@ def gpt_generate(
     A prefill (one parallel forward over the prompt fills the (L, B,
     P + new, Hkv, hd) cache and samples the first new token), then one
     cached decode step per further token. Greedy when ``temperature ==
-    0``; otherwise sampling from ``generator`` with optional top-k / top-p.
+    0``; otherwise row b samples its n-th new token with draw n of the
+    stream ``seed + b`` (:func:`draw_uniforms`), as the serving engine
+    samples a request with that seed, with optional top-k / top-p.
     ``params`` move to ``device`` if they are elsewhere.
     """
     device = resolve_device(device)
@@ -1656,8 +1803,14 @@ def gpt_generate(
     cdt = compute_dtype(cfg)
     norm_fn = _make_norm(cfg)
     L, hd, Hkv = cfg.n_layer, cfg.head_dim, cfg.kv_head
-    if temperature > 0.0 and generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
+    seeds = torch.tensor([seed64(int(seed) + b) for b in range(B)],
+                         dtype=torch.long).to(device)
+
+    def sample(logits, n):
+        counters = torch.full((B,), n, dtype=torch.long, device=device)
+        return sample_logits(logits, temperature, top_k, top_p, seeds,
+                             counters)
+
     with torch.no_grad():
         k_cache = torch.zeros((L, B, total, Hkv, hd), dtype=cdt, device=device)
         v_cache = torch.zeros_like(k_cache)
@@ -1668,16 +1821,14 @@ def gpt_generate(
         v_cache[:, :, :P] = pf_v
         h_last = norm_fn(h_pf[:, P - 1 : P], params["lnf_g"], params["lnf_b"])
         logits = _lm_head(h_last[:, 0], _head_weight(params, cfg))
-        toks[:, P] = sample_logits(logits, temperature, top_k, top_p, generator)
+        toks[:, P] = sample(logits, 0)
         for t in range(P, total - 1):
             logits, k_cache, v_cache = gpt_decode_step(
                 params, cfg, toks[:, t],
                 torch.full((B,), t, dtype=torch.long, device=device),
                 k_cache, v_cache,
             )
-            toks[:, t + 1] = sample_logits(
-                logits, temperature, top_k, top_p, generator
-            )
+            toks[:, t + 1] = sample(logits, t + 1 - P)
     return toks
 
 
@@ -1754,7 +1905,7 @@ class GPTLM(TorchModule):
         prompt: Any,
         max_new_tokens: int = 32,
         temperature: float = 0.0,
-        generator: Optional[torch.Generator] = None,
+        seed: int = 0,
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
     ) -> torch.Tensor:
@@ -1765,7 +1916,7 @@ class GPTLM(TorchModule):
             raise RuntimeError("no parameters: fit first or set module.params")
         return gpt_generate(
             self.params, self.config, prompt, max_new_tokens,
-            temperature=temperature, generator=generator, top_k=top_k,
+            temperature=temperature, seed=seed, top_k=top_k,
             top_p=top_p, device=self.params["wte"].device,
         )
 

@@ -28,7 +28,7 @@ first row not yet prefilled and returns no token; each
 with decode folds instead of stalling them behind one long prefill. An
 interleaved fold writes a parked slot's row at ``pos`` only, and the next
 chunk writes that row before it attends to it. The final chunk samples
-the first token, from a generator seeded there, and arms the slot.
+the first token (draw 0 of the request's seed) and arms the slot.
 
 Prefix cache (``prefix_blocks=N``): a device pool of N blocks of
 ``prefix_block`` positions, (L, N, block, Hkv, hd) K and V, keyed by
@@ -59,8 +59,9 @@ iteration drafts ``spec_depth`` tokens per slot from its token history
 steps), verifies them in one forward and emits the longest matching
 prefix plus one token (``models/gpt.py:gpt_decode_fold_spec``). The
 verify is the decode step with a query axis, so the tokens are those of
-the plain engine; a sampled slot's n-th token uses its generator's n-th
-draw either way.
+the plain engine; a sampled slot's n-th token uses its n-th draw either
+way (a per-slot seed and draw counter on the device,
+``models/gpt.py:draw_uniforms``).
 
 Piggybacked prefill chunks (``piggyback_chunks=C``): up to C prefill
 chunks, one per prefilling slot, ride each decode dispatch after the
@@ -80,20 +81,32 @@ alone, not on the fold queued behind it. A slot released between a
 dispatch and its harvest may still decode in that fold: its tokens are
 dropped at harvest by the ``released`` marker of the dispatch-time
 snapshot, its freed pages wait in the quarantine until the harvest, and
-its next tenant's writes queue after the fold on the same stream. A
-sampling slot's generator draws at dispatch; the next tenant of a
-released slot gets a new generator from its own seed.
+its next tenant's writes queue after the fold on the same stream.
+
+Dispatch programs (the JAX engine's construction-time compile): every
+dispatch is a body that reads fixed device buffers and writes fixed
+device buffers, keyed in :attr:`DecodeEngine.dispatch_plan`: a fold per
+ladder rung in an all-greedy and a sampling variant (the host knows which
+slots sample; a graph has no branch), with the ``piggyback_chunks`` chunk
+rows as a fixed block with a validity mask; a chunk per chunk bucket
+(chunked mode); a fused admission per prompt bucket (monolithic mode). On
+the card each is captured as a CUDA graph at construction and replayed
+(``utils/graphs.py``); ``compiled_count`` counts the graphs and does not
+move afterwards. On the CPU the same bodies run on the same buffers
+without capture. The host writes a dispatch's inputs into its buffers
+with pinned non-blocking copies; the slot, table and history writes of
+admission and release stay small eager ops.
 
 What the JAX engine also offers and this port does not yet (each raises
 ``NotImplementedError`` naming its ROADMAP item): the KV object store,
-a device mesh, and the fleet's prefix export, import and eviction. The
-JAX engine's compile-count contract has no eager counterpart.
+a device mesh, and the fleet's prefix export, import and eviction.
 
 All methods must be driven from one thread (the scheduler loop).
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import hashlib
 import os
 import time
@@ -105,6 +118,7 @@ import torch
 
 from ray_lightning_tpu_torch.models.gpt import (
     ChunkRow,
+    ChunkRows,
     GPTConfig,
     cast_params,
     compute_dtype,
@@ -116,10 +130,12 @@ from ray_lightning_tpu_torch.models.gpt import (
     ngram_propose,
     params_to,
     piggyback_prefill,
+    seed64,
 )
 from ray_lightning_tpu_torch.ops.flash_attention import takes_reference_path
 from ray_lightning_tpu_torch.serve.metrics import TIER_COUNTERS
 from ray_lightning_tpu_torch.utils.device import host_to, resolve_device
+from ray_lightning_tpu_torch.utils.graphs import Program, pinned_copy
 
 #: Constructor options of the JAX engine that the port does not run yet:
 #: name -> (the JAX default, which the port accepts, and the ROADMAP item).
@@ -159,8 +175,8 @@ class PrefillTask:
     temperature: float
     top_k: int
     top_p: float
-    #: Seed of the request's generator, made on the final chunk (the JAX
-    #: engine carries the request's PRNG key here).
+    #: The request's seed, written into the slot's device seed at
+    #: admission (the JAX engine carries the request's PRNG key here).
     seed: int
     #: Tokens seeded from the prefix pool (suffix prefill starts there).
     matched_tokens: int = 0
@@ -236,8 +252,12 @@ class DecodeEngine:
     position, sampling knobs, active/remaining/eos) live on ``device`` and
     are updated there; the host keeps request bookkeeping (``SlotInfo``,
     ``PrefillTask``), the pool's digest map and LRU, the spill tiers, and
-    each sampling slot's ``torch.Generator``. :meth:`device_state` is the
-    explicit sync point that copies the slot state to the host.
+    which slots sample. :meth:`device_state` is the explicit sync point
+    that copies the slot state to the host.
+
+    ``_graphs=False`` (private) runs the dispatch bodies eagerly on the
+    card instead of replaying their graphs: a timing baseline, never
+    chosen by the engine itself.
     """
 
     def __init__(
@@ -265,6 +285,7 @@ class DecodeEngine:
         spec_config: Optional[GPTConfig | Dict[str, Any]] = None,
         spec_window: int = 32,
         device: Any = "cuda",
+        _graphs: bool = True,
         **options: Any,
     ) -> None:
         for name, value in options.items():
@@ -513,6 +534,10 @@ class DecodeEngine:
         self._active = torch.zeros(B, dtype=torch.bool, device=dev)
         self._remaining = torch.zeros(B, dtype=torch.long, device=dev)
         self._eos = torch.full((B,), -1, dtype=torch.long, device=dev)
+        #: Per slot: the request's seed and its next draw's number (the
+        #: n-th token of a request uses draw n).
+        self._seeds = torch.zeros(B, dtype=torch.long, device=dev)
+        self._ctrs = torch.zeros(B, dtype=torch.long, device=dev)
         #: Per-slot token history (hist[b, p] = the token at position p),
         #: what the drafters read; None with spec off.
         self._hist = (
@@ -520,10 +545,9 @@ class DecodeEngine:
             if self.spec != "off"
             else None
         )
-        #: Per slot: the generator of a sampling request (None = greedy).
-        #: A slot mid-prefill has none: the fold draws from every
-        #: generator it is given, and a parked slot must not consume draws.
-        self._gens: List[Optional[torch.Generator]] = [None] * B
+        #: Per slot: whether its request samples (temperature > 0), so the
+        #: host picks a fold's variant without reading the device.
+        self._samples: List[bool] = [False] * B
         self._slots: List[Optional[SlotInfo]] = [None] * B
         #: slot -> in-progress chunked admission (chunked mode only).
         self._prefills: Dict[int, PrefillTask] = {}
@@ -547,6 +571,28 @@ class DecodeEngine:
             for _ in range(2)
         ]
         self._buf_next = 0
+        # -- the dispatch programs' fixed buffers -------------------------
+        #: A fold's packed output: token rows, emit rows and the row of
+        #: piggybacked first tokens.
+        self._fold_out = torch.zeros((2 * ladder[-1] * group + 1, B),
+                                     dtype=torch.long, device=dev)
+        #: The first token of a chunk or an admission.
+        self._tok_out = torch.zeros(1, dtype=torch.long, device=dev)
+        self._pb_rows = (
+            ChunkRows(self.piggyback_chunks, self.prefill_chunk, dev)
+            if self.piggyback_chunks else None
+        )
+        self._chunk_rows = {cb: ChunkRows(1, cb, dev)
+                            for cb in self.chunk_buckets}
+        #: A monolithic admission's prompt (its bucket's leading columns),
+        #: its integers (slot, length, top_k, eos, max_new_tokens, seed)
+        #: and its floats (temperature, top_p).
+        self._admit_prompt = torch.zeros((1, buckets[-1]), dtype=torch.long,
+                                         device=dev)
+        self._admit_ints = torch.zeros(6, dtype=torch.long, device=dev)
+        self._admit_floats = torch.zeros(2, dtype=torch.float32, device=dev)
+        self.dispatch_plan: Tuple[tuple, ...] = self._plan()
+        self._build_programs(bool(_graphs))
 
     def _check_spec(self, spec, spec_depth, spec_params, spec_config,
                     spec_window) -> None:
@@ -593,7 +639,7 @@ class DecodeEngine:
         history included with spec on (a sync point: tests and debugging
         only)."""
         names = ["cur", "pos", "temps", "top_ks", "top_ps", "active",
-                 "remaining", "eos"]
+                 "remaining", "eos", "seeds", "ctrs"]
         if self._hist is not None:
             names.append("hist")
         return {name: getattr(self, f"_{name}").cpu().numpy() for name in names}
@@ -725,7 +771,7 @@ class DecodeEngine:
             for slot, r, prompt, P, n_new, pb, eos in staged:
                 tok = self._admit_one(slot, r, prompt, P, n_new, pb, eos)
                 pending.append((slot, r, n_new, eos, tok))
-            toks = torch.stack([t for *_, t in pending]).tolist()
+            toks = torch.cat([t for *_, t in pending]).tolist()
         out: List[Tuple[int, Optional[int], bool]] = []
         for (slot, r, n_new, eos, _), tok in zip(pending, toks):
             out.append((slot, tok, self._arm(slot, r["request_id"], n_new,
@@ -743,7 +789,7 @@ class DecodeEngine:
             # Done at its first token: the slot never decodes, so its pages
             # go back now (the JAX engine keeps them until the slot's next
             # admission overwrites its page list).
-            self._gens[slot] = None
+            self._samples[slot] = False
             self._release_pages(slot)
         else:
             self._slots[slot] = SlotInfo(
@@ -755,60 +801,38 @@ class DecodeEngine:
         return done
 
     def _admit_one(self, slot, r, prompt, P, n_new, pb, eos) -> torch.Tensor:
-        """The fused admission of one request: bucketed prefill, cache
-        write into the slot's rows [0, pb), first-token sample and the
-        slot's state write, all queued on the device."""
+        """The fused admission of one request, one dispatch of its
+        bucket's program: bucketed prefill, cache write into the slot's rows
+        [0, pb), the knobs, first-token sample and the slot's state write.
+        Returns the first token on the device (a copy: the next admission's
+        dispatch writes the program's output again)."""
         padded = torch.zeros((1, pb), dtype=torch.long)
         padded[0, :P] = torch.from_numpy(prompt)
-        if self._hist is not None:
-            # The fold writes the first token itself (hist[pos] = cur).
-            self._hist_seed(slot, prompt)
-        h, pf_k, pf_v = gpt_prefill(self.params, self.cfg,
-                                    host_to(padded, self.device))
-        # In place: the slot's rows of the one cache.
-        self._k[:, slot, :pb] = pf_k[:, 0]
-        self._v[:, slot, :pb] = pf_v[:, 0]
         temp = float(r.get("temperature", 0.0))
         top_k, top_p = r.get("top_k"), r.get("top_p")
-        self._set_knobs(slot, temp, 0 if top_k is None else int(top_k),
-                        1.0 if top_p is None else float(top_p), eos)
-        return self._first_token(slot, h[:, P - 1 : P], P, n_new, eos, temp,
-                                 int(r.get("seed", 0)))
+        pinned_copy(self._admit_prompt[:, :pb], padded)
+        pinned_copy(self._admit_ints, torch.tensor(
+            [slot, P, 0 if top_k is None else int(top_k), eos, n_new,
+             seed64(r.get("seed", 0))]))
+        pinned_copy(self._admit_floats, torch.tensor(
+            [temp, 1.0 if top_p is None else float(top_p)]))
+        self._samples[slot] = temp > 0.0
+        self._programs[("admit", pb)]()
+        return self._tok_out.clone()
 
     def _set_knobs(self, slot: int, temp: float, top_k: int, top_p: float,
-                   eos: int) -> None:
-        knobs = host_to(torch.tensor([temp, top_p]), self.device)
-        self._temps[slot] = knobs[0]
-        self._top_ps[slot] = knobs[1]
+                   eos: int, seed: int = 0) -> None:
+        """The slot's sampling knobs, eos and seed, its draw counter at 0;
+        the scalars ride the kernels as arguments (``fill_``): assigning a
+        Python number copies it from pageable memory, which waits for the
+        stream (a fold in flight included)."""
+        self._temps[slot].fill_(temp)
+        self._top_ps[slot].fill_(top_p)
         self._top_ks[slot].fill_(top_k)
         self._eos[slot].fill_(eos)
-
-    def _first_token(self, slot: int, h_last: torch.Tensor, end: int,
-                     n_new: int, eos: int, temp: float,
-                     seed: int) -> torch.Tensor:
-        """Sample the first token from ``h_last`` (1, 1, D), the hidden
-        state of the prompt's last position, and arm the slot on the
-        device (``cur``, ``pos = end``, ``active``, ``remaining``). A
-        sampling slot's generator is made here, so the first draw is this
-        token's on either admission path."""
-        gen = self._generator(temp, seed)
-        self._gens[slot] = gen
-        tok = first_token(
-            self.params, self.cfg, h_last, self._temps[slot : slot + 1],
-            self._top_ks[slot : slot + 1], self._top_ps[slot : slot + 1], gen,
-        )
-        self._cur[slot] = tok
-        self._pos[slot].fill_(end)
-        self._active[slot] = (n_new > 1) & (tok != eos)
-        self._remaining[slot].fill_(n_new - 1)
-        return tok
-
-    def _generator(self, temp: float, seed: int) -> Optional[torch.Generator]:
-        """A sampling request's generator, seeded where its first token is
-        drawn (None for a greedy one)."""
-        if temp > 0.0:
-            return torch.Generator(device=self.device).manual_seed(seed)
-        return None
+        self._seeds[slot].fill_(seed64(seed))
+        self._ctrs[slot].fill_(0)
+        self._samples[slot] = temp > 0.0
 
     def _admit_chunked(self, slot, r, prompt, P, n_new, eos):
         """Walk the prefix cache, pin and copy the matched blocks into the
@@ -846,7 +870,7 @@ class DecodeEngine:
             block_refs=[] if self.paged else list(matched_idxs),
         )
         self._park(slot, matched, task.temperature, task.top_k, task.top_p,
-                   eos)
+                   eos, task.seed)
         if self._hist is not None:
             # The whole prompt, matched prefix included (the pool holds no
             # tokens); each chunk heals its own rows again.
@@ -935,44 +959,30 @@ class DecodeEngine:
 
     def _run_chunk(self, slot: int, task: PrefillTask) -> Optional[torch.Tensor]:
         """One chunk of one slot as a dispatch of its own: the row of
-        :meth:`_chunk_row` through ``models/gpt.py:piggyback_prefill``, the
-        code a piggybacked chunk runs. A chunk before the final one leaves
-        the slot parked at the next row; the final one returns the first
-        token on the device (the slot armed and its generator installed),
-        else None."""
+        :meth:`_chunk_row` through its chunk bucket's program, which runs
+        ``models/gpt.py:piggyback_prefill``, the code a piggybacked chunk
+        runs. A chunk before the final one leaves the slot parked at the
+        next row; the final one returns the first token on the device (the
+        slot armed), else None."""
         row = self._chunk_row(slot, task)
-        caches, paging = self._cache_args()
-        with torch.no_grad():
-            tok = piggyback_prefill(
-                self.params, self.cfg, [row], self._cur, self._pos,
-                self._active, self._remaining, self._temps, self._top_ks,
-                self._top_ps, *caches, hist=self._hist, **paging,
-            )[0]
-        if not row.final:
-            return None
-        self._gens[slot] = row.generator
-        return tok
+        cb = self._chunk_bucket_for(row.length)
+        self._chunk_rows[cb].fill([row])
+        self._programs[("chunk", cb)]()
+        return self._tok_out.clone() if row.final else None
 
     def _chunk_row(self, slot: int, task: PrefillTask) -> ChunkRow:
         """The task's next chunk as a ``ChunkRow``: the next
-        ``prefill_chunk`` prompt tokens padded to their chunk bucket, on
-        the device; on the final chunk the request's budget, eos and
-        generator (seeded here, so its first draw is the first token's).
-        Advances the task past the chunk."""
+        ``prefill_chunk`` prompt tokens; on the final chunk the request's
+        budget and eos. Advances the task past the chunk."""
         P = len(task.tokens)
         start = task.next
         n = min(self.prefill_chunk, P - start)
-        padded = torch.zeros((1, self._chunk_bucket_for(n)), dtype=torch.long)
-        padded[0, :n] = torch.from_numpy(task.tokens[start : start + n])
         task.next += n
         task.chunks += 1
-        final = task.next >= P
         return ChunkRow(
-            slot=slot, chunk=host_to(padded, self.device), start=start,
-            length=n, final=final, n_new=task.max_new_tokens,
+            slot=slot, tokens=task.tokens[start : start + n], start=start,
+            length=n, final=task.next >= P, n_new=task.max_new_tokens,
             eos=task.eos_token,
-            generator=(self._generator(task.temperature, task.seed)
-                       if final else None),
         )
 
     def _cache_args(self) -> Tuple[Tuple[torch.Tensor, torch.Tensor],
@@ -1010,23 +1020,20 @@ class DecodeEngine:
         that to scratch)."""
         info.released = True
         self._slots[slot] = None
-        self._gens[slot] = None
+        self._samples[slot] = False
         self._release_pages(slot)
 
     def _park(self, slot: int, pos: int = 0, temp: float = 0.0,
-              top_k: int = 0, top_p: float = 1.0, eos: int = -1) -> None:
+              top_k: int = 0, top_p: float = 1.0, eos: int = -1,
+              seed: int = 0) -> None:
         """The slot inactive on the device at ``pos``, with these knobs and
-        no generator: a chunked admission's parking write (with the
-        request's knobs) and a release's deactivation (the defaults)."""
-        self._gens[slot] = None
-        # fill_ takes the value as a kernel argument: assigning a Python
-        # number copies it from pageable memory, which waits for the stream
-        # (a fold in flight included).
+        seed: a chunked admission's parking write (with the request's
+        knobs) and a release's deactivation (the defaults)."""
         self._cur[slot].fill_(0)
         self._pos[slot].fill_(pos)
         self._active[slot].fill_(False)
         self._remaining[slot].fill_(0)
-        self._set_knobs(slot, temp, top_k, top_p, eos)
+        self._set_knobs(slot, temp, top_k, top_p, eos, seed)
 
     # -- prefix pool -----------------------------------------------------
     def _block_digests(self, tokens: np.ndarray) -> List[bytes]:
@@ -1612,16 +1619,14 @@ class DecodeEngine:
         return rows, finals, inserts
 
     def _dispatch(self) -> _Fold:
-        """Queue one fold on the stream: the rung's iterations, then the
-        piggybacked chunk rows, the slot state replaced by the fold's
-        outputs (so a later admission or release writes after it), and a
-        non-blocking copy of the token block into the next host buffer,
-        behind which an event is recorded. Nothing in it waits for the
-        card on a greedy or plain-sampled fold; a sampled speculative fold
-        reads its accept counts once per verify."""
+        """Queue one fold on the stream: the rung's program in its greedy
+        or sampling variant, with the planned chunk rows written into its
+        row block first, then a non-blocking copy of its packed output into
+        the next host buffer, behind which an event is recorded. The fold
+        writes the slot state in place, so a later admission or release
+        writes after it. Nothing in it waits for the card."""
         k = self._pick_fold_k()
         self.fold_dispatches[k] += 1
-        rows: List[ChunkRow] = []
         finals: List[_Final] = []
         inserts: List[Tuple[int, np.ndarray]] = []
         if self.piggyback_chunks:
@@ -1629,50 +1634,175 @@ class DecodeEngine:
             if rows:
                 self.piggyback_dispatches += 1
                 self.piggyback_chunk_rows += len(rows)
-        caches, paging = self._cache_args()
-        state = (self._cur, self._pos, self._gens, self._temps, self._top_ks,
-                 self._top_ps, self._active, self._remaining, self._eos)
-        with torch.no_grad():
-            if self.spec == "off":
-                (
-                    tok_block, emit_block, self._cur, self._pos, self._active,
-                    self._remaining, *rest,
-                ) = gpt_decode_fold(
-                    self.params, self.cfg, *state, *caches, fold=k,
-                    piggyback=rows or None, **paging,
-                )
-            else:
-                (
-                    tok_block, emit_block, self._cur, self._pos, self._active,
-                    self._remaining, self._hist, *rest,
-                ) = gpt_decode_fold_spec(
-                    self.params, self.cfg, *state, self._hist, *caches,
-                    fold=k, depth=self.spec_depth, draft_fn=self._draft,
-                    piggyback=rows or None, **paging,
-                )
-            R = tok_block.shape[0]
-            parts = [tok_block, emit_block.long()]
-            if rows:
-                pb = tok_block.new_full((1, self.num_slots), -1)
-                pb[0, : len(rows)] = rest[-1]
-                parts.append(pb)
-            packed = torch.cat(parts)
-            buf = self._host_bufs[self._buf_next][: packed.shape[0]]
-            self._buf_next ^= 1
-            buf.copy_(packed, non_blocking=True)
-            event = None
-            if self.device.type == "cuda":
-                event = torch.cuda.Event()
-                event.record()
-        # A final's generator joins the slots' only now: the fold above
-        # drew from every generator it was given, once per iteration.
-        for row in rows:
-            if row.final:
-                self._gens[row.slot] = row.generator
+            self._pb_rows.fill(rows)
+        self._programs[self._fold_key(k, any(self._samples))]()
+        R = k * (self.spec_depth + 1 if self.spec != "off" else 1)
+        n = 2 * R + (1 if self.piggyback_chunks else 0)
+        buf = self._host_bufs[self._buf_next][:n]
+        self._buf_next ^= 1
+        buf.copy_(self._fold_out[:n], non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
         for slot, tokens in inserts:
             self._insert_prefix(slot, tokens)
         return _Fold(buf=buf, event=event, rows=R, snapshot=list(self._slots),
                      finals=finals, k=k)
+
+    # -- the dispatch programs ---------------------------------------------
+    def _fold_key(self, k: int, sampling: bool) -> tuple:
+        kind = ("paged" if self.paged else "dense") + "-" + (
+            "plain" if self.spec == "off" else self.spec)
+        return ("fold", k, kind, bool(sampling))
+
+    def _plan(self) -> Tuple[tuple, ...]:
+        """The engine's dispatch programs, the JAX engine's executables one
+        for one: ``("fold", rung, kind, sampling)`` for every ladder rung in
+        both variants (``_step_exec``), ``("chunk", bucket)`` for every
+        chunk bucket in chunked mode (``_chunk_exec``), and ``("admit",
+        bucket)`` for every prompt bucket in monolithic mode
+        (``_admit_exec``)."""
+        plan = [self._fold_key(k, s) for k in self.fold_ladder
+                for s in (False, True)]
+        if self.chunked:
+            plan += [("chunk", cb) for cb in self.chunk_buckets]
+        else:
+            plan += [("admit", pb) for pb in self.prefill_buckets]
+        return tuple(plan)
+
+    def _build_programs(self, graphs: bool) -> None:
+        """One :class:`Program` per key of the plan; on the card (unless
+        ``graphs`` is off) each is captured now, into one graph pool, and
+        the slot state the captures' warm-up runs wrote is reset.
+        ``compiled_count`` is the number of graphs, ``capture_s`` their
+        capture seconds and ``graph_bytes`` the device memory the pool
+        reserved."""
+        capture = graphs and self.device.type == "cuda"
+        pool = torch.cuda.graph_pool_handle() if capture else None
+        t0 = time.monotonic()
+        reserved = self._reserved() if capture else 0
+        self._programs: Dict[tuple, Program] = {}
+        with torch.no_grad():
+            for key in self.dispatch_plan:
+                self._programs[key] = Program(self._body(key), capture, pool)
+            if capture:
+                self._reset_state()
+        self.graph_bytes = self._reserved() - reserved if capture else 0
+        self.capture_s = time.monotonic() - t0 if capture else 0.0
+        #: Graphs captured; frozen after construction (the JAX engine's
+        #: compile count): no dispatch captures anything.
+        self.compiled_count = sum(
+            p.graph is not None for p in self._programs.values())
+
+    def _reserved(self) -> int:
+        """Device bytes the caching allocator holds once every free cached
+        block is released: what live tensors and graph pools keep (the
+        garbage collected first, as each capture does)."""
+        gc.collect()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(self.device)
+
+    def _reset_state(self) -> None:
+        """Every slot empty, as constructed (after the warm-up runs)."""
+        for t, v in ((self._cur, 0), (self._pos, 0), (self._temps, 0.0),
+                     (self._top_ks, 0), (self._top_ps, 1.0),
+                     (self._active, False), (self._remaining, 0),
+                     (self._eos, -1), (self._seeds, 0), (self._ctrs, 0),
+                     (self._fold_out, 0), (self._tok_out, 0)):
+            t.fill_(v)
+        for t in (self._hist, self._k, self._v, self._pool_k, self._pool_v):
+            if t is not None:
+                t.zero_()
+
+    def _body(self, key: tuple):
+        if key[0] == "fold":
+            return lambda: self._fold_body(key[1], key[3])
+        if key[0] == "chunk":
+            return lambda: self._chunk_body(key[1])
+        return lambda: self._admit_body(key[1])
+
+    def _state(self) -> tuple:
+        return (self._cur, self._pos, self._seeds, self._ctrs, self._temps,
+                self._top_ks, self._top_ps, self._active, self._remaining,
+                self._eos)
+
+    def _fold_body(self, k: int, sampling: bool) -> None:
+        """One fold: the rung's iterations, then the chunk row block; the
+        slot state copied back in place and the packed output written."""
+        caches, paging = self._cache_args()
+        pb = self._pb_rows
+        if self.spec == "off":
+            out = gpt_decode_fold(
+                self.params, self.cfg, *self._state(), *caches, fold=k,
+                sampling=sampling, piggyback=pb, **paging,
+            )
+            new = out[2:7]
+        else:
+            out = gpt_decode_fold_spec(
+                self.params, self.cfg, *self._state(), self._hist, *caches,
+                fold=k, depth=self.spec_depth, draft_fn=self._draft,
+                sampling=sampling, piggyback=pb, **paging,
+            )
+            new = out[2:8]
+            self._hist.copy_(out[7])
+        for dst, src in zip((self._cur, self._pos, self._ctrs, self._active,
+                             self._remaining), new):
+            dst.copy_(src)
+        tok, emit = out[0], out[1]
+        R = tok.shape[0]
+        self._fold_out[:R] = tok
+        self._fold_out[R : 2 * R] = emit.long()
+        if pb is not None:
+            self._fold_out[2 * R].fill_(-1)
+            self._fold_out[2 * R, : self.piggyback_chunks] = out[-1]
+
+    def _chunk_body(self, cb: int) -> None:
+        """One separate chunk: its one row through ``piggyback_prefill``,
+        which writes the slot state in place; the first token out."""
+        caches, paging = self._cache_args()
+        tok = piggyback_prefill(
+            self.params, self.cfg, self._chunk_rows[cb], self._cur,
+            self._pos, self._ctrs, self._active, self._remaining, self._temps,
+            self._top_ks, self._top_ps, self._seeds, *caches, hist=self._hist,
+            **paging,
+        )
+        self._tok_out.copy_(tok)
+
+    def _admit_body(self, pb: int) -> None:
+        """One fused admission at prompt bucket ``pb``: the prefill (flash
+        K1 per layer), the slot's cache rows, its knobs, the first token
+        (draw 0 of its seed) and its state, all indexed by device values."""
+        prompt = self._admit_prompt[:, :pb]
+        ints, floats = self._admit_ints, self._admit_floats
+        slot, P = ints[0:1], ints[1:2]
+        h, pf_k, pf_v = gpt_prefill(self.params, self.cfg, prompt)
+        self._k[:, slot, :pb] = pf_k
+        self._v[:, slot, :pb] = pf_v
+        self._temps.index_copy_(0, slot, floats[0:1])
+        self._top_ps.index_copy_(0, slot, floats[1:2])
+        self._top_ks.index_copy_(0, slot, ints[2:3])
+        self._eos.index_copy_(0, slot, ints[3:4])
+        self._seeds.index_copy_(0, slot, ints[5:6])
+        if self._hist is not None:
+            # The fold writes the first token itself (hist[pos] = cur).
+            cols = torch.arange(self.max_seq, device=prompt.device)
+            src = prompt[0].index_select(0, cols.clamp(max=pb - 1))
+            self._hist.index_copy_(0, slot, torch.where(
+                cols < P, src, self._hist.index_select(0, slot)[0])[None])
+        h_last = h.index_select(1, (P - 1).clamp(min=0))
+        tok = first_token(
+            self.params, self.cfg, h_last, floats[0:1], ints[2:3],
+            floats[1:2], ints[5:6], torch.zeros_like(slot),
+        )
+        n_new, eos = ints[4:5], ints[3:4]
+        self._cur.index_copy_(0, slot, tok)
+        self._pos.index_copy_(0, slot, P)
+        self._active.index_copy_(0, slot, (n_new > 1) & (tok != eos))
+        self._remaining.index_copy_(0, slot, n_new - 1)
+        self._ctrs.index_copy_(0, slot, torch.ones_like(slot))
+        self._tok_out.copy_(tok)
 
     def _want_next(self, snapshot: List[Optional[SlotInfo]], k: int) -> bool:
         """Whether to queue fold N+1 before harvesting fold N: while

@@ -10,8 +10,17 @@ window is flushed at the end of an epoch that ran all its batches,
 checkpoints saved mid-epoch resume by re-running that epoch, and eval
 metrics count real rows only.
 
-Not here (raised by ``Trainer``): folded steps, EMA, preemption and
-restarts, sharded checkpoints, the telemetry and the watchdog.
+``steps_per_execution=K`` folds K optimizer steps into one dispatch (one
+CUDA graph of K steps on the card, ``strategies/base.py:TrainProgram``)
+with the JAX loop's semantics (``loop.py:843-861``, ``:995-1025`` of the
+JAX package): K host batches leave as one stacked copy; logs, callbacks,
+``val_check_interval`` and stop checks happen at chunk boundaries (an
+unaligned int interval raises, a fraction quantizes); epoch and
+``max_steps`` tails shorter than K run through the single-step program,
+so budgets are exact. Evaluation is not folded.
+
+Not here (raised by ``Trainer``): EMA, preemption and restarts, sharded
+checkpoints, the telemetry and the watchdog.
 """
 from __future__ import annotations
 
@@ -53,6 +62,8 @@ class TrainerSpec:
     val_check_interval: Optional[Any] = None
     accumulate_grad_batches: int = 1
     gradient_clip_val: Optional[float] = None
+    # Optimizer steps per dispatch (one CUDA graph of K steps on the card).
+    steps_per_execution: int = 1
     log_every_n_steps: int = 50
     default_root_dir: str = "."
     seed: Optional[int] = None
@@ -61,6 +72,19 @@ class TrainerSpec:
     enable_model_summary: bool = True
     return_predictions: bool = True
     callbacks: List[Any] = field(default_factory=list)
+
+
+def _chunks(batches, k: int):
+    """Consecutive groups of ``k`` batches, then the tail shorter than
+    ``k`` as groups of one (what the single-step program runs)."""
+    group: list = []
+    for b in batches:
+        group.append(b)
+        if len(group) == k:
+            yield group
+            group = []
+    for b in group:
+        yield [b]
 
 
 def _limit(n_batches: int, limit: Any) -> int:
@@ -258,10 +282,20 @@ class TrainingLoop:
         if self._train_loader is None:
             raise RuntimeError("fit requires train_dataloader()")
         self._init_state(ckpt_stream)
+        fold = max(1, int(self.spec.steps_per_execution))
         train_step = self.strategy.compile_train_step(
             self.module, self.optimizer, self._seed(),
-            log_grad_norm=self.spec.log_grad_norm,
+            log_grad_norm=self.spec.log_grad_norm, fold_steps=fold,
         )
+        # Tails shorter than the fold (an epoch's remainder, the max_steps
+        # cap) run through the single-step program.
+        single_step = (
+            train_step if fold == 1 else self.strategy.compile_train_step(
+                self.module, self.optimizer, self._seed(),
+                log_grad_norm=self.spec.log_grad_norm,
+            )
+        )
+        self.train_programs = (train_step, single_step)
         val_step = (
             self.strategy.compile_eval_step(self.module, "val")
             if self._val_loader is not None
@@ -312,20 +346,32 @@ class TrainingLoop:
             n_batches = _limit(
                 self._train_loader.num_batches(mult), self.spec.limit_train_batches
             )
-            vci = self._val_interval(n_batches)
+            vci = self._val_interval(n_batches, fold)
+            if fold > n_batches > 0 and not getattr(self, "_fold_warned",
+                                                    False):
+                self._fold_warned = True  # epoch-invariant; warn once
+                warnings.warn(
+                    f"steps_per_execution ({fold}) exceeds the batches per "
+                    f"epoch ({n_batches}); every chunk is an epoch tail, so "
+                    "no dispatch is ever folded — lower it to at most the "
+                    "epoch length to get the amortization",
+                    UserWarning, stacklevel=2,
+                )
             val_epoch = (epoch + 1) % self.spec.check_val_every_n_epoch == 0
             last_val_step = -1
             pending: List[Dict[str, torch.Tensor]] = []
             epoch_vals: Dict[str, List[float]] = {}
 
             def drain() -> Dict[str, float]:
-                """Fetch the buffered per-step logs to the host; return the
-                latest step's values."""
+                """Fetch the buffered per-step logs (a (n,) tensor per key
+                and dispatch) to the host; return the latest step's
+                values."""
                 last: Dict[str, float] = {}
                 for logs in pending:
-                    last = {k: float(v) for k, v in logs.items()}
-                    for k, v in last.items():
-                        epoch_vals.setdefault(k, []).append(v)
+                    for k, v in logs.items():
+                        vals = [float(x) for x in v.reshape(-1).tolist()]
+                        epoch_vals.setdefault(k, []).extend(vals)
+                        last[k] = vals[-1]
                 pending.clear()
                 return last
 
@@ -336,16 +382,16 @@ class TrainingLoop:
                 if remaining == 0:
                     stop = True
             batch_idx = -1
-            for host_batch in itertools.islice(
-                self._train_loader.iter_batches(mult), n_iter
+            for chunk in _chunks(
+                itertools.islice(self._train_loader.iter_batches(mult), n_iter),
+                fold,
             ):
                 start_step = self.global_step
-                logs = train_step(
-                    self.params, self.strategy.place_batch(host_batch), start_step
-                )
-                pending.append(logs)  # device scalars; no sync here
-                batch_idx += 1
-                self.global_step += 1
+                step = train_step if len(chunk) == fold else single_step
+                logs = step(self.params, chunk, start_step)
+                pending.append(logs)  # device values; no sync here
+                self.global_step += len(chunk)
+                batch_idx += len(chunk)
                 if (
                     self.global_step // self.spec.log_every_n_steps
                     != start_step // self.spec.log_every_n_steps
@@ -415,14 +461,18 @@ class TrainingLoop:
         self.module.on_fit_end()
         self._call_callbacks("on_fit_end")
 
-    def _val_interval(self, n_batches: int) -> Optional[int]:
-        """Mid-epoch validation cadence in batches (None = epoch end)."""
+    def _val_interval(self, n_batches: int, fold: int = 1) -> Optional[int]:
+        """Mid-epoch validation cadence in batches (None = epoch end). With
+        a fold of K steps per dispatch the host sees only chunk
+        boundaries: a fraction quantizes to the nearest multiple of K
+        (within the epoch), an int that is not a multiple raises."""
         vci = self.spec.val_check_interval
         if isinstance(vci, float) and vci == 1.0:
             return None
-        if vci is not None and 0 < float(vci) < 1:
-            return max(1, int(n_batches * float(vci)))
-        if vci is not None:
+        from_float = vci is not None and 0 < float(vci) < 1
+        if from_float:
+            vci = max(1, int(n_batches * float(vci)))
+        elif vci is not None:
             vci = int(vci)
             if vci > n_batches > 0:
                 raise ValueError(
@@ -430,6 +480,18 @@ class TrainingLoop:
                     f"training batches per epoch ({n_batches}); use a "
                     "smaller interval or a float epoch fraction"
                 )
+        if vci is not None and fold > 1 and vci % fold:
+            if not from_float:
+                raise ValueError(
+                    f"val_check_interval ({vci}) must be a multiple of "
+                    f"steps_per_execution ({fold}): the host only sees "
+                    "chunk boundaries, so an unaligned int interval would "
+                    "silently validate late (float fractions quantize "
+                    "instead)"
+                )
+            vci = max(fold, round(vci / fold) * fold)
+            if vci > n_batches >= fold:
+                vci = (n_batches // fold) * fold
         return vci
 
     def _run_eval_epoch(

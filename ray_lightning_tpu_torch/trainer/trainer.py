@@ -106,8 +106,10 @@ class Trainer:
                 f"strategy {type(strategy).__name__} (multi-device "
                 "strategies)", "11",
             )
-        if int(steps_per_execution) != 1:
-            raise _not_ported("steps_per_execution > 1 (with CUDA graphs)", "7")
+        if int(steps_per_execution) < 1:
+            raise ValueError(
+                f"steps_per_execution must be >= 1, got {steps_per_execution}"
+            )
         if ema_decay is not None or eval_ema:
             raise _not_ported("ema_decay / eval_ema", "15")
         if async_checkpointing:
@@ -150,6 +152,7 @@ class Trainer:
         self.val_check_interval = val_check_interval
         self.accumulate_grad_batches = accumulate_grad_batches
         self.gradient_clip_val = gradient_clip_val
+        self.steps_per_execution = int(steps_per_execution)
         self.log_every_n_steps = log_every_n_steps
         self.enable_checkpointing = enable_checkpointing
         self.enable_model_summary = bool(enable_model_summary)
@@ -190,6 +193,7 @@ class Trainer:
             val_check_interval=self.val_check_interval,
             accumulate_grad_batches=self.accumulate_grad_batches,
             gradient_clip_val=self.gradient_clip_val,
+            steps_per_execution=self.steps_per_execution,
             log_every_n_steps=self.log_every_n_steps,
             enable_model_summary=self.enable_model_summary,
             default_root_dir=self.default_root_dir,
@@ -250,6 +254,8 @@ class Trainer:
             self.global_step = loop.global_step
             self._update_count = loop.update_count
             self._mid_epoch = not loop._epoch_complete
+            #: The fit's training programs: (K-step, single-step).
+            self.train_programs = loop.train_programs
         elif stage in ("validate", "test"):
             result = loop.run_evaluate(stage, ckpt_stream)
         else:

@@ -139,42 +139,46 @@ def _port_fold(params, case, spec, piggyback):
     tk, tv = t(k), t(v)
     paging = dict(page_table=t(table), page_size=_PAGE) if table is not None else {}
     chunk_rows = [
-        tgpt.ChunkRow(slot=s, chunk=t(c)[None], start=a, length=n, final=f,
-                      n_new=m)
+        tgpt.ChunkRow(slot=s, tokens=c, start=a, length=n, final=f, n_new=m)
         for s, c, a, n, f, m in rows
     ]
-    args = (params, CFG, cur, pos, [None] * _B, zeros, zeros.long(),
-            torch.ones(_B), active, remaining, t(st["eos"]))
-    pb = chunk_rows if piggyback else None
+    args = (params, CFG, cur, pos, zeros.long(), zeros.long(), zeros,
+            zeros.long(), torch.ones(_B), active, remaining, t(st["eos"]))
+    pb = None
+    if piggyback:
+        pb = tgpt.ChunkRows(len(chunk_rows), _CB)
+        pb.fill(chunk_rows)
     if spec:
         out = tgpt.gpt_decode_fold_spec(
             *args, t(st["hist"]), tk, tv, fold=_FOLD, depth=_DEPTH,
             draft_fn=functools.partial(tgpt.ngram_propose, depth=_DEPTH),
             piggyback=pb, **paging,
         )
-        names = ["tok", "emit", "cur", "pos", "active", "remaining", "hist",
-                 "k", "v"]
+        names = ["tok", "emit", "cur", "pos", "ctrs", "active", "remaining",
+                 "hist", "k", "v"]
     else:
         out = tgpt.gpt_decode_fold(*args, tk, tv, fold=_FOLD, piggyback=pb,
                                    **paging)
-        names = ["tok", "emit", "cur", "pos", "active", "remaining", "k", "v"]
+        names = ["tok", "emit", "cur", "pos", "ctrs", "active", "remaining",
+                 "k", "v"]
     res = dict(zip(names + ["pb"], out))
     if piggyback:
         return res
     pb_toks = []
     for r in chunk_rows:
         s = r.slot
+        chunk = t(r.tokens)[None]
         if table is None:
             h, _, _ = tgpt.gpt_prefill_chunk(
-                params, CFG, r.chunk, res["k"][:, s : s + 1],
+                params, CFG, chunk, res["k"][:, s : s + 1],
                 res["v"][:, s : s + 1], r.start, r.length)
         else:
             h, _, _ = tgpt.gpt_prefill_chunk_paged(
-                params, CFG, r.chunk, res["k"], res["v"],
+                params, CFG, chunk, res["k"], res["v"],
                 paging["page_table"][s : s + 1], r.start, r.length,
                 page=_PAGE)
         if spec:
-            res["hist"][s, r.start : r.start + r.length] = r.chunk[0, : r.length]
+            res["hist"][s, r.start : r.start + r.length] = chunk[0, : r.length]
         res["pos"][s] = r.start + r.length
         if not r.final:
             pb_toks.append(-1)
@@ -186,6 +190,7 @@ def _port_fold(params, case, spec, piggyback):
         res["cur"][s] = tok
         res["active"][s] = (r.n_new > 1) & (tok != r.eos)
         res["remaining"][s] = r.n_new - 1
+        res["ctrs"][s] = 1
         pb_toks.append(int(tok))
     res["pb"] = torch.tensor(pb_toks)
     return res
@@ -257,6 +262,8 @@ def test_piggybacked_fold_matches_jax_and_fold_then_chunk(weights, paged,
         return
     want = _jax_fold(j_params, _fold_case(paged, spec), spec)
     for name in fused:
+        if name == "ctrs":  # the JAX fold returns its PRNG keys here
+            continue
         got = fused[name].numpy()
         if name in ("k", "v"):
             got, ref = (got[:, 1:], want[name][:, 1:]) if paged else (

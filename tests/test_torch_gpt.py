@@ -172,7 +172,8 @@ def _jax_support_sizes(logits, temps, top_ks, top_ps, monkeypatch):
 
 def test_sampling_filters_keep_jax_support(monkeypatch):
     """Same logits, same knobs: the port keeps the same tokens as JAX. The
-    draws themselves differ by design (torch.Generator is not threefry)."""
+    draws themselves differ by design (the port's counter-based draw is not
+    threefry)."""
     rng = np.random.default_rng(2)
     V = 96
     logits = (rng.standard_normal((5, V)) * 3).astype(np.float32)
@@ -190,10 +191,10 @@ def test_sampling_filters_keep_jax_support(monkeypatch):
     for row, n in zip(range(5), jax_sizes):
         top = np.argsort(-logits[row], kind="stable")[:n]
         assert set(np.flatnonzero(kept[row])) == set(top)
-    # Draws land inside the support, one generator per row.
-    gens = [torch.Generator().manual_seed(i) for i in range(5)]
+    # Draws land inside the support, one stream per row.
     draws = tgpt.sample_logits_batched(
         torch.from_numpy(logits), torch.from_numpy(temps),
-        torch.from_numpy(top_ks).long(), torch.from_numpy(top_ps), gens,
+        torch.from_numpy(top_ks).long(), torch.from_numpy(top_ps),
+        torch.arange(5), torch.zeros(5, dtype=torch.long),
     ).numpy()
     assert all(kept[r, t] for r, t in enumerate(draws))

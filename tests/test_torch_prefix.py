@@ -593,8 +593,8 @@ def test_scheduler_cancels_a_prefilling_request(weights):
 # -- (f) sampling and parked slots -----------------------------------------
 def test_sampled_chunked_request_alone_and_beside_a_resident(weights):
     """A sampled request prefilled in chunks draws the same tokens alone
-    and while a resident decodes through its chunks: a parked slot has no
-    generator, so interleaved folds consume none of its draws. It also
+    and while a resident decodes through its chunks: a parked slot is
+    inactive, so interleaved folds do not advance its draw counter. It also
     draws what the monolithic engine draws for the same seed."""
     _, params = weights
     kw = dict(temperature=0.9, top_k=20, top_p=0.9, seed=7, max_new_tokens=10)

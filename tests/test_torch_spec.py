@@ -5,8 +5,8 @@ package's at 1e-4 and is bit for bit the port's sequential decode steps;
 the n-gram drafter's proposals equal the JAX one's and the draft model's
 equal the JAX one's on shared weights. The speculative engine (n-gram or
 draft model, dense or paged) serves greedy requests token-identical to the
-port's solo ``gpt_generate``, and a sampled request draws its generator
-once per emitted token: its tokens do not change with speculation or with
+port's solo ``gpt_generate``, and a sampled request takes one device draw
+per emitted token: its tokens do not change with speculation or with
 batchmates.
 """
 import dataclasses

@@ -23,6 +23,7 @@ Parity traps, pinned here:
   the trainer use ``attn_impl="reference"``; flash is held at fp32.
 """
 import dataclasses
+import importlib
 import os
 
 import jax
@@ -46,7 +47,10 @@ from ray_lightning_tpu_torch.trainer import EarlyStopping as TEarlyStopping
 from ray_lightning_tpu_torch.trainer import Trainer as TTrainer
 from ray_lightning_tpu_torch.trainer import lr_find, scale_batch_size
 from ray_lightning_tpu_torch.trainer.data import ArrayDataset, DataLoader
-from ray_lightning_tpu_torch.trainer.optim import warmup_cosine_decay_schedule
+from ray_lightning_tpu_torch.trainer.optim import (
+    TrainOptimizer,
+    warmup_cosine_decay_schedule,
+)
 from ray_lightning_tpu_torch.utils.state_stream import (
     load_state_stream,
     to_state_stream,
@@ -216,10 +220,7 @@ def test_schedule_matches_optax():
         np.testing.assert_allclose(t(step), float(j(step)), rtol=1e-6, atol=1e-12)
 
 
-def test_adamw_matches_optax():
-    """torch.optim.AdamW in one group, its lr set from the schedule before
-    each step, is optax.adamw: decay on every leaf scaled by the scheduled
-    lr, eps outside the square root."""
+def _adamw_against_optax(capturable):
     rng = np.random.default_rng(4)
     p0 = rng.standard_normal((5, 3)).astype(np.float32)
     grads = [rng.standard_normal((5, 3)).astype(np.float32) for _ in range(4)]
@@ -231,14 +232,39 @@ def test_adamw_matches_optax():
         upd, st = tx.update(jnp.asarray(g), st, jp)
         jp = optax.apply_updates(jp, upd)
     tp = torch.tensor(p0, requires_grad=True)
-    opt = torch.optim.AdamW([tp], lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=0.1)
-    t_sched = warmup_cosine_decay_schedule(0.0, 1e-2, 2, 100)
-    for i, g in enumerate(grads):
-        opt.param_groups[0]["lr"] = t_sched(i)
-        tp.grad = torch.from_numpy(g)
-        opt.step()
+    opt = TrainOptimizer(
+        lambda ls: torch.optim.AdamW(ls, lr=0.0, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=0.1),
+        [tp], warmup_cosine_decay_schedule(0.0, 1e-2, 2, 100),
+        capturable=capturable)
+    assert opt.step_in_graph == capturable
+    for g in grads:
+        plan = opt.plan(1)
+        (lr,) = opt.lrs(plan)
+        opt.take([torch.from_numpy(g)], *plan[0], torch.tensor(lr))
+        if not opt.step_in_graph:
+            opt.update(lr)
+        opt.commit(plan)
     np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp), atol=1e-6)
+
+
+def test_adamw_matches_optax():
+    """torch.optim.AdamW in one group, stepped by the trainer's
+    TrainOptimizer on the CPU (its lr set from the schedule before each
+    step), is optax.adamw: decay on every leaf scaled by the scheduled
+    lr, eps outside the square root."""
+    _adamw_against_optax(capturable=False)
+
+
+def test_capturable_adamw_matches_optax(monkeypatch):
+    """The card's update: the same AdamW in torch's capturable mode, the
+    scheduled lr a device tensor, inside TrainOptimizer.take (capturable
+    Adam accepts only accelerators; its arithmetic is plain tensor ops, so
+    the CPU may run it here)."""
+    monkeypatch.setattr(importlib.import_module("torch.optim.adam"),
+                        "_get_capturable_supported_devices",
+                        lambda *a, **k: ["cpu"])
+    _adamw_against_optax(capturable=True)
 
 
 # -- the trainer against the JAX Trainer ---------------------------------
@@ -534,7 +560,6 @@ def test_state_stream_round_trips_a_training_state():
 @pytest.mark.parametrize(
     "kwargs,item",
     [
-        (dict(steps_per_execution=2), "item 7"),
         (dict(ema_decay=0.9), "item 15"),
         (dict(eval_ema=True), "item 15"),
         (dict(async_checkpointing=True), "item 11"),

@@ -1,5 +1,5 @@
 """Where the time of a paged and of a speculative fold goes, and what the
-sampled-spec draw restore costs, on one CUDA card.
+sampling variant of a fold costs, on one CUDA card.
 
     python3 tools/torch_spec_profile.py
 
@@ -17,14 +17,11 @@ and kernel count, the device's idle share, the kernels that took the most
 device time), then five folds untraced on the host clock and their
 median.
 
-Then the draw restore. A sampled slot's generator state is kept before
-each of a verify's depth + 1 draws, and the host reads the verify's
-emitted counts (a device sync) to restore it. The paged n-gram fold is run
-on the same state with no generator and with one generator on a slot
-whose temperature is 0 (its tokens stay the greedy ones), ten times each
-in turns; the difference, less the extra sampling work (one row's filter
-and draw, timed alone), is the read's cost per verify. Prints the card's
-name and power limit.
+Every fold is a CUDA graph replay. Then the sampling variant: the paged
+n-gram engine's deepest fold program replayed in its greedy and its
+sampling variant (every row's top-k/top-p filter and the device draw),
+ten times each in turns, device ms through CUDA events. Prints the
+card's name and power limit.
 """
 import os
 import statistics
@@ -110,73 +107,38 @@ def profile_folds(name, engine, profiled=True):
     return med
 
 
-def draw_restore_cost(engine, pairs=10):
-    """The paged n-gram fold on one state, with no generator and with one
-    on slot 0 at temperature 0, in turns; and one row's extra sampling
-    work alone. Returns the read's ms per verify and the parts."""
+def sampling_cost(engine, pairs=10):
+    """The engine's deepest fold program in its greedy and its sampling
+    variant (the per-row filter and the device draw), replayed in turns:
+    device ms of each, through CUDA events around the replay."""
     import torch
-
-    from ray_lightning_tpu_torch.models.gpt import (
-        gpt_decode_fold_spec,
-        sample_logits_batched,
-    )
 
     fill(engine, 160)
     engine.step()
-    dev = engine.device
-    B = engine.num_slots
-    state = [t.clone() for t in (engine._cur, engine._pos)]
-    temps = torch.zeros(B, device=dev)
-    top_ks = torch.full((B,), 50, device=dev, dtype=torch.long)
-    top_ps = torch.full((B,), 0.9, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    k = engine.fold_ladder[-1]
+    progs = {s: engine._programs[engine._fold_key(k, s)]
+             for s in (False, True)}
 
-    def fold(gens):
-        _sync(dev)
-        t0 = time.perf_counter()
+    def replay(prog):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        _sync(engine.device)
+        a.record()
         with torch.no_grad():
-            gpt_decode_fold_spec(
-                engine.params, engine.cfg, *state, gens, temps, top_ks,
-                top_ps, engine._active.clone(), engine._remaining.clone(),
-                engine._eos, engine._hist.clone(), engine._pool_k,
-                engine._pool_v, fold=engine.decode_fold,
-                depth=engine.spec_depth, draft_fn=engine._draft,
-                page_table=engine._table, page_size=engine.kv_page,
-            )
-        _sync(dev)
-        return (time.perf_counter() - t0) * 1e3
+            prog()
+        b.record()
+        _sync(engine.device)
+        return a.elapsed_time(b)
 
-    none, one = [None] * B, [gen] + [None] * (B - 1)
-    fold(none)
-    fold(one)
-    plain, sampled = [], []
+    times = {False: [], True: []}
     for i in range(pairs):
-        for gens, out in ((none, plain), (one, sampled))[:: 1 if i % 2 else -1]:
-            out.append(fold(gens))
-    logits = torch.randn((B, engine.cfg.vocab_size), device=dev)
-
-    def sample_ms(gens, n=50):
-        sample_logits_batched(logits, temps, top_ks, top_ps, gens)
-        _sync(dev)
-        t0 = time.perf_counter()
-        for _ in range(n):
-            sample_logits_batched(logits, temps, top_ks, top_ps, gens)
-        _sync(dev)
-        return (time.perf_counter() - t0) * 1e3 / n
-
-    extra_sample = sample_ms(one) - sample_ms(none)
-    verifies = engine.decode_fold
-    d_fold = statistics.median(sampled) - statistics.median(plain)
-    read = d_fold / verifies - (engine.spec_depth + 1) * extra_sample
-    out = {
-        "fold_ms_no_generator": statistics.median(plain),
-        "fold_ms_one_generator": statistics.median(sampled),
-        "fold_ms_no_generator_all": plain,
-        "fold_ms_one_generator_all": sampled,
-        "extra_sampling_ms_per_draw": extra_sample,
-        "read_ms_per_verify": read,
-    }
-    print(f"[draw restore] {out}")
+        for s in ((False, True) if i % 2 else (True, False)):
+            times[s].append(replay(progs[s]))
+    out = {"fold_ms_greedy": statistics.median(times[False]),
+           "fold_ms_sampling": statistics.median(times[True]),
+           "fold_ms_greedy_all": times[False],
+           "fold_ms_sampling_all": times[True]}
+    print(f"[sampling variant] {out}")
     return out
 
 
@@ -210,10 +172,10 @@ def run(params, cfg, device):
         folds[name] = profile_folds(name, engine)
         if kw is ngram:
             engine = DecodeEngine(params, cfg, device=device, **kw)
-            restore = draw_restore_cost(engine)
+            sampling = sampling_cost(engine)
         del engine
-    print(f"[summary] untraced median ms per fold {folds}; draw restore "
-          f"{ {k: v for k, v in restore.items() if not k.endswith('_all')} }")
+    print(f"[summary] untraced median ms per fold {folds}; sampling variant "
+          f"{ {k: v for k, v in sampling.items() if not k.endswith('_all')} }")
 
 
 def main():

@@ -3,10 +3,11 @@
     python3 tools/torch_train_profile.py
 
 Builds the train step ``Trainer.fit`` runs for GPT-2 small in
-``chip_smoke.py`` (``SingleDeviceStrategy.compile_train_step``: bf16
-compute over fp32 master weights, flash attention forward and backward,
-dense ``lm_loss``, AdamW with warmup; random weights from a seed; B=8,
-S=1024), warms it up for 3 steps, then traces 2 steps with
+``chip_smoke.py`` (``SingleDeviceStrategy.compile_train_step``, a CUDA
+graph of one step replayed per step: bf16 compute over fp32 master
+weights, flash attention forward and backward, dense ``lm_loss``, AdamW
+with warmup; random weights from a seed; B=8, S=1024), warms it up for 3
+steps (the first captures the graph), then traces 2 steps with
 ``torch.profiler``. Prints the host wall time, the summed device time of
 the kernels and their count, the device's idle share (1 - device time /
 wall; the profiler's own host cost is in the wall), the device time by
@@ -62,14 +63,14 @@ def main():
     factory, sched = unpack_optimizers(module.configure_optimizers())
     opt = TrainOptimizer(factory, tree_leaves(params), sched)
     step = strategy.compile_train_step(module, opt, seed=0)
-    batches = [strategy.place_batch(b)
-               for b in module.train_dataloader().iter_batches(1)]
+    batches = list(module.train_dataloader().iter_batches(1))
 
     def run(n, start):
         for i in range(n):
-            logs = step(params, batches[(start + i) % len(batches)], start + i)
+            logs = step(params, [batches[(start + i) % len(batches)]],
+                        start + i)
         torch.cuda.synchronize()
-        return float(logs["loss"])
+        return float(logs["loss"][-1])
 
     run(3, 0)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
