@@ -107,7 +107,34 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    longest admission. Prints wall ms per token pipelined and not, the
    longest step while a second-wave prompt prefills beside the serve-paged
    engine's, TTFT, dispatches per rung and syncs per dispatch.
-9. Train GPT-2 small at full width and depth for 20 steps through
+9. serve-int8: weight-only int8 through ``build_engine(int8=True)``:
+   (a) the serve phase's engine and traffic on the int8 tree, beside the
+   same engine on ``dequantize_params`` of it (greedy and sampled tokens
+   bitwise equal) and the solo ``gpt_generate`` on the int8 tree (greedy,
+   except at near-ties); (b) the draft-model spec engine with the main
+   model and its 6-block self-draft int8 (``spec_draft_int8``, the draft
+   read from a checkpoint written under ``build/`` and removed), whose
+   tokens must be (a)'s. The int8 engine's resident weights must be at
+   most 0.3x the serve phase's engine's and its int8 leaves int8 on the
+   card; no dispatch may sync (greedy and sampled); K1 runs 12 times per
+   admission and 6 per verify. Prints resident and graph-pool MiB,
+   capture seconds, and ms per fold int8 against bf16 in turns with the
+   device's idle share.
+10. serve-lifecycle: the serve-chunked engine on wave A's traffic with
+   every observer on (tracer, event log, journal spilling under
+   ``build/smoke_journal``, a metrics registry behind ``ServeMetrics``,
+   the phase ledger, a delay-only fault plan) in turns with none: tokens
+   bitwise equal; each
+   request's anatomy covers its latency exactly; the journal replays
+   exact on a fresh engine built from its header; the registry's counters
+   equal the snapshot's; no dispatch syncs with the observers on. Then a
+   drain armed mid-traffic: its finishers complete, and every migrated
+   request's exported blocks import into a second engine, where the
+   resubmitted request is admitted warm (cold where it exported nothing)
+   with the tokens of the uninterrupted run and of the
+   reference-attention solo (near-ties aside). Prints ms per token with the observers on and off, the
+   journal's bytes and the export/import seconds and bytes.
+11. Train GPT-2 small at full width and depth for 20 steps through
    ``Trainer.fit`` (B=8, S=1024, bf16 compute, flash attention, AdamW
    with warmup): every step's loss must be finite and the last below the
    first, each backward kernel must have run once per layer per step and
@@ -117,11 +144,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    CUDA graph of 4 steps per dispatch): each of its losses must equal the
    K = 1 run's step at the same boundary within 1e-3 relative, with the
    same kernel launches; prints both step times.
-10. Print the ``{"kernels": [...]}`` line, the card line, and last
+12. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
-Dispatch programs (phases 4-8): every engine captures one CUDA graph per
+Dispatch programs (phases 4-10): every engine captures one CUDA graph per
 key of its ``dispatch_plan`` at construction; each prints its
 ``compiled_count``, capture seconds and graph-pool memory as it is built,
 and each phase fails unless every engine it built still has that count
@@ -253,14 +280,19 @@ ENGINES = []
 
 
 def new_engine(params, cfg, **kw):
-    """A ``DecodeEngine``, its graphs' count, capture seconds and pool
-    memory printed and the engine registered for the phase's check."""
-    import torch
-
+    """A ``DecodeEngine``, registered for the phase's check."""
     from ray_lightning_tpu_torch.serve.engine import DecodeEngine
 
-    engine = DecodeEngine(params, cfg, **kw)
-    graphs = kw.get("_graphs", True) and engine.device.type == "cuda"
+    return register_engine(DecodeEngine(params, cfg, **kw),
+                           graphs=kw.get("_graphs", True))
+
+
+def register_engine(engine, graphs: bool = True):
+    """Print an engine's graphs' count, capture seconds and pool memory,
+    and register it for the phase's check (``check_engines``)."""
+    import torch
+
+    graphs = graphs and engine.device.type == "cuda"
     if graphs and engine.compiled_count != len(engine.dispatch_plan):
         fail(f"{engine.compiled_count} graphs for a plan of "
              f"{len(engine.dispatch_plan)} keys")
@@ -2186,6 +2218,491 @@ def phase_serve_fused(serve4: dict):
     return out["mono"]["launches"]
 
 
+#: serve-int8: the resident weight bytes of the int8 engine against phase
+#: 4's bf16 engine (blocks in bf16, wte and the head copy in fp32: about
+#: 481 MB at GPT-2 small; int8 blocks and wte with their scales and fp32
+#: wpe: about 127 MB).
+INT8_RESIDENT_MAX = 0.3
+#: serve-lifecycle: a delay-only fault plan (each scheduler point fires
+#: once, at its third hit) and the observers' ring and journal sizes.
+LIFECYCLE_FAULTS = [
+    {"point": p, "action": "delay", "seconds": 0.001, "after": 3}
+    for p in ("post_admit", "mid_prefill_chunk", "fold_boundary",
+              "post_finish_pre_ack")
+]
+
+
+def weight_mib(engine) -> float:
+    """Resident MiB of an engine's weights (the draft's included)."""
+    from ray_lightning_tpu_torch.utils.quantize import weight_bytes
+
+    n = weight_bytes(engine.params)
+    if engine._spec_params is not None:
+        n += weight_bytes(engine._spec_params)
+    return n / 2**20
+
+
+def phase_serve_int8(serve4: dict) -> int:
+    """Weight-only int8 serving at GPT-2-small width through the entry
+    point ``build_engine(int8=True)``: (a) the serve phase's engine and
+    traffic on the int8 weights, beside the same engine on
+    ``dequantize_params`` of the same tree (greedy and sampled tokens
+    bitwise equal) and the solo ``gpt_generate`` on the int8 tree (greedy,
+    except at near-ties); (b) the draft-model spec engine, the main model
+    and its 6-block self-draft both int8 (``spec_draft_int8``, the draft
+    from a checkpoint under ``build/``), against (a)'s tokens (spec
+    "off"). Gates: resident weight bytes at most INT8_RESIDENT_MAX of phase
+    4's engine, every int8 leaf int8 on the card (no float copy, no
+    ``head_c``), 0 stream syncs per greedy and sampled dispatch, K1 12 per
+    admission and 6 per verify. Prints resident and graph-pool MiB,
+    capture seconds, and ms per fold int8 against bf16 in turns with the
+    device's idle share. Returns K1's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.server import build_engine
+    from ray_lightning_tpu_torch.utils.quantize import (
+        dequantize_params,
+        is_quantized,
+        quantize_params_int8,
+    )
+    from ray_lightning_tpu_torch.utils.state_stream import (
+        state_stream_to_file,
+        to_state_stream,
+    )
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init_gpt_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg
+    )
+    q = quantize_params_int8(params)
+    t0 = time.perf_counter()
+    engine = build_engine(params=params, model_config=cfg, int8=True,
+                          device="cuda", **SERVE_ENGINE)
+    build_s = time.perf_counter() - t0
+    register_engine(engine)
+    ep = engine.params
+    if "head_c" in ep or not all(
+            is_quantized(ep["blocks"][k]) for k in ("wqkv", "wo", "wi", "wo2")):
+        fail("serve-int8: the engine holds a float copy of an int8 leaf")
+    for name, node in [("wte", ep["wte"])] + [
+            (k, ep["blocks"][k]) for k in ("wqkv", "wo", "wi", "wo2")]:
+        ref = q["wte"] if name == "wte" else q["blocks"][name]
+        if node["q"].dtype != torch.int8 or not (
+                torch.equal(node["q"], ref["q"])
+                and torch.equal(node["s"], ref["s"])):
+            fail(f"serve-int8: {name} is not the quantizer's int8 node")
+    deq = new_engine(dequantize_params(q), cfg, device="cuda", **SERVE_ENGINE)
+    bf16 = serve4["sched"].engine
+    reqs = serve_workload(cfg.vocab_size, np.random.default_rng(0))
+    counters.reset()
+    run = serve_run(engine, reqs)
+    launches, ref_calls = counters.launches, counters.reference
+    admissions = run["sched"].metrics.admitted
+    if launches != admissions * cfg.n_layer or ref_calls:
+        fail(f"serve-int8: flash launches {launches} != admissions x layers "
+             f"{admissions * cfg.n_layer}, or reference calls {ref_calls}")
+    run_deq = serve_run(deq, reqs)
+    if run["toks"] != run_deq["toks"]:
+        bad = [rid for rid in run["toks"]
+               if run["toks"][rid] != run_deq["toks"][rid]]
+        fail(f"serve-int8: tokens differ from the dequantized engine's: {bad}")
+    solo = {}
+    for rid, prompt, sp in reqs:
+        if sp.temperature == 0:
+            solo[rid] = gpt.gpt_generate(
+                q, cfg, [prompt], sp.max_new_tokens, device="cuda"
+            )[0, len(prompt):].tolist()
+        else:
+            solo[rid] = run["toks"][rid]
+    near = compare_greedy("serve-int8 vs solo", reqs, run["toks"], solo, q,
+                          cfg)
+    resident = {"int8": weight_mib(engine), "bf16": weight_mib(bf16),
+                "dequantized": weight_mib(deq)}
+    ratio = resident["int8"] / resident["bf16"]
+    print(f"[serve-int8] resident weight MiB {json.dumps(resident)}, int8 / "
+          f"bf16 {ratio:.4f}")
+    if ratio > INT8_RESIDENT_MAX:
+        fail(f"serve-int8: resident weights {ratio:.4f} of the bf16 engine's "
+             f"(at most {INT8_RESIDENT_MAX})")
+    syncs = {}
+    for tag, sampled in (("greedy", False), ("sampled", True)):
+        counts, where = fused_sync_counts(engine, sampled)
+        syncs[tag] = counts
+        if any(counts):
+            fail(f"serve-int8 {tag}: stream syncs in a dispatch: {counts} "
+                 f"at {where}")
+
+    # (b) The draft-model spec engine, main model and draft int8.
+    dcfg = dataclasses.replace(cfg, n_layer=SPEC_DRAFT_LAYERS)
+    ckpt = os.path.join(HERE, "build", "smoke_int8_draft.ckpt")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    state_stream_to_file(to_state_stream({
+        "params": draft_params_of(params, SPEC_DRAFT_LAYERS),
+        "gpt_config": dataclasses.asdict(dcfg)}), ckpt)
+    try:
+        spec = build_engine(
+            params=params, model_config=cfg, int8=True, spec="model",
+            spec_depth=SPEC_DEPTH, spec_draft_ckpt=ckpt,
+            spec_draft_int8=True, spec_window=SPEC_WINDOW, device="cuda",
+            **SPEC_MODEL_ENGINE)
+    finally:
+        os.remove(ckpt)
+    register_engine(spec)
+    if not is_quantized(spec._spec_params["blocks"]["wqkv"]):
+        fail("serve-int8: the draft is not int8")
+    folds = time_folds(spec)
+    counters.reset()
+    run_spec = serve_run(spec, reqs)
+    spec_launches = counters.launches
+    verifies = len(folds) * SPEC_FOLD
+    expect = (cfg.n_layer * run_spec["sched"].metrics.admitted
+              + SPEC_DRAFT_LAYERS * verifies)
+    print(f"[serve-int8 spec] flash launches {spec_launches}, expected "
+          f"{expect} ({verifies} verifies), reference-path calls "
+          f"{counters.reference}")
+    if spec_launches != expect or counters.reference:
+        fail(f"serve-int8 spec: flash launches {spec_launches} != {expect}")
+    spec_cmp = fused_compare("serve-int8 spec vs off", reqs, run_spec["toks"],
+                             run["toks"], q, cfg)
+
+    # ms per fold, int8 against bf16, in turns (int8, bf16, bf16, int8).
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, 16).tolist()
+               for _ in range(engine.num_slots)]
+    runs = [decode_alone(e, prompts) for e in (engine, bf16, bf16, engine)]
+    dev = {"int8": fold_device_ms(engine, engine.decode_fold),
+           "bf16": fold_device_ms(bf16, bf16.decode_fold)}
+    int8_ms = [runs[0][0], runs[3][0]]
+    bf16_ms = [runs[1][0], runs[2][0]]
+    out = {
+        "resident_mib": resident,
+        "resident_ratio": ratio,
+        "graph_pool_mib": {"int8": engine.graph_bytes / 2**20,
+                           "dequantized": deq.graph_bytes / 2**20,
+                           "bf16": bf16.graph_bytes / 2**20,
+                           "spec_int8": spec.graph_bytes / 2**20},
+        "capture_s": {"int8": engine.capture_s, "dequantized": deq.capture_s,
+                      "bf16": bf16.capture_s, "spec_int8": spec.capture_s},
+        "build_engine_s": build_s,
+        "ms_per_fold_int8": int8_ms,
+        "ms_per_fold_bf16": bf16_ms,
+        "device_ms_per_fold": dev,
+        "idle_share_int8": [1 - dev["int8"] / t for t in int8_ms],
+        "idle_share_bf16": [1 - dev["bf16"] / t for t in bf16_ms],
+        "near_tie_mismatches_vs_solo": near,
+        "spec_vs_off": spec_cmp,
+        "spec_stats": spec.spec_stats(),
+        "syncs_per_dispatch": syncs,
+        "launches": launches + spec_launches,
+        "admissions": admissions,
+        "wall_s": run["wall"], "wall_s_spec": run_spec["wall"],
+    }
+    print(f"[serve-int8] {json.dumps(out)} on {card_line()}")
+    return launches + spec_launches
+
+
+def lifecycle_requests(vocab: int) -> list:
+    """Wave A of the serve-chunked phase as requests: the long unrelated
+    prompt first (its prefill completes early, so a drain finds its blocks
+    cached), then the system prompt's greedy and sampled suffixes."""
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    work = chunked_workload(vocab)
+    reqs = [("long", work["long"], SamplingParams(max_new_tokens=SERVE_NEW))]
+    reqs += [(f"g{i}", p, SamplingParams(max_new_tokens=SERVE_NEW))
+             for i, p in enumerate(work["greedy"])]
+    reqs += [(f"s{i}", p, SamplingParams(max_new_tokens=SERVE_NEW,
+                                         temperature=0.8, top_k=50,
+                                         top_p=0.9, seed=i))
+             for i, p in enumerate(work["sampled"])]
+    return reqs
+
+
+def lifecycle_run(params, cfg, reqs, observe: bool, disk: str) -> dict:
+    """Wave A through a fresh serve-chunked engine, with every observer on
+    (tracer, event log, journal spilling under ``build/``, a registry
+    behind ServeMetrics, the phase ledger, the delay-only fault plan) or
+    none."""
+    from ray_lightning_tpu_torch import obs
+    from ray_lightning_tpu_torch.serve.faults import FaultInjector
+    from ray_lightning_tpu_torch.serve.metrics import ServeMetrics
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    engine = new_engine(params, cfg, device="cuda", prefix_disk_dir=disk,
+                        **CHUNKED_ENGINE)
+    kw, extra = {}, {}
+    if observe:
+        spill = os.path.join(HERE, "build", "smoke_journal")
+        shutil.rmtree(spill, ignore_errors=True)
+        extra = dict(tracer=obs.RequestTracer(capacity=1 << 16),
+                     events=obs.EventLog(capacity=1 << 14),
+                     journal=obs.WorkloadJournal(capacity=1 << 14,
+                                                 spill_dir=spill),
+                     registry=obs.MetricsRegistry())
+        extra["faults"] = FaultInjector.parse(LIFECYCLE_FAULTS,
+                                              events=extra["events"])
+        extra["journal"].set_header(obs.engine_header(engine, **CHUNKED_SCHED))
+        kw = dict(tracer=extra["tracer"], events=extra["events"],
+                  journal=extra["journal"], faults=extra["faults"],
+                  metrics=ServeMetrics(engine.num_slots,
+                                       registry=extra["registry"]))
+    sched = Scheduler(engine, **CHUNKED_SCHED, **kw)
+    sched.phase_ledger = observe
+    t0 = time.perf_counter()
+    res = serve_traffic(engine, sched, reqs)
+    wall = time.perf_counter() - t0
+    if observe:
+        extra["journal"].close()
+    return dict(res, engine=engine, sched=sched, wall=wall, **extra)
+
+
+def lifecycle_drain(params, cfg, reqs, want: dict) -> dict:
+    """A drain armed mid-traffic: wave A through a serve-chunked engine
+    until the first system-prompt request has its first token (the system
+    prompt's blocks then sit in the pool), then a drain whose budget lets
+    the residents with the fewest remaining tokens finish and migrates the
+    rest (the policy's estimate at this step's decode rate) and the queue.
+    Every finisher must complete its tokens; every migrated request's
+    exported blocks go to a second engine through
+    ``enqueue_prefix_import``, where the resubmitted request must be
+    admitted warm (``prefix_hit_tokens > 0``). A migrated request that
+    exported nothing must resubmit cold (``prefix_hit_tokens == 0``): the
+    long unrelated prompt can be one, since its 56 blocks, inserted while
+    the system prompt's blocks are pinned, may evict their own head into
+    the 16-block host tier, which drops it (the JAX engine's insert does
+    the same). Both sets' tokens are held against ``want`` (the
+    uninterrupted run's) and the greedy ones against the solo
+    ``gpt_generate`` under reference attention, except at near-ties;
+    sampled ones exactly."""
+    import dataclasses
+
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+
+    engine = new_engine(params, cfg, device="cuda", **CHUNKED_ENGINE)
+    sched = Scheduler(engine, **CHUNKED_SCHED)
+    by_rid = {rid: (prompt, sp) for rid, prompt, sp in reqs}
+    for rid, prompt, sp in reqs:
+        sched.submit(prompt, sp, request_id=rid)
+    toks = {rid: [] for rid in by_rid}
+    events = []
+
+    def step():
+        evs = sched.step()
+        events.extend(evs)
+        for ev in evs:
+            if ev.token is not None:
+                toks[ev.request_id].append(ev.token)
+
+    while not toks["g0"]:
+        step()
+    rate = float(sched.metrics.snapshot()["decode_tokens_per_sec"])
+    resident = list(sched._slot_req.values())
+    left = sorted(r.sampling.max_new_tokens - len(toks[r.request_id])
+                  for r in resident)
+    budget = 2.0 * left[0] * len(resident) / rate * (1 + 1e-6)
+    export_s = []
+    export = engine.export_prefix_blocks
+
+    def timed_export(tokens):
+        t = time.perf_counter()
+        out = export(tokens)
+        export_s.append(time.perf_counter() - t)
+        return out
+
+    engine.export_prefix_blocks = timed_export
+    sched.request_drain(budget)
+    step()
+    del engine.export_prefix_blocks
+    plan = sched.drain_result(timeout=5.0)
+    while sched.has_work():
+        step()
+    reasons = {ev.request_id: ev.reason for ev in events if ev.done}
+    for rid in plan["finish"]:
+        if (reasons.get(rid) != "finished"
+                or len(toks[rid]) != by_rid[rid][1].max_new_tokens):
+            fail(f"serve-lifecycle drain: finisher {rid} ended "
+                 f"{reasons.get(rid)} with {len(toks[rid])} tokens")
+    migrate = plan["migrate"]
+    if not plan["finish"] or not migrate:
+        fail(f"serve-lifecycle drain: finish {plan['finish']}, migrate "
+             f"{[m['request_id'] for m in migrate]}: both must be non-empty")
+    survivor = new_engine(params, cfg, device="cuda", **CHUNKED_ENGINE)
+    s2 = Scheduler(survivor, **CHUNKED_SCHED)
+    nbytes = sum(len(m["blocks"]) for m in migrate) * engine.prefix_block_nbytes
+    t0 = time.perf_counter()
+    for m in migrate:
+        if m["blocks"]:
+            s2.enqueue_prefix_import(m["blocks"])
+    s2.step()  # the imports, applied at the top of the step
+    import torch
+
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    moved = {m["request_id"] for m in migrate}
+    cold = {m["request_id"] for m in migrate if not m["blocks"]}
+    got = serve_traffic(survivor, s2,
+                        [(rid, *by_rid[rid]) for rid, _, _ in reqs
+                         if rid in moved])["toks"]
+    warm = {r["request_id"]: r["prefix_hit_tokens"]
+            for r in s2.metrics.cost_records()}
+    for rid in moved:
+        if (rid in cold) != (not warm.get(rid)):
+            fail(f"serve-lifecycle drain: migrated {rid} "
+                 f"({'no' if rid in cold else 'some'} blocks exported) was "
+                 f"admitted with {warm.get(rid)} prefix tokens")
+    done = {rid: toks[rid] for rid in plan["finish"]}
+    done.update(got)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    mine = [r for r in reqs if r[0] in done]
+    vs_run = fused_compare("serve-lifecycle drain vs uninterrupted", mine,
+                           done, want, params, ref_cfg)
+    solo = {rid: (gpt.gpt_generate(params, ref_cfg, [prompt],
+                                   sp.max_new_tokens, device="cuda")
+                  [0, len(prompt):].tolist()
+                  if sp.temperature == 0 else done[rid])
+            for rid, prompt, sp in mine}
+    vs_solo = compare_greedy("serve-lifecycle drain vs solo", mine, done,
+                             solo, params, ref_cfg)
+    return {"finish": plan["finish"], "migrate": sorted(moved),
+            "vs_uninterrupted": vs_run, "near_tie_mismatches_vs_solo": vs_solo,
+            "cold": sorted(cold),
+            "budget_s": budget, "rate_tokens_per_s": rate,
+            "blocks": sum(len(m["blocks"]) for m in migrate),
+            "export_bytes": nbytes, "export_s": sum(export_s),
+            "import_s": import_s,
+            "prefix_hit_tokens": warm, "toks": got}
+
+
+def phase_serve_lifecycle() -> int:
+    """The request lifecycle record at GPT-2-small width on the
+    serve-chunked engine (wave A's traffic): every observer on (tracer,
+    event log, journal spilling under ``build/``, a metrics registry, a
+    delay-only fault plan) in turns with none (on, off, off, on). Gates:
+    tokens bitwise equal; each finished request's anatomy covers its
+    latency exactly; the journal replays exact on a fresh engine built
+    from its header; the registry's Prometheus text parses and its
+    counters equal the ServeMetrics snapshot; a drain armed mid-traffic
+    (``lifecycle_drain``); every compiled_count unchanged; 0 stream syncs
+    per dispatch with the observers on. Prints ms per token with the
+    observers on and off, journal bytes, and the export/import seconds and
+    bytes. Returns K1's launches (none: the chunk path)."""
+    import torch
+
+    from ray_lightning_tpu_torch import obs
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.obs.anatomy import (
+        assemble_anatomy,
+        render_anatomy,
+    )
+    from ray_lightning_tpu_torch.obs.journal import (
+        build_replay_scheduler,
+        load_journal,
+        replay_journal,
+    )
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams, Scheduler
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init_gpt_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg
+    )
+    reqs = lifecycle_requests(cfg.vocab_size)
+    disk = os.path.join(HERE, "build", "smoke_lifecycle_disk")
+    spill = os.path.join(HERE, "build", "smoke_journal")
+    counters.reset()
+    try:
+        runs = [lifecycle_run(params, cfg, reqs, on, disk)
+                for on in (True, False, False, True)]
+        on, off = [runs[0], runs[3]], [runs[1], runs[2]]
+        for r in runs[1:]:
+            if r["toks"] != runs[0]["toks"]:
+                fail("serve-lifecycle: tokens differ between the runs with "
+                     "and without observers")
+        first = runs[0]
+        tracer, journal, sched = first["tracer"], first["journal"], first["sched"]
+        entries = journal.dump()["entries"]
+        dump = dict(tracer.dump(len(reqs)), name="replica0")
+        for rid, _, _ in reqs:
+            led = assemble_anatomy(rid, [dump], journal=entries)
+            if not (led["found"] and led["covered"] and abs(
+                    led["observed_s"] - led["accounted_s"]
+                    - led["unaccounted_s"]) <= 2e-6):
+                fail(f"serve-lifecycle: {rid}'s anatomy does not cover its "
+                     f"latency: {render_anatomy(led)}")
+        snap = sched.metrics.snapshot()
+        parsed = obs.parse_prometheus_text(first["registry"].render())
+        life = parsed["rlt_serve_requests_total"]
+        emitted = sum(len(t) for t in first["toks"].values())
+        counts = {k: life.get(f'{{kind="{k}"}}') for k in
+                  ("submitted", "admitted", "finished")}
+        if (counts != {k: snap[k] for k in counts}
+                or parsed["rlt_serve_tokens_emitted_total"][""] != emitted
+                or snap["cost"]["emitted_tokens"] != emitted
+                or parsed["rlt_serve_engine_steps_total"][""]
+                != snap["steps_recorded"]):
+            fail(f"serve-lifecycle: registry {counts}, tokens "
+                 f"{parsed['rlt_serve_tokens_emitted_total']} against the "
+                 f"snapshot {snap} and {emitted} emitted")
+        fired = [r["fired"] for r in first["faults"].describe()]
+        journal_bytes = sum(os.path.getsize(os.path.join(spill, n))
+                            for n in os.listdir(spill))
+        j = load_journal(spill)
+        replay_sched = build_replay_scheduler(j["header"], params=params,
+                                              device="cuda")
+        register_engine(replay_sched.engine)
+        t0 = time.perf_counter()
+        res = replay_journal(j, scheduler=replay_sched)
+        replay_s = time.perf_counter() - t0
+        if not res["exact"] or res["compared"] != len(reqs):
+            fail(f"serve-lifecycle: the journal's replay is not exact: "
+                 f"{res['divergence']}, {res['compared']} compared")
+        # 0 stream syncs in a dispatch, every observer on.
+        eng = first["engine"]
+        small = Scheduler(eng, tracer=tracer, events=first["events"],
+                          journal=obs.WorkloadJournal(), **CHUNKED_SCHED)
+
+        def drive():
+            for i in range(eng.num_slots):
+                small.submit(reqs[1][1][:16 + i], SamplingParams(
+                    max_new_tokens=2 * eng.decode_fold + 1,
+                    temperature=0.8 if i == 0 else 0.0, top_k=50, seed=i))
+            small.run_until_idle()
+
+        sync_counts, where = count_syncs(eng, drive)
+        if any(sync_counts):
+            fail(f"serve-lifecycle: stream syncs in a dispatch with the "
+                 f"observers on: {sync_counts} at {where}")
+        drain = lifecycle_drain(params, cfg, reqs, first["toks"])
+    finally:
+        shutil.rmtree(disk, ignore_errors=True)
+        shutil.rmtree(spill, ignore_errors=True)
+    tokens = sum(len(t) for t in first["toks"].values())
+    out = {
+        "ms_per_token_observers": [1e3 * r["wall"] / tokens for r in on],
+        "ms_per_token_no_observers": [1e3 * r["wall"] / tokens for r in off],
+        "journal_bytes": journal_bytes,
+        "journal_entries": len(entries),
+        "trace_events": len(tracer),
+        "faults_fired": fired,
+        "replay": {k: res[k] for k in ("exact", "compared",
+                                       "tokens_compared")},
+        "replay_s": replay_s,
+        "syncs_per_dispatch": sync_counts,
+        "drain": {k: v for k, v in drain.items() if k != "toks"},
+        "phases": snap.get("phases"),
+        "cost": snap.get("cost"),
+        "launches": counters.launches,
+    }
+    print(f"[serve-lifecycle] {json.dumps(out)} on {card_line()}")
+    return counters.launches
+
+
 def phase_train(n_steps: int = 20):
     """GPT-2 small at full width and depth through ``Trainer.fit``: bf16
     compute over fp32 master weights, flash attention forward (K1) and
@@ -2376,6 +2893,8 @@ def main() -> None:
     paged_launches = timed_phase("serve-paged", phase_serve_paged)
     spec_launches, draft_row = timed_phase("serve-spec", phase_serve_spec)
     fused_launches = timed_phase("serve-fused", phase_serve_fused, serve4)
+    int8_launches = timed_phase("serve-int8", phase_serve_int8, serve4)
+    lifecycle_launches = timed_phase("serve-lifecycle", phase_serve_lifecycle)
     train_launches, _ = timed_phase("train", phase_train)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
@@ -2384,12 +2903,14 @@ def main() -> None:
         "source": src + "flash_fwd.cu",
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
         "launches": serve_launches + spec_launches + fused_launches
-        + train_launches["flash_fwd"],
+        + int8_launches + lifecycle_launches + train_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
                              "serve_paged": paged_launches,
                              "serve_spec": spec_launches,
                              "serve_fused": fused_launches,
+                             "serve_int8": int8_launches,
+                             "serve_lifecycle": lifecycle_launches,
                              "train": train_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],

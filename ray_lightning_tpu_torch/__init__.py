@@ -8,8 +8,12 @@ decode engine and scheduler core in ``serve/``), training on one device
 ``trainer/``; ``SingleDeviceStrategy`` in ``strategies/``), the weight
 bridge from the JAX parameter tree (``models/weights.py``), and
 hand-written Hopper flash-attention kernels, forward and backward
-(``ops/``). It imports ``torch``, never ``jax``, and nothing of
-``ray_lightning_tpu``.
+(``ops/``), weight-only int8 (``utils/quantize.py``; the engine entry
+point ``serve/server.py:build_engine(int8=True)``), and the request
+lifecycle record: tracer, event log, metrics registry, anatomy and
+workload journal (``obs/``), fault points (``serve/faults.py``) and the
+scheduler's cost ledger and preemption drain. It imports ``torch``, never
+``jax``, and nothing of ``ray_lightning_tpu``.
 """
 __version__ = "0.1.0"
 
@@ -28,6 +32,13 @@ _LAZY = {
     "Scheduler": "ray_lightning_tpu_torch.serve.scheduler",
     "SamplingParams": "ray_lightning_tpu_torch.serve.scheduler",
     "ServeMetrics": "ray_lightning_tpu_torch.serve.metrics",
+    "build_engine": "ray_lightning_tpu_torch.serve.server",
+    "quantize_params_int8": "ray_lightning_tpu_torch.utils.quantize",
+    "RequestTracer": "ray_lightning_tpu_torch.obs.trace",
+    "EventLog": "ray_lightning_tpu_torch.obs.events",
+    "MetricsRegistry": "ray_lightning_tpu_torch.obs.registry",
+    "WorkloadJournal": "ray_lightning_tpu_torch.obs.journal",
+    "FaultInjector": "ray_lightning_tpu_torch.serve.faults",
     "flash_attention": "ray_lightning_tpu_torch.ops.flash_attention",
 }
 

@@ -47,7 +47,11 @@ from ray_lightning_tpu_torch.trainer.data import ArrayDataset, DataLoader, Datas
 from ray_lightning_tpu_torch.trainer.module import TorchModule
 from ray_lightning_tpu_torch.trainer.optim import warmup_cosine_decay_schedule
 from ray_lightning_tpu_torch.utils.device import resolve_device
-from ray_lightning_tpu_torch.utils.quantize import dequant, embed_rows
+from ray_lightning_tpu_torch.utils.quantize import (
+    dequant,
+    embed_rows,
+    is_quantized,
+)
 
 _DTYPES = {
     "float32": torch.float32,
@@ -248,20 +252,34 @@ def cast_params(params: Dict[str, Any], cfg: GPTConfig) -> Dict[str, Any]:
     as the forward reads them. The JAX package casts per step because XLA
     fuses the cast into the consuming matmul; eager PyTorch would pay a
     copy of every weight on every step, so the engine makes this copy once
-    at construction and the per-step ``dequant`` then passes it through."""
+    at construction and the per-step ``dequant`` then passes it through.
+
+    Weight-only int8 nodes (``utils/quantize.py``) stay as they are: no
+    compute-dtype copy of a block leaf and no ``head_c`` of an int8 table,
+    since a resident float copy would undo the point of int8. They are
+    dequantized where they are used (:func:`dequant` inside each product,
+    :func:`_head_weight` at the head)."""
     cdt = compute_dtype(cfg)
     blocks = {
-        k: (v.to(cdt) if k in _MATMUL_LEAVES else v)
+        k: (v.to(cdt) if k in _MATMUL_LEAVES and not is_quantized(v) else v)
         for k, v in params["blocks"].items()
     }
-    out = {k: v for k, v in params.items() if k not in ("blocks", "lm_head")}
+    table = params["wte"] if cfg.tie_word_embeddings else params["lm_head"]
+    out = {k: v for k, v in params.items() if k != "blocks"}
     out["blocks"] = blocks
-    out["head_c"] = _head_weight(params, cfg)
+    if not is_quantized(table):
+        out.pop("lm_head", None)
+        out["head_c"] = _head_weight(params, cfg)
     return out
 
 
-def _layer(blocks: Dict[str, torch.Tensor], li: int) -> Dict[str, torch.Tensor]:
-    return {k: v[li] for k, v in blocks.items()}
+def _layer(blocks: Dict[str, Any], li: int) -> Dict[str, Any]:
+    """Layer ``li`` of the stacked block leaves (an int8 node's ``q`` and
+    ``s`` both indexed)."""
+    return {
+        k: ({"q": v["q"][li], "s": v["s"][li]} if is_quantized(v) else v[li])
+        for k, v in blocks.items()
+    }
 
 
 def _lm_head(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -323,7 +341,8 @@ def _dense_mlp(
 def _head_weight(params: Dict[str, Any], cfg: GPTConfig) -> torch.Tensor:
     """The (V, D) output table for :func:`_lm_head`: the tied embedding or
     ``lm_head``, rounded to the compute dtype and held in fp32 (the copy
-    :func:`cast_params` made once, else made here per call)."""
+    :func:`cast_params` made once, else made here per call: always for an
+    int8 table, whose dequant then runs where the head is used)."""
     if "head_c" in params:
         return params["head_c"]
     table = params["wte"] if cfg.tie_word_embeddings else params["lm_head"]

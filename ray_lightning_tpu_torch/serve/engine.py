@@ -97,9 +97,25 @@ without capture. The host writes a dispatch's inputs into its buffers
 with pinned non-blocking copies; the slot, table and history writes of
 admission and release stay small eager ops.
 
+Weight-only int8 (an int8 tree from ``utils/quantize.py``, or
+``serve/server.py:build_engine(int8=True)``): the int8 nodes stay int8 on
+the device; every product dequantizes its weight where it is used, inside
+the dispatch bodies (``models/gpt.py:cast_params``).
+
+Prefix handoff (the preemption drain's cross-replica KV move):
+:meth:`export_prefix_blocks` serializes a prompt's cached chain from every
+tier as ``(digest_hex, k, v)`` host blocks, :meth:`import_prefix_blocks`
+writes a peer's blocks into the pool (or the host tier), and
+:meth:`evict_prefix_chain` frees a chain from every tier. A digest that
+leaves every tier is noted in :meth:`dropped_digests`. The engine records
+the spans only it sees (prefill dispatches, chunks, prefix seeds) on
+``tracer`` and its pool evictions on ``events`` when the scheduler sets
+them, and its fused-dispatch series in the process registry
+(``obs/registry.py:get_registry``).
+
 What the JAX engine also offers and this port does not yet (each raises
-``NotImplementedError`` naming its ROADMAP item): the KV object store,
-a device mesh, and the fleet's prefix export, import and eviction.
+``NotImplementedError`` naming its ROADMAP item): the KV object store and
+a device mesh; the layer-wise prefix import waits for the fleet KV plane.
 
 All methods must be driven from one thread (the scheduler loop).
 """
@@ -110,7 +126,7 @@ import gc
 import hashlib
 import os
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -132,6 +148,8 @@ from ray_lightning_tpu_torch.models.gpt import (
     piggyback_prefill,
     seed64,
 )
+from ray_lightning_tpu_torch.obs import trace as _trace
+from ray_lightning_tpu_torch.obs.registry import get_registry
 from ray_lightning_tpu_torch.ops.flash_attention import takes_reference_path
 from ray_lightning_tpu_torch.serve.metrics import TIER_COUNTERS
 from ray_lightning_tpu_torch.utils.device import host_to, resolve_device
@@ -525,6 +543,16 @@ class DecodeEngine:
         #: Host seconds spent refilling promoted blocks (payload read +
         #: the host-to-device copy): what a cold hit costs.
         self.refill_s = 0.0
+        #: Cross-replica prefix handoff: blocks exported and imported.
+        self.prefix_handoff_exports = 0
+        self.prefix_handoff_imports = 0
+        #: The KV object store's key namespace (item 9): None, as the JAX
+        #: engine's is without a store, so a journal header replays.
+        self.kvstore_namespace: Optional[str] = None
+        #: Digests that left every tier (the fleet directory's eviction
+        #: feed): a bounded ring of hexes and the running total.
+        self._dropped_ring: "deque[str]" = deque(maxlen=256)
+        self.kv_dropped_total = 0
 
         self._cur = torch.zeros(B, dtype=torch.long, device=dev)
         self._pos = torch.zeros(B, dtype=torch.long, device=dev)
@@ -554,10 +582,32 @@ class DecodeEngine:
         #: The piggybacked prefill completions of the last harvest that had
         #: any, for pop_chunk_events.
         self._pb_events: List[Tuple[int, PrefillTask, int, bool]] = []
-        #: Fused-dispatch accounting.
+        #: Fused-dispatch accounting (stats and the registry's series).
         self.piggyback_dispatches = 0
         self.piggyback_chunk_rows = 0
         self.fold_dispatches: Dict[int, int] = {k: 0 for k in ladder}
+        reg = get_registry()
+        self._m_pb_dispatches = reg.counter(
+            "rlt_serve_piggyback_dispatches_total",
+            "Decode dispatches that carried >= 1 piggybacked prefill "
+            "chunk row",
+        )
+        self._m_pb_rows = reg.counter(
+            "rlt_serve_piggyback_chunk_rows_total",
+            "Prefill chunk rows run inside decode dispatches",
+        )
+        self._m_fold_depth = reg.histogram(
+            "rlt_serve_fold_depth",
+            "Fold depth K chosen per decode dispatch",
+            buckets=(1, 2, 4, 8, 16, 32, 64),
+        )
+        #: Optional obs.trace.RequestTracer: the spans only the engine sees
+        #: (prefill dispatches, chunks, prefix seeds). Set by the
+        #: Scheduler; None keeps the hot paths branch-only.
+        self.tracer: Optional[Any] = None
+        #: Optional obs.events.EventLog: prefix-pool evictions and
+        #: handoff imports. Set by the Scheduler; None = off.
+        self.events: Optional[Any] = None
         #: The fold queued on the stream and not yet harvested.
         self._inflight: Optional[_Fold] = None
         # The double buffer: dispatches alternate between two host buffers
@@ -655,6 +705,11 @@ class DecodeEngine:
     @property
     def num_prefilling(self) -> int:
         return len(self._prefills)
+
+    @property
+    def mesh_desc(self) -> str:
+        """``"MODELxDATA"`` of the serve mesh: one card, ``"1x1"``."""
+        return "1x1"
 
     def free_slots(self) -> List[int]:
         return [
@@ -771,6 +826,11 @@ class DecodeEngine:
             for slot, r, prompt, P, n_new, pb, eos in staged:
                 tok = self._admit_one(slot, r, prompt, P, n_new, pb, eos)
                 pending.append((slot, r, n_new, eos, tok))
+                if self.tracer is not None:
+                    self.tracer.event(
+                        r["request_id"], _trace.SPAN_PREFILL,
+                        attrs={"bucket": pb, "tokens": P, "slot": slot},
+                    )
             toks = torch.cat([t for *_, t in pending]).tolist()
         out: List[Tuple[int, Optional[int], bool]] = []
         for (slot, r, n_new, eos, _), tok in zip(pending, toks):
@@ -841,7 +901,7 @@ class DecodeEngine:
         ``pos`` at the first row not seeded (the only row an interleaved
         fold writes; the first chunk writes it again before reading it)
         and queue its state machine. Returns ``(slot, None, False)``."""
-        matched_idxs = self._match_prefix(prompt)
+        matched_idxs, matched_tiers = self._match_prefix(prompt)
         matched = len(matched_idxs) * self.prefix_block
         if self.prefix_blocks:
             self.prefix_lookups += 1
@@ -878,6 +938,18 @@ class DecodeEngine:
         if not self.paged:
             for j, b in enumerate(matched_idxs):
                 self._copy_block(b, slot, j * self.prefix_block, to_slot=True)
+        if self.tracer is not None and matched:
+            self.tracer.event(
+                task.request_id, _trace.SPAN_PREFIX_SEED,
+                attrs={
+                    "tokens": matched,
+                    "blocks": len(matched_idxs),
+                    "slot": slot,
+                    # Where each seeded block came from: a host or disk
+                    # count means this admission paid a promotion.
+                    "tiers": {t: matched_tiers.count(t) for t in TIERS},
+                },
+            )
         self._prefills[slot] = task
         return slot, None, False
 
@@ -968,7 +1040,24 @@ class DecodeEngine:
         cb = self._chunk_bucket_for(row.length)
         self._chunk_rows[cb].fill([row])
         self._programs[("chunk", cb)]()
+        self._trace_chunk(task, row)
         return self._tok_out.clone() if row.final else None
+
+    def _trace_chunk(self, task: PrefillTask, row: ChunkRow,
+                     piggyback: bool = False) -> None:
+        if self.tracer is None:
+            return
+        attrs = {
+            "index": task.chunks - 1,
+            "tokens": row.length,
+            "start": row.start,
+            "slot": row.slot,
+            "final": row.final,
+        }
+        if piggyback:
+            attrs["piggyback"] = True
+        self.tracer.event(task.request_id, _trace.SPAN_PREFILL_CHUNK,
+                          attrs=attrs)
 
     def _chunk_row(self, slot: int, task: PrefillTask) -> ChunkRow:
         """The task's next chunk as a ``ChunkRow``: the next
@@ -1053,19 +1142,22 @@ class DecodeEngine:
             out.append(d)
         return out
 
-    def _match_prefix(self, tokens: np.ndarray) -> List[int]:
+    def _match_prefix(self, tokens: np.ndarray) -> Tuple[List[int], List[str]]:
         """Longest cached prefix walk across all tiers: device-pool hits
         are free; host and disk hits are promoted back into the pool
-        first. Returns the pool block indices, capped so the final chunk
-        always runs (the first token needs the last prompt position's
-        hidden state, which no tier stores). Blocks matched earlier in the
-        walk are shielded from eviction by a later promotion."""
+        first. Returns the pool block indices and the tier each came from,
+        capped so the final chunk always runs (the first token needs the
+        last prompt position's hidden state, which no tier stores). Blocks
+        matched earlier in the walk are shielded from eviction by a later
+        promotion."""
         if not self.prefix_blocks:
-            return []
+            return [], []
         matched: List[int] = []
+        tiers: List[str] = []
         tc = self.tier_counters
         for d in self._block_digests(tokens):
             idx = self._pool_map.get(d)
+            tier = "device"
             if idx is not None:
                 tc["device"]["hits"] += 1
             else:
@@ -1091,12 +1183,14 @@ class DecodeEngine:
                     # disk entry: the rest is prefilled uncached.
                     break
             matched.append(idx)
+            tiers.append(tier)
         while matched and len(matched) * self.prefix_block >= len(tokens):
             matched.pop()
+            tiers.pop()
         for idx in matched:
             self._pool_tick += 1
             self._pool_meta[idx].stamp = self._pool_tick
-        return matched
+        return matched, tiers
 
     def _pool_alloc(self, avoid: frozenset = frozenset()) -> Optional[int]:
         """A free pool block, else the least recently used unpinned one,
@@ -1116,10 +1210,17 @@ class DecodeEngine:
         vm = self._pool_meta[victim]
         if self._tiered:
             self._spill_block(victim, vm.digest)
+        else:
+            self._note_dropped(vm.digest)
         del self._pool_map[vm.digest]
         self._pool_meta[victim] = None
         self.prefix_evictions += 1
         self.tier_counters["device"]["evictions"] += 1
+        if self.events is not None:
+            self.events.record(
+                "engine", "prefix_evict", block=victim,
+                evictions=self.prefix_evictions, spilled=self._tiered,
+            )
         # An evicted-and-reused page is one free plus one alloc in the page
         # ledger (allocs - frees = live pages stays an invariant).
         self.page_frees += 1
@@ -1240,6 +1341,7 @@ class DecodeEngine:
                 self._disk_insert(digest, k, v)
             else:
                 self.tier_counters["host"]["evictions"] += 1
+                self._note_dropped(digest)
             return
         while self._host_map and (
             self._host_bytes() + self._blk_nbytes > self._host_budget
@@ -1250,6 +1352,7 @@ class DecodeEngine:
                 self._disk_insert(old_d, ok, ov)
             else:
                 self.tier_counters["host"]["evictions"] += 1
+                self._note_dropped(old_d)
         self._host_map[digest] = (k, v)
 
     def _disk_paths(self, digest: bytes) -> Tuple[str, str, str]:
@@ -1300,14 +1403,18 @@ class DecodeEngine:
             # Best-effort tier: a full or failing disk drops the block.
             self._remove_files(paths)
             self.tier_counters["disk"]["evictions"] += 1
+            self._note_dropped(digest)
             return
         while self._disk_map and self._disk_bytes + size > self._disk_budget:
-            self._disk_drop(next(iter(self._disk_map)))
+            oldest = next(iter(self._disk_map))
+            self._disk_drop(oldest)
             self.tier_counters["disk"]["evictions"] += 1
+            self._note_dropped(oldest)
         if self._disk_bytes + size > self._disk_budget:
             # One block alone exceeds the whole budget.
             self._remove_files(paths)
             self.tier_counters["disk"]["evictions"] += 1
+            self._note_dropped(digest)
             return
         self._disk_map[digest] = size
         self._disk_bytes += size
@@ -1341,6 +1448,7 @@ class DecodeEngine:
             return out[0], out[1]
         except (OSError, ValueError, RuntimeError):
             self._disk_drop(digest)
+            self._note_dropped(digest)
             return None
 
     def _promote(self, digest: bytes, tier: str,
@@ -1378,6 +1486,163 @@ class DecodeEngine:
         self.tier_counters[tier]["promotions"] += 1
         self.refill_s += time.monotonic() - t0
         return idx
+
+    # -- cross-replica prefix handoff (preemption drain) ------------------
+    def _note_dropped(self, digest: bytes) -> None:
+        """A digest left every tier (nowhere to spill, the disk budget, an
+        unreadable entry, an evicted chain): noted for the fleet
+        directory's eviction feed."""
+        self.kv_dropped_total += 1
+        self._dropped_ring.append(digest.hex())
+
+    def dropped_digests(self) -> List[str]:
+        """Recent fully dropped digest hexes (a bounded ring, not drained:
+        several consumers may read it)."""
+        return list(self._dropped_ring)
+
+    @property
+    def prefix_block_nbytes(self) -> int:
+        """Logical bytes of one pool block or page (K + V)."""
+        return int(self._blk_nbytes) if self.prefix_blocks else 0
+
+    def evict_prefix_chain(self, digests_hex: Sequence[str]) -> int:
+        """Free a chain's blocks from every local tier (the caller has
+        persisted them). A pool block frees only when unreferenced (a
+        resident request's pins win); freed digests are noted as dropped.
+        Returns the blocks freed across all tiers."""
+        freed = 0
+        for hexd in digests_hex:
+            try:
+                digest = bytes.fromhex(hexd)
+            except (ValueError, TypeError):
+                continue
+            dropped = False
+            idx = self._pool_map.get(digest) if self.prefix_blocks else None
+            if idx is not None:
+                meta = self._pool_meta[idx]
+                if meta is not None and meta.refs == 0:
+                    del self._pool_map[digest]
+                    self._pool_meta[idx] = None
+                    self._pool_free.append(idx)
+                    self.page_frees += 1
+                    self.prefix_evictions += 1
+                    self.tier_counters["device"]["evictions"] += 1
+                    dropped = True
+            if self._host_map.pop(digest, None) is not None:
+                self.tier_counters["host"]["evictions"] += 1
+                dropped = True
+            if digest in self._disk_map:
+                self._disk_drop(digest)
+                self.tier_counters["disk"]["evictions"] += 1
+                dropped = True
+            if dropped:
+                self._note_dropped(digest)
+                freed += 1
+        return freed
+
+    def _export_block(self, digest: bytes) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """One block's host copy from whichever tier holds it (a device
+        block is copied out, as a spill does), else None."""
+        idx = self._pool_map.get(digest)
+        if idx is not None:
+            return (self._pool_k[:, idx : idx + 1].to("cpu", copy=True),
+                    self._pool_v[:, idx : idx + 1].to("cpu", copy=True))
+        if digest in self._host_map:
+            return self._host_map[digest]
+        if digest in self._disk_map:
+            return self._disk_load(digest)
+        return None
+
+    def export_blocks_by_digest(
+        self, digests_hex: Sequence[str]
+    ) -> List[Tuple[str, torch.Tensor, torch.Tensor]]:
+        """Serialize a digest chain (the wire form of
+        :meth:`export_prefix_blocks`, addressed by digests): chain order,
+        stopping at the first digest no tier holds."""
+        if not self.prefix_blocks:
+            return []
+        out: List[Tuple[str, torch.Tensor, torch.Tensor]] = []
+        for hexd in digests_hex:
+            try:
+                d = bytes.fromhex(hexd)
+            except ValueError:
+                break
+            block = self._export_block(d)
+            if block is None:
+                break
+            out.append((hexd, *block))
+            self.prefix_handoff_exports += 1
+        return out
+
+    def export_prefix_blocks(
+        self, tokens: Sequence[int]
+    ) -> List[Tuple[str, torch.Tensor, torch.Tensor]]:
+        """Serialize the cached prefix of ``tokens`` for a peer engine:
+        ``[(digest_hex, k, v), ...]`` in chain order, stopping at the
+        first block no tier holds (a later block without its ancestors can
+        never be matched). ``k`` and ``v`` are CPU tensors of one block,
+        (L, 1, block, Hkv, hd) in the compute dtype, the host tier's form.
+        Read-only: every tier keeps its copy. A device block's copy waits
+        for the stream (a fold in flight included), outside any dispatch."""
+        if not self.prefix_blocks:
+            return []
+        return self.export_blocks_by_digest(
+            [d.hex() for d in self._block_digests(np.asarray(tokens, np.int64))]
+        )
+
+    def import_prefix_blocks(
+        self, blocks: Sequence[Tuple[str, Any, Any]]
+    ) -> int:
+        """Accept a peer's serialized prefix blocks (chain order, the
+        :meth:`export_prefix_blocks` form) into the device pool, so a
+        migrated request's admission walk hits warm. A block the pool holds
+        is touched (LRU), not rewritten; with no allocatable block it lands
+        in the host tier, and with no host tier the chain stops. On a paged
+        engine each import takes a page from the allocator as an
+        unreferenced cache page (``page_allocs`` counts it). The writes
+        are plain copies into the pool's buffers, queued on the stream
+        behind any fold in flight: no graph, no wait for the card. Returns
+        the blocks accepted."""
+        if not self.prefix_blocks:
+            return 0
+        accepted = 0
+        for hexd, kp, vp in blocks:
+            d = bytes.fromhex(hexd)
+            idx = self._pool_map.get(d)
+            if idx is not None:
+                self._pool_tick += 1
+                self._pool_meta[idx].stamp = self._pool_tick
+                accepted += 1
+                continue
+            k = torch.as_tensor(kp).to(self._blk_dtype).reshape(self._blk_shape)
+            v = torch.as_tensor(vp).to(self._blk_dtype).reshape(self._blk_shape)
+            idx = self._pool_alloc()
+            if idx is None:
+                if self._host_budget:
+                    self._host_insert(d, k.cpu(), v.cpu())
+                    accepted += 1
+                    self.prefix_handoff_imports += 1
+                    continue
+                break
+            self._pool_k[:, idx : idx + 1] = host_to(k, self.device)
+            self._pool_v[:, idx : idx + 1] = host_to(v, self.device)
+            self._pool_tick += 1
+            self._pool_map[d] = idx
+            self._pool_meta[idx] = _PoolBlock(
+                digest=d, refs=0, stamp=self._pool_tick
+            )
+            # An imported device copy supersedes a colder local copy.
+            if self._tiered:
+                self._host_map.pop(d, None)
+                if d in self._disk_map:
+                    self._disk_drop(d)
+            accepted += 1
+            self.prefix_handoff_imports += 1
+        if accepted and self.events is not None:
+            self.events.record(
+                "engine", "prefix_handoff_import", blocks=accepted,
+            )
+        return accepted
 
     def _pool_used(self) -> int:
         """Occupied pool blocks (paged: pages, less the scratch page and
@@ -1603,6 +1868,7 @@ class DecodeEngine:
                 break
             task = self._prefills[slot]
             row = self._chunk_row(slot, task)
+            self._trace_chunk(task, row, piggyback=True)
             if row.final:
                 del self._prefills[slot]
                 self._unref_blocks(task)
@@ -1627,6 +1893,7 @@ class DecodeEngine:
         writes after it. Nothing in it waits for the card."""
         k = self._pick_fold_k()
         self.fold_dispatches[k] += 1
+        self._m_fold_depth.observe(float(k))
         finals: List[_Final] = []
         inserts: List[Tuple[int, np.ndarray]] = []
         if self.piggyback_chunks:
@@ -1634,6 +1901,8 @@ class DecodeEngine:
             if rows:
                 self.piggyback_dispatches += 1
                 self.piggyback_chunk_rows += len(rows)
+                self._m_pb_dispatches.inc()
+                self._m_pb_rows.inc(float(len(rows)))
             self._pb_rows.fill(rows)
         self._programs[self._fold_key(k, any(self._samples))]()
         R = k * (self.spec_depth + 1 if self.spec != "off" else 1)

@@ -1,27 +1,47 @@
 """Continuous-batching scheduler: iteration-level admission over a
-DecodeEngine (PyTorch port, core).
+DecodeEngine, and the request lifecycle record (PyTorch port).
 
-Port of the core of ``ray_lightning_tpu/serve/scheduler.py``. At every
-step boundary the scheduler (1) drops cancelled and expired work, (2)
-admits queued requests into free engine slots, bounded by
-``max_prefills_per_step`` so a burst of prompt prefills cannot starve
-in-flight decode, (3) on a chunked engine advances up to
-``max_prefill_chunks_per_step`` prefill chunks (the chunk-vs-fold
-interleave), and (4) runs one decode fold for everything resident. With
-the engine's ``piggyback_chunks`` on, step (3) is skipped: the chunks
-ride the fold's dispatch, and their completions are read after it. On a
-paged engine a request is admitted only when the engine's allocatable
-pages cover its whole life; otherwise the queue head waits in place
-(backpressure), and an admission never runs out of pages in the engine.
-Requests carry per-request sampling params, a priority (lower value is
-served first; FIFO within a priority, with optional aging toward priority
-0 via ``priority_age_s``) and an optional deadline.
+Port of ``ray_lightning_tpu/serve/scheduler.py``. At every step boundary
+the scheduler (1) applies queued prefix-block imports and an armed
+preemption drain, (2) drops cancelled and expired work, (3) admits queued
+requests into free engine slots, bounded by ``max_prefills_per_step`` so a
+burst of prompt prefills cannot starve in-flight decode, (4) on a chunked
+engine advances up to ``max_prefill_chunks_per_step`` prefill chunks (the
+chunk-vs-fold interleave), and (5) runs one decode fold for everything
+resident. With the engine's ``piggyback_chunks`` on, step (4) is skipped:
+the chunks ride the fold's dispatch, and their completions are read after
+it. On a paged engine a request is admitted only when the engine's
+allocatable pages cover its whole life; otherwise the queue head waits in
+place (backpressure, a ``kv_pages_backpressure`` event per episode), and
+an admission never runs out of pages in the engine. Requests carry
+per-request sampling params, a priority (lower value is served first; FIFO
+within a priority, with optional aging toward priority 0 via
+``priority_age_s``), a tenant and an optional deadline.
 
-Not ported yet (ROADMAP queue 1 item 9): the cost ledger, the request
-tracer, the workload journal and its events (``kv_pages_backpressure``
-among them: ``kv_backpressure_steps`` counts those steps instead),
-preemption drain and session parking, the fleet KV plane and KV store,
-and fault injection.
+The lifecycle record, each part off unless given:
+
+- ``tracer`` (``obs/trace.py``): the request's spans, shared with the
+  engine (prefill dispatches, chunks, prefix seeds);
+- ``events`` (``obs/events.py``): admission bursts, cancels, expiries,
+  drains, backpressure, the engine's pool evictions;
+- ``journal`` (``obs/journal.py``): every submit and cancel, and each
+  terminal request's emitted tokens, the replay substrate;
+- ``faults`` (``serve/faults.py``): the named points ``post_admit``,
+  ``mid_prefill_chunk``, ``fold_boundary`` and ``post_finish_pre_ack``;
+- the cost ledger (always on): per-request queue seconds, chunks, prefix
+  hits, folds, speculative shares, emitted tokens and an estimated
+  device-seconds share (each step's wall time split over its requests),
+  emitted once at the terminal through ``ServeMetrics.record_cost``, with
+  the per-request phase ledger (``phase_ledger``, ``obs/anatomy.py``'s
+  vocabulary) through ``record_phases`` and the journal.
+
+The preemption drain (:meth:`request_drain`, :meth:`drain_result`)
+classifies residents into finish-in-grace and migrate, cancels the migrate
+set and the queue, and exports their cached prefix blocks; a survivor
+takes them through :meth:`enqueue_prefix_import`. What the JAX scheduler
+also offers and this port does not yet (each raises naming its ROADMAP
+item): the fleet KV plane (``kvfleet``, ``role``, warm-peer hints), the
+KV object store with write-through and session parking (queue 1 item 9).
 
 The scheduler owns no threads: ``step()`` is driven by whoever hosts the
 engine. ``submit``/``cancel`` are thread-safe; the lock guards only the
@@ -35,12 +55,20 @@ import threading
 import time
 import uuid
 from dataclasses import dataclass, field
-from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Sequence, Tuple
 
-from ray_lightning_tpu_torch.serve.metrics import ServeMetrics
+from ray_lightning_tpu_torch.obs import trace as _trace
+from ray_lightning_tpu_torch.serve.metrics import CANARY_TENANT, ServeMetrics
 
 if TYPE_CHECKING:
+    from ray_lightning_tpu_torch.obs.events import EventLog
+    from ray_lightning_tpu_torch.obs.journal import WorkloadJournal
+    from ray_lightning_tpu_torch.obs.trace import RequestTracer
     from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+
+#: Where the unported fleet and store features live in the ROADMAP.
+_FLEET_ITEM = "ROADMAP queue 1 item 9 (the fleet KV plane)"
+_STORE_ITEM = "ROADMAP queue 1 item 9 (KV object store, session parking)"
 
 
 @dataclass(frozen=True)
@@ -61,6 +89,9 @@ class Request:
     sampling: SamplingParams = field(default_factory=SamplingParams)
     request_id: str = ""
     priority: int = 0
+    #: Tenant/API-key label: rides into the cost ledger (None bills to the
+    #: "default" tenant).
+    tenant: Optional[str] = None
     #: Relative deadline in seconds from submission; queued requests past
     #: it are expired, in-flight ones are cancelled at the next boundary.
     deadline_s: Optional[float] = None
@@ -81,7 +112,9 @@ class TokenEvent:
     request_id: str
     token: Optional[int]  # None for lifecycle-only events
     done: bool
-    #: "token" | "finished" | "cancelled" | "expired"
+    #: "token" | "finished" | "cancelled" | "expired" | "migrated"
+    #: ("migrated": evicted by a preemption drain for resubmission on a
+    #: survivor; terminal on this engine, not for the request).
     reason: str = "token"
 
 
@@ -93,9 +126,49 @@ class Scheduler:
         max_prefills_per_step: int = 1,
         max_prefill_chunks_per_step: int = 1,
         priority_age_s: Optional[float] = None,
+        tracer: Optional["RequestTracer"] = None,
+        events: Optional["EventLog"] = None,
+        journal: Optional["WorkloadJournal"] = None,
+        faults: Optional[Any] = None,
+        kvfleet: Optional[Any] = None,
+        role: str = "mixed",
+        kvstore: Optional[Any] = None,
+        kvstore_writethrough: bool = False,
     ) -> None:
+        for name, value, default, item in (
+            ("kvfleet", kvfleet, None, _FLEET_ITEM),
+            ("role", role, "mixed", _FLEET_ITEM),
+            ("kvstore", kvstore, None, _STORE_ITEM),
+            ("kvstore_writethrough", kvstore_writethrough, False, _STORE_ITEM),
+        ):
+            if value != default:
+                raise NotImplementedError(
+                    f"Scheduler option {name}={value!r} is not ported yet "
+                    f"({item})"
+                )
         self.engine = engine
+        self.role = str(role)
+        self.faults = faults
         self.metrics = metrics or ServeMetrics(engine.num_slots)
+        self.metrics.set_role(self.role)
+        #: Request tracer, shared with the engine for its own spans.
+        self.tracer = tracer
+        if tracer is not None and engine.tracer is None:
+            engine.tracer = tracer
+        #: Per-request phase ledger, folded from the lifecycle timestamps
+        #: at each terminal (a handful of float subtractions); set False
+        #: to measure the record's cost with every observer off.
+        self.phase_ledger = True
+        #: Structured event log, shared with the engine for its pool
+        #: evictions: one event per occurrence, never per token.
+        self.events = events
+        if events is not None and engine.events is None:
+            engine.events = events
+        #: Workload journal; token values accumulate inline in step()'s
+        #: loops and flush at the ledger close.
+        self.journal = journal
+        self._jr_tokens: Dict[str, List[int]] = {}
+        self._jr_ttft: Dict[str, float] = {}
         self.max_prefills_per_step = max(1, int(max_prefills_per_step))
         #: Chunk-vs-fold interleave budget: prefill chunks advanced per
         #: step (chunked engines only).
@@ -113,6 +186,9 @@ class Scheduler:
         #: (priority, seq, Request) min-heap: FIFO within a priority.
         self._pending: List[Any] = []
         self._cancelled: set = set()
+        #: Subset of _cancelled evicted by a preemption drain: their
+        #: terminal events read "migrated".
+        self._migrating: set = set()
         self._slot_req: Dict[int, Request] = {}
         #: Requests popped for admission but not yet in _slot_req (admit
         #: runs outside the lock); cancel() must still find them.
@@ -122,8 +198,96 @@ class Scheduler:
         self._prefix_seen: Dict[str, Dict[str, int]] = {}
         self._kv_seen: Dict[str, int] = {}
         self._spec_seen = (0, 0, 0)
-        #: Steps whose queue head waited for KV pages (paged engines).
+        #: Steps whose queue head waited for KV pages (paged engines), and
+        #: the latch that fires the backpressure event once per episode.
         self.kv_backpressure_steps = 0
+        self._kv_parked = False
+        #: Cost ledger: request_id -> the accounting record, from submit to
+        #: terminal.
+        self._acct: Dict[str, Dict[str, Any]] = {}
+        #: Preemption drain: the armed budget (s) the next step() consumes,
+        #: and the plan it produced.
+        self._drain_req: Optional[float] = None
+        self._drain_result: Optional[Dict[str, Any]] = None
+        self._drain_cv = threading.Condition()
+        #: Peer prefix blocks queued for import at the top of step().
+        self._pending_imports: List[Any] = []
+
+    # -- cost ledger ------------------------------------------------------
+    def _acct_open(self, req: Request) -> None:
+        self._acct[req.request_id] = {
+            "request_id": req.request_id,
+            "tenant": req.tenant,
+            "prompt_tokens": len(req.prompt),
+            "submitted_at": req.submitted_at,
+            "queue_s": 0.0,
+            "prefill_chunks": 0,
+            "prefix_hit_tokens": 0,
+            "decode_folds": 0,
+            "spec_verifies": 0.0,
+            "spec_accepted_tokens": 0.0,
+            "emitted_tokens": 0,
+            "device_s": 0.0,
+        }
+
+    def _acct_close(self, rid: str, outcome: str) -> None:
+        """Finalize one request's ledger record and emit it (metrics
+        window, registry series, a typed event, the journal outcome). Safe
+        for unknown ids."""
+        rec = self._acct.pop(rid, None)
+        if rec is None:
+            return
+        rec["outcome"] = outcome
+        rec["total_s"] = round(time.monotonic() - rec.pop("submitted_at"), 6)
+        rec["queue_s"] = round(rec["queue_s"], 6)
+        rec["device_s"] = round(rec["device_s"], 6)
+        rec["spec_verifies"] = round(rec["spec_verifies"], 3)
+        rec["spec_accepted_tokens"] = round(rec["spec_accepted_tokens"], 3)
+        rec.pop("_admit_t", None)
+        ttft = rec.pop("_ttft_s", None)
+        phases: Optional[Dict[str, float]] = None
+        if self.phase_ledger:
+            # The scheduler-local phases (the fleet's kv_fetch,
+            # transfer_park and ship phases need the fleet KV plane).
+            phases = {"queue": max(0.0, rec["queue_s"])}
+            if ttft is not None:
+                phases["prefill"] = max(0.0, ttft - rec["queue_s"])
+                phases["decode"] = max(0.0, rec["total_s"] - ttft)
+            phases = {k: round(v, 6) for k, v in phases.items()}
+            self.metrics.record_phases(
+                phases, tenant=rec["tenant"], outcome=outcome
+            )
+        self.metrics.record_cost(rec)
+        self._event(
+            "request_cost",
+            request_id=rid,
+            tenant=rec["tenant"] or "default",
+            outcome=outcome,
+            emitted_tokens=rec["emitted_tokens"],
+            device_s=rec["device_s"],
+            queue_s=rec["queue_s"],
+        )
+        if self.journal is not None:
+            self.journal.record_outcome(
+                rid, outcome, cost=rec,
+                tokens=self._jr_tokens.pop(rid, None),
+                ttft_s=self._jr_ttft.pop(rid, None),
+                phases=phases,
+            )
+
+    def _trace(
+        self, rid: str, span: str, t: Optional[float] = None, **attrs: Any
+    ) -> None:
+        if self.tracer is not None:
+            self.tracer.event(rid, span, t=t, attrs=attrs or None)
+
+    def _event(self, name: str, level: str = "info", **kv: Any) -> None:
+        if self.events is not None:
+            self.events.record("scheduler", name, level=level, **kv)
+
+    def _fault(self, point: str) -> None:
+        if self.faults is not None:
+            self.faults.hit(point)
 
     # -- intake (thread-safe) --------------------------------------------
     def submit(
@@ -134,9 +298,18 @@ class Scheduler:
         request_id: Optional[str] = None,
         priority: int = 0,
         deadline_s: Optional[float] = None,
+        tenant: Optional[str] = None,
+        kv_hint: Optional[Dict[str, Any]] = None,
+        ship_to: Optional[int] = None,
     ) -> str:
         """Queue a request; returns its id. Rejects (ValueError) requests
-        that can never fit the engine, instead of queueing them to fail."""
+        that can never fit the engine, instead of queueing them to fail.
+        ``kv_hint`` and ``ship_to`` are the fleet KV plane's placement
+        hints and raise unless None."""
+        if kv_hint is not None or ship_to is not None:
+            raise NotImplementedError(
+                f"submit kv_hint/ship_to are not ported yet ({_FLEET_ITEM})"
+            )
         sampling = sampling or SamplingParams()
         prompt = [int(t) for t in prompt]
         if not prompt or sampling.max_new_tokens < 1:
@@ -155,12 +328,42 @@ class Scheduler:
             priority=int(priority),
             deadline_s=deadline_s,
             submitted_at=time.monotonic(),
+            tenant=tenant,
         )
         with self._lock:
             heapq.heappush(
                 self._pending, (req.priority, next(self._seq), req)
             )
-            self.metrics.record_submit(len(self._pending))
+            depth = self._organic_depth_locked()
+            self.metrics.record_submit(depth)
+            self._acct_open(req)
+        if self.journal is not None:
+            s = req.sampling
+            self.journal.record_submit(
+                request_id=req.request_id,
+                prompt=req.prompt,
+                sampling={
+                    "max_new_tokens": s.max_new_tokens,
+                    "temperature": s.temperature,
+                    "top_k": s.top_k,
+                    "top_p": s.top_p,
+                    "seed": s.seed,
+                    "eos_token": s.eos_token,
+                },
+                priority=req.priority,
+                deadline_s=req.deadline_s,
+                tenant=req.tenant,
+                t_mono=req.submitted_at,
+            )
+        if self.tracer is not None:
+            self.tracer.event(
+                req.request_id, _trace.SPAN_SUBMIT, t=req.submitted_at,
+                attrs={"prompt_tokens": len(prompt), "priority": req.priority},
+            )
+            self.tracer.event(
+                req.request_id, _trace.SPAN_QUEUED,
+                attrs={"queue_depth": depth},
+            )
         return req.request_id
 
     def cancel(self, request_id: str) -> bool:
@@ -178,27 +381,160 @@ class Scheduler:
             )
             if known:
                 self._cancelled.add(request_id)
+        if self.journal is not None:
+            self.journal.record_cancel(request_id, known)
         return known
 
     def queue_depth(self) -> int:
+        """Organic queue depth: pending requests less the reserved canary
+        tenant's."""
         with self._lock:
-            return len(self._pending)
+            return self._organic_depth_locked()
+
+    def _organic_depth_locked(self) -> int:
+        return sum(
+            1 for _, _, r in self._pending if r.tenant != CANARY_TENANT
+        )
 
     def has_work(self) -> bool:
         with self._lock:
-            return bool(self._pending) or self.engine.num_active > 0
+            return (
+                bool(self._pending)
+                or self.engine.num_active > 0
+                or self._drain_req is not None
+                or bool(self._pending_imports)
+            )
+
+    # -- preemption drain (thread-safe arm/wait; work runs in step()) -----
+    def request_drain(self, budget_s: float) -> None:
+        """Arm a graceful drain: the next step() classifies in-flight work
+        into finish-in-grace and migrate (cancelling and exporting the
+        migrate set) and publishes the plan for :meth:`drain_result`."""
+        with self._lock:
+            self._drain_req = float(budget_s)
+
+    def drain_result(
+        self, timeout: Optional[float] = 10.0
+    ) -> Optional[Dict[str, Any]]:
+        """Block until the armed drain's plan is ready (None on timeout);
+        consumes the plan."""
+        with self._drain_cv:
+            if self._drain_result is None:
+                self._drain_cv.wait(timeout)
+            plan, self._drain_result = self._drain_result, None
+            return plan
+
+    def request_park(self, tokens: Sequence[int],
+                     request_id: Optional[str] = None) -> None:
+        """Session parking exports a conversation's chain to the KV object
+        store: not ported yet."""
+        raise NotImplementedError(f"request_park is not ported yet ({_STORE_ITEM})")
+
+    def park_result(self, timeout: Optional[float] = 10.0) -> None:
+        raise NotImplementedError(f"park_result is not ported yet ({_STORE_ITEM})")
+
+    def enqueue_prefix_import(self, blocks: Any) -> int:
+        """Queue a peer's exported prefix blocks for import at the top of
+        the next step() (engine state changes on the loop thread only).
+        Returns the number of blocks queued."""
+        with self._lock:
+            self._pending_imports.append(blocks)
+        return len(blocks)
+
+    def _apply_drain(self, events: List[TokenEvent]) -> None:
+        """Consume an armed drain (inside step()). A resident request whose
+        estimated completion fits in half the grace window runs to
+        completion; the other residents and the whole queue are cancelled
+        and listed as the migrate set, each with its prompt's cached
+        prefix blocks. With no decode-rate sample everything migrates."""
+        with self._lock:
+            budget = self._drain_req
+            if budget is None:
+                return
+            self._drain_req = None
+            rate = float(
+                self.metrics.snapshot().get("decode_tokens_per_sec") or 0.0
+            )
+            resident = list(self._slot_req.values())
+            n_res = max(1, len(resident))
+            finish: List[str] = []
+            migrate: List[Request] = []
+            for req in resident:
+                acct = self._acct.get(req.request_id) or {}
+                left = max(
+                    0,
+                    req.sampling.max_new_tokens
+                    - int(acct.get("emitted_tokens", 0)),
+                )
+                est = (left * n_res / rate) if rate > 0 else None
+                if est is not None and est <= 0.5 * budget:
+                    finish.append(req.request_id)
+                else:
+                    migrate.append(req)
+                    # The boundary eviction scan of this same step evicts
+                    # it; _migrating makes its terminal read "migrated".
+                    self._cancelled.add(req.request_id)
+                    self._migrating.add(req.request_id)
+            queued = [r for _, _, r in self._pending]
+            self._pending = []
+            for req in queued:
+                self._cancelled.discard(req.request_id)
+                migrate.append(req)
+                self.metrics.record_cancel(queue_depth=0)
+                self._trace(req.request_id, _trace.SPAN_CANCEL)
+                self._acct_close(req.request_id, "migrated")
+                events.append(
+                    TokenEvent(req.request_id, None, True, "migrated")
+                )
+        if self.journal is not None:
+            # A drain's cancel looks like any other cancel to a replay.
+            for req in migrate:
+                self.journal.record_cancel(req.request_id, True)
+        export = self.engine.prefix_blocks > 0
+        plan = {
+            "budget_s": budget,
+            "finish": finish,
+            "migrate": [
+                {
+                    "request_id": req.request_id,
+                    "blocks": (self.engine.export_prefix_blocks(req.prompt)
+                               if export else []),
+                }
+                for req in migrate
+            ],
+        }
+        self._event(
+            "drain_plan", level="warn",
+            budget_s=round(budget, 3), finish=len(finish),
+            migrate=len(migrate),
+            kv_blocks=sum(len(m["blocks"]) for m in plan["migrate"]),
+        )
+        with self._drain_cv:
+            self._drain_result = plan
+            self._drain_cv.notify_all()
 
     # -- the loop ---------------------------------------------------------
     def step(self) -> List[TokenEvent]:
-        """One iteration: evict cancelled/expired, admit (bounded), advance
-        prefill chunks (chunked engines, bounded), run one engine fold.
-        Queue decisions happen under the lock; every engine
-        call runs outside it."""
+        """One iteration: apply imports and an armed drain, evict
+        cancelled/expired, admit (bounded), advance prefill chunks
+        (chunked engines, bounded), run one engine fold. Queue decisions
+        happen under the lock; every engine call runs outside it."""
         events: List[TokenEvent] = []
         t0 = time.monotonic()
+        with self._lock:
+            imports, self._pending_imports = self._pending_imports, []
+        for blocks in imports:
+            self.engine.import_prefix_blocks(blocks)
+        if self._drain_req is not None:
+            self._apply_drain(events)
         to_evict: List[Any] = []
         admits: List[Request] = []
+        #: (rid, outcome) terminals of this step's engine work; their
+        #: ledger records close after the step's device-seconds are
+        #: attributed, so a request's last fold is in its bill.
+        closed: List[Tuple[str, str]] = []
         with self._lock:
+            resident_rids = [r.request_id for r in self._slot_req.values()]
             if self.priority_age_s is not None and self._pending:
                 self._pending = [
                     (
@@ -219,9 +555,12 @@ class Scheduler:
                 if cancelled or req.expired(t0):
                     del self._slot_req[slot]
                     self._cancelled.discard(rid)
-                    to_evict.append(
-                        (slot, req, "cancelled" if cancelled else "expired")
-                    )
+                    if rid in self._migrating:
+                        self._migrating.discard(rid)
+                        kind = "migrated"
+                    else:
+                        kind = "cancelled" if cancelled else "expired"
+                    to_evict.append((slot, req, kind))
             budget = min(
                 self.max_prefills_per_step,
                 len(self.engine.free_slots()) + len(to_evict),
@@ -238,12 +577,23 @@ class Scheduler:
                 if rid in self._cancelled:
                     heapq.heappop(self._pending)
                     self._cancelled.discard(rid)
-                    self.metrics.record_cancel(queue_depth=len(self._pending))
+                    self.metrics.record_cancel(
+                        queue_depth=self._organic_depth_locked()
+                    )
+                    self._trace(rid, _trace.SPAN_CANCEL)
+                    self._event("cancel", request_id=rid, where="queued")
+                    self._acct_close(rid, "cancelled")
                     events.append(TokenEvent(rid, None, True, "cancelled"))
                     continue
                 if req.expired(t0):
                     heapq.heappop(self._pending)
-                    self.metrics.record_expire(queue_depth=len(self._pending))
+                    self.metrics.record_expire(
+                        queue_depth=self._organic_depth_locked()
+                    )
+                    self._trace(rid, _trace.SPAN_EXPIRE)
+                    self._event("expire", level="warn", request_id=rid,
+                                where="queued")
+                    self._acct_close(rid, "expired")
                     events.append(TokenEvent(rid, None, True, "expired"))
                     continue
                 if paged:
@@ -257,6 +607,13 @@ class Scheduler:
                 heapq.heappop(self._pending)
                 admits.append(req)
                 self._admitting.add(rid)
+            if parked and not self._kv_parked:
+                self._event(
+                    "kv_pages_backpressure", level="warn",
+                    queue_depth=len(self._pending),
+                    pages_available=pages_left,
+                )
+            self._kv_parked = parked
             self.kv_backpressure_steps += int(parked)
         # -- engine work, lock NOT held --------------------------------
         for slot, req, kind in to_evict:
@@ -266,6 +623,18 @@ class Scheduler:
                 if kind == "expired"
                 else self.metrics.record_cancel
             )(queue_depth=self.queue_depth())
+            self._trace(
+                req.request_id,
+                _trace.SPAN_EXPIRE if kind == "expired" else _trace.SPAN_CANCEL,
+                slot=slot,
+            )
+            self._event(
+                "expire" if kind == "expired" else "cancel",
+                level="warn" if kind == "expired" else "info",
+                request_id=req.request_id, where="slot", slot=slot,
+                migrated=kind == "migrated",
+            )
+            closed.append((req.request_id, kind))
             events.append(TokenEvent(req.request_id, None, True, kind))
         newly: Dict[int, Request] = {}
         finished_rids: List[str] = []
@@ -288,20 +657,44 @@ class Scheduler:
                     for req in admits
                 ]
             )
-            now = time.monotonic()
+            # One event per burst, not per admission.
+            self._event("admit_burst", n=len(admits),
+                        queue_depth=self.queue_depth())
             for req, (slot, first_tok, done) in zip(admits, results):
                 req.admitted_at = t_admit
                 self.metrics.record_admit(
                     t_admit - req.submitted_at, self.queue_depth()
                 )
+                acct = self._acct.get(req.request_id)
+                if acct is not None:
+                    acct["queue_s"] = t_admit - req.submitted_at
+                    acct["_admit_t"] = t_admit
+                # Record-time timestamp: the engine's own admission spans
+                # (prefix_seed, prefill) land before this one, and a
+                # trace's timestamps must be monotonic in record order.
+                self._trace(
+                    req.request_id, _trace.SPAN_ADMITTED, slot=slot,
+                    queue_s=round(t_admit - req.submitted_at, 6),
+                )
                 if first_tok is None:
                     newly[slot] = req  # chunked prefill in progress
                     continue
+                now = time.monotonic()
                 admit_tokens += 1
                 self.metrics.record_first_token(
                     now - req.submitted_at, now - t_admit, 1, 0,
                     len(req.prompt),
                 )
+                self._trace(
+                    req.request_id, _trace.SPAN_FIRST_TOKEN, t=now,
+                    ttft_s=round(now - req.submitted_at, 6),
+                )
+                if acct is not None:
+                    acct["emitted_tokens"] += 1
+                    acct["_ttft_s"] = now - req.submitted_at
+                if self.journal is not None:
+                    self._jr_tokens[req.request_id] = [int(first_tok)]
+                    self._jr_ttft[req.request_id] = now - req.submitted_at
                 events.append(
                     TokenEvent(
                         req.request_id, first_tok, done,
@@ -310,35 +703,77 @@ class Scheduler:
                 )
                 if done:
                     self.metrics.record_finish(queue_depth=self.queue_depth())
+                    self._trace(req.request_id, _trace.SPAN_FINISH)
                     finished_rids.append(req.request_id)
+                    closed.append((req.request_id, "finished"))
                 else:
                     newly[slot] = req
+            # Requests hold slots; chunked ones have no first token yet.
+            self._fault("post_admit")
         # Chunked prefills advance between the admissions and the fold, or,
         # piggybacked, inside the fold's dispatch: their completions are
         # read after it and finish the same way.
         piggyback = self.engine.piggyback_chunks > 0
+        prefilling = self.engine.num_prefilling
+        chunk_events: List[Any] = []
         prefilled = 0
         if not piggyback:
-            prefilled = self._finish_prefills(
-                self.engine.prefill_step(self.max_prefill_chunks_per_step),
-                newly, events, finished_rids, finished_slots,
+            chunk_events = self.engine.prefill_step(
+                self.max_prefill_chunks_per_step
             )
+            prefilled = self._finish_prefills(
+                chunk_events, newly, events, finished_rids, finished_slots,
+                closed,
+            )
+            if chunk_events or prefilling:
+                # A multi-chunk prompt is part-way through its prefill.
+                self._fault("mid_prefill_chunk")
         active = self.engine.num_active
         fold_results = self.engine.step()
         if piggyback:
-            prefilled = self._finish_prefills(
-                self.engine.pop_chunk_events(), newly, events, finished_rids,
-                finished_slots,
-            )
+            pb_events = self.engine.pop_chunk_events()
+            if pb_events:
+                chunk_events = pb_events
+                prefilled = self._finish_prefills(
+                    pb_events, newly, events, finished_rids, finished_slots,
+                    closed, piggyback=True,
+                )
+            if pb_events or prefilling:
+                self._fault("mid_prefill_chunk")
+        # Tokens per request this fold: the granularity of the decode
+        # spans, the spec attribution and the cost ledger.
+        fold_tokens: Dict[str, int] = {}
+        for _, rid, _, _ in fold_results:
+            fold_tokens[rid] = fold_tokens.get(rid, 0) + 1
+        self._diff_counters(fold_tokens)
+        for rid, n in fold_tokens.items():
+            acct = self._acct.get(rid)
+            if acct is not None:
+                acct["decode_folds"] += 1
+                acct["emitted_tokens"] += n
+        if self.tracer is not None:
+            # One span per request per fold (never per token), before the
+            # finish spans, so a trace's folds precede its terminal.
+            for rid, n in fold_tokens.items():
+                self.tracer.event(
+                    rid, _trace.SPAN_DECODE_FOLD, attrs={"tokens": n}
+                )
+        jr_on = self.journal is not None
         for slot, rid, tok, done in fold_results:
+            if jr_on:
+                self._jr_tokens.setdefault(rid, []).append(int(tok))
             events.append(
                 TokenEvent(rid, tok, done, "finished" if done else "token")
             )
             if done:
                 self.metrics.record_finish(queue_depth=self.queue_depth())
+                self._trace(rid, _trace.SPAN_FINISH)
                 finished_slots.append(slot)
                 finished_rids.append(rid)
-        self._diff_counters()
+                closed.append((rid, "finished"))
+        if fold_results:
+            # Tokens harvested and journaled, the step not yet returned.
+            self._fault("fold_boundary")
         with self._lock:
             self._slot_req.update(newly)
             for req in admits:
@@ -348,39 +783,88 @@ class Scheduler:
             # A cancel that raced a same-fold finish would otherwise pin
             # the id in _cancelled and evict a later request reusing it.
             self._cancelled.difference_update(finished_rids)
+            self._migrating.difference_update(finished_rids)
+        # Device-seconds: this step's wall time split evenly over the
+        # requests that held engine state through it (an estimate, but it
+        # sums exactly to the serving wall time).
+        wall = time.monotonic() - t0
+        participants = set(resident_rids)
+        participants.update(req.request_id for req in admits)
+        participants.update(fold_tokens)
+        participants.update(ev[1].request_id for ev in chunk_events)
+        if participants:
+            share = wall / len(participants)
+            for rid in participants:
+                acct = self._acct.get(rid)
+                if acct is not None:
+                    acct["device_s"] += share
+        for rid, outcome in closed:
+            self._acct_close(rid, outcome)
+        if any(outcome == "finished" for _, outcome in closed):
+            # The terminal ledger and journal flush happened; the step's
+            # events have not reached the caller.
+            self._fault("post_finish_pre_ack")
         self.metrics.record_step(
-            time.monotonic() - t0, active,
+            wall, active,
             len(fold_results) + prefilled + admit_tokens, self.queue_depth(),
         )
         return events
 
-    def _diff_counters(self) -> None:
+    def _diff_counters(self, fold_tokens: Dict[str, int]) -> None:
         """Diff the engine's cumulative counters (spec accepts, prefix
-        tiers, KV pages) into this step's metrics records."""
+        tiers, KV pages) into this step's metrics records, and attribute
+        the spec shares to the fold's riders (ledger and spans)."""
         eng = self.engine
         if eng.spec != "off":
-            seen = (eng.spec_verifies, eng.spec_drafted_tokens,
-                    eng.spec_accepted_tokens)
-            if seen[0] != self._spec_seen[0]:
-                self.metrics.record_spec(
-                    *(n - m for n, m in zip(seen, self._spec_seen))
-                )
-            self._spec_seen = seen
+            v, d, a = (eng.spec_verifies, eng.spec_drafted_tokens,
+                       eng.spec_accepted_tokens)
+            dv = v - self._spec_seen[0]
+            if dv:
+                da = a - self._spec_seen[2]
+                self.metrics.record_spec(dv, d - self._spec_seen[1], da)
+                # The verify forwards are batched over slots, so the
+                # per-request shares are estimates: accepted tokens in
+                # proportion to the tokens emitted, verifies split evenly.
+                total = sum(fold_tokens.values())
+                for rid, n in fold_tokens.items():
+                    acct = self._acct.get(rid)
+                    if acct is not None:
+                        acct["spec_verifies"] += dv / len(fold_tokens)
+                        if total:
+                            acct["spec_accepted_tokens"] += da * n / total
+                if self.tracer is not None:
+                    for rid, n in fold_tokens.items():
+                        self.tracer.event(
+                            rid, _trace.SPAN_SPEC_VERIFY,
+                            attrs={
+                                "tokens": n,
+                                "drafted": d - self._spec_seen[1],
+                                "accepted": da,
+                            },
+                        )
+            self._spec_seen = (v, d, a)
         if eng.prefix_blocks:
             # One record per step that saw tier traffic (admissions walk
             # the tiers; steady decode never does).
             tiers = eng.prefix_tier_counters()
             if tiers != self._prefix_seen:
                 seen = self._prefix_seen
-                self.metrics.record_prefix_tiers({
-                    t: {k: n - seen.get(t, {}).get(k, 0) for k, n in kv.items()}
-                    for t, kv in tiers.items()
-                })
+                self.metrics.record_prefix_tiers(
+                    {
+                        t: {k: n - seen.get(t, {}).get(k, 0)
+                            for k, n in kv.items()}
+                        for t, kv in tiers.items()
+                    },
+                    eng.prefix_tier_bytes(),
+                )
                 self._prefix_seen = tiers
         if eng.paged:
             kv = eng.kv_page_counters()
             if kv != self._kv_seen:
-                self.metrics.record_kv_pages(eng.kv_page_stats())
+                self.metrics.record_kv_pages(
+                    {k: n - self._kv_seen.get(k, 0) for k, n in kv.items()},
+                    eng.kv_page_stats(),
+                )
                 self._kv_seen = kv
 
     def _finish_prefills(
@@ -390,17 +874,46 @@ class Scheduler:
         events: List[TokenEvent],
         finished_rids: List[str],
         finished_slots: List[int],
+        closed: List[Tuple[str, str]],
+        piggyback: bool = False,
     ) -> int:
-        """First-token metrics and TokenEvents of the prefills that
-        completed this step; returns how many."""
+        """First-token metrics, spans, ledger and journal entries and
+        TokenEvents of the prefills that completed this step (separate
+        chunks, or piggybacked ones read after the fold); returns how
+        many."""
         for slot, task, tok, done in chunk_events:
             now = time.monotonic()
             req = newly.get(slot) or self._slot_req.get(slot)
             if req is not None:
                 self.metrics.record_first_token(
-                    now - req.submitted_at, now - req.admitted_at,
+                    now - req.submitted_at,
+                    now - (req.admitted_at or now),
                     task.chunks, task.matched_tokens, len(task.tokens),
                 )
+                self._trace(
+                    task.request_id, _trace.SPAN_FIRST_TOKEN, t=now,
+                    ttft_s=round(now - req.submitted_at, 6),
+                    chunks=task.chunks,
+                    prefix_hit_tokens=task.matched_tokens,
+                    # Piggybacked chunks rode inside decode folds; solo
+                    # chunks had dispatches of their own.
+                    mode="piggyback" if piggyback else "solo",
+                )
+            acct = self._acct.get(task.request_id)
+            if acct is not None:
+                acct["prefill_chunks"] = task.chunks
+                acct["prefix_hit_tokens"] = task.matched_tokens
+                acct["emitted_tokens"] += 1
+                if req is not None:
+                    acct.setdefault("_ttft_s", now - req.submitted_at)
+            if self.journal is not None and tok is not None:
+                self._jr_tokens.setdefault(task.request_id, []).append(
+                    int(tok)
+                )
+                if req is not None:
+                    self._jr_ttft.setdefault(
+                        task.request_id, now - req.submitted_at
+                    )
             events.append(
                 TokenEvent(
                     task.request_id, tok, done,
@@ -409,8 +922,10 @@ class Scheduler:
             )
             if done:
                 self.metrics.record_finish(queue_depth=self.queue_depth())
+                self._trace(task.request_id, _trace.SPAN_FINISH)
                 finished_rids.append(task.request_id)
                 finished_slots.append(slot)
+                closed.append((task.request_id, "finished"))
                 newly.pop(slot, None)
         return len(chunk_events)
 

@@ -275,6 +275,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys; import ray_lightning_tpu_torch.serve.engine, "
         "ray_lightning_tpu_torch.serve.scheduler, "
         "ray_lightning_tpu_torch.serve.metrics, "
+        "ray_lightning_tpu_torch.serve.server, "
+        "ray_lightning_tpu_torch.serve.faults, "
+        "ray_lightning_tpu_torch.obs, "
+        "ray_lightning_tpu_torch.obs.trace, "
+        "ray_lightning_tpu_torch.obs.events, "
+        "ray_lightning_tpu_torch.obs.registry, "
+        "ray_lightning_tpu_torch.obs.anatomy, "
+        "ray_lightning_tpu_torch.obs.journal, "
+        "ray_lightning_tpu_torch.utils.quantize, "
         "ray_lightning_tpu_torch.models.weights, "
         "ray_lightning_tpu_torch.models.gpt, "
         "ray_lightning_tpu_torch.models.boring, "

@@ -101,9 +101,23 @@ def test_weight_bridge_refuses_bad_trees(model):
     bad = dict(np_params, wte=np_params["wte"][:, :-1])
     with pytest.raises(ValueError, match="wte"):
         params_from_jax(bad, t_cfg, "cpu")
-    blocks = dict(np_params["blocks"], wo={"q": 0, "s": 1})
-    with pytest.raises(NotImplementedError, match="int8"):
-        params_from_jax(dict(np_params, blocks=blocks), t_cfg, "cpu")
+    # An int8 node converts (q int8, s fp32, shapes kept); a malformed one
+    # (q not int8 of the leaf's shape, or scales that do not broadcast) is
+    # refused naming its leaf.
+    wo = np_params["blocks"]["wo"]
+    s = np.abs(wo).max(axis=(1, 2), keepdims=True) / 127.0
+    q = np.clip(np.round(wo / s), -127, 127).astype(np.int8)
+    blocks = dict(np_params["blocks"], wo={"q": q, "s": s})
+    out = params_from_jax(dict(np_params, blocks=blocks), t_cfg, "cpu")
+    node = out["blocks"]["wo"]
+    assert node["q"].dtype == torch.int8 and node["s"].dtype == torch.float32
+    assert tuple(node["q"].shape) == wo.shape
+    assert tuple(node["s"].shape) == s.shape
+    for bad_node in ({"q": 0, "s": 1}, {"q": q.astype(np.int32), "s": s},
+                     {"q": q, "s": s[:, :, :, :1].repeat(2, 3)}):
+        blocks = dict(np_params["blocks"], wo=bad_node)
+        with pytest.raises(ValueError, match="wo"):
+            params_from_jax(dict(np_params, blocks=blocks), t_cfg, "cpu")
 
 
 def test_prefill_and_decode_step_match_jax(model):
