@@ -134,7 +134,35 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    with the tokens of the uninterrupted run and of the
    reference-attention solo (near-ties aside). Prints ms per token with the observers on and off, the
    journal's bytes and the export/import seconds and bytes.
-11. Train GPT-2 small at full width and depth for 20 steps through
+11. serve-fleet: the serving fleet's front door on one card. The serve
+   phase's weights, written once to a checkpoint under
+   ``build/smoke_fleet`` (removed after); ``fabric.init`` with
+   ``RLT_REQUIRE_GPU=1``; ``start_replicas(2, num_gpus_per_replica=0.5,
+   ...)`` spawns two replica actors on the one card, each loading the
+   checkpoint, and ``ServeClient`` -> ``Router`` -> ``ServeReplica`` ->
+   ``Scheduler`` -> ``DecodeEngine`` serves: (a) with the serve phase's
+   engine, its 8 requests and the same 8 with new seeds, half through
+   ``submit_many``, every stream read in a thread; then the same 16
+   again, round-robin, with replica 1's folds delayed by a fault plan
+   and replica 1 killed once one of its streams has a token: its
+   requests fail over onto replica 0 from the client's journal; (b) with
+   the serve-chunked engine without its disk tier (``kvfleet=False``):
+   the 512-token system prompt, then its 8 suffixes one after another.
+   Gates: every request finishes with its count; every token of (a)
+   bitwise the serve phase's in-process engine's on the same requests,
+   greedy tokens equal the solo ``gpt_generate`` except at near-ties
+   (sampled ones reported against it); both replicas served; every
+   replica's graphs frozen and 12 K1 launches per admission (read from
+   each replica's ``stats()``); every killed-replica request resubmitted,
+   0 lost; (b)'s 8 suffixes routed by affinity to the warm replica with
+   512 prefix tokens hit each and none on the other, tokens equal the
+   reference-attention solo except at near-ties; after shutdown no child
+   process and the card's used memory back within 256 MiB of where it
+   was. Prints each
+   replica's spawn seconds, TTFT, the fleet's tokens/s beside the serve
+   phase's engine, each replica's ms per fold while both decode, the
+   failover's seconds and the card's memory.
+12. Train GPT-2 small at full width and depth for 20 steps through
    ``Trainer.fit`` (B=8, S=1024, bf16 compute, flash attention, AdamW
    with warmup): every step's loss must be finite and the last below the
    first, each backward kernel must have run once per layer per step and
@@ -144,11 +172,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    CUDA graph of 4 steps per dispatch): each of its losses must equal the
    K = 1 run's step at the same boundary within 1e-3 relative, with the
    same kernel launches; prints both step times.
-12. Print the ``{"kernels": [...]}`` line, the card line, and last
+13. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
-Dispatch programs (phases 4-10): every engine captures one CUDA graph per
+Dispatch programs (phases 4-11): every engine captures one CUDA graph per
 key of its ``dispatch_plan`` at construction; each prints its
 ``compiled_count``, capture seconds and graph-pool memory as it is built,
 and each phase fails unless every engine it built still has that count
@@ -2703,6 +2731,546 @@ def phase_serve_lifecycle() -> int:
     return counters.launches
 
 
+#: The serve-fleet phase: two replicas on one card (half a card each) behind
+#: ServeClient -> Router, (a) with the serve phase's engine, (b) with the
+#: serve-chunked engine without its disk tier (every replica gets the same
+#: kwargs, so both would write one directory). Replica 1's folds wait
+#: FLEET_FOLD_DELAY_S each during the failover wave, so its streams are
+#: mid-decode when it is killed.
+FLEET_GPUS = 0.5
+FLEET_CHUNKED_ENGINE = {k: v for k, v in CHUNKED_ENGINE.items()
+                        if k != "prefix_disk_mb"}
+FLEET_FOLD_DELAY_S = 0.5
+#: Slack on the card's used memory after the fleets are gone: the driver's
+#: own CUDA context loads modules lazily while the phase runs solos.
+FLEET_MEM_SLACK_MIB = 256
+
+
+def card_memory_mib() -> int:
+    """Used memory of card 0 as ``nvidia-smi`` reports it (MiB), after the
+    driver returns its cached blocks."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return int(out.stdout.strip().splitlines()[0])
+
+
+def compute_apps() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def child_pids() -> list:
+    """Live children of this process (``/proc``)."""
+    me, kids = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == me and fields[0] != "Z":
+            kids.append(int(d))
+    return kids
+
+
+def draw_margin(params, cfg, tokens, sp, j: int, device) -> float:
+    """How close the solo run's token ``j`` after ``tokens`` was to coming
+    out otherwise: greedy, the top-2 logit margin; sampled, the smallest
+    of the top-2 margin of the filtered logits plus the Gumbel noise of
+    draw ``j`` (the engine and the solo run draw the same noise), the gap
+    between the k-th and (k+1)-th scaled logits at the top-k cut, and the
+    gap between p and the nucleus mass on either side of the top-p cut (a
+    rounding there changes the support). Random weights give a nearly
+    flat distribution, where those cuts often fall between near-equal
+    logits."""
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+
+    with torch.no_grad():
+        h, _, _ = gpt.gpt_prefill(params, cfg,
+                                  torch.tensor([tokens], device=device))
+        norm = gpt._make_norm(cfg)
+        h = norm(h[:, -1:], params["lnf_g"], params["lnf_b"])[:, 0]
+        logits = gpt._lm_head(h, gpt._head_weight(params, cfg)).float()
+        if sp.temperature <= 0:
+            top = torch.topk(logits[0], 2).values
+            return float(top[0] - top[1])
+        gaps = []
+        scaled = torch.sort(logits[0] / sp.temperature, descending=True).values
+        k = int(sp.top_k or 0)
+        if 0 < k < scaled.numel():
+            gaps.append(float(scaled[k - 1] - scaled[k]))
+            scaled = scaled[:k]
+        if sp.top_p is not None and sp.top_p < 1.0:
+            mass = torch.cumsum(torch.softmax(scaled, -1), -1)
+            cut = int(torch.searchsorted(mass, torch.tensor(
+                [sp.top_p], device=mass.device))[0])
+            lo = float(mass[cut - 1]) if cut else 0.0
+            gaps.append(min(abs(sp.top_p - lo),
+                            abs(float(mass[min(cut, mass.numel() - 1)])
+                                - sp.top_p)))
+        one = torch.ones(1, device=device)
+        lg = gpt.filter_logits_batched(
+            logits, one * sp.temperature,
+            torch.tensor([int(sp.top_k or 0)], device=device),
+            one * (1.0 if sp.top_p is None else sp.top_p))
+        u = gpt.draw_uniforms(
+            torch.tensor([gpt.seed64(sp.seed)], device=device),
+            torch.tensor([j], device=device), lg.shape[-1])
+        top = torch.topk((lg - torch.log(-torch.log(u)))[0], 2).values
+        gaps.append(float(top[0] - top[1]))
+    return min(gaps)
+
+
+def fleet_compare(tag, reqs, got, params, cfg, device, solos,
+                  exact=None) -> int:
+    """Every request of ``got`` against the solo ``gpt_generate`` with its
+    seed (cached in ``solos``): a token may differ only where the solo
+    run's next token was a near-tie (``draw_margin`` below MARGIN). With
+    ``exact`` (request id -> the tokens of an engine that shares the
+    replicas' arithmetic), sampled requests must equal it bitwise and are
+    only reported against the solo: an unaligned prompt's solo prefill
+    takes the reference attention where the engine's padded one takes
+    K1. Returns how many requests differ from the solo."""
+    from ray_lightning_tpu_torch.models import gpt
+
+    near = 0
+    for rid, prompt, sp in reqs:
+        key = (tuple(prompt), sp.temperature, sp.seed)
+        if key not in solos:
+            solos[key] = gpt.gpt_generate(
+                params, cfg, [prompt], sp.max_new_tokens,
+                temperature=sp.temperature, top_k=sp.top_k, top_p=sp.top_p,
+                seed=sp.seed, device=device)[0, len(prompt):].tolist()
+        want = solos[key]
+        gated = exact is None or sp.temperature <= 0
+        if not gated and got[rid] != exact[rid]:
+            fail(f"{tag} {rid}: sampled tokens differ from the in-process "
+                 f"engine's: {got[rid]} vs {exact[rid]}")
+        if got[rid] == want:
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(got[rid], want))
+                  if a != b), None)
+        if j is None:
+            fail(f"{tag} {rid}: {len(got[rid])} tokens, solo {len(want)}")
+        margin = draw_margin(params, cfg, prompt + want[:j], sp, j, device)
+        print(f"[{tag}] {rid}: tokens differ from the solo first at {j} "
+              f"({'sampled' if sp.temperature > 0 else 'greedy'}), solo "
+              f"margin {margin}{'' if gated else ' (reported)'}")
+        if gated and margin >= MARGIN:
+            fail(f"{tag} {rid}: mismatch at token {j} with margin {margin}")
+        near += 1
+    return near
+
+
+def sp_kwargs(sp) -> dict:
+    return {"max_new_tokens": sp.max_new_tokens,
+            "temperature": sp.temperature, "top_k": sp.top_k,
+            "top_p": sp.top_p, "seed": sp.seed}
+
+
+def fleet_wave(client, reqs, batch_first_half: bool = True,
+               trigger=None) -> dict:
+    """Send ``reqs`` (the first half through one ``submit_many``, the rest
+    through ``submit`` one by one) and read every stream in a thread of
+    its own. ``trigger = (when, action)``: ``action(handles)`` runs once
+    ``when(handles, t_first)`` holds (``t_first``: request id -> the time
+    its first token arrived), polled every 10 ms. Returns the tokens, each
+    request's client-side TTFT and finish time, the handles and the wall
+    seconds."""
+    import threading
+
+    t0 = time.perf_counter()
+    half = len(reqs) // 2 if batch_first_half else 0
+    handles, t_sub = {}, {}
+    if half:
+        out = client.submit_many(
+            [p for _, p, _ in reqs[:half]],
+            sampling=[dict(sp_kwargs(sp), request_id=rid)
+                      for rid, _, sp in reqs[:half]])
+        for (rid, _, _), h in zip(reqs[:half], out):
+            if isinstance(h, Exception):
+                fail(f"submit_many {rid}: {h!r}")
+            handles[rid], t_sub[rid] = h, t0
+    for rid, prompt, sp in reqs[half:]:
+        t_sub[rid] = time.perf_counter()
+        handles[rid] = client.submit(prompt, request_id=rid, **sp_kwargs(sp))
+    toks = {rid: [] for rid, _, _ in reqs}
+    t_first, t_end, errors = {}, {}, []
+
+    def read(rid):
+        try:
+            for tok in client.stream_handle(handles[rid], timeout_s=600):
+                if not toks[rid]:
+                    t_first[rid] = time.perf_counter()
+                toks[rid].append(tok)
+            t_end[rid] = time.perf_counter()
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(f"{rid}: {type(exc).__name__}: {exc}")
+
+    threads = [threading.Thread(target=read, args=(rid,), daemon=True)
+               for rid, _, _ in reqs]
+    for t in threads:
+        t.start()
+    if trigger is not None:
+        when, action = trigger
+        deadline = time.monotonic() + 600
+        while not (errors or when(handles, dict(t_first))):
+            if time.monotonic() > deadline:
+                fail("the trigger's condition never held")
+            time.sleep(0.01)
+        action(handles)
+    for t in threads:
+        t.join(900)
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"streams failed or hung: {errors}")
+    for rid, _, sp in reqs:
+        if len(toks[rid]) != sp.max_new_tokens:
+            fail(f"{rid}: {len(toks[rid])} tokens of {sp.max_new_tokens}")
+    return {"toks": toks, "handles": handles,
+            "ttft": {rid: t_first[rid] - t_sub[rid] for rid in toks},
+            "t_end": t_end, "wall": time.perf_counter() - t0}
+
+
+def replica_counts(client, replicas=(0, 1)) -> list:
+    """Per replica of ``replicas``: admissions, K1 launches,
+    compiled_count and graphs captured since construction (one stats RPC
+    each)."""
+    out = []
+    for i in replicas:
+        s = client._rpc(i, "stats")
+        out.append({"admitted": s["admitted"],
+                    "launches": s["kernels"]["launches"],
+                    "compiled_count": s["compiled_count"],
+                    "compiles_since_init": s["compiles_since_init"],
+                    "finished": s["finished"]})
+    return out
+
+
+def check_replica_counts(tag, before, after, cfg, cuda: bool) -> int:
+    """Gates on each replica's counts over a stretch of traffic: the
+    graphs frozen (compiled_count unchanged, nothing captured since
+    construction) and, on the card, 12 K1 launches per admission. Returns
+    the K1 launches of the stretch."""
+    total = 0
+    for i, (a, b) in enumerate(zip(before, after)):
+        adm = b["admitted"] - a["admitted"]
+        launches = b["launches"] - a["launches"]
+        total += launches
+        print(f"[serve-fleet] {tag} replica {i}: {adm} admissions, K1 "
+              f"launches {launches}, compiled_count {b['compiled_count']}, "
+              f"graphs captured since construction "
+              f"{b['compiles_since_init']}")
+        if (b["compiled_count"] != a["compiled_count"]
+                or b["compiles_since_init"] != 0):
+            fail(f"{tag} replica {i}: graphs moved: {a} -> {b}")
+        if cuda and launches != adm * cfg.n_layer:
+            fail(f"{tag} replica {i}: K1 launches {launches} != "
+                 f"{cfg.n_layer} x {adm} admissions")
+    return total
+
+
+def spawn_seconds(t0: float, n: int) -> list:
+    """Seconds each of the fleet's ``n`` replicas took to come up (process,
+    imports, weights, kernel load, graph capture), from the fabric's
+    ``actor_start`` events after ``t0`` (wall clock)."""
+    from ray_lightning_tpu_torch.obs.events import get_event_log
+
+    starts = [e["ts"] for e in get_event_log().tail(256, subsystem="fabric",
+                                                    name="actor_start")
+              if e["ts"] >= t0][-n:]
+    return [b - a for a, b in zip([t0] + starts, starts)]
+
+
+def serve_fleet_run(params, cfg, device, workdir: str, engine) -> dict:
+    """The serve-fleet traffic (see ``phase_serve_fleet``) on ``device``:
+    the replicas run there, half a card each; ``engine`` is an in-process
+    engine of the replicas' configuration (the serve phase's) on the same
+    weights. On the CPU (a rehearsal at a
+    tiny width) set ``RLT_NUM_GPUS`` so the fabric has a card to share
+    out; the launch gate then checks nothing (the CPU counts no launch)."""
+    import dataclasses
+
+    from ray_lightning_tpu_torch import fabric
+    from ray_lightning_tpu_torch.models.gpt import params_to
+    from ray_lightning_tpu_torch.obs.registry import get_registry
+    from ray_lightning_tpu_torch.serve.client import start_replicas
+    from ray_lightning_tpu_torch.serve.router import Router
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+    from ray_lightning_tpu_torch.utils.state_stream import (
+        state_stream_to_file, to_state_stream)
+
+    import numpy as np
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    ckpt = os.path.join(workdir, "gpt.ckpt")
+    state_stream_to_file(to_state_stream({
+        "params": params_to(params, torch.device("cpu")),
+        "gpt_config": dataclasses.asdict(cfg)}), ckpt)
+    out = {}
+    solos = {}
+    fabric.init()
+    try:
+        # -- (a) the monolithic fleet ---------------------------------------
+        t0 = time.time()
+        client = start_replicas(
+            2, num_gpus_per_replica=FLEET_GPUS, ckpt_path=ckpt,
+            device=device, rpc_timeout_s=120.0, init_timeout=600.0,
+            **SERVE_ENGINE)
+        out["spawn_s_mono"] = spawn_seconds(t0, 2)
+        cards = [client._actor(i).visible_cards for i in range(2)]
+        if cuda:
+            out["card_mib_mono"] = card_memory_mib()
+        print(f"[serve-fleet] (a) replicas up in {out['spawn_s_mono']} s on "
+              f"cards {cards}; card memory {out.get('card_mib_mono')} MiB; "
+              f"compute apps: {compute_apps() if cuda else 'n/a'}")
+        if cards != [["0"], ["0"]]:
+            fail(f"half-card replicas landed on {cards}, not one card")
+        client.router = Router(client=client)
+        rng = np.random.default_rng(0)
+        reqs = serve_workload(cfg.vocab_size, rng)
+        again = [(f"{rid}n", p, dataclasses.replace(sp, seed=sp.seed + 100))
+                 for rid, p, sp in reqs]
+        wave1 = reqs + again
+        before = replica_counts(client)
+        w1 = fleet_wave(client, wave1)
+        after = replica_counts(client)
+        launches = check_replica_counts("(a) wave 1", before, after, cfg,
+                                        cuda)
+        if min(b["finished"] - a["finished"]
+               for a, b in zip(before, after)) <= 0:
+            fail(f"a replica took no request: {before} -> {after}")
+        stats = client.stats()
+        # The in-process engine of the serve phase, on the same requests:
+        # the replicas' arithmetic, in the driver.
+        exact = serve_run(engine, wave1)["toks"]
+        same = sum(w1["toks"][rid] == exact[rid] for rid, _, _ in wave1)
+        print(f"[serve-fleet] (a) wave 1: {same} of {len(wave1)} requests "
+              "bitwise the in-process engine's")
+        near = fleet_compare("serve-fleet (a)", wave1, w1["toks"], params,
+                             cfg, device, solos, exact)
+        ttfts = sorted(w1["ttft"].values())
+        n_tok = sum(len(t) for t in w1["toks"].values())
+        out["mono"] = {
+            "requests": len(wave1),
+            "routes": [sum(h.replica == i for h in w1["handles"].values())
+                       for i in range(2)],
+            "near_tie_mismatches": near,
+            "ttft_p50_s": ttfts[len(ttfts) // 2],
+            "ttft_max_s": ttfts[-1],
+            "tokens_per_s": n_tok / w1["wall"],
+            "wall_s": w1["wall"],
+            "replica_ms_per_fold_p50": [
+                1e3 * s.get("step_time_p50_s", float("nan")) for s in stats],
+            "replica_ttft_p50_s": [s.get("ttft_p50_s") for s in stats],
+            "kernel_build_s": [s["kernels"]["build_s"] for s in stats],
+        }
+        print(f"[serve-fleet] (a) wave 1: {json.dumps(out['mono'])}")
+
+        # The failover wave: the same requests again, round-robin (no
+        # router: its affinity could keep them all off replica 1); replica
+        # 1's folds wait, and it is killed once every stream has its first
+        # token.
+        client.router = None
+        reg = get_registry()
+        moved0 = reg.counter("rlt_serve_failover_requests_total").value(
+            outcome="resubmitted")
+        lost0 = reg.counter("rlt_serve_failover_requests_total").value(
+            outcome="lost")
+        client.inject_fault(1, [
+            {"point": "fold_boundary", "action": "delay",
+             "seconds": FLEET_FOLD_DELAY_S, "after": k}
+            for k in range(1, 200)])
+        wave2 = [(f"{rid}k", p, sp) for rid, p, sp in wave1]
+        kill = {}
+
+        def first_on_1(handles, t_first):
+            return any(client._route_of(handles[rid]) == 1
+                       for rid in t_first)
+
+        def kill_replica_1(handles):
+            with client._lock:
+                kill["victims"] = sorted(
+                    rid for rid in handles if client._route.get(rid) == 1)
+            kill["t"] = time.perf_counter()
+            fabric.kill(client._actor(1))
+            client.on_replica_lost(1, reason="killed by the smoke")
+
+        before = replica_counts(client, (0,))
+        w2 = fleet_wave(client, wave2, trigger=(first_on_1, kill_replica_1))
+        after = replica_counts(client, (0,))
+        moved = reg.counter("rlt_serve_failover_requests_total").value(
+            outcome="resubmitted") - moved0
+        lost = reg.counter("rlt_serve_failover_requests_total").value(
+            outcome="lost") - lost0
+        launches += check_replica_counts("(a) failover", before, after, cfg,
+                                         cuda)
+        near2 = fleet_compare("serve-fleet (a) failover",
+                              [(f"{rid}k", p, sp) for rid, p, sp in wave1],
+                              w2["toks"], params, cfg, device, solos,
+                              {f"{rid}k": t for rid, t in exact.items()})
+        if not kill["victims"] or moved != len(kill["victims"]) or lost:
+            fail(f"failover: victims {kill['victims']}, resubmitted {moved},"
+                 f" lost {lost}")
+        on_0 = sum(h.replica == 0 for h in w2["handles"].values())
+        admitted = after[0]["admitted"] - before[0]["admitted"]
+        if admitted != on_0 + len(kill["victims"]):
+            fail(f"failover: replica 0 admitted {admitted}, not its {on_0} "
+                 f"and the {len(kill['victims'])} resubmitted")
+        out["failover"] = {
+            "victims": len(kill["victims"]), "resubmitted": moved,
+            "lost": lost, "near_tie_mismatches": near2,
+            "seconds_kill_to_last_token": max(
+                w2["t_end"][r] for r in kill["victims"]) - kill["t"],
+        }
+        print(f"[serve-fleet] (a) failover: {json.dumps(out['failover'])}")
+        client.shutdown()
+        out["launches"] = launches
+
+        # -- (b) the prefix-cached fleet ------------------------------------
+        t0 = time.time()
+        client = start_replicas(
+            2, num_gpus_per_replica=FLEET_GPUS, ckpt_path=ckpt,
+            device=device, rpc_timeout_s=120.0, init_timeout=600.0,
+            kvfleet=False, **FLEET_CHUNKED_ENGINE)
+        out["spawn_s_chunked"] = spawn_seconds(t0, 2)
+        if cuda:
+            out["card_mib_chunked"] = card_memory_mib()
+        client.router = Router(client=client,
+                               prefix_block=FLEET_CHUNKED_ENGINE[
+                                   "prefix_block"])
+        work = chunked_workload(cfg.vocab_size)
+        system = work["greedy"][0][:CHUNKED_SYSTEM]
+        sps = ([SamplingParams(max_new_tokens=SERVE_NEW)]
+               * len(work["greedy"])
+               + [SamplingParams(max_new_tokens=SERVE_NEW, temperature=0.8,
+                                 top_k=50, top_p=0.9, seed=i)
+                  for i in range(len(work["sampled"]))])
+        suffixes = [(f"p{i}", p, sp) for i, (p, sp) in enumerate(
+            zip(work["greedy"] + work["sampled"], sps))]
+        affinity0 = reg.counter("rlt_router_routed_total").value(
+            reason="affinity")
+        before = replica_counts(client)
+        first = fleet_wave(client, [("sys", system, SamplingParams(
+            max_new_tokens=SERVE_NEW))], batch_first_half=False)
+        warm = first["handles"]["sys"].replica
+        got, replicas = {}, []
+        for req in suffixes:
+            w = fleet_wave(client, [req], batch_first_half=False)
+            got.update(w["toks"])
+            replicas.append(w["handles"][req[0]].replica)
+        after = replica_counts(client)
+        check_replica_counts("(b)", before, after, cfg, False)
+        affinity = reg.counter("rlt_router_routed_total").value(
+            reason="affinity") - affinity0
+        prefix = [s["prefix"] for s in client.stats()]
+        ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+        got.update(first["toks"])
+        near3 = fleet_compare(
+            "serve-fleet (b)",
+            [("sys", system, SamplingParams(max_new_tokens=SERVE_NEW))]
+            + suffixes, got, params, ref_cfg, device, {})
+        hits = [p["hit_tokens"] for p in prefix]
+        out["prefix"] = {"warm_replica": warm, "suffix_replicas": replicas,
+                         "affinity_routes": affinity, "hit_tokens": hits,
+                         "near_tie_mismatches": near3,
+                         "launches": sum(b["launches"] - a["launches"]
+                                         for a, b in zip(before, after))}
+        print(f"[serve-fleet] (b) {json.dumps(out['prefix'])}")
+        if set(replicas) != {warm} or affinity != len(suffixes):
+            fail(f"(b): suffixes went to {replicas} ({affinity} by "
+                 f"affinity), the prefix is on replica {warm}")
+        if (hits[warm] != CHUNKED_SYSTEM * len(suffixes)
+                or hits[1 - warm] != 0):
+            fail(f"(b): prefix hit tokens {hits}, want "
+                 f"{CHUNKED_SYSTEM} x {len(suffixes)} on replica {warm}")
+        if out["prefix"]["launches"]:
+            fail("(b): the chunked path launched K1")
+        client.shutdown()
+    finally:
+        fabric.shutdown()
+    return out
+
+
+def phase_serve_fleet(serve4: dict) -> int:
+    """The serving fleet's front door on one card: GPT-2 small at full
+    width and depth (random weights from the smoke's seed, written once to
+    a checkpoint under ``build/smoke_fleet`` that every replica loads),
+    ``fabric.init`` with ``RLT_REQUIRE_GPU=1``, and two fleets of two
+    half-card replicas through ``start_replicas`` -> ``ServeClient`` ->
+    ``Router`` -> ``ServeReplica`` -> ``Scheduler`` -> ``DecodeEngine``
+    (``serve_fleet_run``). Gates: every request finishes with its count;
+    (a)'s tokens bitwise the serve phase's in-process engine's on the
+    same requests, greedy tokens (and (b)'s sampled ones) equal the solo
+    ``gpt_generate`` with the request's seed except at near-ties
+    (``draw_margin``); both replicas served; every replica's graphs
+    frozen; 12 K1 launches per admission;
+    the killed replica's requests all resubmitted onto the survivor, 0
+    lost; every prefix-sharing suffix routed by affinity to the warm
+    replica with 512 prefix tokens hit each, none on the other; no child
+    process left and the card's used memory back within
+    ``FLEET_MEM_SLACK_MIB`` of where it was. Returns
+    K1's launches in the replicas."""
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init_gpt_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    workdir = os.path.join(HERE, "build", "smoke_fleet")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    os.environ["RLT_REQUIRE_GPU"] = "1"
+    kids0 = child_pids()
+    mem0 = card_memory_mib()
+    try:
+        out = serve_fleet_run(params, cfg, "cuda", workdir,
+                              serve4["sched"].engine)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and (
+            set(child_pids()) - set(kids0)
+            or card_memory_mib() > mem0 + FLEET_MEM_SLACK_MIB):
+        time.sleep(0.5)
+    kids, mem = set(child_pids()) - set(kids0), card_memory_mib()
+    print(f"[serve-fleet] after shutdown: children {sorted(kids)}, card "
+          f"memory {mem} MiB (before the phase {mem0} MiB), compute apps: "
+          f"{compute_apps()}")
+    if kids:
+        fail(f"child processes left after shutdown: {sorted(kids)}")
+    if mem > mem0 + FLEET_MEM_SLACK_MIB:
+        fail(f"card memory {mem} MiB after the phase, {mem0} MiB before")
+    single = sum(len(t) for t in serve4["toks"].values()) / serve4["wall"]
+    summary = {
+        "spawn_s": out["spawn_s_mono"] + out["spawn_s_chunked"],
+        "ttft_p50_s": out["mono"]["ttft_p50_s"],
+        "ttft_max_s": out["mono"]["ttft_max_s"],
+        "fleet_tokens_per_s": out["mono"]["tokens_per_s"],
+        "single_engine_tokens_per_s_phase_serve": single,
+        "replica_ms_per_fold_p50": out["mono"]["replica_ms_per_fold_p50"],
+        "failover_s": out["failover"]["seconds_kill_to_last_token"],
+        "card_mib": [mem0, out["card_mib_mono"], out["card_mib_chunked"],
+                     mem],
+    }
+    print(f"[serve-fleet] {json.dumps(summary)} on {card_line()}")
+    return out["launches"]
+
+
 def phase_train(n_steps: int = 20):
     """GPT-2 small at full width and depth through ``Trainer.fit``: bf16
     compute over fp32 master weights, flash attention forward (K1) and
@@ -2895,6 +3463,7 @@ def main() -> None:
     fused_launches = timed_phase("serve-fused", phase_serve_fused, serve4)
     int8_launches = timed_phase("serve-int8", phase_serve_int8, serve4)
     lifecycle_launches = timed_phase("serve-lifecycle", phase_serve_lifecycle)
+    fleet_launches = timed_phase("serve-fleet", phase_serve_fleet, serve4)
     train_launches, _ = timed_phase("train", phase_train)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
@@ -2903,7 +3472,8 @@ def main() -> None:
         "source": src + "flash_fwd.cu",
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
         "launches": serve_launches + spec_launches + fused_launches
-        + int8_launches + lifecycle_launches + train_launches["flash_fwd"],
+        + int8_launches + lifecycle_launches + fleet_launches
+        + train_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
                              "serve_paged": paged_launches,
@@ -2911,6 +3481,7 @@ def main() -> None:
                              "serve_fused": fused_launches,
                              "serve_int8": int8_launches,
                              "serve_lifecycle": lifecycle_launches,
+                             "serve_fleet": fleet_launches,
                              "train": train_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],

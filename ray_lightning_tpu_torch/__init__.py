@@ -12,7 +12,11 @@ hand-written Hopper flash-attention kernels, forward and backward
 point ``serve/server.py:build_engine(int8=True)``), and the request
 lifecycle record: tracer, event log, metrics registry, anatomy and
 workload journal (``obs/``), fault points (``serve/faults.py``) and the
-scheduler's cost ledger and preemption drain. It imports ``torch``, never
+scheduler's cost ledger and preemption drain, and the serving fleet's
+front door: the actor fabric (``fabric/``), replicas, the client and
+router (``serve/server.py``, ``serve/client.py``, ``serve/router.py``),
+the watchdog, flight recorder and preemption monitor (``obs/health.py``,
+``obs/blackbox.py``, ``serve/preempt.py``). It imports ``torch``, never
 ``jax``, and nothing of ``ray_lightning_tpu``.
 """
 __version__ = "0.1.0"

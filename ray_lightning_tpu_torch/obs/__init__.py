@@ -14,12 +14,16 @@ port of the stdlib-only half of ``ray_lightning_tpu/obs``).
   contract: phases plus unaccounted equal the observed latency.
 - :mod:`obs.journal` — deterministic capture and replay
   (:class:`WorkloadJournal`, :func:`load_journal`,
-  :func:`replay_journal`).
+  :func:`replay_journal`, :func:`replay_journal_router`).
+- :mod:`obs.health` — the watchdog and SLO rules (:class:`Watchdog`).
+- :mod:`obs.blackbox` — the flight recorder (:class:`FlightRecorder`).
+- :mod:`obs.fleet` — one compact row per replica (:func:`summarize_replica`).
 
 Every module here is stdlib-only; none imports torch at import time.
 """
 from ray_lightning_tpu_torch.obs.anatomy import (
     aggregate_phases,
+    anatomy_from_client,
     assemble_anatomy,
     breach_attribution,
     format_attribution,
@@ -32,6 +36,7 @@ from ray_lightning_tpu_torch.obs.journal import (
     engine_header,
     load_journal,
     replay_journal,
+    replay_journal_router,
 )
 from ray_lightning_tpu_torch.obs.registry import (
     Counter,
@@ -56,6 +61,7 @@ __all__ = [
     "RequestTracer",
     "WorkloadJournal",
     "aggregate_phases",
+    "anatomy_from_client",
     "assemble_anatomy",
     "breach_attribution",
     "engine_header",
@@ -68,5 +74,6 @@ __all__ = [
     "parse_prometheus_text",
     "render_anatomy",
     "replay_journal",
+    "replay_journal_router",
     "to_chrome_trace",
 ]

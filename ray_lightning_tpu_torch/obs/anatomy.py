@@ -1,8 +1,7 @@
 """Request anatomy: the per-request phase ledger.
 
 The PyTorch port keeps its own copy of ``ray_lightning_tpu/obs/anatomy.py``
-(stdlib only). ``anatomy_from_client``, which reads a live fleet client,
-waits for the client (ROADMAP queue 1 item 10).
+(stdlib only); ``anatomy_from_client`` reads a live ``ServeClient``.
 
 One request's latency hides in many places: the driver's batch window
 and route planning, the scheduler queue, a transfer-pending park while
@@ -677,3 +676,39 @@ def render_anatomy(ledger: Dict[str, Any]) -> str:
         )
     return "\n".join(lines)
 
+
+def anatomy_from_client(
+    client: Any,
+    request_id: str,
+    n: int = 64,
+    tolerance: float = DEFAULT_TOLERANCE,
+) -> Dict[str, Any]:
+    """Assemble a ledger from a live :class:`ServeClient`: its
+    cross-process trace dumps, its driver-side journal, and the merged
+    event rings (driver + replicas) — the ``/why`` route's collector."""
+    processes = client.trace_dumps(n)
+    journal: List[Dict[str, Any]] = []
+    jr = getattr(client, "journal", None)
+    if jr is not None:
+        try:
+            journal = [
+                e for e in (jr.dump().get("entries") or ())
+                if str(e.get("request_id")) == str(request_id)
+            ]
+        except Exception:  # noqa: BLE001 - forensics best-effort
+            journal = []
+    events: List[Dict[str, Any]] = []
+    try:
+        events = list(client.recent_events(512))
+    except Exception:  # noqa: BLE001 - replica rings best-effort
+        pass
+    ev_log = getattr(client, "_events", None)
+    if ev_log is not None:
+        try:
+            events.extend(ev_log.tail(512))
+        except Exception:  # noqa: BLE001
+            pass
+    return assemble_anatomy(
+        request_id, processes, journal=journal, events=events,
+        tolerance=tolerance,
+    )

@@ -3,9 +3,11 @@
 The PyTorch port's copy of ``ray_lightning_tpu/obs/journal.py``: the same
 entry and header forms, so a journal captured by either package replays
 through the port's scheduler (:func:`build_replay_scheduler` over the
-port's ``build_engine``). A header section the port cannot rebuild (the
-router, the fleet KV plane, the KV store) is refused naming its ROADMAP
-item; the multi-replica router replay waits for the router (item 10).
+port's ``build_engine``). The header's ``router`` section comes back as
+``router_config``, and :func:`replay_journal_router` re-drives a fleet's
+journals through a rebuilt :class:`~..serve.router.Router`; a section the
+port cannot rebuild (the fleet KV plane, the KV store) is refused naming
+its ROADMAP item.
 
 The serving engine's contracts make execution deterministic given its
 inputs — compiles are frozen at construction, greedy output is
@@ -546,7 +548,6 @@ _ENGINE_REBUILD_KEYS = frozenset((
 #: Header sections of a fleet capture and the ROADMAP item whose port
 #: can rebuild them.
 _UNPORTED_SECTIONS = {
-    "router": "queue 1 item 10 (router)",
     "kvfleet": "queue 1 item 9 (fleet KV plane)",
     "kvstore": "queue 1 item 9 (KV object store)",
 }
@@ -867,6 +868,12 @@ def replay_journal(
         "replay_span_s": round(replay_span, 6),
         "rows": rows,
     }
+    if header and header.get("router"):
+        from ray_lightning_tpu_torch.serve.router import (
+            router_config_from_header,
+        )
+
+        result["router_config"] = router_config_from_header(header)
     if timing == "wall":
         snap = scheduler.metrics.snapshot()
         rep_tokens = sum(len(v) for v in replayed.values())
@@ -913,3 +920,260 @@ def replay_journal(
             }
     return result
 
+
+def replay_journal_router(
+    journals: List[Dict[str, Any]],
+    *,
+    ckpt_path: Optional[str] = None,
+    model_config: Optional[Dict[str, Any]] = None,
+    params: Any = None,
+    scheduler: Any = None,
+    speed: float = 1.0,
+    max_steps: int = 200_000,
+    registry: Optional[Any] = None,
+    device: Any = "cuda",
+) -> Dict[str, Any]:
+    """Re-drive a captured MULTI-replica journal through the ROUTER.
+
+    ``journals`` is ``load_journal_streams``'s output: every replica's
+    recorded stream. The merged submit stream (deduplicated by request
+    id — a failed-over or disagg-shipped request appears in more than
+    one stream) replays at recorded wall pace scaled by ``speed``
+    (10.0 = ten times faster than recorded), and EVERY submit routes
+    through a ``Router.plan`` call rebuilt from the journal header's
+    recorded policy knobs — the control plane under load, not just the
+    engine. Shedding is forced OFF (a replay must place every request:
+    the zero-lost assertion is the point) and recorded truncations fire
+    deterministically at their recorded token counts, so exactness does
+    not depend on the replay speed. Execution lands on one replay
+    scheduler (greedy decode is replica-independent by the seed-chain
+    contract, so the token comparison is exact regardless of which
+    replica originally decoded). The replay scheduler runs on ``device``
+    (the card unless the caller passes ``"cpu"``).
+
+    Returns a verdict dict: ``exact``, ``divergence``, ``requests`` /
+    ``compared`` / ``planned`` / ``lost`` counts (``lost`` MUST be 0 —
+    any entry here is a request the router failed to place), ``speed``,
+    ``streams``, and the router's own plan-throughput ``router`` rows.
+    """
+    from ray_lightning_tpu_torch.serve.router import (
+        Router,
+        router_config_from_header,
+    )
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    speed = float(speed)
+    if speed <= 0:
+        raise ValueError(f"speed must be > 0, got {speed}")
+    if not journals:
+        raise ValueError("no journal streams to replay")
+    header = next(
+        (j["header"] for j in journals if j.get("header")), None
+    )
+    # Merge + dedup: first submit per id wins (the original placement);
+    # the outcome with the MOST tokens wins (a shipped/migrated leg
+    # records a stub — the finishing replica holds the full stream).
+    submits_by_rid: Dict[str, Dict[str, Any]] = {}
+    outcomes: Dict[str, Dict[str, Any]] = {}
+    for j in journals:
+        for e in j.get("entries") or []:
+            kind = e.get("kind")
+            rid = e.get("request_id")
+            if kind == "submit":
+                submits_by_rid.setdefault(rid, e)
+            elif kind == "outcome":
+                prev = outcomes.get(rid)
+                if prev is None or len(e.get("tokens") or []) > len(
+                    prev.get("tokens") or []
+                ):
+                    outcomes[rid] = e
+    submits = sorted(
+        submits_by_rid.values(), key=lambda e: e.get("t_mono", 0.0)
+    )
+    if scheduler is None:
+        if header is None:
+            raise ValueError(
+                "no journal stream has a header; pass a prebuilt "
+                "scheduler= or record with headers"
+            )
+        scheduler = build_replay_scheduler(
+            header,
+            ckpt_path=ckpt_path,
+            model_config=model_config,
+            params=params,
+            device=device,
+        )
+    rcfg = router_config_from_header(header)
+    router = Router(
+        client=None,  # no live fleet: neutral views over `alive`
+        refresh_s=float("inf"),
+        affinity=bool(rcfg.get("affinity", True)),
+        prefix_block=int(rcfg.get("prefix_block", 16) or 16),
+        shed=False,  # zero-lost is the contract under test
+        directory_shards=int(rcfg.get("directory_shards", 1) or 1),
+        registry=registry,
+    )
+    alive = list(range(max(1, len(journals))))
+
+    replayed: Dict[str, List[int]] = {}
+    replay_outcome: Dict[str, str] = {}
+    planned: Dict[str, int] = {}
+    lost: List[str] = []
+
+    def _submit(entry: Dict[str, Any], deadline_s: Optional[float]) -> None:
+        sp = {
+            k: v for k, v in (entry.get("sampling") or {}).items()
+            if k in SAMPLING_FIELDS and v is not None
+        }
+        scheduler.submit(
+            entry["prompt"],
+            SamplingParams(**sp),
+            request_id=entry["request_id"],
+            priority=int(entry.get("priority", 0)),
+            deadline_s=deadline_s,
+            tenant=entry.get("tenant"),
+        )
+
+    def _harvest(events: Iterable[Any]) -> None:
+        for ev in events:
+            if ev.token is not None:
+                replayed.setdefault(ev.request_id, []).append(
+                    int(ev.token)
+                )
+            if ev.done:
+                replay_outcome[ev.request_id] = (
+                    "finished" if ev.reason in ("token", "finished")
+                    else ev.reason
+                )
+
+    base = submits[0].get("t_mono", 0.0) if submits else 0.0
+    cancel_after: Dict[str, int] = {}
+    done_cancel: set = set()
+    t0 = time.monotonic()
+    pos = 0
+    steps = 0
+    while (pos < len(submits) or scheduler.has_work()) and steps < max_steps:
+        now = time.monotonic() - t0
+        while pos < len(submits) and (
+            (submits[pos].get("t_mono", 0.0) - base) / speed
+        ) <= now:
+            e = submits[pos]
+            pos += 1
+            rid = e["request_id"]
+            sp = e.get("sampling") or {}
+            try:
+                plan = router.plan(
+                    e["prompt"],
+                    max_new_tokens=int(sp.get("max_new_tokens") or 32),
+                    priority=int(e.get("priority", 0)),
+                    deadline_s=None,  # recorded deadlines scale with
+                    alive=alive,      # speed; zero-lost must not
+                )
+                planned[rid] = int(plan.replica)
+                router.observe_route(
+                    e["prompt"], int(plan.replica),
+                    digests=getattr(plan, "digests", None),
+                )
+            except Exception:  # noqa: BLE001 - counted, asserted == 0
+                lost.append(rid)
+                continue
+            out = outcomes.get(rid)
+            if out is None:
+                continue  # open at capture; planned but not compared
+            k = len(out.get("tokens") or [])
+            if out["outcome"] == "finished":
+                _submit(e, None)
+            elif k > 0:
+                # Deterministic truncation at the recorded count — the
+                # same virtual-mode trick replay_journal uses, so 10x
+                # replays compare exactly like 1x replays.
+                _submit(e, None)
+                cancel_after[rid] = k
+            elif out["outcome"] == "expired":
+                _submit(e, 0.0)
+            else:
+                _submit(e, None)
+                scheduler.cancel(rid)
+        if scheduler.has_work():
+            _harvest(scheduler.step())
+            steps += 1
+            for rid, k in cancel_after.items():
+                if rid not in done_cancel and len(
+                    replayed.get(rid, [])
+                ) >= k:
+                    scheduler.cancel(rid)
+                    done_cancel.add(rid)
+        elif pos < len(submits):
+            time.sleep(
+                min(
+                    0.002,
+                    max(
+                        0.0,
+                        (submits[pos].get("t_mono", 0.0) - base) / speed
+                        - (time.monotonic() - t0),
+                    ),
+                )
+            )
+    replay_span = time.monotonic() - t0
+
+    divergence: Optional[Dict[str, Any]] = None
+    rows: List[Dict[str, Any]] = []
+    compared = tokens_compared = 0
+    for e in submits:
+        rid = e["request_id"]
+        out = outcomes.get(rid)
+        if out is None or rid in lost:
+            continue
+        want = [int(t) for t in (out.get("tokens") or [])]
+        got = replayed.get(rid, [])
+        row_div = None
+        for i in range(min(len(want), len(got))):
+            if want[i] != got[i]:
+                row_div = {
+                    "request_id": rid, "token_index": i,
+                    "expected": want[i], "got": got[i],
+                }
+                break
+        if row_div is None and len(got) < len(want):
+            row_div = {
+                "request_id": rid, "token_index": len(got),
+                "expected": want[len(got)], "got": None,
+            }
+        if row_div is None and out["outcome"] == "finished" and len(
+            got
+        ) > len(want):
+            row_div = {
+                "request_id": rid, "token_index": len(want),
+                "expected": None, "got": got[len(want)],
+            }
+        compared += 1
+        tokens_compared += len(want)
+        rows.append({
+            "request_id": rid,
+            "replica_planned": planned.get(rid),
+            "outcome_recorded": out["outcome"],
+            "outcome_replayed": replay_outcome.get(rid),
+            "tokens_recorded": len(want),
+            "tokens_replayed": len(got),
+            "match": row_div is None,
+        })
+        if divergence is None and row_div is not None:
+            divergence = row_div
+    return {
+        "exact": divergence is None and compared > 0 and not lost,
+        "divergence": divergence,
+        "timing": "wall",
+        "speed": speed,
+        "streams": len(journals),
+        "requests": len(submits),
+        "planned": len(planned),
+        "lost": len(lost),
+        "lost_ids": lost,
+        "compared": compared,
+        "open": len(submits) - len(outcomes),
+        "tokens_compared": tokens_compared,
+        "replay_span_s": round(replay_span, 6),
+        "router": router.rows(),
+        "router_config": rcfg,
+        "rows": rows,
+    }

@@ -711,6 +711,31 @@ class DecodeEngine:
         """``"MODELxDATA"`` of the serve mesh: one card, ``"1x1"``."""
         return "1x1"
 
+    def memory_stats(self) -> Dict[str, Dict[str, int]]:
+        """Resident device-state footprint by component (the JAX engine's
+        ``memory_stats``): ``bytes`` and ``per_device_bytes``, equal on one
+        card. The paged engine's page pool reports under ``prefix_pool``
+        (``kv_cache`` reads 0) and its table under ``page_table``.
+        Metadata only: reads tensor sizes, never values."""
+
+        def row(*ts: Optional[torch.Tensor]) -> Dict[str, int]:
+            total = sum(t.numel() * t.element_size() for t in ts
+                        if t is not None)
+            return {"bytes": total, "per_device_bytes": total}
+
+        out = {
+            "kv_cache": row(self._k, self._v),
+            "prefix_pool": row(self._pool_k, self._pool_v),
+            "token_history": row(self._hist),
+        }
+        if self.paged:
+            out["page_table"] = row(self._table)
+        out["total"] = {
+            k: sum(r[k] for r in out.values())
+            for k in ("bytes", "per_device_bytes")
+        }
+        return out
+
     def free_slots(self) -> List[int]:
         return [
             i for i, s in enumerate(self._slots)

@@ -1,11 +1,11 @@
 """Deterministic fault injection for the serving fleet.
 
 The PyTorch port's copy of ``ray_lightning_tpu/serve/faults.py``. The
-port's scheduler hits the four scheduler points below; the RPC, follower
-and fleet points belong to the replica, the gang and the fleet KV plane
-(ROADMAP queue 1 items 10 and 11), and the ``preempt`` action to the
-preemption monitor (``serve/preempt.py``, item 10): a plan naming it is
-refused.
+port's scheduler hits the four scheduler points below and the replica
+(``serve/server.py:ServeReplica``) the RPC points; the follower and fleet
+points belong to the gang and the fleet KV plane (ROADMAP queue 1 items 11
+and 9). The ``preempt`` action funnels into the process's preemption
+monitor (``serve/preempt.py``).
 
 Chaos testing a serving stack with `kill -9` + sleeps is flaky by
 construction: the kill lands at an arbitrary point in the request
@@ -82,6 +82,9 @@ FAULT_POINTS = frozenset((
 
 FAULT_ACTIONS = frozenset(("kill", "delay", "drop", "wedge", "preempt"))
 
+#: Grace window (s) a ``preempt`` rule uses when ``seconds`` is 0.
+PREEMPT_DEFAULT_GRACE_S = 30.0
+
 #: Exit code a fault-injected kill dies with (distinguishable from a
 #: real crash in the fabric's actor_death event / exitcode).
 KILL_EXIT_CODE = 43
@@ -115,11 +118,6 @@ class FaultRule:
             raise ValueError(
                 f"unknown fault action {action!r}; valid actions: "
                 f"{sorted(FAULT_ACTIONS)}"
-            )
-        if action == "preempt":
-            raise NotImplementedError(
-                "the 'preempt' fault action needs the preemption monitor "
-                "(serve/preempt.py), not ported yet (ROADMAP queue 1 item 10)"
             )
         self.point = point
         self.action = action
@@ -249,4 +247,22 @@ class FaultInjector:
             # call path stops. Bounded so an orphaned wedge cannot
             # outlive a long test session's process reuse.
             threading.Event().wait(rule.seconds or 3600.0)
+        elif rule.action == "preempt":
+            # A reclamation, not a crash: the notice lands now (the
+            # monitor flips preemption_pending, health/heartbeats carry
+            # it, the drain machinery gets the grace window) and the
+            # kill honors its own deadline — an undrained process dies
+            # exactly like a ``kill`` at grace end. The calling thread
+            # continues immediately: the whole point is that serving
+            # keeps running through the window.
+            from ray_lightning_tpu_torch.serve.preempt import get_monitor
 
+            grace = rule.seconds or PREEMPT_DEFAULT_GRACE_S
+            get_monitor(events=self._events).notice(
+                grace_s=grace, source="fault"
+            )
+            timer = threading.Timer(
+                grace, os._exit, args=(KILL_EXIT_CODE,)
+            )
+            timer.daemon = True
+            timer.start()

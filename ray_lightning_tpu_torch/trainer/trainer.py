@@ -115,7 +115,7 @@ class Trainer:
         if async_checkpointing:
             raise _not_ported("async_checkpointing (sharded checkpoints)", "11")
         if int(max_restarts) > 0:
-            raise _not_ported("max_restarts > 0 (fault-tolerant fits)", "10")
+            raise _not_ported("max_restarts > 0 (fault-tolerant fits)", "10b")
         if detect_anomaly:
             raise _not_ported("detect_anomaly", "15")
         if overfit_batches is not None:

@@ -12,6 +12,7 @@ A capture that fails raises: nothing falls back to eager on its own.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -19,6 +20,19 @@ import torch
 from ray_lightning_tpu_torch.ops.flash_attention import counters
 
 _COUNTS = ("launches", "bwd_dkv_launches", "bwd_dq_launches", "reference")
+
+
+@dataclass
+class CaptureStats:
+    """Graphs this process captured (every :meth:`Program.capture`). A
+    serving replica reads ``graphs`` once its engine is built: a capture
+    after that is the port's counterpart of a steady-state backend
+    compile in the JAX package (``compiles_since_init``)."""
+
+    graphs: int = 0
+
+
+capture_stats = CaptureStats()
 
 
 def _snapshot() -> tuple:
@@ -85,6 +99,7 @@ class Program:
             setattr(counters, name, value)
         torch.cuda.current_stream().wait_stream(side)
         self.graph = graph
+        capture_stats.graphs += 1
 
     def __call__(self) -> None:
         if self.graph is None:

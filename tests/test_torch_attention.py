@@ -277,6 +277,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ray_lightning_tpu_torch.serve.metrics, "
         "ray_lightning_tpu_torch.serve.server, "
         "ray_lightning_tpu_torch.serve.faults, "
+        "ray_lightning_tpu_torch.serve.preempt, "
+        "ray_lightning_tpu_torch.serve.kvfleet, "
+        "ray_lightning_tpu_torch.serve.router, "
+        "ray_lightning_tpu_torch.serve.client, "
+        "ray_lightning_tpu_torch.serve, "
+        "ray_lightning_tpu_torch.fabric, "
+        "ray_lightning_tpu_torch.fabric.core, "
+        "ray_lightning_tpu_torch.fabric.worker, "
+        "ray_lightning_tpu_torch.fabric.queue, "
+        "ray_lightning_tpu_torch.fabric.cluster_utils, "
+        "ray_lightning_tpu_torch.utils.ports, "
+        "ray_lightning_tpu_torch.utils.graphs, "
+        "ray_lightning_tpu_torch.obs.health, "
+        "ray_lightning_tpu_torch.obs.blackbox, "
+        "ray_lightning_tpu_torch.obs.fleet, "
         "ray_lightning_tpu_torch.obs, "
         "ray_lightning_tpu_torch.obs.trace, "
         "ray_lightning_tpu_torch.obs.events, "
@@ -302,6 +317,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ray_lightning_tpu_torch.utils.tree; "
         "import ray_lightning_tpu_torch as p; "
         "[getattr(p, n) for n in p.__all__]; "
+        "import ray_lightning_tpu_torch.serve as s; "
+        "[getattr(s, n) for n in s.__all__]; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ray_lightning_tpu' or m.startswith('ray_lightning_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -309,5 +326,51 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
         text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+#: A port actor that reports its own process's modules after importing the
+#: fleet's serving stack: pickled by value (defined in the driver's
+#: ``__main__``), so the worker imports no test module.
+_ACTOR_DRIVER = """
+import sys
+from ray_lightning_tpu_torch import fabric
+
+
+class Probe:
+    def modules(self):
+        import ray_lightning_tpu_torch.serve.client
+        import ray_lightning_tpu_torch.serve.server
+        import ray_lightning_tpu_torch.serve.engine
+        import ray_lightning_tpu_torch.obs.health
+        return [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                or m == "ray_lightning_tpu"
+                or m.startswith("ray_lightning_tpu.")], sys.argv
+
+
+if __name__ == "__main__":
+    fabric.init(num_cpus=1)
+    try:
+        actor = fabric.remote(Probe).options(num_cpus=1).remote()
+        bad, argv = fabric.get(actor.modules.remote(), timeout=120)
+    finally:
+        fabric.shutdown()
+    print(bad, argv)
+    sys.exit(1 if bad or "fabric/worker.py" not in argv[0] else 0)
+"""
+
+
+def test_spawned_port_actor_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """A fabric actor of the port is ``python -m
+    ray_lightning_tpu_torch.fabric.worker``; with the serving stack
+    imported, its own ``sys.modules`` holds neither ``jax`` nor
+    ``ray_lightning_tpu``."""
+    script = tmp_path / "driver.py"
+    script.write_text(_ACTOR_DRIVER)
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT, RLT_NUM_GPUS="0")
+    proc = subprocess.run(
+        [sys.executable, str(script)], cwd=REPO_ROOT, capture_output=True,
+        text=True, timeout=180, env=env,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -238,7 +238,8 @@ def test_journal_captured_by_jax_replays_exact_in_the_port(weights, tmp_path):
 
 def test_replay_rejects_bad_timing_missing_header_and_unported_knobs(weights):
     """tests/test_journal.py:284, and a header knob the port does not have
-    is refused naming its ROADMAP item, not ignored."""
+    is refused naming its ROADMAP item, not ignored; the router section
+    is accepted and surfaces as ``router_config``."""
     _, params = weights
     with pytest.raises(ValueError, match="timing"):
         replay_journal({"entries": []}, timing="nope")
@@ -251,13 +252,20 @@ def test_replay_rejects_bad_timing_missing_header_and_unported_knobs(weights):
         (dict(header, engine=dict(header["engine"], mesh="2x1")), "item 11"),
         (dict(header, engine=dict(header["engine"], kvstore_dir="kv")),
          "item 9"),
-        (dict(header, router={"affinity": True}), "item 10"),
+        (dict(header, kvfleet={"role": "prefill"}), "item 9"),
         (dict(header, kvstore={"dir": "kv"}), "item 9"),
         (dict(header, engine=dict(header["engine"], no_such_knob=1)),
          "no_such_knob"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             build_replay_scheduler(bad, params=params, device="cpu")
+    # The router section (driver-side policy knobs) rebuilds separately:
+    # the replay scheduler builds, and the replay surfaces the knobs.
+    routed = dict(header, router={"affinity": False, "bogus": 1})
+    build_replay_scheduler(routed, params=params, device="cpu")
+    assert replay_journal({"header": routed, "entries": []}, params=params,
+                          device="cpu")["router_config"] == {
+                              "affinity": False}
 
 
 def test_header_carries_fused_dispatch_config_and_replays(weights):

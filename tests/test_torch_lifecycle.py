@@ -9,6 +9,8 @@ each anatomy function against the JAX package's on the same dumps.
 """
 import copy
 import dataclasses
+import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -29,7 +31,10 @@ from ray_lightning_tpu_torch.models.weights import params_from_jax
 from ray_lightning_tpu_torch.obs import trace as obs_trace
 from ray_lightning_tpu_torch.obs.anatomy import PHASES
 from ray_lightning_tpu_torch.serve.engine import DecodeEngine, _PoolBlock
-from ray_lightning_tpu_torch.serve.faults import FaultDropError, FaultInjector
+from ray_lightning_tpu_torch.serve.faults import (
+    KILL_EXIT_CODE, FaultDropError, FaultInjector,
+)
+from ray_lightning_tpu_torch.serve.preempt import peek_state, reset_monitor
 from ray_lightning_tpu_torch.serve.scheduler import SamplingParams, Scheduler
 
 JAX_CFG = jgpt.GPTConfig(
@@ -263,12 +268,12 @@ def test_local_request_ledger_and_journal_phases(weights):
 
 
 # -- fault points -------------------------------------------------------------
-def test_fault_points_delay_and_drop(weights):
+def test_fault_points_delay_and_drop(weights, monkeypatch):
     """The scheduler hits its four points; a delay rule fires once at the
     Nth hit of its point (recorded in the event log) without changing the
-    tokens, and a drop rule raises out of step() at its point. The
-    preempt action (the preemption monitor, ROADMAP queue 1 item 10) is
-    refused. The JAX scheduler on the same op stream hits each point as
+    tokens, and a drop rule raises out of step() at its point. A
+    preempt rule records a notice in the process's preemption monitor
+    and arms the kill at its deadline. The JAX scheduler on the same op stream hits each point as
     often (rules that never fire count every hit) and fires the same
     rules in the same order."""
     j_params, params = weights
@@ -312,8 +317,21 @@ def test_fault_points_delay_and_drop(weights):
     sched2.submit(prompts[0], SamplingParams(max_new_tokens=5))
     with pytest.raises(FaultDropError, match="post_admit"):
         sched2.step()
-    with pytest.raises(NotImplementedError, match="item 10"):
-        FaultInjector.parse({"point": "fold_boundary", "action": "preempt"})
+    exits = []
+    monkeypatch.setattr(os, "_exit", exits.append)
+    reset_monitor()
+    try:
+        inj = FaultInjector.parse(
+            {"point": "fold_boundary", "action": "preempt", "seconds": 0.05})
+        inj.hit("fold_boundary")
+        state = peek_state()
+        assert state["pending"] and state["source"] == "fault"
+        deadline = time.monotonic() + 10.0
+        while not exits and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert exits == [KILL_EXIT_CODE]
+    finally:
+        reset_monitor()
 
 
 def test_scheduler_refuses_unported_fleet_and_store_options(weights):
