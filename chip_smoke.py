@@ -146,8 +146,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    again, round-robin, with replica 1's folds delayed by a fault plan
    and replica 1 killed once one of its streams has a token: its
    requests fail over onto replica 0 from the client's journal; (b) with
-   the serve-chunked engine without its disk tier (``kvfleet=False``):
-   the 512-token system prompt, then its 8 suffixes one after another.
+   the serve-chunked engine and its host tier (no disk tier), the fleet
+   KV plane on and one KV object store under ``build/smoke_kvstore``
+   shared by both and written through: the 512-token system prompt, then
+   its 8 suffixes one after another; then the warm replica's folds are
+   delayed by a fault plan and it is loaded with 24 requests pinned to it,
+   so the router's load weighting sends 4 new suffixes (one
+   ``submit_many``) to the other replica, which must admit each through a
+   peer fetch of the system prompt's 32 blocks.
    Gates: every request finishes with its count; every token of (a)
    bitwise the serve phase's in-process engine's on the same requests,
    greedy tokens equal the solo ``gpt_generate`` except at near-ties
@@ -156,13 +162,37 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    each replica's ``stats()``); every killed-replica request resubmitted,
    0 lost; (b)'s 8 suffixes routed by affinity to the warm replica with
    512 prefix tokens hit each and none on the other, tokens equal the
-   reference-attention solo except at near-ties; after shutdown no child
-   process and the card's used memory back within 256 MiB of where it
-   was. Prints each
+   reference-attention solo except at near-ties; the 4 steered suffixes
+   routed to the other replica, one fetch of 32 blocks each, 512 hit
+   tokens each, none timed out; after shutdown no child process and the
+   card's used memory back within 256 MiB of where it was. Prints each
    replica's spawn seconds, TTFT, the fleet's tokens/s beside the serve
    phase's engine, each replica's ms per fold while both decode, the
-   failover's seconds and the card's memory.
-12. Train GPT-2 small at full width and depth for 20 steps through
+   failover's seconds, the card's memory, and the cross-process fetch's
+   kv_fetch phase seconds and MB/s.
+12. serve-kvplane: the fleet KV plane and the KV object store at GPT-2
+   small's width and depth. In process, two serve-chunked engines (pool
+   and host tier) and a serve-paged one, each with its own ``Scheduler``
+   and ``KVFleetPlane``, joined by queues: a peer fetch into the dense
+   and into the paged engine (fetched blocks bitwise the holder's,
+   tokens bitwise the holder's own run), a disaggregated ship whole and
+   one layer per message (tokens bitwise the local run's), a layer-wise
+   ship cut after 6 of 12 layers (the staged blocks abort, nothing hits,
+   the request decodes cold with the same tokens), a write-through then
+   a bounce onto a fresh handle of the store directory seeded from its
+   manifest (warm from the store, bitwise), a session parked on one
+   engine and restored on another (bitwise), and the store directory
+   removed mid-fetch (cold, exact). Every receiving engine's K/V rows
+   are held against K1's flash prefill of the prompt (``KV_ROW_TOL``).
+   Then, on the fabric, a fresh prefill/decode fleet on serve-fleet
+   (b)'s checkpoint and store: ``seed_store_directory()``, then the
+   system prompt and 4 suffixes; the prefill replica admits the system
+   prompt from the store and ships every request to the decode replica,
+   where the client follows it; tokens equal (b)'s but at near-ties, 0
+   lost, graphs frozen. Prints fetch seconds and MB/s, ship seconds
+   (whole, layer-wise), store put/get seconds and bytes per block, TTFT
+   by fetch, by store, cold and warm locally, and the phase's wall.
+13. Train GPT-2 small at full width and depth for 20 steps through
    ``Trainer.fit`` (B=8, S=1024, bf16 compute, flash attention, AdamW
    with warmup): every step's loss must be finite and the last below the
    first, each backward kernel must have run once per layer per step and
@@ -172,11 +202,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    CUDA graph of 4 steps per dispatch): each of its losses must equal the
    K = 1 run's step at the same boundary within 1e-3 relative, with the
    same kernel launches; prints both step times.
-13. Print the ``{"kernels": [...]}`` line, the card line, and last
+14. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
-Dispatch programs (phases 4-11): every engine captures one CUDA graph per
+Dispatch programs (phases 4-12): every engine captures one CUDA graph per
 key of its ``dispatch_plan`` at construction; each prints its
 ``compiled_count``, capture seconds and graph-pool memory as it is built,
 and each phase fails unless every engine it built still has that count
@@ -2733,14 +2763,26 @@ def phase_serve_lifecycle() -> int:
 
 #: The serve-fleet phase: two replicas on one card (half a card each) behind
 #: ServeClient -> Router, (a) with the serve phase's engine, (b) with the
-#: serve-chunked engine without its disk tier (every replica gets the same
-#: kwargs, so both would write one directory). Replica 1's folds wait
-#: FLEET_FOLD_DELAY_S each during the failover wave, so its streams are
-#: mid-decode when it is killed.
+#: serve-chunked engine and its host tier, the fleet KV plane on and one
+#: KV object store directory shared by both, written through (the disk
+#: tier stays off: every replica gets the same kwargs, so both would write
+#: one directory). Replica 1's folds wait FLEET_FOLD_DELAY_S each during
+#: the failover wave, so its streams are mid-decode when it is killed.
 FLEET_GPUS = 0.5
 FLEET_CHUNKED_ENGINE = {k: v for k, v in CHUNKED_ENGINE.items()
                         if k != "prefix_disk_mb"}
 FLEET_FOLD_DELAY_S = 0.5
+#: (b)'s steered wave: the warm replica's folds wait FLEET_STEER_DELAY_S
+#: each and it holds FLEET_STEER_LOAD background requests, so its load
+#: weight falls below the other replica's despite the affinity bonus, and
+#: FLEET_STEER_SUFFIXES new suffixes of the system prompt (one
+#: submit_many, one view of the fleet) go to the other replica with a
+#: fetch hint naming the warm one. Each fetch moves the 32 blocks of the
+#: system prompt (18.9 MB), so the in-flight budget takes all of them.
+FLEET_STEER_DELAY_S = 0.25
+FLEET_STEER_LOAD = 24
+FLEET_STEER_SUFFIXES = (24, 48, 80, 112)
+FLEET_KV = dict(kvfleet_timeout_s=30.0, kvfleet_inflight_mb=256.0)
 #: Slack on the card's used memory after the fleets are gone: the driver's
 #: own CUDA context loads modules lazily while the phase runs solos.
 FLEET_MEM_SLACK_MIB = 256
@@ -2769,7 +2811,10 @@ def compute_apps() -> str:
 
 
 def child_pids() -> list:
-    """Live children of this process (``/proc``)."""
+    """Live children of this process (``/proc``), less multiprocessing's
+    resource tracker: the fabric's queues start a spawn-context Manager,
+    whose launch starts that tracker, which lives as long as this process
+    and ends with it."""
     me, kids = os.getpid(), []
     for d in os.listdir("/proc"):
         if not d.isdigit():
@@ -2777,9 +2822,12 @@ def child_pids() -> list:
         try:
             with open(f"/proc/{d}/stat") as f:
                 fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read()
         except OSError:
             continue
-        if int(fields[1]) == me and fields[0] != "Z":
+        if (int(fields[1]) == me and fields[0] != "Z"
+                and b"multiprocessing.resource_tracker" not in cmd):
             kids.append(int(d))
     return kids
 
@@ -2882,9 +2930,10 @@ def sp_kwargs(sp) -> dict:
 
 
 def fleet_wave(client, reqs, batch_first_half: bool = True,
-               trigger=None) -> dict:
+               trigger=None, batch_all: bool = False) -> dict:
     """Send ``reqs`` (the first half through one ``submit_many``, the rest
-    through ``submit`` one by one) and read every stream in a thread of
+    through ``submit`` one by one; all of them through one ``submit_many``
+    with ``batch_all``) and read every stream in a thread of
     its own. ``trigger = (when, action)``: ``action(handles)`` runs once
     ``when(handles, t_first)`` holds (``t_first``: request id -> the time
     its first token arrived), polled every 10 ms. Returns the tokens, each
@@ -2893,7 +2942,8 @@ def fleet_wave(client, reqs, batch_first_half: bool = True,
     import threading
 
     t0 = time.perf_counter()
-    half = len(reqs) // 2 if batch_first_half else 0
+    half = (len(reqs) if batch_all
+            else len(reqs) // 2 if batch_first_half else 0)
     handles, t_sub = {}, {}
     if half:
         out = client.submit_many(
@@ -2994,11 +3044,13 @@ def spawn_seconds(t0: float, n: int) -> list:
     return [b - a for a, b in zip([t0] + starts, starts)]
 
 
-def serve_fleet_run(params, cfg, device, workdir: str, engine) -> dict:
+def serve_fleet_run(params, cfg, device, workdir: str, engine,
+                    store_dir: str) -> dict:
     """The serve-fleet traffic (see ``phase_serve_fleet``) on ``device``:
     the replicas run there, half a card each; ``engine`` is an in-process
     engine of the replicas' configuration (the serve phase's) on the same
-    weights. On the CPU (a rehearsal at a
+    weights; (b) writes through to the KV object store ``store_dir``,
+    which serve-kvplane reads back. On the CPU (a rehearsal at a
     tiny width) set ``RLT_NUM_GPUS`` so the fabric has a card to share
     out; the launch gate then checks nothing (the CPU counts no launch)."""
     import dataclasses
@@ -3140,12 +3192,17 @@ def serve_fleet_run(params, cfg, device, workdir: str, engine) -> dict:
         client.shutdown()
         out["launches"] = launches
 
-        # -- (b) the prefix-cached fleet ------------------------------------
+        # -- (b) the prefix-cached fleet, the KV plane on --------------------
         t0 = time.time()
         client = start_replicas(
             2, num_gpus_per_replica=FLEET_GPUS, ckpt_path=ckpt,
             device=device, rpc_timeout_s=120.0, init_timeout=600.0,
-            kvfleet=False, **FLEET_CHUNKED_ENGINE)
+            kvstore_dir=store_dir, kvstore_writethrough=True,
+            max_prefills_per_step=len(FLEET_STEER_SUFFIXES), **FLEET_KV,
+            **FLEET_CHUNKED_ENGINE)
+        if not all(s.get("kvfleet") and s.get("kvstore")
+                   for s in client.stats()):
+            fail("(b): a replica runs without the KV plane or the store")
         out["spawn_s_chunked"] = spawn_seconds(t0, 2)
         if cuda:
             out["card_mib_chunked"] = card_memory_mib()
@@ -3199,10 +3256,100 @@ def serve_fleet_run(params, cfg, device, workdir: str, engine) -> dict:
                  f"{CHUNKED_SYSTEM} x {len(suffixes)} on replica {warm}")
         if out["prefix"]["launches"]:
             fail("(b): the chunked path launched K1")
+        out["prefix"]["toks"] = got
+        out["prefix"]["requests"] = [("sys", system, SamplingParams(
+            max_new_tokens=SERVE_NEW))] + suffixes
+        out["steered"] = fleet_steered(client, warm, system, params,
+                                       ref_cfg, device, cfg)
         client.shutdown()
     finally:
         fabric.shutdown()
     return out
+
+
+def fleet_steered(client, warm, system, params, ref_cfg, device, cfg) -> dict:
+    """(b)'s steered wave (see FLEET_STEER_DELAY_S): the warm replica is
+    slowed (a delay-only fault plan on its folds) and loaded (background
+    requests pinned to it), and new suffixes of the system prompt, sent in
+    one submit_many, go by the router's load weighting to the other
+    replica, which fetches the system prompt's chain from the warm one.
+    Gates: every suffix routed to the other replica, one fetch of 32
+    blocks each, admitted warm (512 hit tokens each), greedy tokens equal
+    the reference-attention solo but at near-ties, graphs frozen, no
+    request lost."""
+    import numpy as np
+
+    from ray_lightning_tpu_torch.serve.scheduler import SamplingParams
+
+    cold = 1 - warm
+    rng = np.random.default_rng(11)
+    rows = [client._rpc(i, "stats") for i in (0, 1)]
+    kv0 = rows[cold]["kvfleet"]
+    hit0 = rows[cold]["prefix"]["hit_tokens"]
+    before = replica_counts(client)
+    client.inject_fault(warm, [
+        {"point": "fold_boundary", "action": "delay",
+         "seconds": FLEET_STEER_DELAY_S, "after": k} for k in range(1, 400)])
+    background = []
+    for i in range(FLEET_STEER_LOAD):
+        prompt = rng.integers(0, cfg.vocab_size, 16).tolist()
+        background.append(client.submit(
+            prompt, replica=warm, request_id=f"g{i}",
+            max_new_tokens=SERVE_NEW))
+    deadline = time.monotonic() + 120
+    while True:
+        row = client._rpc(warm, "stats")
+        if row["queue_depth"] + row["active_slots"] >= FLEET_STEER_LOAD // 2:
+            break
+        if time.monotonic() > deadline:
+            fail(f"(b) steered: the warm replica never loaded: {row}")
+        time.sleep(0.05)
+    client.router.refresh(force=True)
+    steered = [(f"t{i}", system + rng.integers(0, cfg.vocab_size,
+                                              n).tolist(),
+                SamplingParams(max_new_tokens=SERVE_NEW))
+               for i, n in enumerate(FLEET_STEER_SUFFIXES)]
+    w = fleet_wave(client, steered, batch_all=True)
+    client.inject_fault(warm, None)
+    for h in background:
+        n = len(list(client.stream_handle(h, timeout_s=600)))
+        if n != SERVE_NEW:
+            fail(f"(b) steered: background {h.request_id} gave {n} tokens")
+    after = replica_counts(client)
+    check_replica_counts("(b) steered", before, after, cfg, False)
+    row = client._rpc(cold, "stats")
+    kv1 = row["kvfleet"]
+    routes = [w["handles"][rid].replica for rid, _, _ in steered]
+    fetches = kv1["fetches"] - kv0["fetches"]
+    blocks = kv1["fetch_blocks"] - kv0["fetch_blocks"]
+    nbytes = kv1["fetch_bytes"] - kv0["fetch_bytes"]
+    hits = row["prefix"]["hit_tokens"] - hit0
+    phase = (row.get("phases") or {}).get("by_phase", {}).get("kv_fetch", {})
+    near = fleet_compare("serve-fleet (b) steered", steered, w["toks"],
+                         params, ref_cfg, device, {})
+    res = {
+        "warm_replica": warm, "routes": routes, "fetches": fetches,
+        "fetch_blocks": blocks, "fetch_bytes": nbytes,
+        "fetch_timeouts": kv1["fetch_timeouts"] - kv0["fetch_timeouts"],
+        "fetch_stale": kv1["fetch_stale"] - kv0["fetch_stale"],
+        "fetch_refused": kv1["fetch_refused"] - kv0["fetch_refused"],
+        "hit_tokens": hits, "kv_fetch_phase_s": phase,
+        "fetch_mb_per_s": (nbytes / fetches / 2**20 / phase["p50_s"]
+                           if fetches and phase.get("p50_s") else None),
+        "ttft_s": {rid: w["ttft"][rid] for rid, _, _ in steered},
+        "near_tie_mismatches": near,
+    }
+    print(f"[serve-fleet] (b) steered: {json.dumps(res)} on {card_line()}")
+    n = len(steered)
+    if routes != [cold] * n:
+        fail(f"(b) steered: suffixes went to {routes}, want replica {cold}")
+    if fetches != n or blocks != 32 * n or res["fetch_timeouts"]:
+        fail(f"(b) steered: {fetches} fetches of {blocks} blocks "
+             f"({res['fetch_timeouts']} timed out), want {n} of 32 each")
+    if hits != CHUNKED_SYSTEM * n:
+        fail(f"(b) steered: {hits} prefix hit tokens, want "
+             f"{CHUNKED_SYSTEM} x {n}")
+    return res
 
 
 def phase_serve_fleet(serve4: dict) -> int:
@@ -3220,10 +3367,12 @@ def phase_serve_fleet(serve4: dict) -> int:
     frozen; 12 K1 launches per admission;
     the killed replica's requests all resubmitted onto the survivor, 0
     lost; every prefix-sharing suffix routed by affinity to the warm
-    replica with 512 prefix tokens hit each, none on the other; no child
+    replica with 512 prefix tokens hit each, none on the other; the
+    steered suffixes fetched from it (``fleet_steered``); no child
     process left and the card's used memory back within
-    ``FLEET_MEM_SLACK_MIB`` of where it was. Returns
-    K1's launches in the replicas."""
+    ``FLEET_MEM_SLACK_MIB`` of where it was. Returns K1's launches in the
+    replicas and the hand-over serve-kvplane needs (the checkpoint, (b)'s
+    store directory, requests and tokens)."""
     import torch
 
     from ray_lightning_tpu_torch.models import gpt
@@ -3232,16 +3381,20 @@ def phase_serve_fleet(serve4: dict) -> int:
     params = gpt.init_gpt_params(
         torch.Generator(device="cuda").manual_seed(0), cfg)
     workdir = os.path.join(HERE, "build", "smoke_fleet")
-    shutil.rmtree(workdir, ignore_errors=True)
+    store_dir = os.path.join(HERE, "build", "smoke_kvstore")
+    for d in (workdir, store_dir):
+        shutil.rmtree(d, ignore_errors=True)
     os.makedirs(workdir)
     os.environ["RLT_REQUIRE_GPU"] = "1"
     kids0 = child_pids()
     mem0 = card_memory_mib()
     try:
         out = serve_fleet_run(params, cfg, "cuda", workdir,
-                              serve4["sched"].engine)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+                              serve4["sched"].engine, store_dir)
+    except BaseException:
+        for d in (workdir, store_dir):
+            shutil.rmtree(d, ignore_errors=True)
+        raise
     deadline = time.monotonic() + 60
     while time.monotonic() < deadline and (
             set(child_pids()) - set(kids0)
@@ -3266,8 +3419,503 @@ def phase_serve_fleet(serve4: dict) -> int:
         "failover_s": out["failover"]["seconds_kill_to_last_token"],
         "card_mib": [mem0, out["card_mib_mono"], out["card_mib_chunked"],
                      mem],
+        "steered_fetch_s_p50": out["steered"]["kv_fetch_phase_s"].get(
+            "p50_s"),
+        "steered_fetch_mb_per_s": out["steered"]["fetch_mb_per_s"],
     }
     print(f"[serve-fleet] {json.dumps(summary)} on {card_line()}")
+    # serve-kvplane bounces a fleet on (b)'s checkpoint and store, and
+    # removes both.
+    fleet = {"params": params, "cfg": cfg, "ckpt": os.path.join(
+        workdir, "gpt.ckpt"), "workdir": workdir, "store_dir": store_dir,
+        "prefix": out["prefix"]}
+    return out["launches"], fleet
+
+
+#: The serve-kvplane phase: in process, two engines of the serve-chunked
+#: configuration (pool, host tier, no disk tier) and one of the serve-paged
+#: configuration, each with its own Scheduler and KVFleetPlane, joined by
+#: queue.Queue inboxes; then, on the fabric, a fresh disaggregated fleet
+#: (a prefill and a decode replica) on serve-fleet (b)'s checkpoint and
+#: KV object store. A layer-wise ship is cut after KVPLANE_ABORT_LAYER of
+#: the 12 layers; the fabric fleet serves the system prompt and the first
+#: KVPLANE_FABRIC_SUFFIXES of (b)'s suffixes.
+KVPLANE_ENGINE = FLEET_CHUNKED_ENGINE
+KVPLANE_ABORT_LAYER = 6
+KVPLANE_FABRIC_SUFFIXES = 4
+
+
+class _Timer:
+    """Wraps ``obj.name`` with a wall clock (the card synced before the
+    clock stops, on the card); the seconds of each call in ``secs``."""
+
+    def __init__(self, obj, name: str, sync) -> None:
+        self.secs, self._fn, self._sync = [], getattr(obj, name), sync
+        setattr(obj, name, self)
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self._fn(*args, **kwargs)
+        self._sync()
+        self.secs.append(time.perf_counter() - t0)
+        return out
+
+
+def serve_kvplane_run(params, cfg, device, fleet: dict) -> dict:
+    """The serve-kvplane traffic on ``device`` (see
+    ``phase_serve_kvplane``); ``fleet`` is serve-fleet's hand-over (its
+    checkpoint, its store directory and (b)'s requests and tokens). On
+    the CPU (a rehearsal at a tiny width) the K1 row check compares the
+    plain forward and the fabric half runs CPU replicas (set
+    ``RLT_NUM_GPUS``)."""
+    import dataclasses
+    import queue
+
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch import fabric
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.obs.registry import get_registry
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.serve.client import start_replicas
+    from ray_lightning_tpu_torch.serve.kvfleet import KVFleetPlane
+    from ray_lightning_tpu_torch.serve.kvstore import FleetKVStore
+    from ray_lightning_tpu_torch.serve.router import (
+        Router,
+        prompt_block_digests,
+    )
+    from ray_lightning_tpu_torch.serve.scheduler import (
+        SamplingParams,
+        Scheduler,
+    )
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    bs = KVPLANE_ENGINE["prefix_block"]
+    work = chunked_workload(cfg.vocab_size)
+    system = work["greedy"][0][:CHUNKED_SYSTEM]
+    rng = np.random.default_rng(7)
+
+    def draw(n):
+        return rng.integers(0, cfg.vocab_size, n).tolist()
+
+    inboxes = {i: queue.Queue() for i in range(3)}
+    roles = ("prefill", "decode", "mixed")
+    engines, planes, scheds = [], [], []
+    for i, kw in enumerate((KVPLANE_ENGINE, KVPLANE_ENGINE, PAGED_ENGINE)):
+        eng = new_engine(params, cfg, device=device, **kw)
+        plane = KVFleetPlane(
+            index=i, role=roles[i], inbox=inboxes[i], peers=dict(inboxes),
+            block_bytes=eng.prefix_block_nbytes, timeout_s=30.0,
+            max_inflight_mb=256.0, min_poll_s=0.0)
+        engines.append(eng)
+        planes.append(plane)
+        scheds.append(Scheduler(eng, kvfleet=plane, role=roles[i],
+                                **CHUNKED_SCHED))
+    e0, e1, e2 = engines
+    t_export = _Timer(e0, "export_prefix_blocks", sync)
+    t_ship = _Timer(planes[0], "ship", sync)
+    t_import = _Timer(e1, "import_prefix_blocks", sync)
+    t_layer = _Timer(e1, "import_prefix_block_layer", sync)
+    toks, ttft, reasons = {}, {}, {}
+
+    def drive(idx, until=None):
+        busy = True
+        while busy and not (until and until()):
+            busy = False
+            for i in idx:
+                if not scheds[i].has_work():
+                    continue
+                busy = True
+                for ev in scheds[i].step():
+                    t = time.perf_counter()
+                    if ev.token is not None:
+                        toks.setdefault(ev.request_id, []).append(ev.token)
+                        ttft.setdefault(ev.request_id, t)
+                    if ev.done:
+                        reasons[ev.request_id] = (ev.reason, ev.ship_to)
+
+    def run(i, rid, prompt, idx=None, **kw):
+        """Submit ``rid`` on engine ``i`` and drive ``idx`` (``i``) to
+        idle; the tokens, and the slot the request took."""
+        slot = engines[i].free_slots()[0]
+        t0 = time.perf_counter()
+        scheds[i].submit(prompt, SamplingParams(max_new_tokens=SERVE_NEW),
+                         request_id=rid, **kw)
+        drive(idx or (i,))
+        ttft[rid] -= t0
+        return toks[rid], slot
+
+    def hint(prompt, peer=None, store=False, run=None):
+        digs = [d.hex() for d in prompt_block_digests(prompt, bs)][:run]
+        return ({"peer": None, "store": True, "digests": digs}
+                if store else {"peer": peer, "digests": digs})
+
+    k1_err, k1_launches = {}, [0]
+
+    def k1_rows(tag, eng, slot, prompt):
+        """The receiver's K/V rows against K1's flash prefill (which runs
+        none of the chunk's code) of the prompt's longest head whose
+        length K1 takes (a multiple of its 128-row tile): the rows of a
+        causal prefix depend on that prefix alone, and they are the rows
+        the transfer brought."""
+        c0 = counters.launches
+        n = len(prompt) // 128 * 128
+        with torch.no_grad():
+            _, fk, fv = gpt.gpt_prefill(
+                eng.params, cfg, torch.tensor([prompt[:n]], device=device))
+        k1_err[tag] = max(kv_row_err(eng._k[:, slot, :n], fk[:, 0]),
+                          kv_row_err(eng._v[:, slot, :n], fv[:, 0]))
+        k1_launches[0] += counters.launches - c0
+
+    def same_blocks(a, b, hexes):
+        """Every digest's block bitwise equal in the two engines (the
+        holder's copy and the receiver's import, from whichever tier
+        holds each now)."""
+        for h in hexes:
+            d = bytes.fromhex(h)
+            ka, kb = a._export_block(d), b._export_block(d)
+            if ka is None or kb is None:
+                fail(f"block {h} missing: holder {ka is not None}, "
+                     f"receiver {kb is not None}")
+            if not all(torch.equal(x, y) for x, y in zip(ka, kb)):
+                fail(f"block {h}: the receiver's copy differs")
+        return len(hexes)
+
+    def fetch_phase(i):
+        return scheds[i].metrics.phase_records()[-1].get("kv_fetch", 0.0)
+
+    def plane_delta(i, before):
+        now = planes[i].stats()
+        return {k: now[k] - before[k] for k in (
+            "fetches", "fetch_blocks", "fetch_bytes", "fetch_timeouts",
+            "fetch_stale", "fetch_refused", "ships", "ship_blocks",
+            "ship_bytes", "layer_ships", "layer_ship_messages",
+            "ship_partial_drops", "store_fetches", "store_fetch_blocks",
+            "store_fetch_bytes", "store_fetch_misses", "imports")}
+
+    counters.reset()
+    sfx = work["greedy"]
+    # Local runs on engine 0: a0 cold (the system prompt is computed),
+    # a1..a5 warm on it; the tokens every transfer must reproduce.
+    for j in range(6):
+        run(0, f"a{j}", sfx[j])
+
+    # -- peer fetch: dense -> dense, dense -> paged -------------------------
+    p0 = planes[1].stats()
+    h1 = hint(sfx[1], peer=0)
+    got, slot = run(1, "f1", sfx[1], idx=(0, 1), kv_hint=h1)
+    fetch = {"dense": plane_delta(1, p0)}
+    fetch["dense"]["seconds"] = fetch_phase(1)
+    if got != toks["a1"]:
+        fail(f"peer fetch: tokens {got} != the holder's {toks['a1']}")
+    fetch["dense"]["same_blocks"] = same_blocks(e0, e1, h1["digests"])
+    k1_rows("fetch", e1, slot, sfx[1])
+    p0 = planes[2].stats()
+    h2 = hint(sfx[2], peer=0)
+    got, _ = run(2, "p2", sfx[2], idx=(0, 2), kv_hint=h2)
+    fetch["paged"] = plane_delta(2, p0)
+    fetch["paged"]["seconds"] = fetch_phase(2)
+    if got != toks["a2"]:
+        fail(f"paged fetch: tokens {got} != the holder's {toks['a2']}")
+    fetch["paged"]["same_blocks"] = same_blocks(e0, e2, h2["digests"])
+    for kind, f in fetch.items():
+        f["mb_per_s"] = f["fetch_bytes"] / 2**20 / f["seconds"]
+        if (f["fetches"] != 1 or f["fetch_blocks"] != len(h1["digests"] if
+                                                          kind == "dense" else
+                                                          h2["digests"])
+                or f["fetch_timeouts"] or f["fetch_stale"]):
+            fail(f"{kind} fetch: {f}")
+    out["fetch"] = fetch
+
+    # -- disaggregated ships: whole, then one message per layer -------------
+    ships = {}
+    for layerwise, j in ((False, 3), (True, 4)):
+        for p in planes:
+            p.layerwise_ship = layerwise
+        rid = f"s{j}"
+        n_exp, n_ship, n_imp, n_lay = (len(t.secs) for t in (
+            t_export, t_ship, t_import, t_layer))
+        l0 = e1.layer_block_imports
+        p0 = planes[0].stats()
+        t0 = time.perf_counter()
+        scheds[0].submit(sfx[j], SamplingParams(max_new_tokens=SERVE_NEW),
+                         request_id=rid, ship_to=1)
+        drive((0, 1))
+        land_s = time.perf_counter() - t0
+        first = list(toks[rid])
+        if reasons[rid] != ("shipped", 1) or len(first) != 1:
+            fail(f"ship {rid}: {reasons[rid]} with {len(first)} tokens")
+        toks.pop(rid)
+        ttft.pop(rid)
+        got, slot = run(1, rid, sfx[j])
+        if got != toks[f"a{j}"] or got[0] != first[0]:
+            fail(f"ship {rid}: tokens {got} != the local run's")
+        k1_rows("ship_layers" if layerwise else "ship", e1, slot, sfx[j])
+        d = plane_delta(0, p0)
+        ships["layers" if layerwise else "whole"] = {
+            "blocks": d["ship_blocks"], "bytes": d["ship_bytes"],
+            "messages": d["layer_ship_messages"],
+            "export_s": sum(t_export.secs[n_exp:]),
+            "ship_s": sum(t_ship.secs[n_ship:]),
+            "import_s": sum(t_import.secs[n_imp:])
+            + sum(t_layer.secs[n_lay:]),
+            "prefill_to_import_s": land_s,
+            "layer_block_imports": e1.layer_block_imports - l0,
+        }
+        if layerwise and d["layer_ship_messages"] != cfg.n_layer:
+            fail(f"layer-wise ship: {d['layer_ship_messages']} messages")
+    out["ship"] = ships
+
+    # -- a layer-wise ship cut after KVPLANE_ABORT_LAYER layers -------------
+    fresh = work["fresh"]
+    p1 = planes[1].stats()
+    a0_, hit0 = e1.layer_import_aborts, e1.prefix_hit_tokens
+    scheds[0].submit(fresh, SamplingParams(max_new_tokens=SERVE_NEW),
+                     request_id="x", ship_to=1)
+    drive((0,))
+    for p in planes:
+        p.layerwise_ship = False
+    kept = []
+    while not inboxes[1].empty():
+        kind, body = inboxes[1].get_nowait()
+        if kind == "ship_layer" and body["layer"] >= min(
+                KVPLANE_ABORT_LAYER, cfg.n_layer - 1):
+            continue
+        kept.append((kind, body))
+    for item in kept:
+        inboxes[1].put(item)
+    planes[1].timeout_s = 1.0
+    scheds[1].step()
+    staged = len(e1._layer_imports)
+    if staged != len(fresh) // bs or e1.prefix_hit_tokens != hit0:
+        fail(f"cut ship: {staged} blocks staged, hits moved")
+    time.sleep(1.2)
+    scheds[1].step()  # the deadline sweep aborts the staging
+    planes[1].timeout_s = 30.0
+    aborted = e1.layer_import_aborts - a0_
+    toks.pop("x")
+    ttft.pop("x")
+    got, _ = run(1, "x", fresh)
+    ref, _ = run(0, "xl", fresh)
+    cut = {"staged_blocks": staged, "aborted_blocks": aborted,
+           "partial_drops": plane_delta(1, p1)["ship_partial_drops"],
+           "hit_tokens": e1.prefix_hit_tokens - hit0}
+    if got != ref or aborted != staged or cut["hit_tokens"]:
+        fail(f"cut ship: {cut}, tokens equal {got == ref}")
+    out["cut_ship"] = cut
+
+    # -- write-through, then a bounce onto a fresh store handle -------------
+    root = os.path.join(os.path.dirname(fleet["store_dir"]),
+                        "smoke_kvplane_store")
+    shutil.rmtree(root, ignore_errors=True)
+    store = FleetKVStore(root, registry=get_registry())
+    t_put = _Timer(store, "put_block", sync)
+    scheds[0].kvstore, scheds[0].kvstore_writethrough = store, True
+    q = work["flood"][0] + draw(40)
+    q2 = draw(CHUNKED_SYSTEM + 24)
+    wq, _ = run(0, "wq", q)
+    wq2, _ = run(0, "wq2", q2)
+    bounce = FleetKVStore(root)  # the fresh fleet's handle
+    t_get = _Timer(bounce, "get_chain", sync)
+    planes[1].store = bounce
+    scheds[1].kvstore = bounce
+    manifest = set(bounce.manifest())
+    hq = hint(q, store=True)
+    if not set(hq["digests"]) <= manifest:
+        fail("the store's manifest lacks the written-through chain")
+    p1, hit0 = planes[1].stats(), e1.prefix_hit_tokens
+    got, slot = run(1, "bq", q, kv_hint=hq)
+    st = plane_delta(1, p1)
+    if (got != wq or st["store_fetches"] != 1 or st["store_fetch_misses"]
+            or st["store_fetch_blocks"] != len(hq["digests"])):
+        fail(f"store bounce: {st}, tokens equal {got == wq}")
+    k1_rows("store", e1, slot, q)
+    out["store"] = {
+        "writes": store.writes, "put_s_per_block": sum(t_put.secs)
+        / max(1, len(t_put.secs)),
+        "bytes_per_block": store.bytes_written / max(1, store.writes),
+        "get_s_per_block": sum(t_get.secs) / st["store_fetch_blocks"],
+        "fetch_s": fetch_phase(1), "hit_tokens": e1.prefix_hit_tokens - hit0,
+    }
+
+    # -- a parked session restored on another engine ------------------------
+    c1 = draw(300)
+    t1, _ = run(0, "c1", c1)
+    scheds[0].request_park(c1 + t1, request_id="c1")
+    scheds[0].step()
+    parked = scheds[0].park_result(timeout=60.0)
+    if not parked or parked["stored"] != parked["blocks"] or (
+            parked["freed"] != parked["blocks"]):
+        fail(f"park: {parked}")
+    c2 = c1 + t1 + draw(24)
+    got, slot = run(1, "c2", c2, kv_hint=hint(c2, store=True,
+                                              run=parked["blocks"]))
+    ref, _ = run(0, "c2l", c2)
+    if got != ref:
+        fail("park: the restored turn's tokens differ from a local run")
+    k1_rows("park", e1, slot, c2)
+    out["park"] = {k: parked[k] for k in ("blocks", "stored", "freed")}
+
+    # -- the store directory removed mid-fetch ------------------------------
+    p1, hit0 = planes[1].stats(), e1.prefix_hit_tokens
+    scheds[1].submit(q2, SamplingParams(max_new_tokens=SERVE_NEW),
+                     request_id="mq2", kv_hint=hint(q2, store=True))
+    scheds[1].step()  # parked on the store fetch
+    shutil.rmtree(root)
+    drive((1,))
+    st = plane_delta(1, p1)
+    if (toks["mq2"] != wq2 or st["store_fetch_misses"] != 1
+            or e1.prefix_hit_tokens != hit0):
+        fail(f"store removed mid-fetch: {st}")
+    out["store_removed"] = {"misses": st["store_fetch_misses"],
+                            "tokens_equal": True}
+    for s in scheds:
+        s.kvstore = None
+    planes[1].store = None
+    path_launches = counters.launches - k1_launches[0]
+    print(f"[serve-kvplane] in process: K/V rows of every transfer vs the "
+          f"flash prefill, largest relative row error (bar {KV_ROW_TOL}): "
+          f"{json.dumps(k1_err)}")
+    for tag, err in k1_err.items():
+        if not err <= KV_ROW_TOL:
+            fail(f"{tag}: K/V rows differ from the flash prefill by {err}")
+    out["k1_check_launches"] = k1_launches[0]
+    out["launches"] = path_launches
+    out["ttft_s"] = {"cold": ttft["a0"], "warm_local": ttft["a1"],
+                     "fetch": ttft["f1"], "store": ttft["bq"]}
+    out["phases"] = scheds[1].metrics.snapshot().get("phases")
+    print(f"[serve-kvplane] in process: {json.dumps(out)} on {card_line()}")
+    if path_launches:
+        fail("the chunked engines launched K1 on the transfer path")
+    if cuda and k1_launches[0] != len(k1_err) * cfg.n_layer:
+        fail(f"the row checks launched K1 {k1_launches[0]} times, not "
+             f"{cfg.n_layer} per check")
+    del engines, planes, scheds, e0, e1, e2
+
+    # -- on the fabric: a fresh disaggregated fleet on (b)'s store ----------
+    reg = get_registry()
+    lost0 = reg.counter("rlt_serve_failover_requests_total").value(
+        outcome="lost")
+    fabric.init()
+    try:
+        t0 = time.time()
+        client = start_replicas(
+            2, num_gpus_per_replica=FLEET_GPUS, ckpt_path=fleet["ckpt"],
+            device=device, rpc_timeout_s=120.0, init_timeout=600.0,
+            roles=["prefill", "decode"], kvstore_dir=fleet["store_dir"],
+            **FLEET_KV, **FLEET_CHUNKED_ENGINE)
+        spawn = spawn_seconds(t0, 2)
+        client.router = Router(client=client, prefix_block=bs)
+        seeded = client.seed_store_directory()
+        # The system prompt and suffixes of more than one block (a suffix
+        # of one block is a pure prefix hit on the decode replica, which
+        # the router sends there directly).
+        reqs = [fleet["prefix"]["requests"][0]] + fleet["prefix"][
+            "requests"][2:2 + KVPLANE_FABRIC_SUFFIXES]
+        before = replica_counts(client)
+        got, f_ttft = {}, {}
+        for req in reqs:
+            w = fleet_wave(client, [req], batch_first_half=False)
+            got.update(w["toks"])
+            f_ttft.update(w["ttft"])
+        after = replica_counts(client)
+        finished = [b["finished"] - a["finished"]
+                    for a, b in zip(before, after)]
+        check_replica_counts("serve-kvplane fleet", before, after, cfg,
+                             False)
+        rows = client.stats()
+        plane = [r["kvfleet"] for r in rows]
+        store_rows = [r["kvstore"] for r in rows]
+        want = fleet["prefix"]["toks"]
+        same = [rid for rid, _, _ in reqs if got[rid] == want[rid]]
+        ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+        differ = [r for r in reqs if got[r[0]] != want[r[0]]]
+        near = fleet_compare("serve-kvplane fleet", differ, got, params,
+                             ref_cfg, device, {}) if differ else 0
+        lost = reg.counter("rlt_serve_failover_requests_total").value(
+            outcome="lost") - lost0
+        fab = {
+            "spawn_s": spawn, "seeded_digests": seeded,
+            "finished_per_replica": finished, "same_as_fleet_b": len(same),
+            "near_tie_mismatches": near, "lost": lost,
+            "prefill_plane": plane[0], "decode_plane": plane[1],
+            "store": [{k: s[k] for k in ("hits", "misses", "writes",
+                                         "bytes_read")} for s in store_rows],
+            "ttft_s": f_ttft,
+            "decode_fetch_phase_s": (rows[1].get("phases") or {}).get(
+                "by_phase", {}).get("kv_fetch"),
+        }
+        print(f"[serve-kvplane] fleet: {json.dumps(fab)} on {card_line()}")
+        if not seeded:
+            fail("seed_store_directory seeded nothing from (b)'s store")
+        if (plane[0]["store_fetches"] < 1 or plane[0]["store_fetch_misses"]
+                or plane[0]["store_fetch_blocks"] != CHUNKED_SYSTEM // bs):
+            fail(f"the prefill replica did not admit from the store: "
+                 f"{plane[0]}")
+        if plane[0]["ships"] != len(reqs) or finished != [0, len(reqs)]:
+            fail(f"ships {plane[0]['ships']}, finished per replica "
+                 f"{finished}: every request must ship and finish on the "
+                 "decode replica")
+        if lost:
+            fail(f"{lost} requests lost")
+        out["fabric"] = fab
+        client.shutdown()
+    finally:
+        fabric.shutdown()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_serve_kvplane(fleet: dict) -> int:
+    """The fleet KV plane and the KV object store at GPT-2-small width and
+    depth (``serve_kvplane_run``). In process: a peer fetch (dense and
+    paged receivers), a disaggregated ship (whole and layer-wise), a
+    layer-wise ship cut mid-stream, a write-through and a bounce onto a
+    fresh store handle, a parked session restored on another engine and
+    the store directory removed mid-fetch. Gates: tokens bitwise the
+    local run's; fetched blocks bitwise the holder's; the cut ship
+    stages, aborts and decodes cold with nothing hit; the receivers'
+    K/V rows within KV_ROW_TOL of the flash prefill (K1); every engine's
+    graphs frozen; 0 K1 launches on the path. On the fabric: a fresh
+    prefill/decode fleet on serve-fleet (b)'s checkpoint and store,
+    seeded from the store's manifest, admits the system prompt from the
+    store, ships every request to the decode replica, which the client
+    follows; tokens equal (b)'s but at near-ties, 0 lost, graphs frozen.
+    Removes (b)'s checkpoint and store afterwards. Returns K1's launches
+    on the path."""
+    kids0 = child_pids()
+    try:
+        out = serve_kvplane_run(fleet["params"], fleet["cfg"], "cuda", fleet)
+    finally:
+        for d in (fleet["workdir"], fleet["store_dir"]):
+            shutil.rmtree(d, ignore_errors=True)
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and set(child_pids()) - set(kids0):
+        time.sleep(0.5)
+    kids = set(child_pids()) - set(kids0)
+    if kids:
+        fail(f"child processes left after shutdown: {sorted(kids)}")
+    summary = {
+        "fetch_s": {k: v["seconds"] for k, v in out["fetch"].items()},
+        "fetch_mb_per_s": {k: v["mb_per_s"] for k, v in out["fetch"].items()},
+        "ship_s": {k: v["prefill_to_import_s"] for k, v in out["ship"].items()},
+        "store_put_s_per_block": out["store"]["put_s_per_block"],
+        "store_get_s_per_block": out["store"]["get_s_per_block"],
+        "store_bytes_per_block": out["store"]["bytes_per_block"],
+        "ttft_s": out["ttft_s"],
+        "k1_check_launches": out["k1_check_launches"],
+        "path_k1_launches": out["launches"],
+        "wall_s": out["wall_s"],
+    }
+    print(f"[serve-kvplane] {json.dumps(summary)} on {card_line()}")
     return out["launches"]
 
 
@@ -3463,7 +4111,10 @@ def main() -> None:
     fused_launches = timed_phase("serve-fused", phase_serve_fused, serve4)
     int8_launches = timed_phase("serve-int8", phase_serve_int8, serve4)
     lifecycle_launches = timed_phase("serve-lifecycle", phase_serve_lifecycle)
-    fleet_launches = timed_phase("serve-fleet", phase_serve_fleet, serve4)
+    fleet_launches, fleet = timed_phase("serve-fleet", phase_serve_fleet,
+                                        serve4)
+    kvplane_launches = timed_phase("serve-kvplane", phase_serve_kvplane,
+                                   fleet)
     train_launches, _ = timed_phase("train", phase_train)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
@@ -3473,7 +4124,7 @@ def main() -> None:
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
         "launches": serve_launches + spec_launches + fused_launches
         + int8_launches + lifecycle_launches + fleet_launches
-        + train_launches["flash_fwd"],
+        + kvplane_launches + train_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
                              "serve_paged": paged_launches,
@@ -3482,6 +4133,7 @@ def main() -> None:
                              "serve_int8": int8_launches,
                              "serve_lifecycle": lifecycle_launches,
                              "serve_fleet": fleet_launches,
+                             "serve_kvplane": kvplane_launches,
                              "train": train_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],

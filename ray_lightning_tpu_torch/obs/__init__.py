@@ -30,7 +30,20 @@ from ray_lightning_tpu_torch.obs.anatomy import (
     ledger_from_phase_map,
     render_anatomy,
 )
+from ray_lightning_tpu_torch.obs.blackbox import (
+    FlightRecorder,
+    dump_bundle,
+    read_bundle,
+)
 from ray_lightning_tpu_torch.obs.events import EventLog, get_event_log
+from ray_lightning_tpu_torch.obs.fleet import summarize_replica
+from ray_lightning_tpu_torch.obs.health import (
+    ComponentHealth,
+    HealthReport,
+    SLORule,
+    Watchdog,
+    parse_slo_rules,
+)
 from ray_lightning_tpu_torch.obs.journal import (
     WorkloadJournal,
     engine_header,
@@ -53,17 +66,23 @@ from ray_lightning_tpu_torch.obs.trace import (
 )
 
 __all__ = [
+    "ComponentHealth",
     "Counter",
     "EventLog",
+    "FlightRecorder",
     "Gauge",
+    "HealthReport",
     "Histogram",
     "MetricsRegistry",
     "RequestTracer",
+    "SLORule",
+    "Watchdog",
     "WorkloadJournal",
     "aggregate_phases",
     "anatomy_from_client",
     "assemble_anatomy",
     "breach_attribution",
+    "dump_bundle",
     "engine_header",
     "format_attribution",
     "get_event_log",
@@ -72,8 +91,11 @@ __all__ = [
     "load_journal",
     "merge_chrome_trace",
     "parse_prometheus_text",
+    "parse_slo_rules",
+    "read_bundle",
     "render_anatomy",
     "replay_journal",
     "replay_journal_router",
+    "summarize_replica",
     "to_chrome_trace",
 ]

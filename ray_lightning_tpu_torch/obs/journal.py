@@ -3,11 +3,12 @@
 The PyTorch port's copy of ``ray_lightning_tpu/obs/journal.py``: the same
 entry and header forms, so a journal captured by either package replays
 through the port's scheduler (:func:`build_replay_scheduler` over the
-port's ``build_engine``). The header's ``router`` section comes back as
-``router_config``, and :func:`replay_journal_router` re-drives a fleet's
-journals through a rebuilt :class:`~..serve.router.Router`; a section the
-port cannot rebuild (the fleet KV plane, the KV store) is refused naming
-its ROADMAP item.
+port's ``build_engine``). The header's ``router``, ``kvfleet`` and
+``kvstore`` sections come back as ``router_config``, ``kvfleet_config``
+and ``kvstore_config`` (a single-engine replay has no fleet to ship
+across: a ``shipped`` outcome replays as its recorded truncation), and
+:func:`replay_journal_router` re-drives a fleet's journals through a
+rebuilt :class:`~..serve.router.Router`.
 
 The serving engine's contracts make execution deterministic given its
 inputs — compiles are frozen at construction, greedy output is
@@ -545,14 +546,6 @@ _ENGINE_REBUILD_KEYS = frozenset((
 ))
 
 
-#: Header sections of a fleet capture and the ROADMAP item whose port
-#: can rebuild them.
-_UNPORTED_SECTIONS = {
-    "kvfleet": "queue 1 item 9 (fleet KV plane)",
-    "kvstore": "queue 1 item 9 (KV object store)",
-}
-
-
 def build_replay_scheduler(
     header: Dict[str, Any],
     *,
@@ -565,17 +558,10 @@ def build_replay_scheduler(
     substrate) on ``device``. ``ckpt_path``/``model_config``/``params``
     override the recorded identity — the knob that turns a captured trace
     into a benchmark for a DIFFERENT engine build. An engine knob the port
-    does not have raises (``build_engine``), and so does a header section
-    of a fleet capture, each naming its ROADMAP item."""
+    does not have raises (``build_engine``)."""
     from ray_lightning_tpu_torch.serve.scheduler import Scheduler
     from ray_lightning_tpu_torch.serve.server import build_engine
 
-    for section, item in _UNPORTED_SECTIONS.items():
-        if header.get(section):
-            raise NotImplementedError(
-                f"journal header section {section!r} is not ported yet "
-                f"(ROADMAP {item})"
-            )
     eng_cfg = {
         k: v for k, v in (header.get("engine") or {}).items()
         if k in _ENGINE_REBUILD_KEYS
@@ -874,6 +860,18 @@ def replay_journal(
         )
 
         result["router_config"] = router_config_from_header(header)
+    if header and header.get("kvfleet"):
+        from ray_lightning_tpu_torch.serve.kvfleet import (
+            kvfleet_config_from_header,
+        )
+
+        result["kvfleet_config"] = kvfleet_config_from_header(header)
+    if header and header.get("kvstore"):
+        from ray_lightning_tpu_torch.serve.kvstore import (
+            kvstore_config_from_header,
+        )
+
+        result["kvstore_config"] = kvstore_config_from_header(header)
     if timing == "wall":
         snap = scheduler.metrics.snapshot()
         rep_tokens = sum(len(v) for v in replayed.values())

@@ -20,14 +20,22 @@
 - :class:`PreemptionMonitor` (preempt.py) — the per-process preemption
   signal plane.
 
+- :class:`KVFleetPlane` (kvfleet.py) — a replica's side of the fleet KV
+  plane: cross-replica prefix fetches, disaggregated prefill/decode ships
+  (``start_replicas(roles=...)``) and fetches from the KV object store
+  (kvstore.py), which also takes write-through and parked sessions.
+
 Not ported yet: ``FleetSupervisor`` and ``RouterAutoscaler`` (ROADMAP
-queue 1 item 10b) and ``KVFleetPlane`` (item 9).
+queue 1 item 10b).
 
 The engine and the replica/client layer import on first attribute
 access (torch, the fabric), not at package import.
 """
 from ray_lightning_tpu_torch.serve.faults import FaultInjector, FaultRule
-from ray_lightning_tpu_torch.serve.kvfleet import FleetKVDirectory
+from ray_lightning_tpu_torch.serve.kvfleet import (
+    FleetKVDirectory,
+    KVFleetPlane,
+)
 from ray_lightning_tpu_torch.serve.metrics import ServeMetrics
 from ray_lightning_tpu_torch.serve.preempt import (
     PreemptionMonitor,
@@ -62,6 +70,7 @@ __all__ = [
     "RequestRejectedError",
     "RetryBudget",
     "FleetKVDirectory",
+    "KVFleetPlane",
     "FaultInjector",
     "FaultRule",
     "PreemptionMonitor",

@@ -33,13 +33,25 @@ and admission control (a shed submit raises the typed
 one :class:`serve.router.RetryBudget`, and ``hedge_after_s`` arms hedged
 streaming reads.
 
+The fleet KV plane (``serve/kvfleet.py``): ``start_replicas`` gives every
+replica an inbox queue and every peer's (on by default for a
+multi-replica fleet with a prefix cache), so a request the router steers
+off its chain's holder fetches the chain instead of prefilling cold.
+``roles`` splits the fleet into prefill and decode replicas: a prefill
+replica ships each finished prefill's blocks to the decode replica the
+router chose and ends the stream there as ``shipped``; the client
+resubmits it on that replica under the same id and seed, and the stream
+goes on with the delivered first token dropped. With ``kvstore_dir`` the
+client keeps a handle on the KV object store (``serve/kvstore.py``):
+:meth:`ServeClient.seed_store_directory` seeds the router's directory
+from its manifest after a fleet restart, and
+:meth:`ServeClient.park_session` parks a conversation there.
+
 Not ported yet, and refused naming their ROADMAP queue 1 item: the
 recovery plane (``respawn_replica``, ``add_replica``, ``retire_replica``,
-``prespawn_replacement``, ``preempt_drain``: item 10b), the fleet KV plane
-and the KV object store (``park_session``, ``seed_store_directory``,
-replica roles other than ``"mixed"``, ``kvfleet=True``: item 9),
-multi-host replicas (``hosts_per_replica > 1``: item 11) and the
-profiler RPC (item 14).
+``prespawn_replacement``, ``preempt_drain``: item 10b), multi-host
+replicas (``hosts_per_replica > 1``: item 11) and the profiler RPC
+(item 14).
 """
 from __future__ import annotations
 
@@ -107,11 +119,12 @@ class ServeClient:
 
     ``rpc_timeout_s`` bounds every RPC (None = block); ``rpc_retries``
     transient failures are retried with capped exponential backoff +
-    jitter before the replica is declared lost. The reference's
-    multi-host gang members (``followers``, ``follower_replica``: ROADMAP
-    queue 1 item 11), restart recipe (``respawn_fn``: item 10b), KV
-    transfer queues and store handle (``kv_queues``, ``kvstore``, roles
-    other than ``"mixed"``: item 9) are accepted at their defaults only.
+    jitter before the replica is declared lost. ``roles`` is the
+    per-index replica role table, ``kv_queues`` the fleet KV inboxes and
+    ``kvstore`` the driver's handle on the KV object store. The
+    reference's multi-host gang members (``followers``,
+    ``follower_replica``: ROADMAP queue 1 item 11) and restart recipe
+    (``respawn_fn``: item 10b) are accepted at their defaults only.
     """
 
     def __init__(
@@ -152,20 +165,12 @@ class ServeClient:
             ("follower_replica", follower_replica, "11 (multi-host "
              "replicas)"),
             ("respawn_fn", respawn_fn, "10b (fleet recovery plane)"),
-            ("kv_queues", kv_queues or None, "9 (fleet KV plane)"),
-            ("kvstore", kvstore, "9 (KV object store)"),
         ):
             if value is not None:
                 raise NotImplementedError(
                     f"ServeClient option {name} is not ported yet "
                     f"(ROADMAP queue 1 item {item})"
                 )
-        bad_roles = sorted({str(r) for r in (roles or [])} - {"mixed"})
-        if bad_roles:
-            raise NotImplementedError(
-                f"ServeClient roles {bad_roles} are not ported yet (ROADMAP "
-                "queue 1 item 9, disaggregated prefill/decode)"
-            )
         self._replicas = list(replicas)
         self._pg = pg
         self._init_timeout = float(init_timeout)
@@ -275,6 +280,12 @@ class ServeClient:
         ] or ["mixed"] * len(self._replicas)
         while len(self._roles) < len(self._replicas):
             self._roles.append("mixed")
+        #: Fleet KV transfer queues (index -> inbox).
+        self._kv_queues: Dict[int, Any] = dict(kv_queues or {})
+        #: The driver's handle on the KV object store (the directory the
+        #: replicas share): seed_store_directory reads its manifest. None
+        #: without a store.
+        self.kvstore = kvstore
 
     # -- internals --------------------------------------------------------
     def _event(self, name: str, level: str = "info", **kv: Any) -> None:
@@ -935,6 +946,30 @@ class ServeClient:
                 if hedged:
                     last_progress = time.monotonic()
             if res["done"]:
+                if res["status"] == "shipped":
+                    # Disaggregated prefill: this replica prefilled and
+                    # shipped the blocks to ``ship_to``. Resubmit there
+                    # (same id and seed; the decode replica emits the same
+                    # stream and the cursor drops the delivered first
+                    # token). A dead target or a lost ship falls back to
+                    # the journal failover or a cold prefill.
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"request {rid} was shipped but never "
+                            f"re-driven within {timeout_s}s"
+                        )
+                    if self._route_of(handle) == idx:
+                        if not self._follow_ship(
+                            rid, res.get("ship_to"), from_replica=idx,
+                            digests=res.get("ship_digests"),
+                        ):
+                            raise ReplicaLostError(
+                                idx,
+                                f"request {rid} was shipped but could "
+                                "not be re-driven (no surviving "
+                                "replicas)",
+                            )
+                    continue
                 if res["status"] == "migrated":
                     # Terminal on THAT replica only: a preemption drain
                     # evicted the request for resubmission elsewhere.
@@ -974,9 +1009,11 @@ class ServeClient:
                 handle.replica, f"request {handle.request_id} was lost"
             )
         res = self._rpc(idx, "result", handle.request_id, cursor)
-        if res.get("done") and res.get("status") != "migrated":
-            # "migrated" is terminal on that replica, not for the
-            # request — the drain's resubmission keeps it open.
+        if res.get("done") and res.get("status") not in (
+            "migrated", "shipped"
+        ):
+            # "migrated" and "shipped" are terminal on that replica, not
+            # for the request: its resubmission keeps it open.
             self._finish(handle.request_id, res["status"])
         return res
 
@@ -988,35 +1025,126 @@ class ServeClient:
         self._finish(handle.request_id, "cancelled")
         return ok
 
-    # -- session parking (persistent KV store: ROADMAP queue 1 item 9) ---
-    def park_session(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "ServeClient.park_session needs the KV object store, not "
-            "ported yet (ROADMAP queue 1 item 9)"
+    # -- session parking (the KV object store) ----------------------------
+    def park_session(
+        self,
+        handle: RequestHandle,
+        tokens: Optional[Sequence[int]] = None,
+        wait_s: float = 15.0,
+    ) -> Dict[str, Any]:
+        """Park a finished conversation: write its cached chain to the KV
+        object store and free the replica's pages. ``tokens`` is the
+        conversation's whole token sequence (prompt and generated); left
+        out, it is rebuilt from this client's journal (the submit's
+        prompt) and the replica's result buffer. The next submit sharing
+        the prefix restores it through a store fetch, on any replica."""
+        rid = handle.request_id
+        idx = self._route_of(handle)
+        if idx is None:
+            raise ReplicaLostError(handle.replica, f"request {rid} was lost")
+        if tokens is None:
+            prompt: Optional[List[int]] = None
+            for entry in self.journal.dump().get("entries", []):
+                if (
+                    entry.get("kind") == "submit"
+                    and entry.get("request_id") == rid
+                ):
+                    prompt = list(entry.get("prompt") or [])
+            if prompt is None:
+                raise KeyError(
+                    f"request {rid} has no journal submit record; pass "
+                    "tokens= explicitly"
+                )
+            res = self._rpc(idx, "result", rid, 0)
+            tokens = prompt + [int(t) for t in res.get("tokens") or []]
+        out = self._rpc(
+            idx, "park_session", [int(t) for t in tokens], request_id=rid,
+            wait_s=wait_s,
         )
+        digests = out.get("digests") or []
+        if digests and self.router is not None:
+            try:
+                # Open the store-held route now; the stats rings would
+                # only catch up at the next refresh.
+                self.router.directory.observe_store(
+                    [bytes.fromhex(h) for h in digests]
+                )
+            except Exception:  # noqa: BLE001 - routing hints only
+                pass
+        self._event(
+            "session_parked", request_id=rid, replica=idx,
+            blocks=int(out.get("blocks") or 0),
+            stored=int(out.get("stored") or 0),
+            freed=int(out.get("freed") or 0),
+        )
+        return out
 
-    def seed_store_directory(self, *args: Any, **kwargs: Any) -> int:
-        raise NotImplementedError(
-            "ServeClient.seed_store_directory needs the KV object store, "
-            "not ported yet (ROADMAP queue 1 item 9)"
-        )
+    def seed_store_directory(self, router: Optional[Any] = None) -> int:
+        """Warm start: seed the router directory's store-held half from
+        the KV object store's manifest, so a fresh fleet routes
+        yesterday's prefixes to a store fetch from the first request.
+        Returns the digests seeded; 0 without a store or a router."""
+        router = router if router is not None else self.router
+        if self.kvstore is None or router is None:
+            return 0
+        try:
+            hexes = self.kvstore.manifest()
+            router.directory.observe_store([bytes.fromhex(h) for h in hexes])
+        except Exception:  # noqa: BLE001 - a warm start is advisory
+            return 0
+        if hexes:
+            self._event("kvstore_warm_seed", digests=len(hexes))
+        return len(hexes)
 
     # -- failover ----------------------------------------------------------
+    def _follow_ship(
+        self,
+        rid: str,
+        target: Optional[int],
+        from_replica: int,
+        digests: Optional[Sequence[str]] = None,
+    ) -> bool:
+        """Re-drive a shipped request on its decode target (preferred: the
+        blocks went to its inbox) or any survivor. The resubmission
+        carries a ``kv_hint`` of the shipped chain naming the prefill
+        replica, so a lost or late ship is fetched back instead of
+        prefilled cold. No exclusion: with every decode replica gone the
+        prefill replica can decode it (its pool is still warm)."""
+        extra = None
+        if digests:
+            extra = {"kv_hint": {
+                "peer": int(from_replica),
+                "digests": [str(d) for d in digests],
+                "blocks": len(digests),
+            }}
+        return self._resubmit_from_journal(rid, target=target, extra=extra)
+
     def _resubmit_from_journal(
-        self, rid: str, exclude: Optional[int] = None
+        self,
+        rid: str,
+        exclude: Optional[int] = None,
+        target: Optional[int] = None,
+        extra: Optional[Dict[str, Any]] = None,
     ) -> bool:
         """Replay one OPEN request's journal submit record onto a live
         replica (same id, same prompt, same full SamplingParams — the
         survivor's seeded draws reproduce the stream bit-exactly).
-        Returns False when the id has no open record or no replica can
-        take it (the request is then marked lost)."""
+        ``target`` (a ship's decode replica) takes the first attempt when
+        it is alive, and ``extra`` (the fetch hint back to the shipper)
+        rides that submit. Returns False when the id has no open record
+        or no replica can take it (the request is then marked lost)."""
         with self._lock:
             record = self._open.get(rid)
         if record is None:
             return False
         while True:
+            idx = None
+            if target is not None:
+                if int(target) in self._alive(exclude=exclude):
+                    idx = int(target)
+                target = None  # one pinned attempt, then the pick
             try:
-                idx = self._pick(exclude=exclude)
+                idx = self._pick(exclude=exclude) if idx is None else idx
             except NoReplicasError:
                 with self._lock:
                     self._route[rid] = None
@@ -1030,7 +1158,8 @@ class ServeClient:
                     self._open.pop(rid, None)
                 return False
             try:
-                self._submit_rpc(idx, rid, record["prompt"], record)
+                self._submit_rpc(idx, rid, record["prompt"], record,
+                                 extra=extra)
             except ReplicaLostError as exc:
                 self.on_replica_lost(idx, reason=str(exc))
                 continue
@@ -1538,14 +1667,23 @@ def start_replicas(
     (no CUDA context, a kernel that does not load) fails the spawn here.
     ``rpc_timeout_s`` bounds every client RPC (see :class:`ServeClient`).
 
-    Refused, naming their ROADMAP queue 1 item: ``hosts_per_replica > 1``
-    (item 11); ``roles`` other than all-``"mixed"``, ``kvfleet=True``
-    and the ``kvfleet_*`` budgets (item 9). The reference turns the
-    fleet KV plane on by itself for a multi-replica fleet with a prefix
-    cache or paged KV (``kvfleet=None``); the port refuses that default
-    until item 9 and asks for ``kvfleet=False``. The spawn recipe is not
-    retained for restarts (the recovery plane, item 10b).
+    Fleet KV plane: ``roles`` dedicates replicas to disaggregated
+    prefill and decode (one role for the whole fleet, or one per index,
+    ``["prefill", "decode"]``); ``kvfleet`` turns the cross-replica
+    transfers on (None: on for a multi-replica fleet with a prefix cache
+    or paged KV). With the plane on every replica gets an inbox queue and
+    every peer's; ``kvfleet_timeout_s`` / ``kvfleet_inflight_mb`` /
+    ``kvfleet_bandwidth_mbps`` bound the transfers (a timeout falls back
+    to a cold prefill). With ``kvstore_dir`` in ``replica_kwargs`` the
+    client gets its own handle on the same KV object store, in the
+    replicas' namespace (``ServeClient.seed_store_directory``).
+
+    Refused, naming its ROADMAP queue 1 item: ``hosts_per_replica > 1``
+    (item 11). The spawn recipe is not retained for restarts (the
+    recovery plane, item 10b).
     """
+    from ray_lightning_tpu_torch.serve.kvfleet import ROLES
+
     if num_replicas < 1:
         raise ValueError("num_replicas must be >= 1")
     if int(hosts_per_replica) != 1:
@@ -1564,29 +1702,33 @@ def start_replicas(
             f"roles has {len(roles_list)} entries for {num_replicas} "
             "replicas (pass one role per replica, or one string)"
         )
-    if set(roles_list) != {"mixed"}:
-        raise NotImplementedError(
-            f"replica roles {sorted(set(roles_list))} are not ported yet "
-            "(ROADMAP queue 1 item 9, disaggregated prefill/decode)"
-        )
+    bad_roles = sorted(set(roles_list) - set(ROLES))
+    if bad_roles:
+        raise ValueError(f"unknown role(s) {bad_roles}; valid roles: {ROLES}")
     has_cache = bool(
         replica_kwargs.get("prefix_blocks")
         or replica_kwargs.get("kv_pages")
     )
-    if kvfleet or (
-        (kvfleet_timeout_s, kvfleet_inflight_mb, kvfleet_bandwidth_mbps)
-        != (5.0, 64.0, 0.0)
-    ):
-        raise NotImplementedError(
-            "the fleet KV plane (kvfleet=True, kvfleet_* budgets) is not "
-            "ported yet (ROADMAP queue 1 item 9)"
-        )
-    if kvfleet is None and num_replicas > 1 and has_cache:
-        raise NotImplementedError(
-            "a multi-replica fleet with a prefix cache or paged KV turns the "
-            "fleet KV plane on by default, which is not ported yet (ROADMAP "
-            "queue 1 item 9); pass kvfleet=False to serve each replica's "
-            "cache on its own"
+    if "prefill" in roles_list:
+        if "decode" not in roles_list and "mixed" not in roles_list:
+            raise ValueError(
+                "a fleet of only prefill replicas can never decode: add "
+                "decode (or mixed) replicas"
+            )
+        if not has_cache:
+            raise ValueError(
+                "disaggregated prefill (role='prefill') ships KV blocks "
+                "through the prefix pool: set prefix_blocks (dense) or "
+                "kv_pages (paged)"
+            )
+    kvfleet_on = (
+        bool(kvfleet) if kvfleet is not None
+        else (num_replicas > 1 and has_cache)
+    )
+    if "prefill" in roles_list and not kvfleet_on:
+        raise ValueError(
+            "disaggregated prefill needs the fleet KV plane (kvfleet=False "
+            "turned it off)"
         )
     bundle: Dict[str, float] = {"CPU": float(num_cpus_per_replica)}
     if num_gpus_per_replica:
@@ -1612,11 +1754,31 @@ def start_replicas(
             o["placement_group_bundle_index"] = bundle_index
         return o
 
-    kw = dict(replica_kwargs, device=device)
+    # One inbox per replica, made before any spawn: every replica's peer
+    # map must hold the whole fleet.
+    kv_queues: Dict[int, Any] = {}
+    if kvfleet_on:
+        kv_queues = {i: fabric.Queue() for i in range(num_replicas)}
+
+    def kwargs_for(i: int) -> Dict[str, Any]:
+        kw = dict(replica_kwargs, device=device, role=roles_list[i])
+        if kvfleet_on:
+            kw.update(
+                kv_self=i,
+                kv_inbox=kv_queues[i],
+                kv_peers=dict(kv_queues),
+                kvfleet_timeout_s=float(kvfleet_timeout_s),
+                kvfleet_inflight_mb=float(kvfleet_inflight_mb),
+                kvfleet_bandwidth_mbps=float(kvfleet_bandwidth_mbps),
+            )
+        return kw
+
     replicas: List[Any] = []
     try:
         for i in range(num_replicas):
-            replicas.append(actor_cls.options(**opts_for(i)).remote(**kw))
+            replicas.append(
+                actor_cls.options(**opts_for(i)).remote(**kwargs_for(i))
+            )
         fabric.get([r.ping.remote() for r in replicas], timeout=init_timeout)
     except BaseException:
         for r in replicas:
@@ -1630,6 +1792,24 @@ def start_replicas(
             except Exception:  # noqa: BLE001
                 pass
         raise
+    # The driver's handle on the KV object store the replicas share, in
+    # the namespace every replica derives from the same raw kwargs.
+    kvstore = None
+    if replica_kwargs.get("kvstore_dir"):
+        from ray_lightning_tpu_torch.serve.kvstore import (
+            FleetKVStore,
+            kvstore_namespace,
+        )
+
+        ns = replica_kwargs.get("kvstore_namespace") or kvstore_namespace(
+            replica_kwargs.get("ckpt_path"),
+            replica_kwargs.get("model_config"),
+        )
+        kvstore = FleetKVStore(
+            str(replica_kwargs["kvstore_dir"]),
+            budget_mb=float(replica_kwargs.get("kvstore_mb", 0.0)),
+            namespace=ns,
+        )
     return ServeClient(
         replicas,
         pg=pg,
@@ -1639,4 +1819,6 @@ def start_replicas(
         hedge_after_s=hedge_after_s,
         submit_batch_ms=submit_batch_ms,
         roles=roles_list,
+        kv_queues=kv_queues,
+        kvstore=kvstore,
     )

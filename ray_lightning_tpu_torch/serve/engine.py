@@ -113,9 +113,14 @@ the spans only it sees (prefill dispatches, chunks, prefix seeds) on
 them, and its fused-dispatch series in the process registry
 (``obs/registry.py:get_registry``).
 
-What the JAX engine also offers and this port does not yet (each raises
-``NotImplementedError`` naming its ROADMAP item): the KV object store and
-a device mesh; the layer-wise prefix import waits for the fleet KV plane.
+The fleet KV plane and the KV object store (``serve/kvfleet.py``,
+``serve/kvstore.py``): :meth:`export_blocks_by_digest` answers a peer's
+fetch, :meth:`cached_prefix_blocks` is the scheduler's probe before it
+asks for one, :meth:`import_prefix_block_layer` stages a layer-wise ship
+(a block is matchable only once its last layer lands), and with
+``kvstore_dir`` a block that leaves every local tier is written to the
+store instead of dying. What the JAX engine also offers and this port
+does not yet: a device mesh (``mesh``, ROADMAP queue 1 item 11; raises).
 
 All methods must be driven from one thread (the scheduler loop).
 """
@@ -158,9 +163,6 @@ from ray_lightning_tpu_torch.utils.graphs import Program, pinned_copy
 #: Constructor options of the JAX engine that the port does not run yet:
 #: name -> (the JAX default, which the port accepts, and the ROADMAP item).
 _UNPORTED: Dict[str, Tuple[Any, str]] = {
-    "kvstore_dir": (None, "queue 1 item 9 (KV object store)"),
-    "kvstore_mb": (0.0, "queue 1 item 9 (KV object store)"),
-    "kvstore_namespace": (None, "queue 1 item 9 (KV object store)"),
     "mesh": (None, "queue 1 item 11 (mesh serving)"),
 }
 
@@ -295,8 +297,11 @@ class DecodeEngine:
         prefix_host_mb: float = 0.0,
         prefix_disk_dir: Optional[str] = None,
         prefix_disk_mb: float = 0.0,
+        kvstore_dir: Optional[str] = None,
+        kvstore_mb: float = 0.0,
         kv_page: int = 0,
         kv_pages: int = 0,
+        kvstore_namespace: Optional[str] = None,
         spec: str = "off",
         spec_depth: int = 4,
         spec_params: Optional[Dict[str, Any]] = None,
@@ -546,9 +551,35 @@ class DecodeEngine:
         #: Cross-replica prefix handoff: blocks exported and imported.
         self.prefix_handoff_exports = 0
         self.prefix_handoff_imports = 0
-        #: The KV object store's key namespace (item 9): None, as the JAX
-        #: engine's is without a store, so a journal header replays.
+        # The KV object store, the tier of last resort shared by the
+        # fleet: a block that falls off the bottom of the local tier walk
+        # is written there instead of dying (_store_sink), and the fleet
+        # KV plane reads chains back from it. Unlike the disk tier it is
+        # not adopted into this engine's maps at start: warm content
+        # comes back only through a fetch. Its keys carry the model's
+        # namespace (the checkpoint and config, serve/kvstore.py:
+        # kvstore_namespace), since the token digests do not say which
+        # model made the bytes.
+        self.kvstore_dir = str(kvstore_dir) if kvstore_dir else None
+        self.kvstore_mb = float(kvstore_mb)
+        self.kvstore: Any = None
         self.kvstore_namespace: Optional[str] = None
+        if self.kvstore_dir:
+            from ray_lightning_tpu_torch.serve.kvstore import (
+                FleetKVStore,
+                kvstore_namespace as _kvs_ns,
+            )
+
+            self.kvstore_namespace = (
+                str(kvstore_namespace) if kvstore_namespace
+                else _kvs_ns(None, config)
+            )
+            self.kvstore = FleetKVStore(
+                self.kvstore_dir,
+                budget_mb=self.kvstore_mb,
+                registry=get_registry(),
+                namespace=self.kvstore_namespace,
+            )
         #: Digests that left every tier (the fleet directory's eviction
         #: feed): a bounded ring of hexes and the running total.
         self._dropped_ring: "deque[str]" = deque(maxlen=256)
@@ -582,6 +613,12 @@ class DecodeEngine:
         #: The piggybacked prefill completions of the last harvest that had
         #: any, for pop_chunk_events.
         self._pb_events: List[Tuple[int, PrefillTask, int, bool]] = []
+        #: Layer-wise imports in flight: digest -> {"idx": pool block,
+        #: "next": the layer expected, "n": layers}. A staged block has no
+        #: digest and one pin until its last layer lands or it aborts.
+        self._layer_imports: Dict[bytes, Dict[str, int]] = {}
+        self.layer_block_imports = 0
+        self.layer_import_aborts = 0
         #: Fused-dispatch accounting (stats and the registry's series).
         self.piggyback_dispatches = 0
         self.piggyback_chunk_rows = 0
@@ -1366,6 +1403,7 @@ class DecodeEngine:
                 self._disk_insert(digest, k, v)
             else:
                 self.tier_counters["host"]["evictions"] += 1
+                self._store_sink(digest, k, v)
                 self._note_dropped(digest)
             return
         while self._host_map and (
@@ -1377,6 +1415,7 @@ class DecodeEngine:
                 self._disk_insert(old_d, ok, ov)
             else:
                 self.tier_counters["host"]["evictions"] += 1
+                self._store_sink(old_d, ok, ov)
                 self._note_dropped(old_d)
         self._host_map[digest] = (k, v)
 
@@ -1425,13 +1464,21 @@ class DecodeEngine:
                 os.replace(tmp, path)
                 size += os.path.getsize(path)
         except OSError:
-            # Best-effort tier: a full or failing disk drops the block.
+            # Best-effort tier: a full or failing disk drops the block
+            # (after a write to the object store).
             self._remove_files(paths)
             self.tier_counters["disk"]["evictions"] += 1
+            self._store_sink(digest, k, v)
             self._note_dropped(digest)
             return
         while self._disk_map and self._disk_bytes + size > self._disk_budget:
             oldest = next(iter(self._disk_map))
+            if self.kvstore is not None:
+                # The bottom of the local walk holds the only copy: read
+                # the victim back before its files go.
+                payload = self._disk_load(oldest)
+                if payload is not None:
+                    self._store_sink(oldest, payload[0], payload[1])
             self._disk_drop(oldest)
             self.tier_counters["disk"]["evictions"] += 1
             self._note_dropped(oldest)
@@ -1439,6 +1486,7 @@ class DecodeEngine:
             # One block alone exceeds the whole budget.
             self._remove_files(paths)
             self.tier_counters["disk"]["evictions"] += 1
+            self._store_sink(digest, k, v)
             self._note_dropped(digest)
             return
         self._disk_map[digest] = size
@@ -1512,7 +1560,16 @@ class DecodeEngine:
         self.refill_s += time.monotonic() - t0
         return idx
 
-    # -- cross-replica prefix handoff (preemption drain) ------------------
+    def _store_sink(self, digest: bytes, k: torch.Tensor,
+                    v: torch.Tensor) -> None:
+        """The tier of last resort: a block falling off the bottom of the
+        local tier walk is written to the object store, when there is
+        one. A failed write counts in the store's ``write_errors`` and
+        the drop goes on: pages are lost loudly, never silently."""
+        if self.kvstore is not None:
+            self.kvstore.put_block(digest.hex(), k, v)
+
+    # -- cross-replica prefix handoff (drain, fleet KV plane) ------------
     def _note_dropped(self, digest: bytes) -> None:
         """A digest left every tier (nowhere to spill, the disk budget, an
         unreadable entry, an evicted chain): noted for the fleet
@@ -1564,6 +1621,24 @@ class DecodeEngine:
                 self._note_dropped(digest)
                 freed += 1
         return freed
+
+    def cached_prefix_blocks(self, tokens: Sequence[int]) -> int:
+        """How many leading full blocks of ``tokens`` some local tier
+        holds: a host-side probe (no promotion, no refcounts, no
+        counters), capped as the admission walk is, so the final chunk's
+        block never counts. The fleet KV plane fetches only when a hint
+        promises more than this."""
+        if not self.prefix_blocks:
+            return 0
+        matched = 0
+        for d in self._block_digests(np.asarray(tokens, np.int32)):
+            if d in self._pool_map or d in self._host_map or d in self._disk_map:
+                matched += 1
+            else:
+                break
+        while matched and matched * self.prefix_block >= len(tokens):
+            matched -= 1
+        return matched
 
     def _export_block(self, digest: bytes) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """One block's host copy from whichever tier holds it (a device
@@ -1668,6 +1743,91 @@ class DecodeEngine:
                 "engine", "prefix_handoff_import", blocks=accepted,
             )
         return accepted
+
+    def import_prefix_block_layer(self, hexd: str, kp: Any, vp: Any,
+                                  layer: int, n_layers: int) -> bool:
+        """Accept one layer of a peer's prefix block (a layer-wise ship):
+        the block stages into a pool block that carries no digest and a
+        pin, so no prefix walk can match it and no eviction can take it,
+        and gains its digest only when the last layer lands: a
+        half-shipped block never serves a hit. Layers must come in order
+        (the sender streams them so); a gap aborts the staging and
+        returns False. True when the layer was taken, including for a
+        block the pool already holds (the rest of its stream is then a
+        no-op).
+
+        The layer write is a plain copy into the pool's buffers, queued
+        on the stream like :meth:`import_prefix_blocks`'s, not a graph:
+        its shape never changes and it runs between dispatches, so a
+        capture would add pool memory and nothing else, and the graph
+        plan (``dispatch_plan``, ``compiled_count``) stays the one the
+        dispatches need."""
+        if not self.prefix_blocks:
+            return False
+        d = bytes.fromhex(hexd)
+        resident = self._pool_map.get(d)
+        if resident is not None:
+            # Already keyed (an alias, a local prefill that finished
+            # first, an earlier import): touch it, swallow the stream and
+            # drop any half-staged twin so its pin cannot leak.
+            self._pool_tick += 1
+            self._pool_meta[resident].stamp = self._pool_tick
+            if d in self._layer_imports:
+                self.abort_layer_imports([hexd])
+            return True
+        st = self._layer_imports.get(d)
+        if st is None:
+            if layer != 0:
+                return False
+            idx = self._pool_alloc()
+            if idx is None:
+                return False
+            self._pool_tick += 1
+            self._pool_meta[idx] = _PoolBlock(
+                digest=None, refs=1, stamp=self._pool_tick
+            )
+            st = {"idx": idx, "next": 0, "n": int(n_layers)}
+            self._layer_imports[d] = st
+        if layer != st["next"]:
+            self.abort_layer_imports([hexd])
+            return False
+        shape = (1,) + self._blk_shape[1:]
+        k = torch.as_tensor(kp).to(self._blk_dtype).reshape(shape)
+        v = torch.as_tensor(vp).to(self._blk_dtype).reshape(shape)
+        idx = st["idx"]
+        self._pool_k[layer : layer + 1, idx : idx + 1] = host_to(k, self.device)
+        self._pool_v[layer : layer + 1, idx : idx + 1] = host_to(v, self.device)
+        st["next"] += 1
+        if st["next"] < st["n"]:
+            return True
+        # The last layer: the block takes its digest and becomes
+        # matchable and evictable at once, as a whole-block import does.
+        meta = self._pool_meta[idx]
+        meta.digest = d
+        meta.refs = 0
+        self._pool_map[d] = idx
+        if self._tiered:
+            self._host_map.pop(d, None)
+            if d in self._disk_map:
+                self._disk_drop(d)
+        del self._layer_imports[d]
+        self.layer_block_imports += 1
+        self.prefix_handoff_imports += 1
+        return True
+
+    def abort_layer_imports(self, digests_hex: Sequence[str]) -> None:
+        """Tear down half-staged layer imports (the sender died, a layer
+        came out of order, the deadline passed): their pinned blocks go
+        back to the free list. None was ever matchable."""
+        for hexd in digests_hex:
+            st = self._layer_imports.pop(bytes.fromhex(hexd), None)
+            if st is None:
+                continue
+            idx = st["idx"]
+            self._pool_meta[idx] = None
+            self._pool_free.append(idx)
+            self.page_frees += 1
+            self.layer_import_aborts += 1
 
     def _pool_used(self) -> int:
         """Occupied pool blocks (paged: pages, less the scratch page and

@@ -16,8 +16,9 @@ round-robin, composing three mechanisms:
    on replica loss and on the engines' reported block evictions).
    Shared-prefix traffic lands on the replica holding the warm pages,
    weighted by each replica's effective cache size. A plan that steers a
-   request away from its chain's holder carries a ``kv_hint`` only when
-   the fleet KV plane is on (ROADMAP queue 1 item 9).
+   request away from its chain's holder carries a ``kv_hint`` naming the
+   holder (or, with no live holder, the KV object store), which the
+   target's fleet KV plane fetches from instead of prefilling cold.
 3. **Admission control + graceful shedding** — per-replica load estimates
    (queue depth, slot occupancy, paged-KV occupancy, windowed decode rate)
    gate routing. A submit whose ``deadline_s`` cannot be met even at the

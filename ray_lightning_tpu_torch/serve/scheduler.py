@@ -38,10 +38,21 @@ The lifecycle record, each part off unless given:
 The preemption drain (:meth:`request_drain`, :meth:`drain_result`)
 classifies residents into finish-in-grace and migrate, cancels the migrate
 set and the queue, and exports their cached prefix blocks; a survivor
-takes them through :meth:`enqueue_prefix_import`. What the JAX scheduler
-also offers and this port does not yet (each raises naming its ROADMAP
-item): the fleet KV plane (``kvfleet``, ``role``, warm-peer hints), the
-KV object store with write-through and session parking (queue 1 item 9).
+takes them through :meth:`enqueue_prefix_import`.
+
+The fleet KV plane (``kvfleet``, ``serve/kvfleet.py``): a request
+submitted with a router's ``kv_hint`` whose chain the local tiers lack is
+parked while its blocks are fetched from the peer (or, with ``store:
+True``, from the KV object store), re-queued under its original order
+when they land, and admitted warm; a refusal, a timeout or a stale entry
+re-queues it cold. A request submitted with ``ship_to`` (the router
+gives it one on a prefill replica) ends here after its first token: the
+prompt's blocks ship to that decode replica and a ``shipped`` terminal is
+emitted. With a
+``kvstore`` (``serve/kvstore.py``) and ``kvstore_writethrough`` every
+completed prefill's chain is written to the store, and
+:meth:`request_park` moves an idle conversation's chain there and frees
+its pages.
 
 The scheduler owns no threads: ``step()`` is driven by whoever hosts the
 engine. ``submit``/``cancel`` are thread-safe; the lock guards only the
@@ -65,10 +76,6 @@ if TYPE_CHECKING:
     from ray_lightning_tpu_torch.obs.journal import WorkloadJournal
     from ray_lightning_tpu_torch.obs.trace import RequestTracer
     from ray_lightning_tpu_torch.serve.engine import DecodeEngine
-
-#: Where the unported fleet and store features live in the ROADMAP.
-_FLEET_ITEM = "ROADMAP queue 1 item 9 (the fleet KV plane)"
-_STORE_ITEM = "ROADMAP queue 1 item 9 (KV object store, session parking)"
 
 
 @dataclass(frozen=True)
@@ -97,6 +104,15 @@ class Request:
     deadline_s: Optional[float] = None
     submitted_at: float = 0.0
     admitted_at: float = 0.0
+    #: Fleet KV plane: the router's warm-peer hint (``{"peer": idx,
+    #: "digests": [hex, ...]}``, or ``{"store": True, ...}`` for the KV
+    #: object store). When the local tiers miss, admission parks the
+    #: request and fetches the chain instead of prefilling cold. Consumed
+    #: after one attempt; a timeout or a stale entry falls back to cold.
+    kv_hint: Optional[Dict[str, Any]] = None
+    #: Disaggregated prefill: the decode replica this request's finished
+    #: prefill ships to (prefill role). None decodes here.
+    ship_to: Optional[int] = None
 
     def expired(self, now: float) -> bool:
         return (
@@ -112,10 +128,18 @@ class TokenEvent:
     request_id: str
     token: Optional[int]  # None for lifecycle-only events
     done: bool
-    #: "token" | "finished" | "cancelled" | "expired" | "migrated"
-    #: ("migrated": evicted by a preemption drain for resubmission on a
-    #: survivor; terminal on this engine, not for the request).
+    #: "token" | "finished" | "cancelled" | "expired" | "migrated" |
+    #: "shipped" ("migrated": evicted by a preemption drain for
+    #: resubmission on a survivor; "shipped": a prefill-role completion
+    #: whose blocks went to ``ship_to``, where the client resubmits it.
+    #: Both are terminal on this engine, not for the request).
     reason: str = "token"
+    #: The decode replica a "shipped" request's blocks went to.
+    ship_to: Optional[int] = None
+    #: The shipped digest chain (hexes): the client's resubmission carries
+    #: it back as a fetch hint, so a lost ship fetches from the shipper
+    #: instead of prefilling cold.
+    ship_digests: Optional[List[str]] = None
 
 
 class Scheduler:
@@ -135,18 +159,18 @@ class Scheduler:
         kvstore: Optional[Any] = None,
         kvstore_writethrough: bool = False,
     ) -> None:
-        for name, value, default, item in (
-            ("kvfleet", kvfleet, None, _FLEET_ITEM),
-            ("role", role, "mixed", _FLEET_ITEM),
-            ("kvstore", kvstore, None, _STORE_ITEM),
-            ("kvstore_writethrough", kvstore_writethrough, False, _STORE_ITEM),
-        ):
-            if value != default:
-                raise NotImplementedError(
-                    f"Scheduler option {name}={value!r} is not ported yet "
-                    f"({item})"
-                )
         self.engine = engine
+        #: Fleet KV plane (serve/kvfleet.py:KVFleetPlane): cross-replica
+        #: prefix fetches and disaggregated shipping; None is the isolated
+        #: engine. ``role`` labels the phase records (mixed, prefill or
+        #: decode).
+        self.kvfleet = kvfleet
+        self.role = str(role)
+        #: KV object store (serve/kvstore.py:FleetKVStore): with
+        #: ``kvstore_writethrough`` every completed prefill's chain is
+        #: written there; session parking writes there too.
+        self.kvstore = kvstore
+        self.kvstore_writethrough = bool(kvstore_writethrough)
         self.role = str(role)
         self.faults = faults
         self.metrics = metrics or ServeMetrics(engine.num_slots)
@@ -155,6 +179,14 @@ class Scheduler:
         self.tracer = tracer
         if tracer is not None and engine.tracer is None:
             engine.tracer = tracer
+        # The plane records the marks only it sees (a ship landing) and
+        # reports its fault point through this scheduler's tracer and
+        # injector.
+        if kvfleet is not None:
+            if kvfleet.tracer is None:
+                kvfleet.tracer = tracer
+            if kvfleet.faults is None:
+                kvfleet.faults = faults
         #: Per-request phase ledger, folded from the lifecycle timestamps
         #: at each terminal (a handful of float subtractions); set False
         #: to measure the record's cost with every observer off.
@@ -212,6 +244,15 @@ class Scheduler:
         self._drain_cv = threading.Condition()
         #: Peer prefix blocks queued for import at the top of step().
         self._pending_imports: List[Any] = []
+        #: Requests parked while their blocks are fetched: request_id ->
+        #: (priority, seq, Request). They re-queue under their original
+        #: (priority, seq) when the fetch lands or fails.
+        self._transfer_pending: Dict[str, Any] = {}
+        #: Session parking: the armed park (tokens, request_id) the next
+        #: step() consumes, and its record.
+        self._park_req: Optional[Any] = None
+        self._park_result: Optional[Dict[str, Any]] = None
+        self._park_cv = threading.Condition()
 
     # -- cost ledger ------------------------------------------------------
     def _acct_open(self, req: Request) -> None:
@@ -243,17 +284,37 @@ class Scheduler:
         rec["device_s"] = round(rec["device_s"], 6)
         rec["spec_verifies"] = round(rec["spec_verifies"], 3)
         rec["spec_accepted_tokens"] = round(rec["spec_accepted_tokens"], 3)
-        rec.pop("_admit_t", None)
+        # The stashes pop out of the record whether or not the ledger is
+        # on. A fetched request's queue time splits into kv_fetch (park to
+        # land) and transfer_park (land to admission).
+        fetch_s = rec.pop("_kv_fetch_s", 0.0)
+        land_t = rec.pop("_kv_land_t", None)
+        kv_src = rec.pop("_kv_src", None)
+        rec.pop("_kv_park_t", None)
+        admit_t = rec.pop("_admit_t", None)
         ttft = rec.pop("_ttft_s", None)
-        phases: Optional[Dict[str, float]] = None
+        phases: Optional[Dict[str, Any]] = None
         if self.phase_ledger:
-            # The scheduler-local phases (the fleet's kv_fetch,
-            # transfer_park and ship phases need the fleet KV plane).
-            phases = {"queue": max(0.0, rec["queue_s"])}
+            park_s = (
+                max(0.0, admit_t - land_t)
+                if admit_t is not None and land_t is not None
+                else 0.0
+            )
+            phases = {"queue": max(0.0, rec["queue_s"] - fetch_s - park_s)}
+            if fetch_s > 0.0:
+                phases["kv_fetch"] = fetch_s
+                if kv_src:
+                    phases["kv_fetch_source"] = kv_src
+            if park_s > 0.0:
+                phases["transfer_park"] = park_s
             if ttft is not None:
                 phases["prefill"] = max(0.0, ttft - rec["queue_s"])
-                phases["decode"] = max(0.0, rec["total_s"] - ttft)
-            phases = {k: round(v, 6) for k, v in phases.items()}
+                tail = max(0.0, rec["total_s"] - ttft)
+                phases["ship" if outcome == "shipped" else "decode"] = tail
+            phases = {
+                k: (round(v, 6) if isinstance(v, float) else v)
+                for k, v in phases.items()
+            }
             self.metrics.record_phases(
                 phases, tenant=rec["tenant"], outcome=outcome
             )
@@ -304,12 +365,11 @@ class Scheduler:
     ) -> str:
         """Queue a request; returns its id. Rejects (ValueError) requests
         that can never fit the engine, instead of queueing them to fail.
+
         ``kv_hint`` and ``ship_to`` are the fleet KV plane's placement
-        hints and raise unless None."""
-        if kv_hint is not None or ship_to is not None:
-            raise NotImplementedError(
-                f"submit kv_hint/ship_to are not ported yet ({_FLEET_ITEM})"
-            )
+        hints (see :class:`Request`): routing metadata, not the request's
+        identity, so the journal does not record them, and a failover
+        resubmission or a replay decodes locally."""
         sampling = sampling or SamplingParams()
         prompt = [int(t) for t in prompt]
         if not prompt or sampling.max_new_tokens < 1:
@@ -329,6 +389,8 @@ class Scheduler:
             deadline_s=deadline_s,
             submitted_at=time.monotonic(),
             tenant=tenant,
+            kv_hint=dict(kv_hint) if kv_hint else None,
+            ship_to=None if ship_to is None else int(ship_to),
         )
         with self._lock:
             heapq.heappush(
@@ -373,6 +435,7 @@ class Scheduler:
         with self._lock:
             known = (
                 request_id in self._admitting
+                or request_id in self._transfer_pending
                 or any(r.request_id == request_id for _, _, r in self._pending)
                 or any(
                     r.request_id == request_id
@@ -398,12 +461,18 @@ class Scheduler:
 
     def has_work(self) -> bool:
         with self._lock:
-            return (
+            if (
                 bool(self._pending)
                 or self.engine.num_active > 0
                 or self._drain_req is not None
+                or self._park_req is not None
                 or bool(self._pending_imports)
-            )
+                or bool(self._transfer_pending)
+            ):
+                return True
+        # The plane's inbox is probed outside the lock: it may cross a
+        # process boundary.
+        return self.kvfleet is not None and self.kvfleet.pending()
 
     # -- preemption drain (thread-safe arm/wait; work runs in step()) -----
     def request_drain(self, budget_s: float) -> None:
@@ -424,14 +493,61 @@ class Scheduler:
             plan, self._drain_result = self._drain_result, None
             return plan
 
+    # -- session parking (thread-safe arm/wait; work runs in step()) -----
     def request_park(self, tokens: Sequence[int],
                      request_id: Optional[str] = None) -> None:
-        """Session parking exports a conversation's chain to the KV object
-        store: not ported yet."""
-        raise NotImplementedError(f"request_park is not ported yet ({_STORE_ITEM})")
+        """Arm a session park: the next step() exports the conversation's
+        cached chain (``tokens``: prompt and generated tokens), writes it
+        to the KV object store and frees the local pages only if every
+        block was stored (a partial write keeps them: lost loudly, never
+        silently). The next turn hits the chain back through a store
+        fetch, on any replica."""
+        with self._lock:
+            self._park_req = ([int(t) for t in tokens], request_id)
 
-    def park_result(self, timeout: Optional[float] = 10.0) -> None:
-        raise NotImplementedError(f"park_result is not ported yet ({_STORE_ITEM})")
+    def park_result(
+        self, timeout: Optional[float] = 10.0
+    ) -> Optional[Dict[str, Any]]:
+        """Block until the armed park's record is ready (None on
+        timeout); consumes the record."""
+        with self._park_cv:
+            if self._park_result is None:
+                self._park_cv.wait(timeout)
+            out, self._park_result = self._park_result, None
+            return out
+
+    def _apply_park(self) -> None:
+        """Consume an armed park (inside step()): export, write to the
+        store, free the local copies."""
+        with self._lock:
+            req, self._park_req = self._park_req, None
+        if req is None:
+            return
+        tokens, rid = req
+        blocks: List[Any] = []
+        stored = freed = 0
+        if self.engine.prefix_blocks:
+            blocks = self.engine.export_prefix_blocks(tokens)
+        if blocks and self.kvstore is not None:
+            stored = self.kvstore.put_blocks(blocks)
+            if stored == len(blocks):
+                freed = self.engine.evict_prefix_chain([b[0] for b in blocks])
+        result = {
+            "digests": [b[0] for b in blocks],
+            "blocks": len(blocks),
+            "stored": stored,
+            "freed": freed,
+        }
+        if rid is not None:
+            self._trace(rid, _trace.SPAN_KV_PARK, blocks=len(blocks),
+                        stored=stored, freed=freed)
+        self._event(
+            "kv_park", level="info" if stored == len(blocks) else "warn",
+            request_id=rid, blocks=len(blocks), stored=stored, freed=freed,
+        )
+        with self._park_cv:
+            self._park_result = result
+            self._park_cv.notify_all()
 
     def enqueue_prefix_import(self, blocks: Any) -> int:
         """Queue a peer's exported prefix blocks for import at the top of
@@ -440,6 +556,57 @@ class Scheduler:
         with self._lock:
             self._pending_imports.append(blocks)
         return len(blocks)
+
+    def _service_kvfleet(self) -> None:
+        """One pump of the fleet KV plane (loop thread): answer peers'
+        fetches, import inbound ships and fetch replies, and re-queue the
+        parked requests whose transfer landed (warm) or failed (cold)."""
+        eng = self.engine
+        svc = self.kvfleet.service(
+            export_fn=eng.export_blocks_by_digest,
+            import_fn=eng.import_prefix_blocks,
+            layer_import_fn=eng.import_prefix_block_layer,
+            abort_fn=eng.abort_layer_imports,
+        )
+        resumed: List[Tuple[str, str]] = []
+        store_rids = set(svc.get("store_fetched") or ())
+        with self._lock:
+            for rid, _n in svc["fetched"]:
+                entry = self._transfer_pending.pop(rid, None)
+                if entry is not None:
+                    # The blocks are in the pool: the request re-queues
+                    # under its original (priority, seq) and hits warm.
+                    heapq.heappush(self._pending, entry)
+                    resumed.append((rid, "warm"))
+        for rid in store_rids:
+            self._trace(rid, _trace.SPAN_KV_RESTORE)
+        with self._lock:
+            for rid, reason in svc["failed"]:
+                entry = self._transfer_pending.pop(rid, None)
+                if entry is not None:
+                    heapq.heappush(self._pending, entry)
+                    resumed.append((rid, reason))
+        t_land = time.monotonic()
+        for rid, how in resumed:
+            # The transfer settled: this closes the ledger's kv_fetch
+            # phase; land to admission becomes transfer_park.
+            acct = self._acct.get(rid)
+            src = "store" if rid in store_rids else (
+                (acct or {}).get("_kv_src") or "peer"
+            )
+            if acct is not None and "_kv_park_t" in acct:
+                acct["_kv_fetch_s"] = t_land - acct["_kv_park_t"]
+                acct["_kv_land_t"] = t_land
+            self._trace(
+                rid, _trace.SPAN_KV_LAND, t=t_land, source=src,
+                ok=how == "warm",
+                **({} if how == "warm" else {"reason": how}),
+            )
+            self._event(
+                "kv_transfer_resume",
+                level="info" if how == "warm" else "warn",
+                request_id=rid, outcome=how,
+            )
 
     def _apply_drain(self, events: List[TokenEvent]) -> None:
         """Consume an armed drain (inside step()). A resident request whose
@@ -476,7 +643,11 @@ class Scheduler:
                     self._cancelled.add(req.request_id)
                     self._migrating.add(req.request_id)
             queued = [r for _, _, r in self._pending]
+            # Parked transfers are queued work too: their fetches die with
+            # this replica (a late reply is discarded).
+            queued += [r for _, _, r in self._transfer_pending.values()]
             self._pending = []
+            self._transfer_pending = {}
             for req in queued:
                 self._cancelled.discard(req.request_id)
                 migrate.append(req)
@@ -490,7 +661,7 @@ class Scheduler:
             # A drain's cancel looks like any other cancel to a replay.
             for req in migrate:
                 self.journal.record_cancel(req.request_id, True)
-        export = self.engine.prefix_blocks > 0
+        export = getattr(self.engine, "prefix_blocks", 0) > 0
         plan = {
             "budget_s": budget,
             "finish": finish,
@@ -525,10 +696,20 @@ class Scheduler:
             imports, self._pending_imports = self._pending_imports, []
         for blocks in imports:
             self.engine.import_prefix_blocks(blocks)
+        if self.kvfleet is not None:
+            # Before the admission scan, so a shipped or fetched chain is
+            # in the pool when its request is admitted.
+            self._service_kvfleet()
         if self._drain_req is not None:
             self._apply_drain(events)
+        if self._park_req is not None:
+            self._apply_park()
         to_evict: List[Any] = []
         admits: List[Request] = []
+        #: (priority, seq, Request, peer, digests): candidates popped for
+        #: a fetch instead of admission (the fetch request is sent outside
+        #: the lock; a refusal re-queues them for a cold prefill).
+        to_fetch: List[Any] = []
         #: (rid, outcome) terminals of this step's engine work; their
         #: ledger records close after the step's device-seconds are
         #: attributed, so a request's last fold is in its bill.
@@ -568,11 +749,11 @@ class Scheduler:
             # A paged engine adds a page budget: the head is admitted only
             # while the allocatable pages cover its whole life, else it
             # waits in place (priority order kept) for residents to finish.
-            paged = self.engine.paged
+            paged = getattr(self.engine, "paged", False)
             pages_left = self.engine.pages_available() if paged else 0
             parked = False
             while len(admits) < budget and self._pending:
-                req = self._pending[0][2]
+                prio, seqno, req = self._pending[0]
                 rid = req.request_id
                 if rid in self._cancelled:
                     heapq.heappop(self._pending)
@@ -596,6 +777,29 @@ class Scheduler:
                     self._acct_close(rid, "expired")
                     events.append(TokenEvent(rid, None, True, "expired"))
                     continue
+                if self.kvfleet is not None and req.kv_hint is not None:
+                    # A peer (or, with "store", the object store) holds
+                    # this prompt's chain. One attempt per request (the
+                    # hint is consumed), and only when the local tiers
+                    # hold less than the hint promises (a host-side probe,
+                    # safe under the lock).
+                    hint, req.kv_hint = req.kv_hint, None
+                    digests = list(hint.get("digests") or [])
+                    peer = hint.get("peer")
+                    from_store = bool(hint.get("store"))
+                    if (
+                        digests
+                        and (peer is not None or from_store)
+                        and self.engine.prefix_blocks
+                        and self.engine.cached_prefix_blocks(req.prompt)
+                        < len(digests)
+                    ):
+                        heapq.heappop(self._pending)
+                        to_fetch.append((
+                            prio, seqno, req,
+                            None if from_store else int(peer), digests,
+                        ))
+                        continue
                 if paged:
                     need = self.engine.pages_for(
                         len(req.prompt), req.sampling.max_new_tokens
@@ -615,6 +819,36 @@ class Scheduler:
                 )
             self._kv_parked = parked
             self.kv_backpressure_steps += int(parked)
+        for prio, seqno, req, peer, digests in to_fetch:
+            # The fetch request (a queue put, maybe across processes) goes
+            # out here; a refusal (a budget, an unknown peer) re-queues the
+            # request for a cold prefill next step. ``peer`` None reads the
+            # object store instead of a live replica.
+            ok = (
+                self.kvfleet.request_store_fetch(req.request_id, digests)
+                if peer is None
+                else self.kvfleet.request_fetch(req.request_id, peer, digests)
+            )
+            if ok:
+                with self._lock:
+                    self._transfer_pending[req.request_id] = (prio, seqno, req)
+                acct = self._acct.get(req.request_id)
+                if acct is not None:
+                    acct["_kv_park_t"] = time.monotonic()
+                    acct["_kv_src"] = "store" if peer is None else "peer"
+                self._trace(
+                    req.request_id,
+                    _trace.SPAN_KVSTORE_FETCH if peer is None
+                    else _trace.SPAN_KV_FETCH,
+                    peer=peer, blocks=len(digests),
+                )
+                self._event(
+                    "kv_transfer_park", request_id=req.request_id,
+                    peer=peer, blocks=len(digests), store=peer is None,
+                )
+            else:
+                with self._lock:
+                    heapq.heappush(self._pending, (prio, seqno, req))
         # -- engine work, lock NOT held --------------------------------
         for slot, req, kind in to_evict:
             self.engine.release(slot)
@@ -713,8 +947,8 @@ class Scheduler:
         # Chunked prefills advance between the admissions and the fold, or,
         # piggybacked, inside the fold's dispatch: their completions are
         # read after it and finish the same way.
-        piggyback = self.engine.piggyback_chunks > 0
-        prefilling = self.engine.num_prefilling
+        piggyback = getattr(self.engine, "piggyback_chunks", 0) > 0
+        prefilling = getattr(self.engine, "num_prefilling", 0)
         chunk_events: List[Any] = []
         prefilled = 0
         if not piggyback:
@@ -815,7 +1049,9 @@ class Scheduler:
         tiers, KV pages) into this step's metrics records, and attribute
         the spec shares to the fold's riders (ledger and spans)."""
         eng = self.engine
-        if eng.spec != "off":
+        # getattr defaults, as the reference reads them: a host-only engine
+        # double (or a gang leader's wrapper) need not carry every counter.
+        if getattr(eng, "spec", "off") != "off":
             v, d, a = (eng.spec_verifies, eng.spec_drafted_tokens,
                        eng.spec_accepted_tokens)
             dv = v - self._spec_seen[0]
@@ -843,7 +1079,7 @@ class Scheduler:
                             },
                         )
             self._spec_seen = (v, d, a)
-        if eng.prefix_blocks:
+        if getattr(eng, "prefix_blocks", 0):
             # One record per step that saw tier traffic (admissions walk
             # the tiers; steady decode never does).
             tiers = eng.prefix_tier_counters()
@@ -858,7 +1094,7 @@ class Scheduler:
                     eng.prefix_tier_bytes(),
                 )
                 self._prefix_seen = tiers
-        if eng.paged:
+        if getattr(eng, "paged", False):
             kv = eng.kv_page_counters()
             if kv != self._kv_seen:
                 self.metrics.record_kv_pages(
@@ -879,8 +1115,12 @@ class Scheduler:
     ) -> int:
         """First-token metrics, spans, ledger and journal entries and
         TokenEvents of the prefills that completed this step (separate
-        chunks, or piggybacked ones read after the fold); returns how
-        many."""
+        chunks, or piggybacked ones read after the fold), the store
+        write-through and the prefill role's ships; returns how many."""
+        #: (slot, task, Request): completed prefills whose blocks ship to
+        #: a decode replica instead of decoding here (shipped below, so
+        #: the fold never decodes a shipped slot).
+        to_ship: List[Any] = []
         for slot, task, tok, done in chunk_events:
             now = time.monotonic()
             req = newly.get(slot) or self._slot_req.get(slot)
@@ -927,6 +1167,67 @@ class Scheduler:
                 finished_slots.append(slot)
                 closed.append((task.request_id, "finished"))
                 newly.pop(slot, None)
+            elif (
+                self.kvfleet is not None
+                and req is not None
+                and req.ship_to is not None
+            ):
+                # Disaggregated prefill: the first token streamed above
+                # (the client's cursor drops it when the decode replica
+                # emits the same stream); the blocks ship below.
+                to_ship.append((slot, task, req))
+                newly.pop(slot, None)
+                finished_slots.append(slot)
+                finished_rids.append(task.request_id)
+        if (
+            self.kvstore_writethrough
+            and self.kvstore is not None
+            and self.engine.prefix_blocks
+        ):
+            # Write-through: every completed prefill's chain goes to the
+            # store, so its pages outlive this replica. Shipped slots reuse
+            # the export below; a failed put counts, never raises.
+            shipped = {slot for slot, _, _ in to_ship}
+            for slot, task, _tok, _done in chunk_events:
+                if slot in shipped:
+                    continue
+                blocks = self.engine.export_prefix_blocks(task.tokens)
+                if blocks:
+                    self.kvstore.put_blocks(blocks)
+        for slot, task, req in to_ship:
+            # Release first (the fold must not decode a shipped slot; the
+            # prompt's blocks entered the pool at prefill completion and
+            # outlive the release as cache blocks), then export and ship.
+            # A failed ship costs the decode replica a cold prefill only:
+            # the client's resubmission carries a fetch hint back here.
+            self.engine.release(slot)
+            blocks = (
+                self.engine.export_prefix_blocks(task.tokens)
+                if self.engine.prefix_blocks else []
+            )
+            if self.kvstore_writethrough and self.kvstore is not None and blocks:
+                self.kvstore.put_blocks(blocks)
+            layerwise = bool(self.kvfleet.layerwise_ship)
+            self.kvfleet.ship(req.ship_to, req.request_id, blocks)
+            if self.journal is not None:
+                # To a replay of this journal a ship is a cancel after the
+                # recorded first token; the decode replica's journal holds
+                # the decode.
+                self.journal.record_cancel(req.request_id, True)
+            self.metrics.record_cancel(queue_depth=self.queue_depth())
+            self._trace(
+                req.request_id, _trace.SPAN_SHIPPED, target=req.ship_to,
+                blocks=len(blocks), layerwise=layerwise,
+            )
+            self._event(
+                "kv_ship", request_id=req.request_id, target=req.ship_to,
+                blocks=len(blocks), layerwise=layerwise,
+            )
+            closed.append((req.request_id, "shipped"))
+            events.append(TokenEvent(
+                req.request_id, None, True, "shipped", ship_to=req.ship_to,
+                ship_digests=[b[0] for b in blocks],
+            ))
         return len(chunk_events)
 
     def run_until_idle(self, max_steps: int = 100_000) -> List[TokenEvent]:

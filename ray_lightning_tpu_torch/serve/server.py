@@ -12,10 +12,14 @@ model), and constructs the :class:`DecodeEngine`.
 a daemon loop thread drives the scheduler, so every dispatch and graph
 replay runs on that one thread while requests stream in through the
 fabric connection. Fleets are spawned through
-``serve.client.start_replicas``. The multi-host gang (``mesh``, ``dist``,
-``gang_queues``: ROADMAP queue 1 item 11), the fleet KV plane and the KV
-object store (item 9) and the profiler RPC (item 14) are not ported: their
-options raise unless left at the JAX defaults.
+``serve.client.start_replicas``. A replica has a ``role`` (``mixed``,
+``prefill`` or ``decode``); with ``kv_inbox``/``kv_peers`` it runs the
+fleet KV plane (``serve/kvfleet.py``: peer fetches and disaggregated
+ships), and with ``kvstore_dir`` its engine writes to and reads from the
+KV object store (``serve/kvstore.py``; ``park_session`` parks a
+conversation there). The multi-host gang (``mesh``, ``dist``,
+``gang_queues``: ROADMAP queue 1 item 11) and the profiler RPC (item 14)
+are not ported: their options raise unless left at the JAX defaults.
 """
 from __future__ import annotations
 
@@ -103,10 +107,16 @@ def build_engine(
     construct the engine on ``device`` (the card unless ``"cpu"`` is
     passed). ``int8`` quantizes the weights at load
     (``utils/quantize.py:quantize_params_int8``, on the device), and
-    ``spec_draft_int8`` the draft's. ``mesh`` other than None or ``"1x1"``
-    raises (ROADMAP queue 1 item 11), and so does the KV object store
-    (``kvstore_dir``, ``kvstore_mb``, ``kvstore_namespace``: item 9)."""
+    ``spec_draft_int8`` the draft's. ``kvstore_dir`` gives the engine the
+    KV object store, namespaced by ``kvstore_namespace`` or else by the raw
+    (``ckpt_path``, ``model_config``) pair, so the driver and every
+    replica derive the same namespace without loading the checkpoint.
+    ``mesh`` other than None or ``"1x1"`` raises (ROADMAP queue 1 item
+    11)."""
     from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+    from ray_lightning_tpu_torch.serve.kvstore import (
+        kvstore_namespace as _kvstore_namespace,
+    )
 
     device = resolve_device(device)
     if mesh not in (None, "1x1"):
@@ -157,7 +167,10 @@ def build_engine(
         prefix_disk_mb=prefix_disk_mb,
         kvstore_dir=kvstore_dir,
         kvstore_mb=kvstore_mb,
-        kvstore_namespace=kvstore_namespace,
+        kvstore_namespace=(
+            kvstore_namespace
+            or _kvstore_namespace(ckpt_path, model_config)
+        ),
         kv_page=kv_page,
         kv_pages=kv_pages,
         spec=spec,
@@ -177,18 +190,6 @@ def build_engine(
 _REPLICA_UNPORTED: Dict[str, Tuple[Any, str]] = {
     "dist": (None, "queue 1 item 11 (multi-host serving gangs)"),
     "gang_queues": (None, "queue 1 item 11 (multi-host serving gangs)"),
-    "role": ("mixed", "queue 1 item 9 (fleet KV plane)"),
-    "kv_self": (None, "queue 1 item 9 (fleet KV plane)"),
-    "kv_inbox": (None, "queue 1 item 9 (fleet KV plane)"),
-    "kv_peers": (None, "queue 1 item 9 (fleet KV plane)"),
-    "kvfleet_timeout_s": (5.0, "queue 1 item 9 (fleet KV plane)"),
-    "kvfleet_inflight_mb": (64.0, "queue 1 item 9 (fleet KV plane)"),
-    "kvfleet_bandwidth_mbps": (0.0, "queue 1 item 9 (fleet KV plane)"),
-    "kvfleet_layerwise": (False, "queue 1 item 9 (fleet KV plane)"),
-    "kvstore_dir": (None, "queue 1 item 9 (KV object store)"),
-    "kvstore_mb": (0.0, "queue 1 item 9 (KV object store)"),
-    "kvstore_namespace": (None, "queue 1 item 9 (KV object store)"),
-    "kvstore_writethrough": (False, "queue 1 item 9 (KV object store)"),
 }
 
 
@@ -218,7 +219,9 @@ class ServeReplica:
     ``stats()["compiles_since_init"]`` counts CUDA graphs captured after
     the engine's construction (the JAX replica's backend compiles since
     init), and ``stats()["kernels"]`` carries the process's flash kernel
-    counters.
+    counters. With the fleet KV plane on, ``stats()`` carries its
+    ``kvfleet`` block, and with a store its ``kvstore`` block (whose write
+    and drop rings feed the router's directory).
     """
 
     def __init__(
@@ -293,6 +296,7 @@ class ServeReplica:
         from ray_lightning_tpu_torch.obs.registry import get_registry
         from ray_lightning_tpu_torch.obs.trace import RequestTracer
         from ray_lightning_tpu_torch.serve.faults import FaultInjector
+        from ray_lightning_tpu_torch.serve.kvfleet import ROLES, KVFleetPlane
         from ray_lightning_tpu_torch.serve.metrics import ServeMetrics
         from ray_lightning_tpu_torch.serve.preempt import get_monitor
         from ray_lightning_tpu_torch.serve.scheduler import Scheduler
@@ -323,6 +327,9 @@ class ServeReplica:
             prefix_host_mb=prefix_host_mb,
             prefix_disk_dir=prefix_disk_dir,
             prefix_disk_mb=prefix_disk_mb,
+            kvstore_dir=kvstore_dir,
+            kvstore_mb=kvstore_mb,
+            kvstore_namespace=kvstore_namespace,
             kv_page=kv_page,
             kv_pages=kv_pages,
             spec=spec,
@@ -342,7 +349,18 @@ class ServeReplica:
             # again before its first replay.
             torch.cuda.set_device(self.device)
         self.int8 = bool(int8)
+        # The fleet KV role. A prefill replica ships each finished
+        # prefill's blocks, which only a prefix pool holds.
         self.role = str(role)
+        if self.role not in ROLES:
+            raise ValueError(
+                f"unknown replica role {role!r}; valid roles: {ROLES}"
+            )
+        if self.role == "prefill" and not self.engine.prefix_blocks:
+            raise ValueError(
+                "role='prefill' needs a prefix pool to ship from: set "
+                "prefix_blocks (dense) or kv_pages (paged)"
+            )
         self._registry = get_registry()
         self._registry.gauge(
             "rlt_serve_compiled_executables",
@@ -400,6 +418,31 @@ class ServeReplica:
                 max_prefill_chunks_per_step=max_prefill_chunks_per_step,
                 priority_age_s=priority_age_s,
                 router=router_config,
+                # The knobs that shaped a fleet capture: shipped outcomes
+                # replay as their recorded truncations, and a replay
+                # surfaces the sections as kvfleet_config/kvstore_config.
+                kvfleet=(
+                    {
+                        "role": self.role,
+                        "peers": len(kv_peers or {}),
+                        "timeout_s": float(kvfleet_timeout_s),
+                        "max_inflight_mb": float(kvfleet_inflight_mb),
+                        "bandwidth_mbps": float(kvfleet_bandwidth_mbps),
+                        "layerwise": bool(kvfleet_layerwise),
+                    }
+                    if (kv_inbox is not None or self.role != "mixed")
+                    else None
+                ),
+                kvstore=(
+                    {
+                        "dir": self.engine.kvstore_dir,
+                        "budget_mb": float(kvstore_mb),
+                        "writethrough": bool(kvstore_writethrough),
+                        "namespace": self.engine.kvstore_namespace,
+                    }
+                    if self.engine.kvstore is not None
+                    else None
+                ),
             ))
         # Deterministic fault injection: an explicit plan beats the
         # RLT_FAULTS env gate; a live replica can be re-armed through
@@ -407,6 +450,28 @@ class ServeReplica:
         self.faults = FaultInjector.parse(
             faults, events=self.events
         ) or FaultInjector.from_env(events=self.events)
+        # The store was built in the engine's constructor, before this
+        # replica had an event log: its drops and write errors go there.
+        if self.engine.kvstore is not None:
+            self.engine.kvstore._events = self.events
+        # The fleet KV plane, built only when transfer wiring was handed
+        # in (start_replicas makes one inbox per replica when it is on).
+        self.kvfleet = None
+        if kv_inbox is not None:
+            self.kvfleet = KVFleetPlane(
+                index=0 if kv_self is None else int(kv_self),
+                role=self.role,
+                inbox=kv_inbox,
+                peers=kv_peers,
+                block_bytes=self.engine.prefix_block_nbytes,
+                timeout_s=float(kvfleet_timeout_s),
+                max_inflight_mb=float(kvfleet_inflight_mb),
+                bandwidth_mbps=float(kvfleet_bandwidth_mbps),
+                layerwise_ship=bool(kvfleet_layerwise),
+                registry=self._registry,
+                events=self.events,
+                store=self.engine.kvstore,
+            )
         self.scheduler = Scheduler(
             self.engine,
             metrics=self.metrics,
@@ -417,6 +482,10 @@ class ServeReplica:
             events=self.events,
             journal=self.journal,
             faults=self.faults,
+            kvfleet=self.kvfleet,
+            role=self.role,
+            kvstore=self.engine.kvstore,
+            kvstore_writethrough=bool(kvstore_writethrough),
         )
         self._serve_config: Dict[str, Any] = {
             "num_slots": self.engine.num_slots,
@@ -437,7 +506,12 @@ class ServeReplica:
             "int8": self.int8,
             "mesh": self.engine.mesh_desc,
             "role": self.role,
-            "kvfleet": False,
+            "kvfleet": self.kvfleet is not None,
+            "kvfleet_layerwise": bool(kvfleet_layerwise),
+            "kvstore_dir": self.engine.kvstore_dir,
+            "kvstore_mb": self.engine.kvstore_mb,
+            "kvstore_namespace": self.engine.kvstore_namespace,
+            "kvstore_writethrough": bool(kvstore_writethrough),
             "device": str(self.device),
             "watchdog": bool(watchdog),
             "stall_s": float(stall_s),
@@ -543,6 +617,13 @@ class ServeReplica:
                                 "finished" if ev.reason in ("token", "finished")
                                 else ev.reason
                             )
+                            if ev.ship_to is not None:
+                                # The client resubmits on this decode
+                                # replica and the stream goes on there.
+                                buf["ship_to"] = int(ev.ship_to)
+                                buf["ship_digests"] = list(
+                                    ev.ship_digests or []
+                                )
                     self._cond.notify_all()
             if self._tick:
                 self._stop.wait(self._tick)
@@ -569,11 +650,10 @@ class ServeReplica:
     ) -> str:
         """``request_id`` lets the CLIENT mint the id before the RPC —
         the trace-stitching anchor. ``tenant`` labels the request's
-        cost-ledger record. ``kv_hint`` (a router's warm-peer fetch hint)
-        is advisory: with no fleet KV plane (ROADMAP queue 1 item 9) the
-        request prefills here, as a JAX replica without the plane does.
-        ``ship_to`` (disaggregated placement, item 9) raises unless
-        None."""
+        cost-ledger record. ``kv_hint``/``ship_to`` are the router's fleet
+        KV placement hints (fetch the prefix chain from a warm peer or the
+        store; ship the finished prefill's blocks to that decode replica);
+        without a fleet KV plane the request prefills and decodes here."""
         return self.submit_many([{
             "prompt": prompt, "max_new_tokens": max_new_tokens,
             "temperature": temperature, "top_k": top_k, "top_p": top_p,
@@ -599,11 +679,6 @@ class ServeReplica:
             # The buffer is seeded BEFORE the scheduler sees the request
             # (a resubmitted id starts from an empty buffer): the loop
             # thread may emit its first token before this call returns.
-            if req.get("ship_to") is not None:
-                raise NotImplementedError(
-                    "submit ship_to (disaggregated prefill/decode) is not "
-                    "ported yet (ROADMAP queue 1 item 9)"
-                )
             given = req.get("request_id")
             if given is not None:
                 with self._cond:
@@ -624,6 +699,7 @@ class ServeReplica:
                 priority=req.get("priority", 0),
                 deadline_s=req.get("deadline_s"),
                 tenant=req.get("tenant"),
+                kv_hint=req.get("kv_hint"),
                 ship_to=req.get("ship_to"),
             ))
         with self._cond:
@@ -656,11 +732,15 @@ class ServeReplica:
                 if remaining <= 0:
                     break
                 self._cond.wait(timeout=remaining)
-            return {
+            out = {
                 "tokens": list(buf["tokens"][cursor:]),
                 "done": buf["done"],
                 "status": buf["status"],
             }
+            if "ship_to" in buf:
+                out["ship_to"] = buf["ship_to"]
+                out["ship_digests"] = buf.get("ship_digests") or []
+            return out
 
     def cancel(self, request_id: str) -> bool:
         ok = self.scheduler.cancel(request_id)
@@ -699,6 +779,20 @@ class ServeReplica:
             }
         )
         snap["role"] = self.role
+        if self.kvfleet is not None:
+            snap["kvfleet"] = self.kvfleet.stats()
+        if self.engine.kvstore is not None:
+            # Counters and the write/drop rings the router's directory
+            # feeds its store-held half from. The store keys its entries
+            # "<namespace>.<digest>"; the directory speaks bare digests,
+            # so the rings go out bare (the router's hex decode drops a
+            # namespaced key).
+            kvs = self.engine.kvstore.stats()
+            prefix = f"{kvs['namespace']}." if kvs["namespace"] else ""
+            for ring in ("recent_writes", "recent_dropped"):
+                kvs[ring] = [k[len(prefix):] if k.startswith(prefix) else k
+                             for k in kvs[ring]]
+            snap["kvstore"] = kvs
         snap["slo_breaches"] = int(sum(
             self._registry.counter(
                 "rlt_slo_breaches_total"
@@ -819,17 +913,40 @@ class ServeReplica:
         self._work.set()
         return n
 
-    def park_session(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "ServeReplica.park_session needs the KV object store, not "
-            "ported yet (ROADMAP queue 1 item 9)"
-        )
+    def park_session(
+        self,
+        tokens: Sequence[int],
+        request_id: Optional[str] = None,
+        wait_s: float = 15.0,
+    ) -> Dict[str, Any]:
+        """Park an idle conversation: write ``tokens``' cached chain to
+        the KV object store and free its local pages (only when every
+        block was stored). Blocks until the loop thread publishes the
+        record (export and eviction are engine work). The next submit of
+        the same prefix restores it through a store fetch, on any
+        replica."""
+        if self.engine.kvstore is None:
+            raise RuntimeError(
+                "park_session needs the KV object store: start the replica "
+                "with kvstore_dir"
+            )
+        self.scheduler.request_park(tokens, request_id=request_id)
+        self._work.set()  # an idle loop must still produce the record
+        out = self.scheduler.park_result(timeout=float(wait_s))
+        if out is None:
+            raise TimeoutError(
+                f"park result not produced within {wait_s}s (loop thread "
+                "wedged?)"
+            )
+        return out
 
-    def register_kv_peer(self, *args: Any, **kwargs: Any) -> bool:
-        raise NotImplementedError(
-            "ServeReplica.register_kv_peer needs the fleet KV plane, not "
-            "ported yet (ROADMAP queue 1 item 9)"
-        )
+    def register_kv_peer(self, idx: int, queue: Any) -> bool:
+        """Adopt a new fleet member's KV inbox. False without a fleet KV
+        plane."""
+        if self.kvfleet is None:
+            return False
+        self.kvfleet.register_peer(int(idx), queue)
+        return True
 
     def journal_dump(self, n: Optional[int] = None) -> Dict[str, Any]:
         """This replica's workload journal in the wire form (header +

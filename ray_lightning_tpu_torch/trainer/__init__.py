@@ -11,7 +11,11 @@ from ray_lightning_tpu_torch.trainer.data import (
     Dataset,
     DistributedSampler,
 )
-from ray_lightning_tpu_torch.trainer.loop import TrainerSpec, TrainingLoop
+from ray_lightning_tpu_torch.trainer.loop import (
+    TrainerSpec,
+    TrainingLoop,
+    TrainingPreempted,
+)
 from ray_lightning_tpu_torch.trainer.module import DataModule, TorchModule
 from ray_lightning_tpu_torch.trainer.trainer import (
     Trainer,
@@ -25,6 +29,7 @@ __all__ = [
     "DataModule",
     "TrainerSpec",
     "TrainingLoop",
+    "TrainingPreempted",
     "Callback",
     "ModelCheckpoint",
     "EarlyStopping",

@@ -19,12 +19,22 @@ unaligned int interval raises, a fraction quantizes); epoch and
 ``max_steps`` tails shorter than K run through the single-step program,
 so budgets are exact. Evaluation is not folded.
 
-Not here (raised by ``Trainer``): EMA, preemption and restarts, sharded
-checkpoints, the telemetry and the watchdog.
+Checkpoint-on-notice (JAX ``loop.py:617-687``, ``:833-838``): after every
+dispatched chunk the loop reads this process's preemption monitor
+(``serve/preempt.py:peek_state``). On a notice it writes
+``last-preempt-step{N:08d}.ckpt`` carrying ``resume_batch`` (the batches
+of the epoch already trained), loads it back to validate it and raises
+:class:`TrainingPreempted`. A fit from that checkpoint continues the
+same epoch at the next batch with the partial accumulation window kept,
+so it ends on the uninterrupted fit's parameters.
+
+Not here (raised by ``Trainer``): EMA, restarts (``max_restarts``),
+sharded checkpoints, the telemetry and the watchdog.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import sys
 import time
 import warnings
@@ -74,6 +84,25 @@ class TrainerSpec:
     callbacks: List[Any] = field(default_factory=list)
 
 
+class TrainingPreempted(RuntimeError):
+    """The fit answered a preemption notice (``serve/preempt.py``) with
+    checkpoint-on-notice: a validated checkpoint was written at the step
+    boundary the notice caught, and the loop exited. ``fit(ckpt_path=
+    ckpt_path)`` resumes from it, losing at most the chunk in flight.
+    Picklable with its attributes."""
+
+    def __init__(self, ckpt_path: str, global_step: int = 0) -> None:
+        super().__init__(
+            f"fit preempted: checkpoint-on-notice written to {ckpt_path} "
+            f"at step {global_step}"
+        )
+        self.ckpt_path = ckpt_path
+        self.global_step = int(global_step)
+
+    def __reduce__(self):
+        return (type(self), (self.ckpt_path, self.global_step))
+
+
 def _chunks(batches, k: int):
     """Consecutive groups of ``k`` batches, then the tail shorter than
     ``k`` as groups of one (what the single-step program runs)."""
@@ -119,6 +148,11 @@ class TrainingLoop:
         self._lr_schedule = None
         self._epoch_complete = True
         self._resumed_mid_epoch = False
+        #: Batches of the resumed epoch a checkpoint-on-notice already
+        #: trained (skipped at the resume), and the value the next
+        #: checkpoint records (set only while it is written).
+        self._resume_batch = 0
+        self._preempt_resume_batch: Optional[int] = None
         self._fit_deadline: Optional[float] = None
         self._val_loader = None
         self._train_loader = None
@@ -239,6 +273,14 @@ class TrainingLoop:
         # A checkpoint saved mid-epoch resumes by re-running that epoch.
         self._resumed_mid_epoch = bool(state.get("mid_epoch"))
         bump = 0 if self._resumed_mid_epoch else 1
+        rb = int(state.get("resume_batch") or 0)
+        self._resume_batch = 0
+        if rb and self._resumed_mid_epoch:
+            # Checkpoint-on-notice: continue the same epoch at the next
+            # batch (the loader's order is a function of the seed and the
+            # epoch), keeping the partial accumulation window.
+            self._resume_batch = rb
+            self._resumed_mid_epoch = False
         self.current_epoch = int(state.get("epoch", -1)) + bump
         self.global_step = int(state.get("global_step", 0))
         for cb in self.callbacks:
@@ -265,7 +307,53 @@ class TrainingLoop:
             "callbacks": {
                 type(cb).__name__: cb.state_dict() for cb in self.callbacks
             },
+            # Checkpoint-on-notice only: the epoch position to continue at.
+            **(
+                {"resume_batch": int(self._preempt_resume_batch)}
+                if self._preempt_resume_batch else {}
+            ),
         }
+
+    @staticmethod
+    def _preempt_pending() -> bool:
+        """Has a preemption notice landed on this process?"""
+        from ray_lightning_tpu_torch.serve.preempt import peek_state
+
+        st = peek_state()
+        return bool(st and st.get("pending"))
+
+    def _preempt_exit(self, resume_batch: Optional[int]) -> None:
+        """Checkpoint-on-notice: write a resume checkpoint at this step
+        boundary, load it back (an unreadable file raises here, never
+        later at the resume) and raise :class:`TrainingPreempted`.
+        ``resume_batch`` (batches of this epoch already trained) rides the
+        checkpoint; None means the epoch just completed. The name sorts
+        into the ``last*`` group that ``ckpt_path="last"`` scans."""
+        from ray_lightning_tpu_torch.obs.events import get_event_log
+
+        cb = next(
+            (c for c in self.callbacks if hasattr(c, "best_model_path")),
+            None,
+        )
+        d = getattr(cb, "dirpath", None) if cb is not None else None
+        if not d:
+            d = os.path.join(self.spec.default_root_dir, "checkpoints")
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"last-preempt-step{self.global_step:08d}.ckpt")
+        get_event_log().record(
+            "trainer", "fit_preempt_checkpoint", level="warn", path=path,
+            step=self.global_step, epoch=self.current_epoch,
+            resume_batch=int(resume_batch or 0),
+        )
+        self._preempt_resume_batch = int(resume_batch) if resume_batch else None
+        try:
+            self.save_checkpoint(path)
+        finally:
+            self._preempt_resume_batch = None
+        with open(path, "rb") as f:
+            load_state_stream(f.read())
+        self.state = {"status": "preempted", "stage": "fit"}
+        raise TrainingPreempted(path, self.global_step)
 
     def _out_of_time(self) -> bool:
         return (
@@ -335,7 +423,8 @@ class TrainingLoop:
                 self.sanity_checking = False
 
         stop = False
-        for epoch in range(self.current_epoch, self.spec.max_epochs):
+        start_epoch = self.current_epoch
+        for epoch in range(start_epoch, self.spec.max_epochs):
             if stop or self.should_stop:
                 break
             self.current_epoch = epoch
@@ -375,15 +464,22 @@ class TrainingLoop:
                 pending.clear()
                 return last
 
-            n_iter = n_batches
+            # A resume from a checkpoint-on-notice skips the batches the
+            # preempted fit trained (batch_idx stays epoch-absolute).
+            skip = 0
+            if epoch == start_epoch:
+                skip, self._resume_batch = self._resume_batch, 0
+            n_iter = max(0, n_batches - skip)
             if self.spec.max_steps is not None:
                 remaining = max(0, self.spec.max_steps - self.global_step)
                 n_iter = min(n_iter, remaining)
                 if remaining == 0:
                     stop = True
-            batch_idx = -1
+            batch_idx = skip - 1
             for chunk in _chunks(
-                itertools.islice(self._train_loader.iter_batches(mult), n_iter),
+                itertools.islice(
+                    self._train_loader.iter_batches(mult), skip, skip + n_iter
+                ),
                 fold,
             ):
                 start_step = self.global_step
@@ -415,6 +511,9 @@ class TrainingLoop:
                     last_val_step = self.global_step
                     if self._out_of_time():
                         self.should_stop = True
+                if self._preempt_pending():
+                    # Answer the notice at this chunk boundary.
+                    self._preempt_exit(batch_idx + 1)
                 if (
                     (
                         self.spec.max_steps is not None

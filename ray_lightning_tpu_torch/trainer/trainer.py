@@ -17,7 +17,11 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy, Strategy
-from ray_lightning_tpu_torch.trainer.loop import TrainerSpec, TrainingLoop
+from ray_lightning_tpu_torch.trainer.loop import (
+    TrainerSpec,
+    TrainingLoop,
+    TrainingPreempted,
+)
 from ray_lightning_tpu_torch.trainer.module import schedule_lr, unpack_optimizers
 from ray_lightning_tpu_torch.utils.seed import seed_everything
 from ray_lightning_tpu_torch.utils.state_stream import (
@@ -248,7 +252,13 @@ class Trainer:
             self._make_spec(), module, self.strategy, datamodule=datamodule
         )
         if stage == "fit":
-            loop.run_fit(ckpt_stream)
+            try:
+                loop.run_fit(ckpt_stream)
+            except TrainingPreempted:
+                # Checkpoint-on-notice: the checkpoint is written and
+                # validated; ``fit(ckpt_path=exc.ckpt_path)`` resumes it.
+                self.state = dict(loop.state)
+                raise
             result = None
             self.current_epoch = loop.current_epoch
             self.global_step = loop.global_step

@@ -298,6 +298,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ray_lightning_tpu_torch.obs.registry, "
         "ray_lightning_tpu_torch.obs.anatomy, "
         "ray_lightning_tpu_torch.obs.journal, "
+        "ray_lightning_tpu_torch.serve.kvstore, "
         "ray_lightning_tpu_torch.utils.quantize, "
         "ray_lightning_tpu_torch.models.weights, "
         "ray_lightning_tpu_torch.models.gpt, "
@@ -343,6 +344,8 @@ class Probe:
         import ray_lightning_tpu_torch.serve.client
         import ray_lightning_tpu_torch.serve.server
         import ray_lightning_tpu_torch.serve.engine
+        import ray_lightning_tpu_torch.serve.kvfleet
+        import ray_lightning_tpu_torch.serve.kvstore
         import ray_lightning_tpu_torch.obs.health
         return [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "ray_lightning_tpu"

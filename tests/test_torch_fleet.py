@@ -256,41 +256,91 @@ def test_killed_replica_fails_over_bit_exact(fleet, weights):
     assert stats[0]["compiles_since_init"] == 0
 
 
-def test_replica_refuses_unported_options(weights):
+def test_replica_refuses_unported_options(weights, tmp_path):
+    """The gang options (item 11) and the profiler (item 14) still raise
+    naming their item. The fleet KV plane and the KV object store options
+    (item 9) now build: a replica given an inbox, peers and the plane's
+    budgets runs a plane, one given ``kvstore_dir`` a store; a prefill
+    role without a prefix pool is refused; without a plane ``ship_to``
+    and ``kv_hint`` are ignored and the request decodes here."""
+    import queue
+
     _, params = weights
     for kw, item in (({"dist": {"num_hosts": 2}}, "item 11"),
                      ({"gang_queues": [object()]}, "item 11"),
-                     ({"mesh": "2x1"}, "item 11"),
-                     ({"role": "prefill"}, "item 9"),
-                     ({"kv_inbox": object()}, "item 9"),
-                     ({"kv_peers": {1: object()}}, "item 9"),
-                     ({"kv_self": 1}, "item 9"),
-                     ({"kvfleet_timeout_s": 1.0}, "item 9"),
-                     ({"kvfleet_inflight_mb": 1.0}, "item 9"),
-                     ({"kvfleet_bandwidth_mbps": 1.0}, "item 9"),
-                     ({"kvfleet_layerwise": True}, "item 9"),
-                     ({"kvstore_dir": "/nonexistent"}, "item 9"),
-                     ({"kvstore_mb": 1.0}, "item 9"),
-                     ({"kvstore_namespace": "ns"}, "item 9"),
-                     ({"kvstore_writethrough": True}, "item 9")):
+                     ({"mesh": "2x1"}, "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             ServeReplica(params=params, model_config=CFG, device="cpu",
                          watchdog=False, **kw)
+    with pytest.raises(ValueError, match="prefix pool"):
+        ServeReplica(params=params, model_config=CFG, device="cpu",
+                     watchdog=False, role="prefill")
+    with pytest.raises(ValueError, match="unknown replica role"):
+        ServeReplica(params=params, model_config=CFG, device="cpu",
+                     watchdog=False, role="bogus")
+    inbox, peer = queue.Queue(), queue.Queue()
+    rep = ServeReplica(
+        params=params, model_config=CFG, device="cpu", num_slots=2,
+        watchdog=False, prefix_blocks=16, prefix_block=4, prefill_chunk=4,
+        role="prefill", kv_self=1, kv_inbox=inbox, kv_peers={0: peer, 1: inbox},
+        kvfleet_timeout_s=1.0, kvfleet_inflight_mb=1.0,
+        kvfleet_bandwidth_mbps=1.0, kvfleet_layerwise=True,
+        kvstore_dir=str(tmp_path / "kv"), kvstore_mb=1.0,
+        kvstore_namespace="ns", kvstore_writethrough=True,
+    )
+    try:
+        st = rep.stats()
+        plane, store = st["kvfleet"], st["kvstore"]
+        assert (st["role"], plane["role"], plane["peers"]) == (
+            "prefill", "prefill", 2)
+        assert plane["timeout_s"] == 1.0 and plane["max_inflight_mb"] == 1.0
+        assert plane["layerwise"] is True
+        assert rep.kvfleet.bandwidth_bytes_per_s == 1 << 20
+        assert store["path"] == str(tmp_path / "kv")
+        assert store["namespace"] == "ns" and store["budget_mb"] == 1.0
+        assert rep.scheduler.kvstore_writethrough is True
+        assert rep.register_kv_peer(2, queue.Queue()) is True
+        assert rep.kvfleet.stats()["peers"] == 3
+        header = rep.journal_dump()["header"]
+        assert header["kvfleet"]["role"] == "prefill"
+        assert header["kvstore"]["writethrough"] is True
+        # A submit with a ship target runs the prefill and ships.
+        prompt = list(range(1, 10))
+        rid = rep.submit(prompt, max_new_tokens=3, ship_to=0)
+        deadline = time.monotonic() + T
+        res = rep.result(rid, 0, wait_s=0.1)
+        while not res["done"] and time.monotonic() < deadline:
+            res = rep.result(rid, 0, wait_s=0.1)
+        assert res["status"] == "shipped" and res["ship_to"] == 0
+        assert res["tokens"] == _solo(params, prompt, 1)
+        assert len(res["ship_digests"]) == 2
+        kind, body = peer.get(timeout=T)
+        assert kind == "ship_layer" and body["request_id"] == rid
+        # Parking writes the chain through to the store and frees it.
+        parked = rep.park_session(prompt)
+        assert parked["stored"] == parked["blocks"] == 2
+        # The store's rings go out as bare digests, the router's form.
+        writes = rep.stats()["kvstore"]["recent_writes"]
+        assert set(res["ship_digests"]) <= set(writes)
+        assert all(len(bytes.fromhex(h)) == 16 for h in writes)
+    finally:
+        rep.stop()
     rep = ServeReplica(params=params, model_config=CFG, device="cpu",
                        num_slots=2, watchdog=False)
     try:
-        for call, item in ((lambda: rep.park_session([1, 2]), "item 9"),
-                           (lambda: rep.register_kv_peer(1, None), "item 9"),
-                           (lambda: rep.profile(1.0), "item 14"),
-                           (lambda: rep.submit([1, 2], ship_to=1), "item 9")):
-            with pytest.raises(NotImplementedError, match=item):
+        for call, err, item in (
+                (lambda: rep.park_session([1, 2]), RuntimeError, "kvstore_dir"),
+                (lambda: rep.profile(1.0), NotImplementedError, "item 14")):
+            with pytest.raises(err, match=item):
                 call()
-        rid = rep.submit([1, 2, 3], max_new_tokens=3,
+        assert rep.register_kv_peer(1, None) is False
+        rid = rep.submit([1, 2, 3], max_new_tokens=3, ship_to=1,
                          kv_hint={"peer": 1, "digests": [], "blocks": 0})
         deadline = time.monotonic() + T
         res = rep.result(rid, 0, wait_s=0.1)
         while not res["done"] and time.monotonic() < deadline:
             res = rep.result(rid, 0, wait_s=0.1)
         assert res["tokens"] == _solo(params, [1, 2, 3], 3)
+        assert "ship_to" not in res
     finally:
         rep.stop()

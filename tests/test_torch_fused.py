@@ -449,8 +449,8 @@ def test_piggybacked_final_cancelled_while_its_fold_is_in_flight(weights):
 def test_scheduler_folded_pipelined_under_load(weights):
     """tests/test_serve.py:643: 8 overlapping requests through a folded
     (K=4) pipelined monolithic engine: outputs exact under queueing and
-    continuous batching; the snapshot carries the port's rate and TTFT
-    fields (its decode-latency fields wait for ROADMAP item 9)."""
+    continuous batching; the snapshot carries the rate, TTFT and
+    decode-latency fields the JAX test reads."""
     _, params = weights
     eng = DecodeEngine(params, CFG, num_slots=3, max_seq=48,
                        prefill_buckets=[8, 16], decode_fold=4, device="cpu")
@@ -468,6 +468,9 @@ def test_scheduler_folded_pipelined_under_load(weights):
     assert snap["admitted"] == 8 and snap["finished"] == 8
     assert snap["tokens_per_sec"] > 0 and snap["steps_recorded"] > 0
     assert snap["ttft_max_s"] >= snap["ttft_p95_s"] >= snap["ttft_p50_s"] > 0
+    assert snap["decode_tokens_per_sec"] > 0
+    assert snap["step_time_p95_s"] >= snap["step_time_p50_s"] > 0
+    assert snap["inter_token_p50_s"] > 0
 
 
 def test_spec_cancel_with_verify_in_flight_and_recycle(weights):

@@ -371,3 +371,119 @@ def test_metadata_poller_matches_jax():
             mon.stop_metadata_poller()
 
     assert _both(scenario) == [True, "metadata:TERMINATE_ON_HOST_MAINTENANCE"]
+
+
+def _stub_wedge(ns):
+    """tests/test_health.py:526-606 on one package's scheduler: a
+    host-only engine double (no paged, piggyback or prefill counters)
+    admits, refuses while full, then wedges with capacity visible."""
+
+    class _StubEngine:
+        num_slots = 2
+        max_seq = 1024
+        decode_fold = 1
+        tracer = None
+        events = None
+
+        def __init__(self):
+            self._slots = [None, None]
+            self.admit_enabled = True
+
+        @property
+        def num_active(self):
+            return sum(1 for s in self._slots if s is not None)
+
+        def free_slots(self):
+            if not self.admit_enabled:
+                return []
+            return [i for i, s in enumerate(self._slots) if s is None]
+
+        def check_prompt_len(self, n):
+            pass
+
+        def admit_many(self, reqs):
+            out = []
+            for req in reqs:
+                slot = self.free_slots()[0]
+                self._slots[slot] = [req["request_id"],
+                                     req["max_new_tokens"] - 1]
+                out.append((slot, 1, req["max_new_tokens"] == 1))
+            return out
+
+        def prefill_step(self, budget):
+            return []
+
+        def step(self):
+            out = []
+            for slot, st in enumerate(self._slots):
+                if st is None:
+                    continue
+                st[1] -= 1
+                done = st[1] <= 0
+                out.append((slot, st[0], 1, done))
+                if done:
+                    self._slots[slot] = None
+            return out
+
+        def release(self, slot):
+            self._slots[slot] = None
+
+    reg, log = ns.Registry(), ns.EventLog()
+    eng = _StubEngine()
+    sched = ns.sched.Scheduler(
+        eng, metrics=ns.metrics.ServeMetrics(2, registry=reg), events=log,
+        max_prefills_per_step=2,
+    )
+    clock = {"t": 0.0}
+    lifecycle = reg.counter("rlt_serve_requests_total")
+    wd = ns.health.Watchdog(registry=reg, events=log)
+    wd.add_check(ns.health.admission_wedge_check(
+        sched.queue_depth, lambda: lifecycle.value(kind="admitted"),
+        stall_s=5.0, free_slots_fn=lambda: len(eng.free_slots()),
+        clock=lambda: clock["t"],
+    ))
+    sp = ns.sched.SamplingParams(max_new_tokens=3)
+    rec = []
+    sched.submit([1, 2, 3], sp, request_id="a")
+    evs = sched.run_until_idle()
+    rec += [[(e.request_id, e.token, e.done, e.reason) for e in evs],
+            wd.evaluate().healthy, bool(log.tail(name="admit_burst"))]
+    eng.admit_enabled = False
+    sched.submit([1, 2, 3], sp, request_id="b")
+    for _ in range(5):
+        sched.step()
+    clock["t"] = 10.0
+    rec.append(wd.evaluate().healthy)  # full is not wedged
+    eng.admit_enabled = True
+    rec.append(sched.queue_depth())
+    clock["t"] = 11.0
+    wd.evaluate()
+    clock["t"] = 20.0
+    rec.append(wd.evaluate().components["scheduler"].verdict)
+    evs = sched.run_until_idle()
+    rec += [[(e.request_id, e.token, e.done, e.reason) for e in evs],
+            wd.evaluate().healthy]
+    return rec
+
+
+def test_scheduler_admission_wedge_with_stubbed_engine():
+    """The port's scheduler runs the JAX suite's host-only engine double
+    (it reads ``paged``, ``piggyback_chunks``, ``num_prefilling``,
+    ``spec`` and ``prefix_blocks`` with defaults, as the JAX scheduler
+    does) and the watchdog's verdicts match the JAX package's."""
+    from ray_lightning_tpu.serve import metrics as j_metrics
+    from ray_lightning_tpu.serve import scheduler as j_sched
+    from ray_lightning_tpu_torch.serve import metrics as t_metrics
+    from ray_lightning_tpu_torch.serve import scheduler as t_sched
+
+    spaces = {
+        "jax": types.SimpleNamespace(sched=j_sched, metrics=j_metrics,
+                                     **vars(PKGS["jax"])),
+        "torch": types.SimpleNamespace(sched=t_sched, metrics=t_metrics,
+                                       **vars(PKGS["torch"])),
+    }
+    got = {name: _stub_wedge(ns) for name, ns in spaces.items()}
+    assert got["torch"] == got["jax"]
+    rec = got["torch"]
+    assert rec[1] is True and rec[2] is True and rec[3] is True
+    assert rec[4] == 1 and rec[5] == t_health.UNHEALTHY and rec[7] is True

@@ -236,10 +236,21 @@ def test_journal_captured_by_jax_replays_exact_in_the_port(weights, tmp_path):
     assert rows["late"]["outcome_replayed"] == "expired"
 
 
-def test_replay_rejects_bad_timing_missing_header_and_unported_knobs(weights):
+def test_replay_rejects_bad_timing_missing_header_and_unported_knobs(
+        weights, tmp_path):
     """tests/test_journal.py:284, and a header knob the port does not have
-    is refused naming its ROADMAP item, not ignored; the router section
-    is accepted and surfaces as ``router_config``."""
+    is refused naming its ROADMAP item, not ignored; the router, kvfleet
+    and kvstore sections are accepted and surface as ``router_config``,
+    ``kvfleet_config`` and ``kvstore_config`` (filtered to their known
+    keys, as the JAX package filters them), and an engine section's
+    ``kvstore_dir`` rebuilds the engine with its store."""
+    from ray_lightning_tpu.serve.kvfleet import (
+        kvfleet_config_from_header as jax_kvfleet_cfg,
+    )
+    from ray_lightning_tpu.serve.kvstore import (
+        kvstore_config_from_header as jax_kvstore_cfg,
+    )
+
     _, params = weights
     with pytest.raises(ValueError, match="timing"):
         replay_journal({"entries": []}, timing="nope")
@@ -250,28 +261,37 @@ def test_replay_rejects_bad_timing_missing_header_and_unported_knobs(weights):
     header = engine_header(eng)
     for bad, match in (
         (dict(header, engine=dict(header["engine"], mesh="2x1")), "item 11"),
-        (dict(header, engine=dict(header["engine"], kvstore_dir="kv")),
-         "item 9"),
-        (dict(header, kvfleet={"role": "prefill"}), "item 9"),
-        (dict(header, kvstore={"dir": "kv"}), "item 9"),
         (dict(header, engine=dict(header["engine"], no_such_knob=1)),
          "no_such_knob"),
     ):
         with pytest.raises(NotImplementedError, match=match):
             build_replay_scheduler(bad, params=params, device="cpu")
+    kv_root = str(tmp_path / "kv")
+    stored = dict(header, engine=dict(header["engine"], kvstore_dir=kv_root,
+                                      prefix_blocks=4))
+    sched = build_replay_scheduler(stored, params=params, device="cpu")
+    assert sched.engine.kvstore is not None
+    assert sched.engine.kvstore.path == kv_root
     # The router section (driver-side policy knobs) rebuilds separately:
     # the replay scheduler builds, and the replay surfaces the knobs.
-    routed = dict(header, router={"affinity": False, "bogus": 1})
+    routed = dict(header, router={"affinity": False, "bogus": 1},
+                  kvfleet={"role": "prefill", "layerwise": True, "bogus": 1},
+                  kvstore={"dir": "kv", "writethrough": True, "bogus": 1})
     build_replay_scheduler(routed, params=params, device="cpu")
-    assert replay_journal({"header": routed, "entries": []}, params=params,
-                          device="cpu")["router_config"] == {
-                              "affinity": False}
+    res = replay_journal({"header": routed, "entries": []}, params=params,
+                         device="cpu")
+    assert res["router_config"] == {"affinity": False}
+    assert res["kvfleet_config"] == jax_kvfleet_cfg(routed) == {
+        "role": "prefill", "layerwise": True}
+    assert res["kvstore_config"] == jax_kvstore_cfg(routed) == {
+        "dir": "kv", "writethrough": True}
 
 
 def test_header_carries_fused_dispatch_config_and_replays(weights):
-    """tests/test_journal.py:624 (without the KV store, ROADMAP queue 1
-    item 9): fold_ladder and piggyback_chunks ride the header, the replay
-    engine is built with the same fused config, and the replay is exact."""
+    """tests/test_journal.py:624 (the store's header section is held in
+    tests/test_torch_kvstore.py): fold_ladder and piggyback_chunks ride
+    the header, the replay engine is built with the same fused config,
+    and the replay is exact."""
     _, params = weights
     eng = DecodeEngine(params, CFG, num_slots=3, max_seq=64,
                        prefill_buckets=[16], prefill_chunk=4, decode_fold=2,

@@ -334,20 +334,47 @@ def test_fault_points_delay_and_drop(weights, monkeypatch):
         reset_monitor()
 
 
-def test_scheduler_refuses_unported_fleet_and_store_options(weights):
+def test_scheduler_refuses_unported_fleet_and_store_options(weights,
+                                                           tmp_path):
+    """The fleet KV plane and the KV object store options (item 9) now
+    build: the scheduler shares its tracer and fault injector with the
+    plane and labels its phases with the role; a park writes the chain to
+    the store and frees it; without a plane a ``kv_hint`` is ignored and
+    the request prefills here, with the solo run's tokens."""
+    import queue
+
+    from ray_lightning_tpu_torch.serve.kvfleet import KVFleetPlane
+    from ray_lightning_tpu_torch.serve.kvstore import FleetKVStore
+
     _, params = weights
     eng = DecodeEngine(params, CFG, device="cpu", **KINDS["dense"])
-    for kw in ({"kvfleet": object()}, {"role": "prefill"},
-               {"kvstore": object()}, {"kvstore_writethrough": True}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            Scheduler(eng, **kw)
-    sched = Scheduler(eng, kvfleet=None, role="mixed", kvstore=None,
+    tracer, inj = obs.RequestTracer(), FaultInjector.parse([])
+    store = FleetKVStore(str(tmp_path / "kv"))
+    inbox = queue.Queue()
+    plane = KVFleetPlane(index=0, inbox=inbox, peers={0: inbox},
+                         min_poll_s=0.0, store=store)
+    sched = Scheduler(eng, kvfleet=plane, role="prefill", kvstore=store,
+                      kvstore_writethrough=True, tracer=tracer, faults=inj)
+    assert plane.tracer is tracer and plane.faults is inj
+    assert (sched.role, sched.kvstore, sched.kvstore_writethrough) == (
+        "prefill", store, True)
+    prompt = list(range(1, 14))
+    sched.submit(prompt, SamplingParams(max_new_tokens=3), request_id="r")
+    toks = _tokens(sched.run_until_idle(), "r")
+    assert toks == _solo(params, prompt, 3)
+    assert store.writes == 3  # the write-through of the prefill's chain
+    assert sched.park_result(timeout=0.01) is None
+    sched.request_park(prompt, request_id="r")
+    assert sched.has_work()
+    sched.step()
+    rec = sched.park_result(timeout=5.0)
+    assert rec["blocks"] == rec["stored"] == rec["freed"] == 3
+    assert eng.cached_prefix_blocks(prompt) == 0
+    plain = Scheduler(eng, kvfleet=None, role="mixed", kvstore=None,
                       kvstore_writethrough=False)
-    for call in (lambda: sched.request_park([1, 2, 3]),
-                 lambda: sched.park_result(),
-                 lambda: sched.submit([1, 2], kv_hint={"peer": 0})):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    plain.submit(prompt, SamplingParams(max_new_tokens=3), request_id="h",
+                 kv_hint={"peer": 0, "digests": ["ab" * 16]})
+    assert _tokens(plain.run_until_idle(), "h") == toks
 
 
 # -- preemption drain and the prefix handoff ----------------------------------

@@ -325,3 +325,39 @@ def test_tracer_truncation_honesty():
     assert not tracer2.is_truncated("fresh")
     assert "truncated" not in tracer2.dump(4)
     assert all("truncated" not in ev for ev in tracer2.trace("fresh"))
+
+
+#: JAX ``obs`` names whose modules the port has not ported yet, each with
+#: its ROADMAP queue 1 item.
+_UNPORTED_OBS = {
+    "compile_stats": "item 14 (jaxmon: CUDA memory stats)",
+    "install_compile_listener": "item 14 (jaxmon)",
+    "capture_profile": "item 14 (profiling: torch.profiler)",
+    "profiler_available": "item 14 (profiling)",
+    "TrainTelemetry": "item 14 (telemetry)",
+    "heartbeats_to_registry": "item 14 (telemetry)",
+    "MetricsHTTPServer": "item 14 (httpd)",
+    "FleetPoller": "item 14 (fleet)",
+    "FleetSnapshot": "item 14 (fleet)",
+    "aggregate_fleet": "item 14 (fleet)",
+}
+
+
+def test_obs_exports_cover_the_jax_obs():
+    """The port's ``obs`` exports every name the JAX ``obs`` exports
+    (``ray_lightning_tpu/obs/__init__.py``) but those of modules still to
+    port; the health, flight-recorder and fleet-row names are the port
+    modules' own."""
+    from ray_lightning_tpu_torch.obs import blackbox, fleet, health
+
+    missing = set(jobs.__all__) - set(obs.__all__) - set(_UNPORTED_OBS)
+    assert not missing, sorted(missing)
+    assert not set(_UNPORTED_OBS) & set(obs.__all__)
+    for name, mod in (("ComponentHealth", health), ("HealthReport", health),
+                      ("SLORule", health), ("Watchdog", health),
+                      ("parse_slo_rules", health),
+                      ("FlightRecorder", blackbox), ("dump_bundle", blackbox),
+                      ("read_bundle", blackbox),
+                      ("summarize_replica", fleet)):
+        assert getattr(obs, name) is getattr(mod, name), name
+    assert all(hasattr(obs, n) for n in obs.__all__)

@@ -319,8 +319,9 @@ def test_int8_engine_is_bitwise_the_dequantized_engine(weights, kind):
 def test_build_engine_int8_equals_quantize_then_construct(weights, tmp_path):
     """build_engine(int8=True) quantizes at load: the same tokens as an
     engine constructed on quantize_params_int8 of the tree, from explicit
-    params and from a checkpoint; the resident weights shrink; mesh and
-    the KV store raise naming their ROADMAP items."""
+    params and from a checkpoint; the resident weights shrink; mesh raises
+    naming its ROADMAP item, and ``kvstore_dir`` builds the engine's KV
+    object store in the reference's namespace."""
     tree, _, t_q, fp = weights
     reqs = _reqs(4)
     kw = dict(num_slots=3, max_seq=64, prefill_buckets=[8, 16],
@@ -338,10 +339,28 @@ def test_build_engine_int8_equals_quantize_then_construct(weights, tmp_path):
     assert weight_bytes(eng.params) < 0.5 * weight_bytes(f_eng.params)
     with pytest.raises(NotImplementedError, match="item 11"):
         build_engine(params=fp, model_config=CFG, mesh="2x1", **kw)
-    for store in ({"kvstore_dir": str(tmp_path / "kv")},
-                  {"kvstore_mb": 64.0}, {"kvstore_namespace": "ns"}):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            build_engine(params=fp, model_config=CFG, **store, **kw)
+    # The KV object store (item 9): the namespace is the given one, else
+    # the reference's function of the raw (ckpt_path, model_config).
+    from ray_lightning_tpu.serve.kvstore import (
+        kvstore_namespace as jax_namespace,
+    )
+
+    for store, want in (
+            ({"kvstore_dir": str(tmp_path / "kv")},
+             jax_namespace(None, dataclasses.asdict(CFG))),
+            ({"kvstore_dir": str(tmp_path / "kv"), "kvstore_mb": 64.0},
+             jax_namespace(None, dataclasses.asdict(CFG))),
+            ({"kvstore_dir": str(tmp_path / "kv"), "kvstore_namespace": "ns"},
+             "ns")):
+        s_eng = build_engine(params=fp, model_config=dataclasses.asdict(CFG),
+                             prefix_blocks=4, **store, **kw)
+        assert s_eng.kvstore_namespace == s_eng.kvstore.namespace == want
+        assert s_eng.kvstore.budget_bytes == int(
+            store.get("kvstore_mb", 0.0) * (1 << 20))
+    for store in ({"kvstore_mb": 64.0}, {"kvstore_namespace": "ns"}):
+        # Without a directory there is no store, as in the reference.
+        assert build_engine(params=fp, model_config=CFG, **store,
+                            **kw).kvstore is None
     with pytest.raises(ValueError, match="model_config"):
         build_engine(params=fp, **kw)
 

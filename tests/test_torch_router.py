@@ -647,36 +647,93 @@ def test_client_policy_matches_jax(case):
         assert rec[0] == [(5 + 28 + i) % 97 for i in range(6)]
 
 
-def test_client_refuses_unported_options():
-    """What belongs to a later slice raises, naming its ROADMAP item."""
+def _spawned(monkeypatch, n, **kw):
+    """``start_replicas(n, **kw)`` over a stand-in fabric: the kwargs each
+    replica would be spawned with, and the client."""
+    spawned = []
+
+    class _Actor:
+        def __init__(self):
+            self.ping = _RemoteShim(lambda: "ok")
+
+    class _Cls:
+        def options(self, **opts):
+            return self
+
+        def remote(self, **kwargs):
+            spawned.append(kwargs)
+            return _Actor()
+
+    monkeypatch.setattr(t_client.fabric, "remote", lambda cls: _Cls())
+    monkeypatch.setattr(t_client.fabric, "get",
+                        lambda refs, timeout=None: refs)
+    monkeypatch.setattr(t_client.fabric, "placement_group",
+                        lambda *a, **k: object())
+    monkeypatch.setattr(t_client.fabric, "Queue", lambda: object())
+    client = t_client.start_replicas(n, device="cpu", **kw)
+    return spawned, client
+
+
+def test_client_refuses_unported_options(monkeypatch):
+    """What belongs to a later slice raises, naming its ROADMAP item. The
+    fleet KV plane and the KV object store (item 9) are ported: the
+    client takes roles, KV queues and a store handle, parks a session
+    and seeds the directory, and ``start_replicas`` wires every replica's
+    role, inbox, peers and budgets (the plane on by default for a cached
+    multi-replica fleet), refusing only fleets that cannot serve."""
     Fake = _fake_cls(PKGS["torch"])
-    client, _, _ = _client(PKGS["torch"], [Fake()])
+    rep = Fake()
+    client, _, _ = _client(PKGS["torch"], [rep])
     h = client.submit([1], max_new_tokens=1, request_id="u")
     for name, item in (("respawn_replica", "10b"), ("add_replica", "10b"),
                        ("retire_replica", "10b"),
                        ("prespawn_replacement", "10b"),
-                       ("preempt_drain", "10b"), ("park_session", "item 9"),
-                       ("seed_store_directory", "item 9"),
-                       ("profile", "item 14")):
+                       ("preempt_drain", "10b"), ("profile", "item 14")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(client, name)(h)
+    parked = []
+    rep._rpc_park_session = (
+        lambda tokens, request_id=None, wait_s=15.0: parked.append(
+            (tokens, request_id))
+        or {"digests": [], "blocks": 0, "stored": 0, "freed": 0})
+    assert client.park_session(h)["stored"] == 0
+    assert parked == [([1] + Fake.tokens_for([1], 0, 1), "u")]
+    assert client.seed_store_directory() == 0  # no store, no router
     assert client.can_respawn() is False
     for kw, item in (({"followers": [Fake()]}, "item 11"),
-                     ({"respawn_fn": lambda i: None}, "10b"),
-                     ({"kv_queues": {0: object()}}, "item 9"),
-                     ({"kvstore": object()}, "item 9"),
-                     ({"roles": ["prefill"]}, "item 9")):
+                     ({"respawn_fn": lambda i: None}, "10b")):
         with pytest.raises(NotImplementedError, match=item):
             t_client.ServeClient([Fake()], **kw)
+    q, store = object(), object()
+    c = t_client.ServeClient([Fake()], kv_queues={0: q}, kvstore=store,
+                             roles=["prefill"])
+    assert (c._kv_queues, c.kvstore, c.role_of(0)) == ({0: q}, store,
+                                                       "prefill")
     with pytest.raises(NotImplementedError, match="item 14"):
         t_router.Router(poller=object())
-    for kw, item in (({"hosts_per_replica": 2}, "item 11"),
-                     ({"roles": "decode"}, "item 9"),
-                     ({"kvfleet": True}, "item 9"),
-                     ({"kvfleet_timeout_s": 1.0}, "item 9"),
-                     ({"kvfleet_inflight_mb": 1.0}, "item 9"),
-                     ({"kvfleet_bandwidth_mbps": 1.0}, "item 9")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_client.start_replicas(1, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="kvfleet=False"):
-        t_client.start_replicas(2, device="cpu", prefix_blocks=8)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        t_client.start_replicas(1, device="cpu", hosts_per_replica=2)
+    spawned, _ = _spawned(monkeypatch, 1, roles="decode")
+    assert spawned[0]["role"] == "decode" and "kv_inbox" not in spawned[0]
+    spawned, _ = _spawned(monkeypatch, 1, kvfleet=True,
+                          kvfleet_timeout_s=1.0, kvfleet_inflight_mb=1.0,
+                          kvfleet_bandwidth_mbps=1.0)
+    assert (spawned[0]["kv_self"], spawned[0]["kvfleet_timeout_s"],
+            spawned[0]["kvfleet_inflight_mb"],
+            spawned[0]["kvfleet_bandwidth_mbps"]) == (0, 1.0, 1.0, 1.0)
+    spawned, client = _spawned(monkeypatch, 2, prefix_blocks=8,
+                               roles=["prefill", "decode"])
+    assert [s["role"] for s in spawned] == ["prefill", "decode"]
+    assert [s["kv_self"] for s in spawned] == [0, 1]
+    assert spawned[0]["kv_peers"] == spawned[1]["kv_peers"] == {
+        0: spawned[0]["kv_inbox"], 1: spawned[1]["kv_inbox"]}
+    assert client.role_of(1) == "decode" and client.kvstore is None
+    for kw, match in (({"roles": ["prefill"], "prefix_blocks": 8},
+                       "never decode"),
+                      ({"roles": ["prefill", "decode"]}, "prefix pool"),
+                      ({"roles": ["prefill", "decode"], "prefix_blocks": 8,
+                        "kvfleet": False}, "fleet KV plane"),
+                      ({"roles": ["bogus", "decode"]}, "unknown role")):
+        n = len(kw["roles"])
+        with pytest.raises(ValueError, match=match):
+            t_client.start_replicas(n, device="cpu", **kw)

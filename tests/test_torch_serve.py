@@ -11,6 +11,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -267,14 +268,18 @@ def test_engine_options_not_ported_raise(weights):
     """Each option still unported raises naming its ROADMAP item; the
     chunked prefill and prefix cache options (item 3), paged KV (item 4),
     speculative decoding (item 5), piggybacked chunks and the fold ladder
-    (item 6) and the pipelined dispatch (item 7) now construct."""
+    (item 6), the pipelined dispatch (item 7) and the KV object store
+    (item 9) now construct."""
     _, params = weights
-    for kw, item in (
-        ({"kvstore_dir": "x"}, 9), ({"mesh": object()}, 11),
-    ):
+    for kw, item in (({"mesh": object()}, 11),):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}"):
             _engine(params, **kw)
+    with tempfile.TemporaryDirectory() as root:
+        eng = _engine(params, prefix_blocks=4, kvstore_dir=root,
+                      kvstore_mb=1.0, kvstore_namespace="cafe0123cafe0123")
+        assert eng.kvstore.namespace == "cafe0123cafe0123"
+        assert eng.kvstore.budget_bytes == 1 << 20
     with pytest.raises(TypeError):
         _engine(params, no_such_option=1)
     # The JAX defaults of the unported options are accepted.

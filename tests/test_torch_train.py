@@ -557,6 +557,96 @@ def test_state_stream_round_trips_a_training_state():
     np.testing.assert_array_equal(back["table"], state["table"])
 
 
+class _JNoticeAt(JCallback):
+    """Records a preemption notice on this process once ``global_step``
+    reaches ``at`` (tests/test_preempt.py:787)."""
+
+    def __init__(self, at):
+        self.at, self.fired = at, False
+
+    def on_train_batch_end(self, trainer, module, logs, batch_idx):
+        from ray_lightning_tpu.serve.preempt import get_monitor
+
+        if not self.fired and trainer.global_step >= self.at:
+            self.fired = True
+            get_monitor().notice(grace_s=3600.0, source="test")
+
+
+class _TNoticeAt(TCallback):
+    def __init__(self, at):
+        self.at, self.fired = at, False
+
+    def on_train_batch_end(self, trainer, module, logs, batch_idx):
+        from ray_lightning_tpu_torch.serve.preempt import get_monitor
+
+        if not self.fired and trainer.global_step >= self.at:
+            self.fired = True
+            get_monitor().notice(grace_s=3600.0, source="test")
+
+
+@pytest.mark.parametrize("fold", [1, 2])
+def test_preempt_notice_checkpoints_and_resumes_exact(tmp_path, fold):
+    """Checkpoint-on-notice (tests/test_preempt.py:827-908): a notice at
+    step 2 raises TrainingPreempted with a validated checkpoint that
+    carries the epoch position; a fresh fit from it continues the epoch
+    with the partial accumulation window kept and ends on the
+    uninterrupted fit's parameters, bit for bit, and on the JAX package's
+    preempted-and-resumed fit's within 1e-4. With ``steps_per_execution``
+    the notice is answered at the next chunk boundary."""
+    from ray_lightning_tpu.serve.preempt import reset_monitor as j_reset
+    from ray_lightning_tpu.trainer.loop import TrainingPreempted as JPreempted
+    from ray_lightning_tpu_torch.serve.preempt import reset_monitor as t_reset
+    from ray_lightning_tpu_torch.trainer import TrainingPreempted
+
+    kw = dict(max_epochs=2, seed=0, num_sanity_val_steps=0,
+              check_val_every_n_epoch=10 ** 9, log_every_n_steps=1,
+              accumulate_grad_batches=2, enable_model_summary=False,
+              steps_per_execution=fold)
+
+    def t_fit(root, cbs=(), ckpt=None):
+        tt = TTrainer(callbacks=list(cbs), default_root_dir=str(root),
+                      device="cpu", **kw)
+        tm = _TBoringShared(dataset_length=80, batch_size=2 * MULT)
+        tt.fit(tm, ckpt_path=ckpt)
+        return tt, tm
+
+    _, base = t_fit(tmp_path / "base")
+    t_reset()
+    try:
+        with pytest.raises(TrainingPreempted) as exc:
+            t_fit(tmp_path / "pre", [_TNoticeAt(2)])
+    finally:
+        t_reset()
+    path = exc.value.ckpt_path
+    assert os.path.basename(path) == (
+        f"last-preempt-step{exc.value.global_step:08d}.ckpt")
+    assert exc.value.global_step == 2
+    with open(path, "rb") as f:
+        state = load_state_stream(f.read())
+    assert state["resume_batch"] == exc.value.global_step
+    assert state["mid_epoch"] is True
+    tt, resumed = t_fit(tmp_path / "resume", ckpt=path)
+    assert tt.global_step == 10
+    for k in ("w", "b"):
+        assert torch.equal(resumed.params[k], base.params[k]), k
+    if fold > 1:
+        return  # the JAX loop folds through stacked batches; held above
+    jkw = {k: v for k, v in kw.items() if k != "steps_per_execution"}
+    j_reset()
+    try:
+        jt = JTrainer(callbacks=[_JNoticeAt(2)],
+                      default_root_dir=str(tmp_path / "jax"), **jkw)
+        with pytest.raises(JPreempted) as jexc:
+            jt.fit(_JBoringShared(dataset_length=80))
+    finally:
+        j_reset()
+    assert jexc.value.global_step == exc.value.global_step
+    jm = _JBoringShared(dataset_length=80)
+    JTrainer(default_root_dir=str(tmp_path / "jax2"), **jkw).fit(
+        jm, ckpt_path=jexc.value.ckpt_path)
+    _assert_tree_close(resumed.params, jm.params, TOL)
+
+
 @pytest.mark.parametrize(
     "kwargs,item",
     [
