@@ -202,7 +202,31 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    CUDA graph of 4 steps per dispatch): each of its losses must equal the
    K = 1 run's step at the same boundary within 1e-3 relative, with the
    same kernel launches; prints both step times.
-14. Print the ``{"kernels": [...]}`` line, the card line, and last
+14. train-dist: the launched trainer (``Trainer.fit`` -> ``GPULauncher``
+   -> fabric actors). (a) Phase 13's fit through ``RayStrategy(
+   num_workers=1)``: one actor with the whole card, NCCL, every step a
+   CUDA graph; every step's loss and the driver's recovered parameters
+   must be bitwise phase 13's, each kernel launched as often as there
+   (K2, K3 12 per step, the reference path never), the worker's graphs
+   frozen after the first step, the checkpoint path recovered in the
+   driver. (b) ``HorovodRayStrategy``, ``RayShardedStrategy(zero_stage=
+   1)`` and ``zero_stage=3``, one worker each, 6 steps: losses and final
+   parameters (SHA-256) bitwise (a)'s first 6, the same launches, graphs;
+   between steps ZeRO-3 must hold at least 90% of the fp32 parameters'
+   bytes less than ZeRO-1 (its full leaves are freed at rest).
+   (c) ``RayStrategy(num_workers=2, resources_per_worker={"GPU": 0.5})``:
+   two ranks on the one card over gloo, eager, fp32, 4 layers, 4 rows per
+   rank, 10 steps, against an in-process fit of the same model on 8 rows
+   from the same weights: losses within 1e-4 relative, parameters within
+   1e-4; both ranks on one card; the fractional-GPU and eager warnings
+   seen. A callback of this script records each worker's launches, graphs,
+   losses, step ends, backend, peak memory, memory allocated between steps
+   and memory reserved under
+   ``build/smoke_train_dist/``. Prints each fit's workers-ready seconds,
+   backend, graphs, step time beside phase 13's, tokens/s and peak memory
+   per rank, and the phase's wall; afterwards no child process may be
+   left and the card's used memory must be within 256 MiB of before.
+15. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
@@ -4015,7 +4039,15 @@ def phase_train(n_steps: int = 20):
     }
     train["steps_per_execution"] = train_folded(n_steps)
     print(f"[train] {json.dumps(train)} on {card_line()}")
-    return launches, train
+    # The yardstick of train-dist (a): this fit's per-step losses, final
+    # parameters (CPU copies) and launches.
+    yard = {"losses": losses, "launches": launches,
+            "step_ms": step_s * 1e3, "val_loss": train["val_loss"],
+            "params": {k: (v.detach().cpu().clone() if torch.is_tensor(v)
+                           else {n: t.detach().cpu().clone()
+                                 for n, t in v.items()})
+                       for k, v in module.params.items()}}
+    return launches, train, yard
 
 
 def train_folded(n_steps: int, fold: int = 4) -> dict:
@@ -4075,6 +4107,426 @@ def train_folded(n_steps: int, fold: int = 4) -> dict:
             "graphs": many["graphs"]}
 
 
+DIST_ROOT = os.path.join(HERE, "build", "smoke_train_dist")
+#: (b)'s fits and their steps: each held bitwise against (a)'s first 6.
+DIST_B_STEPS = 6
+#: (c): two ranks sharing the card, fp32, 4 layers, 10 steps.
+DIST_C = dict(n_layer=4, batch=4, steps=10)
+
+
+def dist_probe(tag: str, digest_at: int = 0):
+    """A callback of this script for launched fits: in each worker it
+    zeroes the kernel counters as the fit starts, records every step's
+    loss, end time and graph count, and at the fit's end writes one JSON
+    per rank under ``build/smoke_train_dist/`` (the launches, the graphs,
+    the group's backend, the card it ran on, peak memory). With
+    ``digest_at`` it also records a SHA-256 of the parameters after that
+    step."""
+    from ray_lightning_tpu_torch.trainer import Callback
+
+    class DistProbe(Callback):
+        def __init__(self):
+            self.tag, self.digest_at = tag, digest_at
+
+        def on_fit_start(self, trainer, module):
+            import torch
+
+            from ray_lightning_tpu_torch.ops.flash_attention import counters
+
+            counters.reset()
+            if torch.cuda.is_available():
+                torch.cuda.reset_peak_memory_stats()
+            self.ends, self.losses, self.graphs = [], [], []
+            self.digest, self.at_rest = None, 0
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.ends.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+            self.graphs.append(sum(p.compiled_count for p in
+                                   dict.fromkeys(trainer.train_programs)))
+            if self.digest_at and trainer.global_step == self.digest_at:
+                self.digest = params_digest(trainer.params)
+            import torch
+
+            if torch.cuda.is_available():
+                # Between steps: what the fit holds at rest.
+                self.at_rest = torch.cuda.memory_allocated()
+
+        def on_fit_end(self, trainer, module):
+            import torch
+
+            from ray_lightning_tpu_torch.ops.flash_attention import counters
+
+            strat = trainer.strategy
+            cuda = torch.cuda.is_available()
+            rec = {
+                "rank": trainer.global_rank, "world": trainer.world_size,
+                "backend": strat.dist_env.backend,
+                "graphed": bool(trainer.train_programs[0].capture),
+                "launches": {"flash_fwd": counters.launches,
+                             "flash_bwd_dkv": counters.bwd_dkv_launches,
+                             "flash_bwd_dq": counters.bwd_dq_launches,
+                             "reference": counters.reference},
+                "losses": self.losses, "ends": self.ends,
+                "graphs": self.graphs, "digest": self.digest,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "card": (str(torch.cuda.get_device_properties(0).uuid)
+                         if cuda else None),
+                "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                 if cuda else 0.0),
+                "at_rest_mib": self.at_rest / 2**20,
+                "reserved_gib": (torch.cuda.memory_reserved() / 2**30
+                                 if cuda else 0.0),
+            }
+            os.makedirs(DIST_ROOT, exist_ok=True)
+            path = os.path.join(DIST_ROOT,
+                                f"{self.tag}-rank{trainer.global_rank}.json")
+            with open(path, "w") as f:
+                json.dump(rec, f)
+
+    return DistProbe()
+
+
+def params_digest(params) -> str:
+    """SHA-256 of a parameter tree's bytes, leaf by leaf in tree order."""
+    import hashlib
+
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for leaf in tree_leaves(params):
+        h.update(leaf.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def read_probe(tag: str, world: int) -> list:
+    out = []
+    for r in range(world):
+        with open(os.path.join(DIST_ROOT, f"{tag}-rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def params_max_diff(a, b) -> float:
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def params_equal(a, b) -> bool:
+    import torch
+
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def dist_fit(tag: str, strategy, module, root: str, n_steps: int,
+             digest_at: int = 0, **kw) -> dict:
+    """One launched fit of ``module`` for ``n_steps`` steps through
+    ``Trainer.fit`` and the launcher; returns the driver's trainer and the
+    ranks' probe records, with the actors' spawn seconds (the fabric's
+    ``actor_start`` events) and the fit's wall."""
+    from ray_lightning_tpu_torch.trainer import Trainer
+
+    shutil.rmtree(root, ignore_errors=True)
+    for name in os.listdir(DIST_ROOT) if os.path.isdir(DIST_ROOT) else ():
+        if name.startswith(tag + "-"):
+            os.remove(os.path.join(DIST_ROOT, name))
+    trainer = Trainer(strategy=strategy, max_steps=n_steps, seed=0,
+                      log_every_n_steps=1, default_root_dir=root,
+                      callbacks=[dist_probe(tag, digest_at)], **kw)
+    t_wall, t0 = time.time(), time.perf_counter()
+    trainer.fit(module)
+    wall = time.perf_counter() - t0
+    ranks = read_probe(tag, strategy.num_workers)
+    return {"trainer": trainer, "ranks": ranks, "wall_s": wall,
+            "spawn_s": workers_ready_seconds(t_wall)}
+
+
+def workers_ready_seconds(t0: float) -> float:
+    """Seconds the launcher took from spawning a fit's actors (together)
+    until every one answered: its ``workers_ready`` event after ``t0``."""
+    from ray_lightning_tpu_torch.obs.events import get_event_log
+
+    ready = [e for e in get_event_log().tail(64, subsystem="launcher",
+                                             name="workers_ready")
+             if e["ts"] >= t0]
+    if not ready:
+        fail("train-dist: the launcher recorded no workers_ready event")
+    return ready[-1]["seconds"]
+
+
+def dist_summary(tag: str, run: dict, tokens_per_step: int) -> dict:
+    """What the phase prints of one launched fit: backend, graphs, step
+    time (median of steps 3 to the end), tokens/s and peak memory per
+    rank, spawn seconds."""
+    ranks = run["ranks"]
+    steps = [b - a for a, b in zip(ranks[0]["ends"], ranks[0]["ends"][1:])]
+    step_ms = statistics_median(steps[2:]) * 1e3
+    return {"fit": tag, "world": ranks[0]["world"],
+            "backend": ranks[0]["backend"], "graphed": ranks[0]["graphed"],
+            "graphs": ranks[0]["graphs"][-1], "step_ms_median": step_ms,
+            "tokens_per_s": tokens_per_step / step_ms * 1e3,
+            "tokens_per_s_per_rank": tokens_per_step / step_ms * 1e3
+            / len(ranks),
+            "peak_mem_gib_per_rank": [r["peak_mem_gib"] for r in ranks],
+            "at_rest_mib_per_rank": [r["at_rest_mib"] for r in ranks],
+            "reserved_gib_per_rank": [r["reserved_gib"] for r in ranks],
+            "spawn_s": run["spawn_s"], "wall_s": run["wall_s"],
+            "launches_rank0": ranks[0]["launches"]}
+
+
+def check_dist_kernels(tag: str, ranks: list, n_steps: int, n_layer: int,
+                       fwd_want=None) -> None:
+    """Each rank ran K2 and K3 once per layer per step, K1 at least that
+    often (``fwd_want`` exactly, when given) and the reference path
+    never."""
+    expect = n_layer * n_steps
+    for r in ranks:
+        got = r["launches"]
+        if (got["flash_bwd_dkv"] != expect or got["flash_bwd_dq"] != expect
+                or got["reference"] != 0 or got["flash_fwd"] < expect
+                or (fwd_want is not None and got["flash_fwd"] != fwd_want)):
+            fail(f"train-dist {tag} rank {r['rank']}: launches {got}, "
+                 f"expected {expect} of each backward kernel, flash_fwd "
+                 f"{fwd_want if fwd_want is not None else f'>= {expect}'} "
+                 "and 0 reference-path calls")
+
+
+def phase_train_dist(yard: dict):
+    """train-dist: the launched trainer on fabric actors. (a) The train
+    phase's fit through ``RayStrategy(num_workers=1)`` (NCCL, graphs),
+    bitwise phase 13's; (b) ``HorovodRayStrategy`` and
+    ``RayShardedStrategy`` stages 1 and 3 for 6 steps, bitwise (a)'s
+    first 6; (c) two ranks sharing the card (gloo, eager, fp32, 4 layers)
+    against an in-process fit of the same global batch. Returns each
+    kernel's launches on the phase's fits."""
+    import gc
+    import logging
+
+    import torch
+
+    from ray_lightning_tpu_torch import fabric
+    from ray_lightning_tpu_torch.models.gpt import GPTLM, GPTConfig
+    from ray_lightning_tpu_torch.strategies import (
+        HorovodRayStrategy,
+        RayShardedStrategy,
+        RayStrategy,
+    )
+    from ray_lightning_tpu_torch.trainer import Trainer
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt2_small()
+    batch, n_steps = 8, len(yard["losses"])
+    tokens = batch * cfg.max_seq
+
+    def gpt2(**kw):
+        return GPTLM(cfg, batch_size=batch, warmup_steps=2,
+                     n_train=2 * batch, **kw)
+
+    # (c)'s yardstick first, in this process, so that its memory is
+    # returned before the card's memory is read.
+    c_cfg = GPTConfig.gpt2_small(n_layer=DIST_C["n_layer"],
+                                 compute_dtype="float32")
+    c_kw = dict(max_steps=DIST_C["steps"], max_epochs=DIST_C["steps"],
+                precision="fp32", seed=0, log_every_n_steps=1,
+                limit_val_batches=0, num_sanity_val_steps=0,
+                enable_checkpointing=False, enable_model_summary=False)
+
+    from ray_lightning_tpu_torch.trainer import Callback
+
+    class Losses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.losses.append(logs["loss"])
+
+    c_losses = Losses()
+    c_mod = GPTLM(c_cfg, batch_size=2 * DIST_C["batch"], warmup_steps=2,
+                  n_train=4 * DIST_C["batch"])
+    Trainer(callbacks=[c_losses], **c_kw).fit(c_mod)
+    c_yard = {"losses": c_losses.losses,
+              "params": {k: (v.cpu() if torch.is_tensor(v)
+                             else {n: t.cpu() for n, t in v.items()})
+                         for k, v in c_mod.params.items()}}
+    del c_mod
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_before = card_memory_mib()
+    kids_before = child_pids()
+
+    warned = []
+
+    class Seen(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    handler = Seen(level=logging.WARNING)
+    logging.getLogger("ray_lightning_tpu_torch").addHandler(handler)
+    summaries, launches = [], {"flash_fwd": 0, "flash_bwd_dkv": 0,
+                               "flash_bwd_dq": 0}
+
+    def tally(ranks):
+        for r in ranks:
+            for k in launches:
+                launches[k] += r["launches"][k]
+
+    try:
+        # (a) the train phase's fit, one whole-card worker.
+        root = os.path.join(DIST_ROOT, "a")
+        module = gpt2()
+        a = dist_fit("a", RayStrategy(num_workers=1), module, root, n_steps,
+                     digest_at=DIST_B_STEPS, max_epochs=n_steps // 2,
+                     limit_val_batches=2, check_val_every_n_epoch=5)
+        (r,) = a["ranks"]
+        tally(a["ranks"])
+        best = a["trainer"].checkpoint_callback.best_model_path
+        same_params = params_equal(module.params, yard["params"])
+        print(f"[train-dist] (a) RayStrategy(num_workers=1): losses "
+              f"{r['losses']}; bitwise the train phase's: losses "
+              f"{r['losses'] == yard['losses']}, params {same_params}; "
+              f"graphs per step {r['graphs']}; checkpoint {best}")
+        if r["losses"] != yard["losses"]:
+            worst = max(abs(x - y) / abs(y)
+                        for x, y in zip(r["losses"], yard["losses"]))
+            fail(f"train-dist (a): losses differ from the train phase's "
+                 f"(worst relative {worst}): {r['losses']} vs "
+                 f"{yard['losses']}")
+        if not same_params:
+            fail(f"train-dist (a): final params differ from the train "
+                 f"phase's by {params_max_diff(module.params, yard['params'])}")
+        check_dist_kernels("(a)", a["ranks"], n_steps, cfg.n_layer,
+                           fwd_want=yard["launches"]["flash_fwd"])
+        if (r["backend"] != "nccl" or not r["graphed"] or r["graphs"][0] < 1
+                or len(set(r["graphs"])) != 1):
+            fail(f"train-dist (a): backend {r['backend']}, graphed "
+                 f"{r['graphed']}, graphs per step {r['graphs']}: expected "
+                 "nccl, graphed, frozen after the first step")
+        if (not best or not best.startswith(root) or not os.path.exists(best)
+                or a["trainer"].global_step != n_steps):
+            fail(f"train-dist (a): checkpoint {best!r} not recovered in the "
+                 f"driver, or {a['trainer'].global_step} steps")
+        summaries.append(dist_summary("a", a, tokens))
+        del module, a
+        shutil.rmtree(root, ignore_errors=True)
+
+        # (b) the other strategies, 6 steps each, bitwise (a)'s first 6.
+        at_rest = {}
+        param_mib = sum(t.numel() * 4 for t in tree_leaves(
+            yard["params"])) / 2**20
+        for tag, strat in (
+            ("b-horovod", HorovodRayStrategy(num_workers=1)),
+            ("b-zero1", RayShardedStrategy(num_workers=1, zero_stage=1)),
+            ("b-zero3", RayShardedStrategy(num_workers=1, zero_stage=3)),
+        ):
+            root = os.path.join(DIST_ROOT, tag)
+            module = gpt2()
+            b = dist_fit(tag, strat, module, root, DIST_B_STEPS,
+                         max_epochs=DIST_B_STEPS // 2, limit_val_batches=2,
+                         check_val_every_n_epoch=5)
+            (rb,) = b["ranks"]
+            tally(b["ranks"])
+            digest = params_digest(module.params)
+            print(f"[train-dist] ({tag}) losses {rb['losses']}; bitwise "
+                  f"(a)'s first {DIST_B_STEPS}: losses "
+                  f"{rb['losses'] == r['losses'][:DIST_B_STEPS]}, params "
+                  f"{digest == r['digest']}; graphs {rb['graphs']}")
+            if rb["losses"] != r["losses"][:DIST_B_STEPS]:
+                fail(f"train-dist ({tag}): losses {rb['losses']} differ from "
+                     f"(a)'s first {DIST_B_STEPS} {r['losses'][:DIST_B_STEPS]}")
+            if digest != r["digest"]:
+                fail(f"train-dist ({tag}): final params differ from (a)'s "
+                     f"after {DIST_B_STEPS} steps (SHA-256)")
+            check_dist_kernels(f"({tag})", b["ranks"], DIST_B_STEPS,
+                               cfg.n_layer)
+            if (rb["backend"] != "nccl" or not rb["graphed"]
+                    or len(set(rb["graphs"])) != 1):
+                fail(f"train-dist ({tag}): backend {rb['backend']}, graphed "
+                     f"{rb['graphed']}, graphs per step {rb['graphs']}")
+            summaries.append(dist_summary(tag, b, tokens))
+            at_rest[tag] = rb["at_rest_mib"]
+            del module, b
+            shutil.rmtree(root, ignore_errors=True)
+        # ZeRO-3 holds its slices of the fp32 leaves between steps and not
+        # the leaves: at world 1, one copy of the parameters less.
+        cut = at_rest["b-zero1"] - at_rest["b-zero3"]
+        print(f"[train-dist] between steps: zero1 {at_rest['b-zero1']} MiB, "
+              f"zero3 {at_rest['b-zero3']} MiB allocated; the fp32 "
+              f"parameters are {param_mib} MiB")
+        if cut < 0.9 * param_mib:
+            fail(f"train-dist (b-zero3): {at_rest['b-zero3']} MiB allocated "
+                 f"between steps, {cut} MiB below zero1's: expected the "
+                 f"{param_mib} MiB of full fp32 leaves freed")
+
+        # (c) two ranks on the one card: gloo, eager, fp32.
+        root = os.path.join(DIST_ROOT, "c")
+        module = GPTLM(c_cfg, batch_size=DIST_C["batch"], warmup_steps=2,
+                       n_train=4 * DIST_C["batch"])
+        n_warned = len(warned)
+        c = dist_fit("c", RayStrategy(num_workers=2,
+                                      resources_per_worker={"GPU": 0.5}),
+                     module, root, DIST_C["steps"],
+                     **{k: v for k, v in c_kw.items()
+                        if k not in ("max_steps", "seed", "log_every_n_steps")})
+        tally(c["ranks"])
+        got = c["ranks"][0]["losses"]
+        worst = max(abs(x - y) / abs(y) for x, y in zip(got, c_yard["losses"]))
+        pdiff = params_max_diff(module.params, c_yard["params"])
+        seen = warned[n_warned:]
+        frac = any("fractional GPU" in m for m in seen)
+        eager = any("eagerly" in m for m in seen)
+        cards = {rc["card"] for rc in c["ranks"]}
+        print(f"[train-dist] (c) 2 ranks at GPU=0.5: losses {got} vs the "
+              f"in-process fit's {c_yard['losses']}: worst relative "
+              f"{worst}; params max abs diff {pdiff}; cards {sorted(cards)}; "
+              f"fractional warning {frac}, eager warning {eager}")
+        if len(got) != DIST_C["steps"] or worst > 1e-4:
+            fail(f"train-dist (c): losses {got} vs {c_yard['losses']} "
+                 f"(worst relative {worst} > 1e-4)")
+        if pdiff > 1e-4:
+            fail(f"train-dist (c): final params differ by {pdiff} > 1e-4")
+        if len(cards) != 1 or None in cards:
+            fail(f"train-dist (c): ranks ran on cards {cards}, expected one")
+        if not (frac and eager):
+            fail(f"train-dist (c): warnings seen {seen}: expected the "
+                 "fractional-GPU and the eager one")
+        for rc in c["ranks"]:
+            if rc["backend"] != "gloo" or rc["graphed"] or any(rc["graphs"]):
+                fail(f"train-dist (c) rank {rc['rank']}: backend "
+                     f"{rc['backend']}, graphed {rc['graphed']}")
+        check_dist_kernels("(c)", c["ranks"], DIST_C["steps"],
+                           DIST_C["n_layer"])
+        summaries.append(dist_summary(
+            "c", c, 2 * DIST_C["batch"] * c_cfg.max_seq))
+        del module, c
+        shutil.rmtree(root, ignore_errors=True)
+    finally:
+        logging.getLogger("ray_lightning_tpu_torch").removeHandler(handler)
+        fabric.shutdown()
+        shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    gc.collect()
+    kids = [k for k in child_pids() if k not in kids_before]
+    mem_after = card_memory_mib()
+    for row in summaries:
+        print(f"[train-dist] {json.dumps(row)}")
+    print(f"[train-dist] step ms: train phase {yard['step_ms']}, "
+          + ", ".join(f"({x['fit']}) {x['step_ms_median']}" for x in summaries)
+          + f"; card memory {mem_before} -> {mem_after} MiB; phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s on {card_line()}")
+    if kids:
+        fail(f"train-dist: child processes left: {kids}")
+    if mem_after > mem_before + FLEET_MEM_SLACK_MIB:
+        fail(f"train-dist: card memory {mem_after} MiB after the phase, "
+             f"{mem_before} MiB before (slack {FLEET_MEM_SLACK_MIB})")
+    return launches
+
+
 def statistics_median(xs) -> float:
     import statistics
 
@@ -4115,7 +4567,8 @@ def main() -> None:
                                         serve4)
     kvplane_launches = timed_phase("serve-kvplane", phase_serve_kvplane,
                                    fleet)
-    train_launches, _ = timed_phase("train", phase_train)
+    train_launches, _, yard = timed_phase("train", phase_train)
+    dist_launches = timed_phase("train-dist", phase_train_dist, yard)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_fwd",
@@ -4124,7 +4577,8 @@ def main() -> None:
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
         "launches": serve_launches + spec_launches + fused_launches
         + int8_launches + lifecycle_launches + fleet_launches
-        + kvplane_launches + train_launches["flash_fwd"],
+        + kvplane_launches + train_launches["flash_fwd"]
+        + dist_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
                              "serve_paged": paged_launches,
@@ -4134,7 +4588,8 @@ def main() -> None:
                              "serve_lifecycle": lifecycle_launches,
                              "serve_fleet": fleet_launches,
                              "serve_kvplane": kvplane_launches,
-                             "train": train_launches["flash_fwd"]},
+                             "train": train_launches["flash_fwd"],
+                             "train_dist": dist_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],
         "ms": timed["ms"],
@@ -4157,7 +4612,9 @@ def main() -> None:
             "route": "cuda",
             "source": src + "flash_bwd.cu",
             "replaces": f"ray_lightning_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name],
+            "launches": train_launches[name] + dist_launches[name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "train_dist": dist_launches[name]},
             "max_abs_err": bwd_worst["bfloat16"],
             "max_abs_err_fp32": bwd_worst["float32"],
             "ms": row["ms"],

@@ -16,8 +16,12 @@ scheduler's cost ledger and preemption drain, and the serving fleet's
 front door: the actor fabric (``fabric/``), replicas, the client and
 router (``serve/server.py``, ``serve/client.py``, ``serve/router.py``),
 the watchdog, flight recorder and preemption monitor (``obs/health.py``,
-``obs/blackbox.py``, ``serve/preempt.py``). It imports ``torch``, never
-``jax``, and nothing of ``ray_lightning_tpu``.
+``obs/blackbox.py``, ``serve/preempt.py``), the fleet KV plane and store
+(``serve/kvfleet.py``, ``serve/kvstore.py``), and the distributed trainer:
+``RayStrategy``, ``HorovodRayStrategy`` and ``RayShardedStrategy``
+(``strategies/``) launched on the fabric (``launchers/``, ``parallel/``),
+with ``Trainer(max_restarts=...)``. It imports ``torch``, never ``jax``,
+and nothing of ``ray_lightning_tpu``.
 """
 __version__ = "0.1.0"
 
@@ -29,6 +33,10 @@ _LAZY = {
     "Trainer": "ray_lightning_tpu_torch.trainer",
     "TorchModule": "ray_lightning_tpu_torch.trainer",
     "SingleDeviceStrategy": "ray_lightning_tpu_torch.strategies",
+    "RayStrategy": "ray_lightning_tpu_torch.strategies",
+    "RayGPUStrategy": "ray_lightning_tpu_torch.strategies",
+    "HorovodRayStrategy": "ray_lightning_tpu_torch.strategies",
+    "RayShardedStrategy": "ray_lightning_tpu_torch.strategies",
     "init_gpt_params": "ray_lightning_tpu_torch.models.gpt",
     "gpt_generate": "ray_lightning_tpu_torch.models.gpt",
     "params_from_jax": "ray_lightning_tpu_torch.models.weights",

@@ -665,6 +665,22 @@ def _get_object(ref: ObjectRef) -> Any:
         shm.close()
 
 
+def _unpark(name: str, size: int) -> Any:
+    """The frame a worker parked in shared-memory segment ``name``
+    (``fabric/worker.py:_park``), loaded; the segment is unlinked at once,
+    so no result outlives its read in ``/dev/shm``. Attaching registers
+    the segment with this process's resource tracker, which unlinks it
+    should this process die before the unlink below."""
+    shm = shared_memory.SharedMemory(name=name)
+    view = shm.buf[:size]
+    try:
+        return cloudpickle.loads(view)
+    finally:
+        view.release()
+        shm.close()
+        shm.unlink()
+
+
 def free(refs: Sequence[ObjectRef]) -> None:
     sess = _require_session()
     with sess.lock:
@@ -842,6 +858,8 @@ class ActorHandle:
         while True:
             try:
                 msg = cloudpickle.loads(self._conn.recv_bytes())
+                if msg[0] == "shm":
+                    msg = _unpark(msg[1], msg[2])
             except (EOFError, OSError):
                 break
             except Exception:  # noqa: BLE001 - deserialization failure

@@ -17,6 +17,9 @@ Wire protocol (length-prefixed cloudpickle over a Connection):
                     ("shutdown",)
   worker -> driver: ("ready", actor_repr)
                     ("result", call_id, ok, blob)  blob=value or (exc, tb_str)
+                    ("shm", name, size)   any frame of SHM_FRAME_BYTES or
+                                          more, parked in a shared-memory
+                                          segment the driver unlinks
 """
 import os
 import sys
@@ -37,6 +40,13 @@ _EXITING = False
 #: vanished). Best-effort: bounded lock wait, every failure swallowed —
 #: a wedged connection must not stall the exit the signal asked for.
 _TERM_NOTIFY = None
+
+#: A frame to the driver at least this long travels through a shared-memory
+#: segment, and the connection carries only its name: through the
+#: connection a result of a gigabyte (a trained model's state stream) took
+#: minutes on an H100 host. The driver's reader copies the frame out and
+#: unlinks the segment as soon as it reads the name.
+SHM_FRAME_BYTES = 1 << 20
 
 
 def _on_sigterm(*_):
@@ -134,6 +144,53 @@ def _heartbeat_loop(send, state, interval_s):
             send(cloudpickle.dumps(("heartbeat", stats)))
         except (OSError, ValueError):
             return  # driver gone; the main loop is exiting too
+
+
+def _park(payload):
+    """The ("shm", name, size) frame of a new segment holding ``payload``.
+    The segment outlives this process: the driver unlinks it."""
+    from multiprocessing import resource_tracker, shared_memory
+
+    import cloudpickle
+
+    shm = shared_memory.SharedMemory(create=True, size=len(payload))
+    try:
+        shm.buf[: len(payload)] = payload
+    except BaseException:
+        shm.close()
+        shm.unlink()
+        raise
+    shm.close()
+    # This process's tracker would unlink the segment when it exits.
+    resource_tracker.unregister("/" + shm.name.lstrip("/"), "shared_memory")
+    return cloudpickle.dumps(("shm", shm.name, len(payload)))
+
+
+def _unlink_parked(frame):
+    from multiprocessing import shared_memory
+
+    import cloudpickle
+
+    try:
+        shm = shared_memory.SharedMemory(name=cloudpickle.loads(frame)[1])
+        shm.close()
+        shm.unlink()
+    except OSError:
+        pass
+
+
+def _send_frame(send, payload):
+    """Send ``payload``, parked in shared memory when it is long; a parked
+    frame that cannot be sent is unlinked here."""
+    if len(payload) < SHM_FRAME_BYTES:
+        send(payload)
+        return
+    frame = _park(payload)
+    try:
+        send(frame)
+    except BaseException:
+        _unlink_parked(frame)
+        raise
 
 
 def _worker_main(conn):
@@ -245,7 +302,7 @@ def _worker_main(conn):
                     hb_state["busy"] = 0
                     hb_state["calls"] += 1
                     hb_state["last_end"] = time.monotonic()
-                send(payload)
+                _send_frame(send, payload)
                 continue
     finally:
         global _EXITING

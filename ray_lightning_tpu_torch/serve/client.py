@@ -50,7 +50,7 @@ from its manifest after a fleet restart, and
 Not ported yet, and refused naming their ROADMAP queue 1 item: the
 recovery plane (``respawn_replica``, ``add_replica``, ``retire_replica``,
 ``prespawn_replacement``, ``preempt_drain``: item 10b), multi-host
-replicas (``hosts_per_replica > 1``: item 11) and the profiler RPC
+replicas (``hosts_per_replica > 1``: item 11b) and the profiler RPC
 (item 14).
 """
 from __future__ import annotations
@@ -123,7 +123,7 @@ class ServeClient:
     per-index replica role table, ``kv_queues`` the fleet KV inboxes and
     ``kvstore`` the driver's handle on the KV object store. The
     reference's multi-host gang members (``followers``,
-    ``follower_replica``: ROADMAP queue 1 item 11) and restart recipe
+    ``follower_replica``: ROADMAP queue 1 item 11b) and restart recipe
     (``respawn_fn``: item 10b) are accepted at their defaults only.
     """
 
@@ -1679,7 +1679,7 @@ def start_replicas(
     replicas' namespace (``ServeClient.seed_store_directory``).
 
     Refused, naming its ROADMAP queue 1 item: ``hosts_per_replica > 1``
-    (item 11). The spawn recipe is not retained for restarts (the
+    (item 11b). The spawn recipe is not retained for restarts (the
     recovery plane, item 10b).
     """
     from ray_lightning_tpu_torch.serve.kvfleet import ROLES
@@ -1689,7 +1689,7 @@ def start_replicas(
     if int(hosts_per_replica) != 1:
         raise NotImplementedError(
             f"hosts_per_replica={hosts_per_replica} (multi-host replicas) "
-            "is not ported yet (ROADMAP queue 1 item 11)"
+            "is not ported yet (ROADMAP queue 1 item 11b)"
         )
     if roles is None:
         roles_list = ["mixed"] * num_replicas

@@ -120,7 +120,7 @@ asks for one, :meth:`import_prefix_block_layer` stages a layer-wise ship
 (a block is matchable only once its last layer lands), and with
 ``kvstore_dir`` a block that leaves every local tier is written to the
 store instead of dying. What the JAX engine also offers and this port
-does not yet: a device mesh (``mesh``, ROADMAP queue 1 item 11; raises).
+does not yet: a device mesh (``mesh``, ROADMAP queue 1 item 11b; raises).
 
 All methods must be driven from one thread (the scheduler loop).
 """
@@ -163,7 +163,7 @@ from ray_lightning_tpu_torch.utils.graphs import Program, pinned_copy
 #: Constructor options of the JAX engine that the port does not run yet:
 #: name -> (the JAX default, which the port accepts, and the ROADMAP item).
 _UNPORTED: Dict[str, Tuple[Any, str]] = {
-    "mesh": (None, "queue 1 item 11 (mesh serving)"),
+    "mesh": (None, "queue 1 item 11b (mesh serving)"),
 }
 
 #: The tiers of the prefix cache, warmest first.

@@ -18,7 +18,7 @@ fleet KV plane (``serve/kvfleet.py``: peer fetches and disaggregated
 ships), and with ``kvstore_dir`` its engine writes to and reads from the
 KV object store (``serve/kvstore.py``; ``park_session`` parks a
 conversation there). The multi-host gang (``mesh``, ``dist``,
-``gang_queues``: ROADMAP queue 1 item 11) and the profiler RPC (item 14)
+``gang_queues``: ROADMAP queue 1 item 11b) and the profiler RPC (item 14)
 are not ported: their options raise unless left at the JAX defaults.
 """
 from __future__ import annotations
@@ -122,7 +122,7 @@ def build_engine(
     if mesh not in (None, "1x1"):
         raise NotImplementedError(
             f"build_engine mesh={mesh!r} is not ported yet (ROADMAP queue 1 "
-            "item 11, mesh serving); serve on one card (mesh None or '1x1')"
+            "item 11b, mesh serving); serve on one card (mesh None or '1x1')"
         )
     if params is None:
         if ckpt_path is None:
@@ -188,8 +188,8 @@ def build_engine(
 #: yet: name -> (the JAX default, which the port accepts, and the ROADMAP
 #: item).
 _REPLICA_UNPORTED: Dict[str, Tuple[Any, str]] = {
-    "dist": (None, "queue 1 item 11 (multi-host serving gangs)"),
-    "gang_queues": (None, "queue 1 item 11 (multi-host serving gangs)"),
+    "dist": (None, "queue 1 item 11b (multi-host serving gangs)"),
+    "gang_queues": (None, "queue 1 item 11b (multi-host serving gangs)"),
 }
 
 

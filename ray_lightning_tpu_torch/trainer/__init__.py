@@ -1,5 +1,6 @@
-"""The port's trainer: ``Trainer`` and the pieces it runs (single device;
-see ``trainer/trainer.py`` for the options still to port)."""
+"""The port's trainer: ``Trainer`` and the pieces it runs, in process or
+in each launched worker (see ``trainer/trainer.py`` for the options still
+to port)."""
 from ray_lightning_tpu_torch.trainer.callbacks import (
     Callback,
     EarlyStopping,

@@ -73,7 +73,7 @@ class ModelCheckpoint(Callback):
         if save_sharded:
             raise NotImplementedError(
                 "sharded checkpoints are not ported yet (ROADMAP queue 1 "
-                "item 11)"
+                "item 11b)"
             )
         self.dirpath = dirpath
         self.filename = filename
@@ -106,6 +106,10 @@ class ModelCheckpoint(Callback):
     def _save(self, trainer: Any) -> None:
         if self.save_top_k == 0:
             return
+        rank = getattr(trainer, "global_rank", 0)
+        if rank != 0 and not getattr(trainer, "gather_is_collective", False):
+            # Only rank 0 writes; the other ranks have no gather to join.
+            return
         dirpath = self.dirpath or os.path.join(
             trainer.default_root_dir, "checkpoints"
         )
@@ -114,10 +118,16 @@ class ModelCheckpoint(Callback):
             epoch=trainer.current_epoch, step=trainer.global_step
         )
         path = os.path.join(dirpath, name + ".ckpt")
+        # Every rank that got here enters save_checkpoint: its gather is a
+        # collective; rank 0 alone writes and keeps the bookkeeping.
         trainer.save_checkpoint(path)
+        last = None
         if self.save_last:
             last = os.path.join(dirpath, "last.ckpt")
             trainer.save_checkpoint(last)
+        if rank != 0:
+            return
+        if last:
             self.last_model_path = last
         score = _metric_value(trainer, self.monitor) if self.monitor else None
         if self.monitor is None:

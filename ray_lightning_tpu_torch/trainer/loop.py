@@ -1,7 +1,8 @@
-"""The training engine: fit, validate, test and predict in one process.
+"""The training engine: fit, validate, test and predict in one process,
+which is the whole run or one rank of a launched group.
 
-Port of the single-process core of ``ray_lightning_tpu/trainer/loop.py``
-(``TrainerSpec`` :32, ``TrainingLoop`` :143). The loop owns the parameter
+Port of ``ray_lightning_tpu/trainer/loop.py`` (``TrainerSpec`` :32,
+``TrainingLoop`` :143). The loop owns the parameter
 tree and the optimizer, iterates epochs with callbacks at step, validation
 and epoch boundaries, and keeps the JAX loop's semantics: the sampler is
 always attached (its shuffle order is the JAX one), ``global_step`` counts
@@ -28,11 +29,23 @@ of the epoch already trained), loads it back to validate it and raises
 same epoch at the next batch with the partial accumulation window kept,
 so it ends on the uninterrupted fit's parameters.
 
-Not here (raised by ``Trainer``): EMA, restarts (``max_restarts``),
-sharded checkpoints, the telemetry and the watchdog.
+In a launched group (``strategies/``, ``launchers/``) every rank runs
+this loop on its sampler shard: rank and world come from the strategy's
+``DistEnv``; only rank 0 writes checkpoints and prints the summary (every
+rank enters the state gathers when they are collectives, as under ZeRO);
+``max_time`` and preemption notices stop the group at consensus points
+(mid-epoch validation and epoch ends, a MAX all-reduce of a flag: the JAX
+loop's ``process_allgather``); predictions are gathered in rank order and
+each rank's callbacks see the rows it owns (:meth:`TrainingLoop.
+_owner_rows`); :meth:`TrainingLoop.collect_rank_zero_results` packs what
+the driver recovers.
+
+Not here (raised by ``Trainer``): EMA, sharded checkpoints, the telemetry
+and the watchdog.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import os
 import sys
@@ -41,6 +54,7 @@ import warnings
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.trainer.module import schedule_lr, unpack_optimizers
@@ -158,8 +172,19 @@ class TrainingLoop:
         self._train_loader = None
 
     # -- facade properties used by callbacks ---------------------------
-    global_rank = 0
-    world_size = 1
+    @property
+    def global_rank(self) -> int:
+        return self.strategy.global_rank if self.strategy.grouped else 0
+
+    @property
+    def world_size(self) -> int:
+        env = self.strategy.dist_env
+        return env.world_size if self.strategy.grouped else 1
+
+    @property
+    def gather_is_collective(self) -> bool:
+        """Do checkpoint-state gathers need every rank (see Strategy)?"""
+        return bool(self.strategy.gather_is_collective)
 
     @property
     def default_root_dir(self) -> str:
@@ -233,16 +258,17 @@ class TrainingLoop:
         if ckpt_stream is not None:
             state = load_state_stream(ckpt_stream)
             params = state["params"]
+        self.strategy.bind_module(self.module)
         self.params = self.strategy.place_params(params)
         factory, self._lr_schedule = unpack_optimizers(
             self.module.configure_optimizers()
         )
-        self.optimizer = TrainOptimizer(
+        self.optimizer = self.strategy.make_optimizer(
             factory,
             tree_leaves(self.params),
             self._lr_schedule,
-            clip=self.spec.gradient_clip_val,
-            accumulate=self.spec.accumulate_grad_batches,
+            self.spec.gradient_clip_val,
+            self.spec.accumulate_grad_batches,
         )
         if state is None:
             return
@@ -290,15 +316,40 @@ class TrainingLoop:
 
     # ------------------------------------------------------------------
     def save_checkpoint(self, path: str) -> None:
-        """Write the full training state as a state-stream file."""
-        state_stream_to_file(to_state_stream(self.checkpoint_state()), path)
+        """Write the full training state as a state-stream file: rank 0
+        writes; the other ranks enter only a collective gather."""
+        if self.global_rank != 0 and not self.gather_is_collective:
+            return
+        state = self.checkpoint_state()
+        if self.global_rank != 0:
+            return
+        state_stream_to_file(to_state_stream(state), path)
+
+    def finalize_checkpoints(self) -> None:
+        """Every rank's checkpoint work is done once this returns on any
+        rank (a barrier: callbacks that delete checkpoint files rely on
+        the ordering this call gives, not on the writes' own)."""
+        self.strategy.barrier("finalize_checkpoints")
+
+    def full_params(self) -> Any:
+        """A context in which :attr:`params` are whole. ZeRO-3 holds only
+        the rank's slices between steps, so a callback that reads the
+        parameters during a fit does so inside it, on every rank (it is a
+        collective there); elsewhere it does nothing."""
+        if self.optimizer is None:
+            return contextlib.nullcontext()
+        return self.optimizer.full_params()
 
     def checkpoint_state(self) -> Dict[str, Any]:
+        """The full state (collective under ZeRO: the slices are
+        gathered)."""
         gather = self.strategy.gather_state
+        with self.full_params():
+            params = gather(self.params)
         return {
-            "params": gather(self.params),
+            "params": params,
             "opt_state": (
-                gather(self.optimizer.state_dict())
+                gather(self.optimizer.gathered_state_dict())
                 if self.optimizer is not None else None
             ),
             "epoch": self.current_epoch,
@@ -314,13 +365,16 @@ class TrainingLoop:
             ),
         }
 
-    @staticmethod
-    def _preempt_pending() -> bool:
-        """Has a preemption notice landed on this process?"""
+    def _preempt_pending(self, synced: bool) -> bool:
+        """Has a preemption notice landed on this process? ``synced``
+        reaches a cross-rank consensus (any preempted rank stops everyone:
+        the group checkpoints and exits as a unit) and is a collective,
+        like :meth:`_out_of_time`."""
         from ray_lightning_tpu_torch.serve.preempt import peek_state
 
         st = peek_state()
-        return bool(st and st.get("pending"))
+        local = bool(st and st.get("pending"))
+        return self.strategy.any_rank(local) if synced else local
 
     def _preempt_exit(self, resume_batch: Optional[int]) -> None:
         """Checkpoint-on-notice: write a resume checkpoint at this step
@@ -350,16 +404,20 @@ class TrainingLoop:
             self.save_checkpoint(path)
         finally:
             self._preempt_resume_batch = None
-        with open(path, "rb") as f:
-            load_state_stream(f.read())
+        if self.global_rank == 0:
+            with open(path, "rb") as f:
+                load_state_stream(f.read())
         self.state = {"status": "preempted", "stage": "fit"}
         raise TrainingPreempted(path, self.global_step)
 
-    def _out_of_time(self) -> bool:
-        return (
-            self._fit_deadline is not None
-            and time.monotonic() >= self._fit_deadline
-        )
+    def _out_of_time(self, synced: bool) -> bool:
+        """Has the fit's wall-clock budget expired? ``synced`` reaches a
+        cross-rank consensus (any rank out of time stops everyone) and may
+        only be called where every rank is at once: it is a collective."""
+        if self._fit_deadline is None:
+            return False
+        local = time.monotonic() >= self._fit_deadline
+        return self.strategy.any_rank(local) if synced else local
 
     # ------------------------------------------------------------------
     def run_fit(self, ckpt_stream: Optional[bytes] = None) -> None:
@@ -370,6 +428,10 @@ class TrainingLoop:
         if self._train_loader is None:
             raise RuntimeError("fit requires train_dataloader()")
         self._init_state(ckpt_stream)
+        # One process in all answers notices and budgets at every chunk; a
+        # group only where every rank is at once (validation, epoch ends).
+        solo = self.world_size == 1
+        time_per_step = self._fit_deadline is not None and solo
         fold = max(1, int(self.spec.steps_per_execution))
         train_step = self.strategy.compile_train_step(
             self.module, self.optimizer, self._seed(),
@@ -389,7 +451,7 @@ class TrainingLoop:
             if self._val_loader is not None
             else None
         )
-        if self.spec.enable_model_summary:
+        if self.spec.enable_model_summary and self.global_rank == 0:
             from ray_lightning_tpu_torch.utils.summary import summarize_params
 
             # stderr: stdout carries the results of scripts.
@@ -509,9 +571,13 @@ class TrainingLoop:
                     self._run_eval_epoch(val_step, self._val_loader, "val")
                     self._call_callbacks("on_validation_end")
                     last_val_step = self.global_step
-                    if self._out_of_time():
+                    # Every rank just ran the same validation: a point
+                    # for the consensus checks.
+                    if self._out_of_time(synced=True):
                         self.should_stop = True
-                if self._preempt_pending():
+                    if not solo and self._preempt_pending(synced=True):
+                        self._preempt_exit(batch_idx + 1)
+                if solo and self._preempt_pending(synced=False):
                     # Answer the notice at this chunk boundary.
                     self._preempt_exit(batch_idx + 1)
                 if (
@@ -520,7 +586,7 @@ class TrainingLoop:
                         and self.global_step >= self.spec.max_steps
                     )
                     or self.should_stop
-                    or self._out_of_time()
+                    or (time_per_step and self._out_of_time(synced=False))
                 ):
                     stop = True
                     break
@@ -549,16 +615,24 @@ class TrainingLoop:
                 self._call_callbacks("on_validation_end")
             self.module.on_train_epoch_end(epoch, dict(self.callback_metrics))
             self._call_callbacks("on_train_epoch_end")
-            if self._out_of_time():
+            if self._out_of_time(synced=True):
                 self.should_stop = True
+            if not solo and self._preempt_pending(synced=True):
+                # An epoch-complete exit: the resume starts the next epoch.
+                self._preempt_exit(None)
 
         self.state = {"status": "finished", "stage": "fit"}
+        self.optimizer.gather_params()  # ZeRO-3: whole from here on
         self.module.params = tree_map(lambda x: x.detach(), self.params)
-        self.module.opt_state = self.strategy.gather_state(
-            self.optimizer.state_dict()
-        )
+        if not self.strategy.grouped:
+            # A launched fit ships its optimizer state in the rank-0
+            # result (collect_rank_zero_results) instead.
+            self.module.opt_state = self.strategy.gather_state(
+                self.optimizer.gathered_state_dict()
+            )
         self.module.on_fit_end()
         self._call_callbacks("on_fit_end")
+        self.finalize_checkpoints()
 
     def _val_interval(self, n_batches: int, fold: int = 1) -> Optional[int]:
         """Mid-epoch validation cadence in batches (None = epoch end). With
@@ -609,13 +683,15 @@ class TrainingLoop:
         # weighted combine keeps epoch metrics exact on a wrap-around tail.
         sums: Dict[str, torch.Tensor] = {}
         total = 0.0
-        for batch, mask in itertools.islice(
-            loader.iter_batches(mult, with_mask=True), n_batches
-        ):
-            s, count = eval_step(self.params, self.strategy.place_batch(batch), mask)
-            total += count
-            for k, v in s.items():
-                sums[k] = sums[k] + v if k in sums else v
+        with self.full_params():
+            for batch, mask in itertools.islice(
+                loader.iter_batches(mult, with_mask=True), n_batches
+            ):
+                s, count = eval_step(self.params,
+                                     self.strategy.place_batch(batch), mask)
+                total += count
+                for k, v in s.items():
+                    sums[k] = sums[k] + v if k in sums else v
         if not sums:
             return {}
         means = {k: float(v) / max(total, 1.0) for k, v in sums.items()}
@@ -661,22 +737,98 @@ class TrainingLoop:
         n_batches = _limit(
             loader.num_batches(mult), self.spec.limit_predict_batches
         )
-        preds = []
+        preds, local_preds = [], []
         for bi, (host_batch, host_mask) in enumerate(
             itertools.islice(loader.iter_batches(mult, with_mask=True), n_batches)
         ):
             out, mask = predict_step(
                 self.params, self.strategy.place_batch(host_batch), host_mask
             )
+            # The global batch in rank order (every rank's rows), and the
+            # rows of it this rank owns.
+            out, gmask = self.strategy.gather_predictions(out, mask)
+            gmask = np.asarray(gmask, dtype=bool)
+            own = self._owner_rows(len(gmask))
             # Trim wrap-around padding rows: predictions line up 1:1 with
             # the dataset.
-            keep = torch.as_tensor(mask, dtype=torch.bool)
-            local = tree_map(lambda p: p[keep.to(p.device)].cpu(), out)
+            local = tree_map(
+                lambda p: p[torch.as_tensor(own & gmask).to(p.device)].cpu(),
+                out)
             self._call_callbacks("on_predict_batch_end", local, bi)
-            preds.append(local)
-        self._call_callbacks("on_predict_end", preds)
+            local_preds.append(local)
+            preds.append(local if own.all() else tree_map(
+                lambda p: p[torch.as_tensor(gmask).to(p.device)].cpu(), out))
+        self._call_callbacks("on_predict_end", local_preds)
         self.state = {"status": "finished", "stage": "predict"}
         return preds if self.spec.return_predictions else None
+
+    def _owner_rows(self, n: int) -> np.ndarray:
+        """Boolean mask of the global batch's rows THIS rank owns: its own
+        block of the rank-ordered concatenation. The ranks' masks
+        partition [0, n), so each row reaches exactly one rank's
+        callbacks (PredictionWriter shards are disjoint and complete)."""
+        world = self.world_size
+        own = np.zeros(n, dtype=bool)
+        per = n // world
+        own[self.global_rank * per:(self.global_rank + 1) * per] = True
+        return own
+
+    # ------------------------------------------------------------------
+    def _gathered_module_state_stream(self) -> Optional[bytes]:
+        """Gather the module state on every rank that must (all of them
+        when the gathers are collectives); serialize on rank 0 only."""
+        if self.params is None:
+            return None
+        if self.global_rank != 0 and not self.gather_is_collective:
+            return None
+        with self.full_params():
+            state: Dict[str, Any] = {
+                "params": self.strategy.gather_state(self.params)}
+        if self.optimizer is not None and self.state.get("stage") == "fit":
+            # The optimizer state too, so the driver's save_checkpoint()
+            # writes a resumable file.
+            state["opt_state"] = self.strategy.gather_state(
+                self.optimizer.gathered_state_dict())
+        if self.global_rank != 0:
+            return None
+        return to_state_stream(state)
+
+    def collect_rank_zero_results(self, results: Any) -> Any:
+        """Rank 0's state for the driver (the reference's
+        ``_collect_rank_zero_results``, ``ray_launcher.py:312-349``): a
+        ``WorkerOutput`` on rank 0, None elsewhere. The state gathers run
+        on every rank first when they are collectives."""
+        from ray_lightning_tpu_torch.launchers.utils import WorkerOutput
+
+        state_stream = self._gathered_module_state_stream()
+        if self.global_rank != 0:
+            return None
+        best_model_path = None
+        callback_states: Dict[str, Any] = {}
+        for cb in self.callbacks:
+            callback_states[type(cb).__name__] = cb.state_dict()
+            if getattr(cb, "best_model_path", None):
+                best_model_path = cb.best_model_path
+        trainer_state = dict(
+            self.state,
+            epoch=self.current_epoch,
+            global_step=self.global_step,
+            update_count=self.update_count,
+            current_lr=self.current_lr,
+        )
+        if self.state.get("stage") == "fit":
+            trainer_state["mid_epoch"] = not self._epoch_complete
+        return WorkerOutput(
+            best_model_path=best_model_path,
+            state_stream=state_stream,
+            trainer_state=trainer_state,
+            results=results,
+            callback_metrics={k: float(v)
+                              for k, v in self.callback_metrics.items()},
+            logged_metrics={k: float(v)
+                            for k, v in self.logged_metrics.items()},
+            callback_states=callback_states,
+        )
 
     def _restore_or_adopt(self, ckpt_stream: Optional[bytes]) -> None:
         """Load params from a checkpoint or adopt the module's own."""

@@ -18,8 +18,10 @@ builds (``ray_lightning_tpu/trainer/loop.py:409``):
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -198,6 +200,10 @@ class TrainOptimizer:
             grads = [torch.where(norm < self.clip, g,
                                  g / norm.to(g.dtype) * self.clip)
                      for g in grads]
+        self._set_lr(lr)
+        self._step(grads)
+
+    def _set_lr(self, lr: Any) -> None:
         if self.lr_schedule is not None:
             if self.capturable:
                 # A capturable step computes eps / (-lr / bias_correction):
@@ -209,11 +215,34 @@ class TrainOptimizer:
                       else max(lr, _TINY))
             for group in self.opt.param_groups:
                 group["lr"] = lr
+
+    def _step(self, grads: List[torch.Tensor]) -> None:
+        """The module's optimizer step on the (clipped) gradients of
+        :attr:`leaves`."""
         for p, g in zip(self.leaves, grads):
             p.grad = g
         self.opt.step()
         for p in self.leaves:
             p.grad = None
+
+    # -- sharded state (no-ops here; see strategies/sharded.py) ------------
+    def gather_params(self) -> None:
+        """Make the full parameter tensors whole (collective where the
+        ranks hold slices of them at rest)."""
+
+    def release_params(self, in_use: Sequence[torch.Tensor] = ()) -> None:
+        """Free the full parameter tensors, where slices hold the values at
+        rest, except those sharing storage with a tensor of ``in_use``."""
+
+    @contextlib.contextmanager
+    def full_params(self) -> Iterator[None]:
+        """The full parameter tensors, whole while the block runs."""
+        yield
+
+    def gathered_state_dict(self) -> Dict[str, Any]:
+        """:meth:`state_dict` with every tensor whole: the checkpoint
+        form, whatever the ranks hold."""
+        return self.state_dict()
 
     # -- state -----------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:

@@ -3,20 +3,28 @@
 ``Trainer(max_steps=N).fit(module)`` runs the in-process path of the JAX
 package's ``Trainer`` (``ray_lightning_tpu/trainer/trainer.py:62``,
 ``_run_in_process`` :392) on one device through ``SingleDeviceStrategy``:
-on the card unless ``device="cpu"`` is asked for. The options the port does
-not run yet raise ``NotImplementedError`` naming their ROADMAP item; none
-is silently ignored.
+on the card unless ``device="cpu"`` is asked for.
+``Trainer(strategy=RayStrategy(num_workers=N)).fit(module)`` launches N
+workers on the fabric, one card each, joins them into one
+``torch.distributed`` group, trains with averaged gradients and recovers
+rank 0's parameters, metrics and checkpoint paths here
+(``_recover_results_in_main_process``). ``max_restarts`` relaunches a fit
+whose worker died, or that answered a preemption notice, from the newest
+loadable checkpoint it wrote. The options the port does not run yet raise
+``NotImplementedError`` naming their ROADMAP item; none is silently
+ignored.
 """
 from __future__ import annotations
 
 import datetime
 import os
 import tempfile
-from typing import Any, Dict, List, Optional, Union
+import time
+import warnings
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy, Strategy
 from ray_lightning_tpu_torch.trainer.loop import (
     TrainerSpec,
     TrainingLoop,
@@ -105,11 +113,16 @@ class Trainer:
         log_grad_norm: bool = False,
         device: Union[str, torch.device] = "cuda",
     ) -> None:
-        if strategy is not None and type(strategy) is not SingleDeviceStrategy:
-            raise _not_ported(
-                f"strategy {type(strategy).__name__} (multi-device "
-                "strategies)", "11",
-            )
+        # strategies/ imports the optimizer rule of this package: imported
+        # here, not at the top, so either package may be imported first.
+        from ray_lightning_tpu_torch.strategies.base import (
+            SingleDeviceStrategy,
+            Strategy,
+        )
+
+        if strategy is not None and not isinstance(strategy, Strategy):
+            raise TypeError(
+                f"strategy must be a Strategy, got {type(strategy).__name__}")
         if int(steps_per_execution) < 1:
             raise ValueError(
                 f"steps_per_execution must be >= 1, got {steps_per_execution}"
@@ -117,9 +130,9 @@ class Trainer:
         if ema_decay is not None or eval_ema:
             raise _not_ported("ema_decay / eval_ema", "15")
         if async_checkpointing:
-            raise _not_ported("async_checkpointing (sharded checkpoints)", "11")
-        if int(max_restarts) > 0:
-            raise _not_ported("max_restarts > 0 (fault-tolerant fits)", "10b")
+            raise _not_ported("async_checkpointing (sharded checkpoints)", "11b")
+        if int(max_restarts) < 0:
+            raise ValueError(f"max_restarts must be >= 0, got {max_restarts}")
         if detect_anomaly:
             raise _not_ported("detect_anomaly", "15")
         if overfit_batches is not None:
@@ -172,6 +185,7 @@ class Trainer:
             self.callbacks.append(ModelCheckpoint())
         self.seed = seed_everything(seed)
         self.precision = precision
+        self.max_restarts = int(max_restarts)
         # State after a run
         self.callback_metrics: Dict[str, float] = {}
         self.logged_metrics: Dict[str, float] = {}
@@ -236,7 +250,7 @@ class Trainer:
     # ------------------------------------------------------------------
     def _run(
         self, stage: str, module: Any, datamodule: Any = None,
-        ckpt_path: Optional[str] = None,
+        ckpt_path: Optional[str] = None, ckpt_stream: Optional[bytes] = None,
     ) -> Any:
         self._module = module
         module.trainer = self
@@ -244,10 +258,25 @@ class Trainer:
             ckpt_path = self._resolve_last_ckpt()
         elif ckpt_path == "best":
             ckpt_path = self._resolve_best_ckpt()
-        ckpt_stream = None
-        if ckpt_path is not None:
-            with open(ckpt_path, "rb") as f:
-                ckpt_stream = f.read()
+        if ckpt_stream is None and ckpt_path is not None:
+            ckpt_stream = self._read_ckpt(ckpt_path)
+        from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy
+
+        if isinstance(self.strategy, SingleDeviceStrategy):
+            return self._run_in_process(stage, module, datamodule, ckpt_stream)
+        prev_opt_state = module.opt_state
+        launcher = self.strategy._configure_launcher(self)
+        output = launcher.launch(stage, module, datamodule=datamodule,
+                                 ckpt_stream=ckpt_stream)
+        result = self._recover_results_in_main_process(output, module)
+        if stage != "fit" and ckpt_stream is None:
+            # An eval without a checkpoint leaves the fit's params, so the
+            # fit's optimizer state still belongs to them.
+            module.opt_state = prev_opt_state
+        return result
+
+    def _run_in_process(self, stage: str, module: Any, datamodule: Any,
+                        ckpt_stream: Optional[bytes]) -> Any:
         loop = TrainingLoop(
             self._make_spec(), module, self.strategy, datamodule=datamodule
         )
@@ -256,7 +285,8 @@ class Trainer:
                 loop.run_fit(ckpt_stream)
             except TrainingPreempted:
                 # Checkpoint-on-notice: the checkpoint is written and
-                # validated; ``fit(ckpt_path=exc.ckpt_path)`` resumes it.
+                # validated; the restart loop (or fit(ckpt_path=exc.
+                # ckpt_path)) resumes it.
                 self.state = dict(loop.state)
                 raise
             result = None
@@ -277,6 +307,51 @@ class Trainer:
         self.logged_metrics = {k: float(v) for k, v in loop.logged_metrics.items()}
         return result
 
+    def _recover_results_in_main_process(self, output: Any, module: Any) -> Any:
+        """Restore rank 0's results into this process (the reference's
+        ``_recover_results_in_main_process``, ``ray_launcher.py:351-379``):
+        the module's params (and, after a fit, its optimizer state) as CPU
+        tensors, the counters, the metrics and the callbacks' state
+        (``best_model_path``)."""
+        if output is None:
+            return None
+        if output.state_stream is not None:
+            from ray_lightning_tpu_torch.utils.state_stream import (
+                load_state_stream,
+            )
+
+            state = load_state_stream(output.state_stream)
+            module.params = state["params"]
+            module.opt_state = state.get("opt_state")
+        self.state = dict(output.trainer_state)
+        epoch = int(self.state.pop("epoch", 0))
+        step = int(self.state.pop("global_step", 0))
+        uc = self.state.pop("update_count", None)
+        mid = self.state.pop("mid_epoch", None)
+        self.state.pop("current_lr", None)
+        if self.state.get("stage") == "fit":
+            # Only fits advance training progress.
+            self.current_epoch = epoch
+            self.global_step = step
+            self._update_count = None if uc is None else int(uc)
+            self._mid_epoch = bool(mid)
+        self.callback_metrics = {
+            k: float(v) for k, v in output.callback_metrics.items()}
+        self.logged_metrics = {
+            k: float(v) for k, v in output.logged_metrics.items()}
+        for cb in self.callbacks:
+            cb_state = output.callback_states.get(type(cb).__name__)
+            if cb_state:
+                cb.load_state_dict(cb_state)
+        return output.results
+
+    @staticmethod
+    def _read_ckpt(ckpt_path: Optional[str]) -> Optional[bytes]:
+        if ckpt_path is None:
+            return None
+        with open(ckpt_path, "rb") as f:
+            return f.read()
+
     def _resolve_best_ckpt(self) -> str:
         cb = self.checkpoint_callback
         best = getattr(cb, "best_model_path", "") if cb is not None else ""
@@ -292,28 +367,146 @@ class Trainer:
         last = getattr(cb, "last_model_path", "") if cb is not None else ""
         if last and os.path.exists(last):
             return last
+        found = [p for d in self._ckpt_search_dirs()
+                 for p, _ in self._ckpt_candidates(d)]
+        if not found:
+            raise FileNotFoundError(
+                f"ckpt_path='last': no checkpoint found in "
+                f"{self._ckpt_search_dirs()} (fit with checkpointing enabled "
+                "first)"
+            )
+        return max(found, key=os.path.getmtime)
+
+    def _ckpt_search_dirs(self) -> List[str]:
+        cb = self.checkpoint_callback
         dirs = []
         if cb is not None and getattr(cb, "dirpath", None):
             dirs.append(cb.dirpath)
         dirs.append(os.path.join(self.default_root_dir, "checkpoints"))
-        found = [
-            os.path.join(d, n)
-            for d in dirs if os.path.isdir(d)
-            for n in os.listdir(d) if n.endswith(".ckpt")
-        ]
-        if not found:
-            raise FileNotFoundError(
-                f"ckpt_path='last': no checkpoint found in {dirs} (fit with "
-                "checkpointing enabled first)"
-            )
-        return max(found, key=os.path.getmtime)
+        return dirs
+
+    @staticmethod
+    def _ckpt_candidates(d: str) -> List[Tuple[str, float]]:
+        """(path, mtime) of the checkpoint files in a directory; a file
+        that vanishes between the listing and the stat is skipped."""
+        out = []
+        if not os.path.isdir(d):
+            return out
+        for name in os.listdir(d):
+            if not name.endswith(".ckpt"):
+                continue
+            p = os.path.join(d, name)
+            try:
+                out.append((p, os.path.getmtime(p)))
+            except OSError:
+                continue
+        return out
+
+    def _restart_checkpoint(
+        self, fit_started: float
+    ) -> Tuple[Optional[str], Optional[bytes]]:
+        """The newest LOADABLE checkpoint this fit wrote (modified after
+        it started: a shared directory may hold other runs' files), the
+        rolling ``last*`` files first; an unreadable candidate (a save cut
+        by the crash) falls through to the next newest. Returns ``(path,
+        bytes)``, so the resume reads the file once."""
+        from ray_lightning_tpu_torch.utils.state_stream import (
+            load_state_stream,
+        )
+
+        min_mtime = fit_started - 1.0
+        for d in self._ckpt_search_dirs():
+            cands = [(p, m) for p, m in self._ckpt_candidates(d)
+                     if m >= min_mtime]
+            last = [c for c in cands if os.path.basename(c[0]).startswith("last")]
+            rest = [c for c in cands if c not in last]
+            ordered = (sorted(last, key=lambda t: t[1], reverse=True)
+                       + sorted(rest, key=lambda t: t[1], reverse=True))
+            for path, _ in ordered:
+                try:
+                    data = self._read_ckpt(path)
+                    load_state_stream(data)
+                except Exception as exc:  # noqa: BLE001 - try an older one
+                    warnings.warn(
+                        f"skipping unreadable checkpoint {path}: {exc}",
+                        RuntimeWarning, stacklevel=2,
+                    )
+                    continue
+                return path, data
+        return None, None
 
     # ------------------------------------------------------------------
     def fit(
         self, module: Any, datamodule: Any = None, ckpt_path: Optional[str] = None
     ) -> "Trainer":
-        self._run("fit", module, datamodule, ckpt_path)
-        return self
+        """Run the fit. With ``max_restarts > 0``, a worker that dies
+        mid-fit (``ActorDiedError``) relaunches the group, and a fit that
+        answered a preemption notice (``TrainingPreempted``: its validated
+        checkpoint-on-notice is written) resumes; either from the newest
+        loadable checkpoint this fit wrote, else from ``ckpt_path`` or
+        scratch (JAX ``trainer/trainer.py:427-481``). Every restart is
+        recorded: the ``rlt_train_fit_restarts_total{cause=}`` counter and
+        the ``fit_restarting`` / ``fit_resume`` events. With
+        ``max_restarts=0`` the error surfaces."""
+        from ray_lightning_tpu_torch.fabric.core import ActorDiedError
+
+        fit_started = time.time()
+        attempts = self.max_restarts
+        ckpt_data: Optional[bytes] = None
+        while True:
+            try:
+                self._run("fit", module, datamodule, ckpt_path, ckpt_data)
+                return self
+            except (ActorDiedError, TrainingPreempted) as exc:
+                if attempts <= 0:
+                    raise
+                attempts -= 1
+                preempted = isinstance(exc, TrainingPreempted)
+                cause = "preempted" if preempted else "actor_died"
+                self._record_fit_restart(cause, exc, attempts)
+                resume, resume_data = self._restart_checkpoint(fit_started)
+                warnings.warn(
+                    ("fit preempted (checkpoint-on-notice saved); "
+                     if preempted else f"worker died mid-fit ({exc}); ")
+                    + f"restarting ({attempts} restart(s) left) from "
+                    f"{resume or ckpt_path or 'scratch'}",
+                    RuntimeWarning, stacklevel=2,
+                )
+                if preempted:
+                    # The notice is consumed: this retry stands in for the
+                    # replacement process.
+                    from ray_lightning_tpu_torch.serve.preempt import (
+                        reset_monitor,
+                    )
+
+                    reset_monitor()
+                if resume is not None:
+                    ckpt_path, ckpt_data = resume, resume_data
+                else:
+                    ckpt_data = None
+                self._record_fit_resume(cause, resume or ckpt_path or "scratch")
+
+    def _record_fit_restart(self, cause: str, exc: BaseException,
+                            restarts_left: int) -> None:
+        from ray_lightning_tpu_torch.obs.events import get_event_log
+        from ray_lightning_tpu_torch.obs.registry import get_registry
+
+        get_registry().counter(
+            "rlt_train_fit_restarts_total",
+            "Mid-fit restarts performed by the Trainer.fit retry loop",
+        ).inc(1, cause=cause)
+        get_event_log().record(
+            "trainer", "fit_restarting", level="warn", cause=cause,
+            error=f"{type(exc).__name__}: {exc}"[:300],
+            restarts_left=restarts_left,
+        )
+
+    @staticmethod
+    def _record_fit_resume(cause: str, ckpt: str) -> None:
+        from ray_lightning_tpu_torch.obs.events import get_event_log
+
+        get_event_log().record("trainer", "fit_resume", cause=cause,
+                               ckpt=str(ckpt))
 
     def validate(
         self, module: Any, datamodule: Any = None, ckpt_path: Optional[str] = None
@@ -342,10 +535,12 @@ class Trainer:
     def save_checkpoint(self, path: str) -> None:
         """Save the module's params, optimizer state and the fit's
         counters (a resumable file)."""
+        from ray_lightning_tpu_torch.strategies.base import to_host
+
         if self._module is None or self._module.params is None:
             raise RuntimeError("nothing to checkpoint: fit first")
         state = {
-            "params": Strategy.gather_state(self._module.params),
+            "params": to_host(self._module.params),
             "opt_state": self._module.opt_state,
             "epoch": self.current_epoch,
             "global_step": self.global_step,

@@ -312,6 +312,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ray_lightning_tpu_torch.trainer.optim, "
         "ray_lightning_tpu_torch.strategies, "
         "ray_lightning_tpu_torch.strategies.base, "
+        "ray_lightning_tpu_torch.strategies.ddp, "
+        "ray_lightning_tpu_torch.strategies.ring, "
+        "ray_lightning_tpu_torch.strategies.sharded, "
+        "ray_lightning_tpu_torch.launchers, "
+        "ray_lightning_tpu_torch.launchers.utils, "
+        "ray_lightning_tpu_torch.launchers.gpu_launcher, "
+        "ray_lightning_tpu_torch.parallel, "
+        "ray_lightning_tpu_torch.parallel.env, "
+        "ray_lightning_tpu_torch.parallel.mesh, "
+        "ray_lightning_tpu_torch.parallel.zero, "
+        "ray_lightning_tpu_torch.utils.rank_zero, "
         "ray_lightning_tpu_torch.utils.seed, "
         "ray_lightning_tpu_torch.utils.state_stream, "
         "ray_lightning_tpu_torch.utils.summary, "

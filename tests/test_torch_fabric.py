@@ -98,6 +98,49 @@ def test_object_store_put_get_and_free(port_fabric):
     assert ref.id not in core._session.store
 
 
+@pytest.fixture
+def unparked(monkeypatch):
+    """The shared-memory segments the driver's readers took frames from."""
+    names = []
+    real = core._unpark
+
+    def record(name, size):
+        names.append(name)
+        return real(name, size)
+
+    monkeypatch.setattr(core, "_unpark", record)
+    return names
+
+
+def test_large_results_are_parked_and_never_outlive_their_read(port_fabric,
+                                                               unparked):
+    """A result of SHM_FRAME_BYTES or more comes back through a segment
+    the driver unlinks as it reads it, even when the result loop raises
+    afterwards: here "rank 0" returns a parked result and a later call,
+    its "peer", fails, so ``process_results`` raises."""
+    from ray_lightning_tpu_torch.fabric.worker import SHM_FRAME_BYTES
+    from ray_lightning_tpu_torch.launchers.utils import process_results
+
+    f = port_fabric(num_cpus=1)
+    actor = f.remote(Counter).options(num_cpus=1).remote()
+    blob = np.random.default_rng(0).bytes(3 * SHM_FRAME_BYTES)
+    assert f.get(actor.execute.remote(lambda b: b, blob), timeout=T) == blob
+    assert f.get(actor.incr.remote(), timeout=T) == 1  # small: the pipe
+    assert len(unparked) == 1
+
+    def late_failure():
+        time.sleep(0.5)
+        raise RuntimeError("peer failed after rank 0 returned")
+
+    futures = [actor.execute.remote(lambda: b"x" * (2 * SHM_FRAME_BYTES)),
+               actor.execute.remote(late_failure)]
+    with pytest.raises(RuntimeError, match="after rank 0 returned"):
+        process_results(futures)
+    assert len(unparked) == 2
+    for name in unparked:
+        assert not os.path.exists(os.path.join("/dev/shm", name))
+
+
 def test_env_overrides_and_node_identity(port_fabric):
     f = port_fabric(num_cpus=1)
     actor = (f.remote(Counter)

@@ -652,8 +652,7 @@ def test_preempt_notice_checkpoints_and_resumes_exact(tmp_path, fold):
     [
         (dict(ema_decay=0.9), "item 15"),
         (dict(eval_ema=True), "item 15"),
-        (dict(async_checkpointing=True), "item 11"),
-        (dict(max_restarts=1), "item 10"),
+        (dict(async_checkpointing=True), "item 11b"),
         (dict(detect_anomaly=True), "item 15"),
         (dict(overfit_batches=2), "item 15"),
         (dict(fast_dev_run=True), "item 15"),
@@ -665,10 +664,25 @@ def test_unported_trainer_options_raise(kwargs, item):
 
 
 def test_unported_strategies_and_finders_raise():
-    from ray_lightning_tpu_torch.strategies import SingleDeviceStrategy, Strategy
+    """The three launched strategies construct a Trainer (their fits are
+    held in tests/test_torch_strategies.py and tests/test_torch_launch.py);
+    tensor parallelism still raises."""
+    from ray_lightning_tpu_torch.strategies import (
+        GSPMDStrategy,
+        HorovodRayStrategy,
+        RayShardedStrategy,
+        RayStrategy,
+        SingleDeviceStrategy,
+    )
 
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TTrainer(strategy=Strategy("cpu"), device="cpu")
+    for strategy in (
+        RayStrategy(num_workers=2, use_gpu=False),
+        HorovodRayStrategy(num_workers=2, use_gpu=False),
+        RayShardedStrategy(num_workers=2, use_gpu=False, zero_stage=3),
+    ):
+        assert TTrainer(strategy=strategy).strategy is strategy
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        GSPMDStrategy(num_workers=2)
     TTrainer(strategy=SingleDeviceStrategy("cpu"))
     with pytest.raises(NotImplementedError, match="item 14"):
         lr_find(TTrainer(device="cpu"), TBoring())
