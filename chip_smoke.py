@@ -192,7 +192,35 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    lost, graphs frozen. Prints fetch seconds and MB/s, ship seconds
    (whole, layer-wise), store put/get seconds and bytes per block, TTFT
    by fetch, by store, cold and warm locally, and the phase's wall.
-13. Train GPT-2 small at full width and depth for 20 steps through
+13. serve-recovery: the fleet's recovery plane on serve-fleet's
+   checkpoint (removed after), the serve phase's engine in every
+   replica. (a) ``start_replicas(3, num_gpus_per_replica=0.25)`` with a
+   ``FleetSupervisor`` on its thread; replica 1 killed by a fault at its
+   2nd fold boundary under serve-fleet's wave 1; the supervisor restarts
+   it from the retained spawn recipe and a wave pinned to it follows.
+   (b) The ``preempt`` fault (a 60 s grace window) on replica 0 with the
+   wave pinned to it: the supervisor drains it (the residents finish
+   there, the queue migrates), pre-spawns the replacement outside the
+   placement group and swaps it in; a wave pinned to the replacement
+   follows. (c) A one-replica fleet (a third of the card) under
+   ``RouterAutoscaler(min_replicas=1, max_replicas=2)`` ticked by hand:
+   the wave as a burst on slowed folds scales up through
+   ``add_replica``, a wave pinned to the new replica follows, the idle
+   fleet scales down through ``retire_replica``. (d) Beside (c), a head
+   (``python -m ray_lightning_tpu_torch.fabric.server --port 0``) and a
+   client process that starts one replica there in client mode and
+   serves the wave. Gates: 0 lost; every token bitwise the serve phase's
+   in-process engine's (near-ties aside); (a) the supervisor's states
+   healthy -> dead -> restarting -> healthy, one restart, no failed one;
+   (b) both drain sets non-empty, the routable count never below 2; (c)
+   one scale up, one down, none below the minimum; (d) no process of the
+   head or the client left after the head stops; every replica's graphs
+   frozen and 12 K1 launches per admission; no child left and the card's
+   memory back. Prints detection, kill-to-healthy, notice-to-swap, add
+   and retire seconds, and the respawned, pre-spawned and added
+   replicas' start-up breakdowns (process, imports, CUDA context,
+   checkpoint, engine set-up, kernel load, capture).
+14. Train GPT-2 small at full width and depth for 20 steps through
    ``Trainer.fit`` (B=8, S=1024, bf16 compute, flash attention, AdamW
    with warmup): every step's loss must be finite and the last below the
    first, each backward kernel must have run once per layer per step and
@@ -202,11 +230,11 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    CUDA graph of 4 steps per dispatch): each of its losses must equal the
    K = 1 run's step at the same boundary within 1e-3 relative, with the
    same kernel launches; prints both step times.
-14. train-dist: the launched trainer (``Trainer.fit`` -> ``GPULauncher``
-   -> fabric actors). (a) Phase 13's fit through ``RayStrategy(
+15. train-dist: the launched trainer (``Trainer.fit`` -> ``GPULauncher``
+   -> fabric actors). (a) Phase 14's fit through ``RayStrategy(
    num_workers=1)``: one actor with the whole card, NCCL, every step a
    CUDA graph; every step's loss and the driver's recovered parameters
-   must be bitwise phase 13's, each kernel launched as often as there
+   must be bitwise phase 14's, each kernel launched as often as there
    (K2, K3 12 per step, the reference path never), the worker's graphs
    frozen after the first step, the checkpoint path recovered in the
    driver. (b) ``HorovodRayStrategy``, ``RayShardedStrategy(zero_stage=
@@ -223,14 +251,14 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    losses, step ends, backend, peak memory, memory allocated between steps
    and memory reserved under
    ``build/smoke_train_dist/``. Prints each fit's workers-ready seconds,
-   backend, graphs, step time beside phase 13's, tokens/s and peak memory
+   backend, graphs, step time beside phase 14's, tokens/s and peak memory
    per rank, and the phase's wall; afterwards no child process may be
    left and the card's used memory must be within 256 MiB of before.
-15. Print the ``{"kernels": [...]}`` line, the card line, and last
+16. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
-Dispatch programs (phases 4-12): every engine captures one CUDA graph per
+Dispatch programs (phases 4-13): every engine captures one CUDA graph per
 key of its ``dispatch_plan`` at construction; each prints its
 ``compiled_count``, capture seconds and graph-pool memory as it is built,
 and each phase fails unless every engine it built still has that count
@@ -2954,10 +2982,12 @@ def sp_kwargs(sp) -> dict:
 
 
 def fleet_wave(client, reqs, batch_first_half: bool = True,
-               trigger=None, batch_all: bool = False) -> dict:
+               trigger=None, batch_all: bool = False,
+               replica=None) -> dict:
     """Send ``reqs`` (the first half through one ``submit_many``, the rest
     through ``submit`` one by one; all of them through one ``submit_many``
-    with ``batch_all``) and read every stream in a thread of
+    with ``batch_all``; every one through ``submit`` pinned to replica
+    ``replica`` when it is given) and read every stream in a thread of
     its own. ``trigger = (when, action)``: ``action(handles)`` runs once
     ``when(handles, t_first)`` holds (``t_first``: request id -> the time
     its first token arrived), polled every 10 ms. Returns the tokens, each
@@ -2966,8 +2996,9 @@ def fleet_wave(client, reqs, batch_first_half: bool = True,
     import threading
 
     t0 = time.perf_counter()
-    half = (len(reqs) if batch_all
+    half = (0 if replica is not None else len(reqs) if batch_all
             else len(reqs) // 2 if batch_first_half else 0)
+    pin = {} if replica is None else {"replica": replica}
     handles, t_sub = {}, {}
     if half:
         out = client.submit_many(
@@ -2980,7 +3011,8 @@ def fleet_wave(client, reqs, batch_first_half: bool = True,
             handles[rid], t_sub[rid] = h, t0
     for rid, prompt, sp in reqs[half:]:
         t_sub[rid] = time.perf_counter()
-        handles[rid] = client.submit(prompt, request_id=rid, **sp_kwargs(sp))
+        handles[rid] = client.submit(prompt, request_id=rid, **pin,
+                                     **sp_kwargs(sp))
     toks = {rid: [] for rid, _, _ in reqs}
     t_first, t_end, errors = {}, {}, []
 
@@ -3018,32 +3050,35 @@ def fleet_wave(client, reqs, batch_first_half: bool = True,
             "t_end": t_end, "wall": time.perf_counter() - t0}
 
 
-def replica_counts(client, replicas=(0, 1)) -> list:
-    """Per replica of ``replicas``: admissions, K1 launches,
-    compiled_count and graphs captured since construction (one stats RPC
-    each)."""
-    out = []
+def replica_counts(client, replicas=(0, 1)) -> dict:
+    """Replica index -> its admissions, K1 launches, compiled_count and
+    graphs captured since construction, for each of ``replicas`` (one
+    stats RPC each)."""
+    out = {}
     for i in replicas:
         s = client._rpc(i, "stats")
-        out.append({"admitted": s["admitted"],
-                    "launches": s["kernels"]["launches"],
-                    "compiled_count": s["compiled_count"],
-                    "compiles_since_init": s["compiles_since_init"],
-                    "finished": s["finished"]})
+        out[i] = {"admitted": s["admitted"],
+                  "launches": s["kernels"]["launches"],
+                  "compiled_count": s["compiled_count"],
+                  "compiles_since_init": s["compiles_since_init"],
+                  "finished": s["finished"]}
     return out
 
 
-def check_replica_counts(tag, before, after, cfg, cuda: bool) -> int:
-    """Gates on each replica's counts over a stretch of traffic: the
-    graphs frozen (compiled_count unchanged, nothing captured since
-    construction) and, on the card, 12 K1 launches per admission. Returns
-    the K1 launches of the stretch."""
+def check_replica_counts(tag, before, after, cfg, cuda: bool,
+                         phase: str = "serve-fleet") -> int:
+    """Gates on each replica's counts over a stretch of traffic (``before``
+    and ``after`` from :func:`replica_counts`): the graphs frozen
+    (compiled_count unchanged, nothing captured since construction) and,
+    on the card, 12 K1 launches per admission. Returns the K1 launches of
+    the stretch."""
     total = 0
-    for i, (a, b) in enumerate(zip(before, after)):
+    for i, b in after.items():
+        a = before[i]
         adm = b["admitted"] - a["admitted"]
         launches = b["launches"] - a["launches"]
         total += launches
-        print(f"[serve-fleet] {tag} replica {i}: {adm} admissions, K1 "
+        print(f"[{phase}] {tag} replica {i}: {adm} admissions, K1 "
               f"launches {launches}, compiled_count {b['compiled_count']}, "
               f"graphs captured since construction "
               f"{b['compiles_since_init']}")
@@ -3126,8 +3161,8 @@ def serve_fleet_run(params, cfg, device, workdir: str, engine,
         after = replica_counts(client)
         launches = check_replica_counts("(a) wave 1", before, after, cfg,
                                         cuda)
-        if min(b["finished"] - a["finished"]
-               for a, b in zip(before, after)) <= 0:
+        if min(after[i]["finished"] - a["finished"]
+               for i, a in before.items()) <= 0:
             fail(f"a replica took no request: {before} -> {after}")
         stats = client.stats()
         # The in-process engine of the serve phase, on the same requests:
@@ -3268,8 +3303,9 @@ def serve_fleet_run(params, cfg, device, workdir: str, engine,
         out["prefix"] = {"warm_replica": warm, "suffix_replicas": replicas,
                          "affinity_routes": affinity, "hit_tokens": hits,
                          "near_tie_mismatches": near3,
-                         "launches": sum(b["launches"] - a["launches"]
-                                         for a, b in zip(before, after))}
+                         "launches": sum(after[i]["launches"]
+                                         - a["launches"]
+                                         for i, a in before.items())}
         print(f"[serve-fleet] (b) {json.dumps(out['prefix'])}")
         if set(replicas) != {warm} or affinity != len(suffixes):
             fail(f"(b): suffixes went to {replicas} ({affinity} by "
@@ -3851,8 +3887,8 @@ def serve_kvplane_run(params, cfg, device, fleet: dict) -> dict:
             got.update(w["toks"])
             f_ttft.update(w["ttft"])
         after = replica_counts(client)
-        finished = [b["finished"] - a["finished"]
-                    for a, b in zip(before, after)]
+        finished = [after[i]["finished"] - a["finished"]
+                    for i, a in before.items()]
         check_replica_counts("serve-kvplane fleet", before, after, cfg,
                              False)
         rows = client.stats()
@@ -3913,14 +3949,16 @@ def phase_serve_kvplane(fleet: dict) -> int:
     seeded from the store's manifest, admits the system prompt from the
     store, ships every request to the decode replica, which the client
     follows; tokens equal (b)'s but at near-ties, 0 lost, graphs frozen.
-    Removes (b)'s checkpoint and store afterwards. Returns K1's launches
-    on the path."""
+    Removes (b)'s store afterwards (serve-recovery removes the checkpoint;
+    both go if this phase fails). Returns K1's launches on the path."""
     kids0 = child_pids()
     try:
         out = serve_kvplane_run(fleet["params"], fleet["cfg"], "cuda", fleet)
+    except BaseException:
+        shutil.rmtree(fleet["workdir"], ignore_errors=True)
+        raise
     finally:
-        for d in (fleet["workdir"], fleet["store_dir"]):
-            shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(fleet["store_dir"], ignore_errors=True)
     deadline = time.monotonic() + 60
     while time.monotonic() < deadline and set(child_pids()) - set(kids0):
         time.sleep(0.5)
@@ -3940,6 +3978,677 @@ def phase_serve_kvplane(fleet: dict) -> int:
         "wall_s": out["wall_s"],
     }
     print(f"[serve-kvplane] {json.dumps(summary)} on {card_line()}")
+    return out["launches"]
+
+
+#: The serve-recovery phase (after serve-kvplane, on serve-fleet's
+#: checkpoint). Fleet A, three replicas of the serve phase's engine at a
+#: quarter of the card each, serves (a) and (b): (b)'s pre-spawned
+#: replacement takes the fourth quarter outside A's placement group, so
+#: the fabric's card accounting (not the card's memory) sets the share.
+#: Three replicas keep two routable while one is excluded for its grace
+#: window. Fleet C, one replica at a third of the card, serves (c) and
+#: adds a second third. (d)'s head runs its own fabric, its replica at a
+#: third of its one card, alongside (c).
+RECOVERY_GPUS_A = 0.25
+RECOVERY_GPUS_C = 1 / 3
+#: The supervisor's tick and first backoff (s); a dead verdict must lead
+#: to a restart attempt within RECOVERY_BACKOFF_S + 2 ticks.
+RECOVERY_TICK_S = 0.25
+RECOVERY_BACKOFF_S = 0.5
+#: (b)'s grace window: longer than the drain and the pre-spawn together,
+#: so the swap (not the fault's hard kill) ends the dying replica. The
+#: dying replica's folds wait RECOVERY_DRAIN_DELAY_S each, so that the
+#: drain, a supervisor tick after the notice, still finds a queue: at full
+#: speed the card serves the whole wave in about half a second.
+RECOVERY_GRACE_S = 60.0
+RECOVERY_DRAIN_DELAY_S = 0.2
+#: (c)'s burst: replica 0's folds wait this long each, for this many
+#: folds, so its queue holds while the autoscaler ticks.
+RECOVERY_BURST_DELAY_S = 0.1
+RECOVERY_BURST_FOLDS = 60
+
+
+def recovery_compare(tag, reqs, got, exact, params, cfg, device) -> int:
+    """Each request's tokens against the serve phase's in-process engine
+    (``exact``): bitwise, except that a greedy token may differ where the
+    engine's own next token was a near-tie (serve-fleet's rule,
+    ``draw_margin`` below MARGIN); sampled tokens must be bitwise. Returns
+    how many requests differ."""
+    near = 0
+    for rid, prompt, sp in reqs:
+        want = exact[rid]
+        if got[rid] == want:
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(got[rid], want))
+                  if a != b), None)
+        if j is None or sp.temperature > 0:
+            fail(f"{tag} {rid}: tokens differ from the in-process engine's: "
+                 f"{got[rid]} vs {want}")
+        margin = draw_margin(params, cfg, prompt + want[:j], sp, j, device)
+        print(f"[serve-recovery] {tag} {rid}: differs from the in-process "
+              f"engine first at {j}, its margin {margin}")
+        if margin >= MARGIN:
+            fail(f"{tag} {rid}: mismatch at token {j} with margin {margin}")
+        near += 1
+    return near
+
+
+def startup_breakdown(client, idx: int) -> dict:
+    """Where replica ``idx``'s start-up went (s): the worker's exec and
+    interpreter start, imports (torch and the package), the CUDA context,
+    the checkpoint read, the engine's set-up (weights to the card, KV
+    buffers), the kernel library's load, graph capture, the rest of the
+    replica's constructor, and the way back to the driver; from its
+    ``stats()["startup"]`` and the fabric's ``actor_start`` event (wall
+    clock, one host)."""
+    from ray_lightning_tpu_torch.obs.events import get_event_log
+
+    s = client._rpc(idx, "stats")["startup"]
+    actor = client._actor(idx).actor_id
+    (ev,) = [e for e in get_event_log().tail(1024, subsystem="fabric",
+                                             name="actor_start")
+             if e.get("actor") == actor]
+    inner = (s["cuda_context_s"] + s["weights_load_s"] + s["engine_setup_s"]
+             + s["kernel_load_s"] + s["capture_s"])
+    return {
+        "process_start_s": s["worker_t0"] - ev["boot_ts"],
+        "imports_s": s["imports_end"] - s["worker_t0"],
+        "cuda_context_s": s["cuda_context_s"],
+        "weights_load_s": s["weights_load_s"],
+        "engine_setup_s": s["engine_setup_s"],
+        "kernel_load_s": s["kernel_load_s"],
+        "graph_capture_s": s["capture_s"],
+        "rest_of_init_s": s["init_end"] - s["imports_end"] - inner,
+        "to_driver_s": ev["ts"] - s["init_end"],
+        "total_s": ev["ts"] - ev["boot_ts"],
+    }
+
+
+class _Sampler:
+    """Samples ``fn()`` every 10 ms on a thread until stopped: (wall time,
+    value) pairs."""
+
+    def __init__(self, fn):
+        import threading
+
+        self.fn, self.samples = fn, []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.samples.append((time.time(), self.fn()))
+            self._stop.wait(0.01)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(10)
+        return self.samples
+
+
+def event_ts(events, name, **match) -> list:
+    return [e["ts"] for e in events.tail(1024, name=name)
+            if all(e.get(k) == v for k, v in match.items())]
+
+
+def recovery_crash(client, sup, sup_events, wave, exact, params, cfg,
+                   device, cuda) -> dict:
+    """(a): replica 1 killed by a fault at its 2nd fold boundary under the
+    wave; failover, the supervisor's restart, a second wave pinned to the
+    restarted replica."""
+    from ray_lightning_tpu_torch.obs.events import get_event_log
+    from ray_lightning_tpu_torch.obs.registry import get_registry
+
+    reg = get_registry()
+    lost0 = reg.counter("rlt_serve_failover_requests_total").value(
+        outcome="lost")
+    states = _Sampler(lambda: sup.rows()[1]["state"] if len(sup.rows()) > 1
+                      else "healthy")
+    old = client._actor(1)
+    t_wave = time.time()
+    before = replica_counts(client, (0, 2))
+    client.inject_fault(1, [{"point": "fold_boundary", "action": "kill",
+                             "after": 2}])
+    w = fleet_wave(client, wave)
+    after = replica_counts(client, (0, 2))
+    launches = check_replica_counts("(a) crash wave", before, after, cfg,
+                                    cuda, "serve-recovery")
+    near = recovery_compare("(a) crash wave", wave, w["toks"], exact,
+                            params, cfg, device)
+    deadline = time.monotonic() + 600
+    while not (sup.rows()[1]["restarts"] >= 1
+               and sup.rows()[1]["state"] == "healthy"):
+        if sup.rows()[1]["state"] == "failed" or time.monotonic() > deadline:
+            fail(f"(a): replica 1 not restarted: {sup.rows()[1]}; events "
+                 f"{[e['name'] for e in sup_events.tail(64)]}")
+        time.sleep(0.05)
+    seq = [s for _, s in states.stop()]
+    seq = [s for k, s in enumerate(seq) if k == 0 or s != seq[k - 1]]
+    fabric_log = get_event_log()
+    died = event_ts(fabric_log, "actor_death", actor=old.actor_id)
+    lost_at = [t for t in event_ts(fabric_log, "replica_lost", replica=1)
+               if t >= t_wave]
+    restarted = event_ts(sup_events, "replica_restarted", replica=1)
+    failed = [e for e in sup_events.tail(256)
+              if e["name"] in ("replica_restart_failed",
+                               "replica_restart_giveup")]
+    lost = reg.counter("rlt_serve_failover_requests_total").value(
+        outcome="lost") - lost0
+    if seq != ["healthy", "dead", "restarting", "healthy"] or failed:
+        fail(f"(a): supervisor states {seq}, restart failures {failed}")
+    if lost or not died or not lost_at or len(restarted) != 1:
+        fail(f"(a): lost {lost}, death {died}, lost verdict {lost_at}, "
+             f"restarts {restarted}")
+    if sum(h.replica == 1 for h in w["handles"].values()) == 0:
+        fail("(a): no request of the wave went to replica 1")
+    verdict_s = min(lost_at) - died[0]
+    breakdown = startup_breakdown(client, 1)
+    # The second wave, pinned to the restarted replica.
+    before = replica_counts(client, (1,))
+    pinned = [(f"{rid}r", p, sp) for rid, p, sp in wave[:len(wave) // 2]]
+    w2 = fleet_wave(client, pinned, replica=1)
+    after = replica_counts(client, (1,))
+    launches += check_replica_counts("(a) restarted replica", before,
+                                     after, cfg, cuda, "serve-recovery")
+    near += recovery_compare("(a) restarted replica", pinned, w2["toks"],
+                             {f"{rid}r": exact[rid] for rid, _, _ in wave},
+                             params, cfg, device)
+    if after[1]["compiled_count"] != replica_counts(client, (0,))[0][
+            "compiled_count"]:
+        fail("(a): the restarted replica's compiled_count differs")
+    out = {
+        "states": seq,
+        "detection_s": verdict_s,
+        "kill_to_healthy_s": restarted[0] - died[0],
+        "respawn_breakdown_s": breakdown,
+        "near_tie_mismatches": near,
+        "lost": lost,
+        "launches": launches,
+    }
+    print(f"[serve-recovery] (a) {json.dumps(out)}")
+    return out
+
+
+def recovery_preempt(client, sup, sup_events, wave, exact, params, cfg,
+                     device, cuda) -> dict:
+    """(b): the ``preempt`` fault on replica 0 with every request of the
+    wave pinned to it, its folds slowed so that the drain finds residents
+    and a queue; the supervisor drains it (the residents finish in grace,
+    the queue migrates), pre-spawns the replacement on fresh capacity
+    and swaps it in."""
+    from ray_lightning_tpu_torch.obs.events import get_event_log
+    from ray_lightning_tpu_torch.obs.registry import get_registry
+
+    reg = get_registry()
+    lost0 = reg.counter("rlt_serve_failover_requests_total").value(
+        outcome="lost") + reg.counter(
+        "rlt_serve_preempt_requests_total").value(outcome="lost")
+    old = client._actor(0)
+    before = replica_counts(client, (0, 1, 2))
+    routable = _Sampler(lambda: len(client.alive_replicas()))
+    client.inject_fault(0, [{"point": "fold_boundary", "action": "preempt",
+                             "after": 2, "seconds": RECOVERY_GRACE_S}] + [
+        {"point": "fold_boundary", "action": "delay",
+         "seconds": RECOVERY_DRAIN_DELAY_S, "after": k}
+        for k in range(1, 40)])
+    pinned = [(f"{rid}p", p, sp) for rid, p, sp in wave]
+    w = fleet_wave(client, pinned, replica=0)
+    deadline = time.monotonic() + 600
+    while not event_ts(sup_events, "replica_preempt_replaced", replica=0):
+        if sup.rows()[0]["state"] in ("failed", "dead") or (
+                time.monotonic() > deadline):
+            fail(f"(b): replica 0 not replaced: {sup.rows()[0]}; events "
+                 f"{[e['name'] for e in sup_events.tail(64)]}")
+        time.sleep(0.05)
+    time.sleep(1.0)
+    samples = routable.stop()
+    after = replica_counts(client, (1, 2))
+    launches = check_replica_counts("(b) survivors", before, after, cfg,
+                                    cuda, "serve-recovery")
+    near = recovery_compare("(b)", pinned, w["toks"],
+                            {f"{rid}p": exact[rid] for rid, _, _ in wave},
+                            params, cfg, device)
+    (drained,) = [e for e in sup_events.tail(256)
+                  if e["name"] == "replica_preempt_drained"]
+    notice = event_ts(sup_events, "replica_preempting", replica=0)[0]
+    prespawned = event_ts(get_event_log(), "replica_prespawned", replica=0)
+    swapped = event_ts(sup_events, "replica_preempt_replaced", replica=0)[0]
+    lost = (reg.counter("rlt_serve_failover_requests_total").value(
+        outcome="lost") + reg.counter(
+        "rlt_serve_preempt_requests_total").value(outcome="lost")) - lost0
+    low = min(v for _, v in samples)
+    if lost or drained["lost"] or not prespawned or client._actor(0) is old:
+        fail(f"(b): lost {lost}, drain {drained}, prespawned {prespawned}")
+    if not (drained["finished_in_grace"] and drained["migrated"]):
+        fail(f"(b): the drain finished {drained['finished_in_grace']} and "
+             f"migrated {drained['migrated']}; both sets must be non-empty")
+    if low < 2:
+        fail(f"(b): routable replicas fell to {low} in the window")
+    if sup.rows()[0]["state"] != "healthy":
+        fail(f"(b): supervisor row {sup.rows()[0]}")
+    breakdown = startup_breakdown(client, 0)
+    # The swapped-in replacement serves.
+    before = replica_counts(client, (0,))
+    again = [(f"{rid}q", p, sp) for rid, p, sp in wave[:len(wave) // 2]]
+    w2 = fleet_wave(client, again, replica=0)
+    after = replica_counts(client, (0,))
+    launches += check_replica_counts("(b) replacement", before, after,
+                                     cfg, cuda, "serve-recovery")
+    near += recovery_compare("(b) replacement", again, w2["toks"],
+                             {f"{rid}q": exact[rid] for rid, _, _ in wave},
+                             params, cfg, device)
+    out = {
+        "finished_in_grace": drained["finished_in_grace"],
+        "migrated": drained["migrated"],
+        "kv_blocks": drained["kv_blocks"],
+        "routable_min": low,
+        "routable_samples": len(samples),
+        "notice_to_prespawned_s": prespawned[0] - notice,
+        "notice_to_swap_s": swapped - notice,
+        "prespawn_breakdown_s": breakdown,
+        "near_tie_mismatches": near,
+        "lost": lost,
+        "launches": launches,
+    }
+    print(f"[serve-recovery] (b) {json.dumps(out)}")
+    return out
+
+
+def recovery_autoscale(ckpt, wave, exact, params, cfg, device, cuda) -> dict:
+    """(c): a one-replica fleet under ``RouterAutoscaler(min_replicas=1,
+    max_replicas=2)``, ticked by hand: a burst (the wave pinned to
+    nothing, replica 0's folds slowed) scales up through ``add_replica``;
+    the added replica serves a pinned wave; an idle fleet scales down
+    through ``retire_replica``, and stays at one."""
+    from ray_lightning_tpu_torch.obs.events import EventLog
+    from ray_lightning_tpu_torch.obs.registry import (
+        MetricsRegistry,
+        get_registry,
+    )
+    from ray_lightning_tpu_torch.serve.client import start_replicas
+    from ray_lightning_tpu_torch.serve.router import Router, RouterAutoscaler
+
+    reg = get_registry()
+    lost0 = reg.counter("rlt_serve_failover_requests_total").value(
+        outcome="lost")
+    client = start_replicas(
+        1, num_gpus_per_replica=RECOVERY_GPUS_C, ckpt_path=ckpt,
+        device=device, rpc_timeout_s=120.0, init_timeout=600.0,
+        **SERVE_ENGINE)
+    try:
+        router = Router(client=client, refresh_s=0.0)
+        client.router = router
+        events = EventLog()
+        auto = RouterAutoscaler(
+            client, router=router, min_replicas=1, max_replicas=2,
+            sustain_ticks=1, down_sustain_ticks=1, up_queue_per_replica=1.0,
+            registry=MetricsRegistry(), events=events)
+        client.inject_fault(0, [
+            {"point": "fold_boundary", "action": "delay",
+             "seconds": RECOVERY_BURST_DELAY_S, "after": k}
+            for k in range(1, RECOVERY_BURST_FOLDS)])
+        before = replica_counts(client, (0,))
+        burst = [(f"{rid}c", p, sp) for rid, p, sp in wave]
+        scaled = {}
+
+        def tick_up(handles):
+            router.refresh(force=True)
+            t0 = time.perf_counter()
+            scaled["up"] = auto.tick()
+            scaled["add_s"] = time.perf_counter() - t0
+
+        # The tick runs once every request is submitted, its streams read.
+        w = fleet_wave(client, burst, batch_first_half=False,
+                       trigger=(lambda handles, t_first: True, tick_up))
+        if scaled["up"]["scaled"] != ("up", 1):
+            fail(f"(c): the burst did not scale up: {scaled['up']}")
+        client.inject_fault(0, None)
+        near = recovery_compare("(c) burst", burst, w["toks"],
+                                {f"{rid}c": exact[rid] for rid, _, _ in wave},
+                                params, cfg, device)
+        mid = replica_counts(client, (0, 1))
+        pinned = [(f"{rid}d", p, sp) for rid, p, sp in wave[:len(wave) // 2]]
+        w2 = fleet_wave(client, pinned, replica=1)
+        after = replica_counts(client, (0, 1))
+        launches = check_replica_counts("(c) burst", before, {0: mid[0]},
+                                        cfg, cuda, "serve-recovery")
+        launches += check_replica_counts("(c) added replica", mid,
+                                         {1: after[1]}, cfg, cuda,
+                                         "serve-recovery")
+        near += recovery_compare("(c) added replica", pinned, w2["toks"],
+                                 {f"{rid}d": exact[rid] for rid, _, _ in wave},
+                                 params, cfg, device)
+        add_breakdown = startup_breakdown(client, 1)
+        router.refresh(force=True)
+        t0 = time.perf_counter()
+        down = auto.tick()
+        retire_s = time.perf_counter() - t0
+        if down["scaled"] != ("down", 1) or client.alive_replicas() != [0]:
+            fail(f"(c): the idle fleet did not scale down: {down}")
+        for _ in range(3):
+            router.refresh(force=True)
+            if auto.tick()["scaled"] is not None:
+                fail("(c): scaled below min_replicas")
+        lost = reg.counter("rlt_serve_failover_requests_total").value(
+            outcome="lost") - lost0
+        if lost:
+            fail(f"(c): {lost} requests lost")
+        out = {
+            "scaled": [scaled["up"]["scaled"], down["scaled"]],
+            "queue_depth_at_up": scaled["up"]["queue_depth"],
+            "add_s": scaled["add_s"],
+            "retire_s": retire_s,
+            "added_breakdown_s": add_breakdown,
+            "events": [e["name"] for e in events.tail(16)],
+            "near_tie_mismatches": near,
+            "lost": lost,
+            "launches": launches,
+        }
+        print(f"[serve-recovery] (c) {json.dumps(out)}")
+        return out
+    finally:
+        client.shutdown()
+
+
+def remote_child(address: str, key: str, ckpt: str, out_path: str,
+                 vocab: int, device: str) -> None:
+    """(d)'s client process: connect to the head in client mode, start one
+    replica there through ``start_replicas``, serve serve-fleet's wave 1,
+    write the tokens and the replica's counts to ``out_path`` (JSON), shut
+    the fleet down and disconnect. Runs as ``python -c`` in a
+    process of its own; it never touches the card itself."""
+    from ray_lightning_tpu_torch import fabric
+    from ray_lightning_tpu_torch.serve.client import start_replicas
+
+    import numpy as np
+
+    fabric.init(address=address, authkey=key)
+    try:
+        wave = fleet_wave1(vocab)
+        t0 = time.time()
+        client = start_replicas(
+            1, num_gpus_per_replica=RECOVERY_GPUS_C, ckpt_path=ckpt,
+            device=device, rpc_timeout_s=120.0, init_timeout=600.0,
+            **SERVE_ENGINE)
+        try:
+            spawn_s = time.time() - t0
+            before = replica_counts(client, (0,))[0]
+            w = fleet_wave(client, wave)
+            after = replica_counts(client, (0,))[0]
+            cards = client._actor(0).visible_cards
+        finally:
+            client.shutdown()
+        with open(out_path, "w") as f:
+            json.dump({"toks": w["toks"], "before": before, "after": after,
+                       "spawn_s": spawn_s, "cards": cards,
+                       "wall_s": w["wall"],
+                       "n_tok": int(np.sum([len(t) for t in
+                                            w["toks"].values()]))}, f)
+    finally:
+        fabric.shutdown()
+
+
+def fleet_wave1(vocab: int) -> list:
+    """serve-fleet (a)'s wave 1: the serve phase's 8 requests, then the
+    same 8 with seeds raised by 100."""
+    import dataclasses
+
+    import numpy as np
+
+    reqs = serve_workload(vocab, np.random.default_rng(0))
+    return reqs + [(f"{rid}n", p, dataclasses.replace(sp, seed=sp.seed + 100))
+                   for rid, p, sp in reqs]
+
+
+def descendants(pid: int) -> set:
+    """Every live descendant of ``pid`` (``/proc``)."""
+    kids = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if fields[0] != "Z":
+            kids.setdefault(int(fields[1]), []).append(int(d))
+    out, todo = set(), [pid]
+    while todo:
+        for k in kids.get(todo.pop(), []):
+            if k not in out:
+                out.add(k)
+                todo.append(k)
+    return out
+
+
+class RemoteFabric:
+    """(d): a head (``python -m ray_lightning_tpu_torch.fabric.server
+    --port 0``) and a client process running :func:`remote_child` against
+    it, started together and run beside (c). ``finish()`` waits for the
+    child, stops the head with SIGINT (its fabric session's exit hook
+    kills its actors) and returns the child's record and every process
+    the two had started that is still alive."""
+
+    def __init__(self, ckpt: str, workdir: str, vocab: int, device: str):
+        import queue
+        import threading
+
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [HERE, os.environ.get("PYTHONPATH", "")]).rstrip(os.pathsep))
+        self.t0 = time.perf_counter()
+        self.head = subprocess.Popen(
+            [sys.executable, "-m", "ray_lightning_tpu_torch.fabric.server",
+             "--port", "0"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+            text=True)
+        lines = queue.Queue()
+        self.head_lines = []
+
+        def drain():
+            for line in self.head.stdout:
+                self.head_lines.append(line)
+                lines.put(line)
+
+        threading.Thread(target=drain, daemon=True).start()
+        deadline = time.monotonic() + 120
+        ready = None
+        while ready is None:
+            if self.head.poll() is not None or time.monotonic() > deadline:
+                fail(f"(d): the head never became ready: {self.head_lines}")
+            try:
+                line = lines.get(timeout=0.5)
+            except queue.Empty:
+                continue
+            if line.startswith("FABRIC_SERVER_READY"):
+                ready = line.split()
+        address = ready[1]
+        key = next(p[4:] for p in ready[2:] if p.startswith("key="))
+        self.head_ready_s = time.perf_counter() - self.t0
+        self.out_path = os.path.join(workdir, "remote.json")
+        code = ("import sys; sys.path.insert(0, {here!r}); import chip_smoke;"
+                " chip_smoke.remote_child({a!r}, {k!r}, {c!r}, {o!r}, {v!r},"
+                " {d!r})").format(here=HERE, a=address, k=key, c=ckpt,
+                                  o=self.out_path, v=vocab, d=device)
+        self.child = subprocess.Popen([sys.executable, "-c", code], cwd=HERE,
+                                      env=env)
+
+    def finish(self) -> tuple:
+        import signal
+
+        try:
+            rc = self.child.wait(timeout=900)
+        except subprocess.TimeoutExpired:
+            self.child.kill()
+            fail("(d): the client process did not finish")
+        tree = descendants(self.head.pid)
+        self.head.send_signal(signal.SIGINT)
+        try:
+            self.head.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            self.head.kill()
+            fail("(d): the head did not stop on SIGINT")
+        if rc != 0:
+            fail(f"(d): the client process exited {rc}")
+        with open(self.out_path) as f:
+            rec = json.load(f)
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and any(
+                os.path.exists(f"/proc/{p}") for p in tree):
+            time.sleep(0.5)
+        left = {p for p in tree | {self.head.pid, self.child.pid}
+                if os.path.exists(f"/proc/{p}")}
+        rec["wall_s_total"] = time.perf_counter() - self.t0
+        rec["head_ready_s"] = self.head_ready_s
+        return rec, left
+
+
+def serve_recovery_run(params, cfg, device, ckpt: str, workdir: str,
+                       engine) -> dict:
+    """The serve-recovery traffic (see ``phase_serve_recovery``) on
+    ``device``. ``engine`` is the serve phase's in-process engine on the
+    same weights, the yardstick of every token. On the CPU (a rehearsal
+    at a tiny width) set ``RLT_NUM_GPUS`` so the fabric has a card to
+    share out; the launch gates then check nothing."""
+    import torch
+
+    from ray_lightning_tpu_torch import fabric
+    from ray_lightning_tpu_torch.obs.events import EventLog
+    from ray_lightning_tpu_torch.obs.registry import MetricsRegistry
+    from ray_lightning_tpu_torch.serve.client import start_replicas
+    from ray_lightning_tpu_torch.serve.supervisor import FleetSupervisor
+
+    cuda = torch.device(device).type == "cuda"
+    wave = fleet_wave1(cfg.vocab_size)
+    exact = serve_run(engine, wave)["toks"]
+    out = {}
+    fabric.init()
+    try:
+        t0 = time.perf_counter()
+        client = start_replicas(
+            3, num_gpus_per_replica=RECOVERY_GPUS_A, ckpt_path=ckpt,
+            device=device, rpc_timeout_s=120.0, init_timeout=600.0,
+            **SERVE_ENGINE)
+        out["spawn_s_fleet_a"] = time.perf_counter() - t0
+        out["initial_breakdown_s"] = startup_breakdown(client, 0)
+        print(f"[serve-recovery] fleet A up in {out['spawn_s_fleet_a']:.1f} s"
+              f" on cards {[client._actor(i).visible_cards for i in range(3)]}"
+              f"; replica 0's start-up {json.dumps(out['initial_breakdown_s'])}")
+        sup_events = EventLog()
+        sup = FleetSupervisor(
+            client, interval_s=RECOVERY_TICK_S,
+            restart_backoff_s=RECOVERY_BACKOFF_S, restart_limit=2,
+            probe_timeout_s=120.0, registry=MetricsRegistry(),
+            events=sup_events).start()
+        try:
+            out["crash"] = recovery_crash(client, sup, sup_events, wave,
+                                          exact, params, cfg, device, cuda)
+            out["preempt"] = recovery_preempt(client, sup, sup_events, wave,
+                                              exact, params, cfg, device,
+                                              cuda)
+        finally:
+            sup.stop()
+            client.shutdown()
+        remote = RemoteFabric(ckpt, workdir, cfg.vocab_size, str(device))
+        try:
+            out["autoscale"] = recovery_autoscale(ckpt, wave, exact, params,
+                                                  cfg, device, cuda)
+        finally:
+            rec, left = remote.finish()
+        if left:
+            fail(f"(d): processes left after the head stopped: {left}")
+        near = recovery_compare("(d)", wave, rec["toks"], exact, params,
+                                cfg, device)
+        launches = check_replica_counts(
+            "(d) remote replica", {0: rec["before"]}, {0: rec["after"]}, cfg,
+            cuda, "serve-recovery")
+        out["remote"] = {
+            "head_ready_s": rec["head_ready_s"], "spawn_s": rec["spawn_s"],
+            "wall_s": rec["wall_s"], "total_s": rec["wall_s_total"],
+            "tokens_per_s": rec["n_tok"] / rec["wall_s"],
+            "cards": rec["cards"], "near_tie_mismatches": near,
+            "launches": launches,
+        }
+        print(f"[serve-recovery] (d) {json.dumps(out['remote'])}")
+    finally:
+        fabric.shutdown()
+    out["launches"] = sum(out[k]["launches"] for k in
+                          ("crash", "preempt", "autoscale", "remote"))
+    return out
+
+
+def phase_serve_recovery(serve4: dict, fleet: dict) -> int:
+    """The fleet's recovery plane at GPT-2-small width and depth on
+    serve-fleet's checkpoint, ``RLT_REQUIRE_GPU=1`` (``serve_recovery_run``):
+    (a) a replica of a three-replica fleet killed by a fault at a fold
+    boundary mid-wave, a ``FleetSupervisor`` restarting it; (b) the
+    ``preempt`` fault on another, drained, its replacement pre-spawned and
+    swapped in; (c) ``RouterAutoscaler(min_replicas=1, max_replicas=2)``
+    ticked by hand: a burst adds a replica, an idle fleet retires it;
+    (d) a fabric head in a subprocess and a client process that starts a
+    replica through client mode and serves serve-fleet's wave 1.
+
+    Card shares: fleet A's three replicas a quarter each, since (b)'s
+    replacement is spawned outside A's placement group while the dying
+    replica still holds its quarter (the fabric's card accounting, not
+    the card's memory, limits the fleet); with three, two stay routable
+    through (b)'s grace window. Fleet C's replicas and (d)'s a third each.
+    The serve phase's engine is monolithic: it has no prefix pool, so
+    (b)'s migrated requests (the queued ones) carry no KV blocks and are
+    prefilled again on the survivors; the KV-carrying migration is held
+    on the CPU (``tests/test_torch_recovery.py``).
+
+    Gates: 0 requests lost in every section; every token bitwise the
+    serve phase's in-process engine's on the same requests (near-ties
+    aside, serve-fleet's rule); (a) the supervisor's states healthy ->
+    dead -> restarting -> healthy with one restart and no failed attempt,
+    the restarted replica serving a pinned wave bitwise; (b) both the
+    finish and the migrate sets non-empty, the routable count sampled
+    every 10 ms never below 2, the replacement serving a pinned wave; (c)
+    one scale up, one scale down, none below the minimum, the added
+    replica serving a pinned wave; (d) tokens bitwise, no process of the
+    head or the client left after the head stops; every replica's graphs
+    frozen and 12 K1 launches per admission (its ``stats()``); the card's
+    memory back within FLEET_MEM_SLACK_MIB and no child left. Prints each
+    section's seconds (detection, kill to healthy, notice to swap, add,
+    retire), the respawned, pre-spawned and added replicas' start-up
+    breakdowns. Removes serve-fleet's checkpoint. Returns K1's launches
+    inside the replicas."""
+    os.environ["RLT_REQUIRE_GPU"] = "1"
+    kids0 = child_pids()
+    mem0 = card_memory_mib()
+    try:
+        out = serve_recovery_run(fleet["params"], fleet["cfg"], "cuda",
+                                 fleet["ckpt"], fleet["workdir"],
+                                 serve4["sched"].engine)
+    finally:
+        shutil.rmtree(fleet["workdir"], ignore_errors=True)
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and (
+            set(child_pids()) - set(kids0)
+            or card_memory_mib() > mem0 + FLEET_MEM_SLACK_MIB):
+        time.sleep(0.5)
+    kids, mem = set(child_pids()) - set(kids0), card_memory_mib()
+    print(f"[serve-recovery] after shutdown: children {sorted(kids)}, card "
+          f"memory {mem} MiB (before the phase {mem0} MiB)")
+    if kids:
+        fail(f"child processes left after shutdown: {sorted(kids)}")
+    if mem > mem0 + FLEET_MEM_SLACK_MIB:
+        fail(f"card memory {mem} MiB after the phase, {mem0} MiB before")
+    summary = {
+        "detection_s": out["crash"]["detection_s"],
+        "kill_to_healthy_s": out["crash"]["kill_to_healthy_s"],
+        "respawn_breakdown_s": out["crash"]["respawn_breakdown_s"],
+        "preempt_notice_to_swap_s": out["preempt"]["notice_to_swap_s"],
+        "preempt_routable_min": out["preempt"]["routable_min"],
+        "autoscale_add_s": out["autoscale"]["add_s"],
+        "autoscale_retire_s": out["autoscale"]["retire_s"],
+        "remote_spawn_s": out["remote"]["spawn_s"],
+        "launches": out["launches"],
+        "card_mib": [mem0, mem],
+    }
+    print(f"[serve-recovery] {json.dumps(summary)} on {card_line()}")
     return out["launches"]
 
 
@@ -4299,7 +5008,7 @@ def check_dist_kernels(tag: str, ranks: list, n_steps: int, n_layer: int,
 def phase_train_dist(yard: dict):
     """train-dist: the launched trainer on fabric actors. (a) The train
     phase's fit through ``RayStrategy(num_workers=1)`` (NCCL, graphs),
-    bitwise phase 13's; (b) ``HorovodRayStrategy`` and
+    bitwise phase 14's; (b) ``HorovodRayStrategy`` and
     ``RayShardedStrategy`` stages 1 and 3 for 6 steps, bitwise (a)'s
     first 6; (c) two ranks sharing the card (gloo, eager, fp32, 4 layers)
     against an in-process fit of the same global batch. Returns each
@@ -4567,6 +5276,8 @@ def main() -> None:
                                         serve4)
     kvplane_launches = timed_phase("serve-kvplane", phase_serve_kvplane,
                                    fleet)
+    recovery_launches = timed_phase("serve-recovery", phase_serve_recovery,
+                                    serve4, fleet)
     train_launches, _, yard = timed_phase("train", phase_train)
     dist_launches = timed_phase("train-dist", phase_train_dist, yard)
     src = "ray_lightning_tpu_torch/ops/csrc/"
@@ -4577,7 +5288,7 @@ def main() -> None:
         "replaces": "ray_lightning_tpu/ops/flash_attention.py:29",
         "launches": serve_launches + spec_launches + fused_launches
         + int8_launches + lifecycle_launches + fleet_launches
-        + kvplane_launches + train_launches["flash_fwd"]
+        + kvplane_launches + recovery_launches + train_launches["flash_fwd"]
         + dist_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
@@ -4588,6 +5299,7 @@ def main() -> None:
                              "serve_lifecycle": lifecycle_launches,
                              "serve_fleet": fleet_launches,
                              "serve_kvplane": kvplane_launches,
+                             "serve_recovery": recovery_launches,
                              "train": train_launches["flash_fwd"],
                              "train_dist": dist_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],

@@ -12,8 +12,9 @@ queues, heartbeats).
 - Logical nodes carry resource capacities (``{"CPU": n, "GPU": n,
   custom}``); ``cluster_utils.Cluster`` fakes multi-node clusters for
   tests.
-- The remote fabric (a head server and its clients) is ROADMAP queue 1
-  item 10b.
+- Client mode: ``init(address="host:port", authkey=...)`` proxies every
+  call to a head started with ``python -m
+  ray_lightning_tpu_torch.fabric.server`` (``server.py``, ``client.py``).
 """
 from ray_lightning_tpu_torch.fabric.core import (
     ActorDiedError,

@@ -8,8 +8,9 @@ resource is ``"GPU"`` (the reference's ``"TPU"``): the ``num_gpus`` actor
 option, the ``RLT_NUM_GPUS`` override and the ``RLT_REQUIRE_GPU=1`` hard
 error. An actor given whole GPUs sees exactly those cards through
 ``CUDA_VISIBLE_DEVICES``; fractional shares of one card (two replicas at
-0.5) land on the same card. Client mode (``init(address=...)``, the
-remote fabric) is ROADMAP queue 1 item 10b.
+0.5) land on the same card. Client mode (``init(address=...)``) proxies
+every call to a remote fabric head (``fabric/server.py``,
+``fabric/client.py``).
 """
 from __future__ import annotations
 
@@ -271,8 +272,15 @@ class _Session:
 _session: Optional[_Session] = None
 
 
+def _client_mode():
+    """The connected FabricClient module, or None (local mode)."""
+    from ray_lightning_tpu_torch.fabric import client
+
+    return client if client.is_connected() else None
+
+
 def is_initialized() -> bool:
-    return _session is not None
+    return _session is not None or _client_mode() is not None
 
 
 def init(
@@ -285,18 +293,21 @@ def init(
 ) -> None:
     """Start the fabric session with a single local head node.
 
-    ``resources`` adds custom logical resources. ``address`` (client
-    mode: proxy every call to a remote fabric head) and ``authkey`` are
-    accepted at their defaults only: the remote fabric is ROADMAP queue
-    1 item 10b.
+    ``resources`` adds custom logical resources. ``address="host:port"``
+    enters client mode: connect to a remote
+    :class:`~ray_lightning_tpu_torch.fabric.server.FabricServer` head and
+    proxy every fabric call there. ``authkey`` is the server's shared
+    secret (from its ready line or its ``RLT_FABRIC_AUTHKEY``); it
+    defaults to this process's ``RLT_FABRIC_AUTHKEY``.
     """
     global _session
-    if address is not None or authkey is not None:
-        raise NotImplementedError(
-            "fabric.init(address=...) (client mode, the remote fabric) is "
-            "not ported yet (ROADMAP queue 1 item 10b); run the fabric in "
-            "local mode"
-        )
+    if address is not None:
+        from ray_lightning_tpu_torch.fabric import client
+
+        client.connect(address, authkey=authkey)
+        return
+    if _client_mode() is not None:
+        return  # already connected to a head; local init is a no-op
     if _session is not None:
         if ignore_reinit_error:
             return
@@ -325,6 +336,10 @@ def _require_session() -> _Session:
 
 
 def shutdown() -> None:
+    _c = _client_mode()
+    if _c is not None:
+        _c.disconnect()
+        return
     global _session
     if _session is None:
         return
@@ -366,6 +381,9 @@ def _add_node(capacity: Dict[str, float], node_ip: Optional[str] = None) -> Node
 
 
 def nodes() -> List[Dict[str, Any]]:
+    _c = _client_mode()
+    if _c is not None:
+        return _c.nodes()
     sess = _require_session()
     with sess.lock:
         return [
@@ -381,6 +399,9 @@ def nodes() -> List[Dict[str, Any]]:
 
 
 def cluster_resources() -> Dict[str, float]:
+    _c = _client_mode()
+    if _c is not None:
+        return _c.cluster_resources()
     sess = _require_session()
     with sess.lock:
         total: Dict[str, float] = {}
@@ -391,6 +412,9 @@ def cluster_resources() -> Dict[str, float]:
 
 
 def available_resources() -> Dict[str, float]:
+    _c = _client_mode()
+    if _c is not None:
+        return _c.available_resources()
     sess = _require_session()
     with sess.lock:
         total: Dict[str, float] = {}
@@ -472,7 +496,11 @@ def placement_group(
 
     Raises :class:`InsufficientResourcesError` when the bundles cannot be
     placed under ``strategy`` with current availability (nothing is leaked:
-    partial acquisitions roll back)."""
+    partial acquisitions roll back). In client mode the reservation lives
+    on the fabric head and a lightweight proxy is returned."""
+    _c = _client_mode()
+    if _c is not None:
+        return _c.placement_group(bundles, strategy=strategy)
     if strategy not in ("PACK", "STRICT_PACK", "SPREAD"):
         raise ValueError(f"unknown placement strategy {strategy!r}")
     reqs = [
@@ -563,6 +591,10 @@ def remove_placement_group(pg: Any) -> None:
     occupants are killed (their resources return to the bundle, not the
     node), and only then do the bundle reservations go back to the nodes.
     """
+    _c = _client_mode()
+    if _c is not None:
+        _c.remove_placement_group(pg)
+        return
     sess = _require_session()
     with sess.lock:
         # Check-and-set under the lock: concurrent removals (user cleanup
@@ -628,6 +660,9 @@ def _objectref_from_wire(id: str, shm_name: str, size: int) -> "ObjectRef":
 
 
 def put(obj: Any) -> ObjectRef:
+    _c = _client_mode()
+    if _c is not None:
+        return _c.put(obj)
     sess = _require_session()
     payload = cloudpickle.dumps(obj, protocol=5)
     ref_id = uuid.uuid4().hex[:16]
@@ -682,6 +717,10 @@ def _unpark(name: str, size: int) -> Any:
 
 
 def free(refs: Sequence[ObjectRef]) -> None:
+    _c = _client_mode()
+    if _c is not None:
+        _c.free(refs)
+        return
     sess = _require_session()
     with sess.lock:
         for ref in refs:
@@ -717,6 +756,9 @@ def _task_done(sess: _Session, ref: TaskRef) -> bool:
 
 def get(refs: Any, timeout: Optional[float] = None) -> Any:
     """Resolve ObjectRef/TaskRef (or a list of them) to values."""
+    _c = _client_mode()
+    if _c is not None:
+        return _c.get(refs, timeout=timeout)
     if isinstance(refs, (list, tuple)):
         return type(refs)(get(r, timeout=timeout) for r in refs)
     if isinstance(refs, ObjectRef):
@@ -762,6 +804,9 @@ def wait(
     or ``timeout`` elapses. ``timeout=0`` polls — the driver's result loop uses
     this exactly like the reference's ``ray.wait(timeout=0)`` poll
     (util.py:57-70)."""
+    _c = _client_mode()
+    if _c is not None:
+        return _c.wait(refs, num_returns=num_returns, timeout=timeout)
     sess = _require_session()
     deadline = None if timeout is None else time.monotonic() + timeout
     with sess.cv:
@@ -968,6 +1013,9 @@ class ActorClass:
 
 def remote(cls: type) -> "ActorClass":
     """Decorator/wrapper turning a class into a spawnable actor class."""
+    _c = _client_mode()
+    if _c is not None:
+        return _c.remote(cls)
     return ActorClass(cls)
 
 
@@ -1036,6 +1084,7 @@ def _spawn_actor(
     if request.get("GPU"):
         env["CUDA_VISIBLE_DEVICES"] = ",".join(cards)
     actor_id = f"actor-{uuid.uuid4().hex[:8]}"
+    boot_ts = time.time()
     try:
         proc, parent_conn = _boot_worker_process(actor_id, env, node)
     except BaseException:
@@ -1065,7 +1114,7 @@ def _spawn_actor(
         # "actor not initialized", so the readiness ping raises.
         _record_event(
             "actor_start", actor=actor_id, node=node.node_id,
-            cls=cls.__name__, lazy=True,
+            cls=cls.__name__, lazy=True, boot_ts=boot_ts,
         )
         return handle
     # Wait for construction so init errors surface eagerly on the driver.
@@ -1076,7 +1125,7 @@ def _spawn_actor(
         raise
     _record_event(
         "actor_start", actor=actor_id, node=node.node_id,
-        cls=cls.__name__,
+        cls=cls.__name__, boot_ts=boot_ts,
     )
     return handle
 
@@ -1224,15 +1273,22 @@ def kill(handle: ActorHandle, no_restart: bool = True) -> None:
     ``no_restart=False`` is REJECTED loudly: fabric actors have no
     restart machinery (no retained spawn spec, no supervision), so
     silently accepting the flag would promise a restart that never
-    comes. Restarting a serving replica is the fleet supervisor's job
-    (ROADMAP queue 1 item 10b).
+    comes. Restartable serving replicas are the serve layer's job:
+    ``serve.supervisor.FleetSupervisor`` re-runs a dead replica's
+    original spawn through ``ServeClient.respawn_replica``.
     """
     if not no_restart:
         raise ValueError(
             "fabric.kill(no_restart=False) is unsupported: fabric actors "
-            "are never restarted in place; kill with the default "
-            "no_restart=True"
+            "are never restarted in place. For restartable serving "
+            "replicas use serve.supervisor.FleetSupervisor (which "
+            "re-runs the original spawn), then kill with the default "
+            "no_restart=True."
         )
+    _c = _client_mode()
+    if _c is not None:
+        _c.kill(handle)
+        return
     sess = _require_session()
     # Record the intent BEFORE the process dies, so the reader thread's
     # subsequent death record is recognizably a consequence of this kill.

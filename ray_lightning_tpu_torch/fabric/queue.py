@@ -16,6 +16,15 @@ from ray_lightning_tpu_torch.fabric import core
 
 
 class Queue:
+    def __new__(cls, maxsize: int = 0):
+        # Client mode: the queue must live on the head so workers there can
+        # reach it; hand back the RPC-backed proxy instead.
+        if cls is Queue and core._client_mode() is not None:
+            from ray_lightning_tpu_torch.fabric.client import ClientQueue
+
+            return ClientQueue(maxsize)
+        return super().__new__(cls)
+
     def __init__(self, maxsize: int = 0) -> None:
         sess = core._require_session()
         self._q = sess.manager.Queue(maxsize)

@@ -335,8 +335,12 @@ def main(argv) -> None:
     ``/proc/*/cmdline`` or the environment.
     """
     import multiprocessing as mp
+    import time
     from multiprocessing.connection import Client
 
+    # When this interpreter came up (wall clock): an actor reads it to
+    # split its start-up into interpreter, imports and its own work.
+    os.environ["RLT_WORKER_T0"] = repr(time.time())
     address = argv[1]
     authkey = bytes.fromhex(sys.stdin.readline().strip())
     mp_authkey = bytes.fromhex(sys.stdin.readline().strip())

@@ -36,6 +36,9 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 #: Per source: seconds the last build took (0.0 when the library was cached).
 build_seconds: Dict[str, float] = {}
+#: Per source: seconds its first ``load`` in this process took (a build
+#: when one was needed, then the ``dlopen``).
+load_seconds: Dict[str, float] = {}
 
 
 def kernel_sources() -> List[str]:
@@ -114,6 +117,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             path = build_all([name])[name]
             lib = _libs[name] = ctypes.CDLL(str(path))
+            load_seconds[name] = time.perf_counter() - t0
         return lib

@@ -25,8 +25,11 @@
   (``start_replicas(roles=...)``) and fetches from the KV object store
   (kvstore.py), which also takes write-through and parked sessions.
 
-Not ported yet: ``FleetSupervisor`` and ``RouterAutoscaler`` (ROADMAP
-queue 1 item 10b).
+- :class:`FleetSupervisor` (supervisor.py) — the recovery plane: detects
+  dead, unhealthy and preempted replicas, fails them over and restarts
+  them on the client's retained spawn recipe with capped backoff;
+  :class:`RouterAutoscaler` (router.py) adds and retires replicas on
+  queue pressure.
 
 The engine and the replica/client layer import on first attribute
 access (torch, the fabric), not at package import.
@@ -46,6 +49,7 @@ from ray_lightning_tpu_torch.serve.router import (
     RequestRejectedError,
     RetryBudget,
     Router,
+    RouterAutoscaler,
 )
 from ray_lightning_tpu_torch.serve.scheduler import (
     Request,
@@ -66,7 +70,9 @@ __all__ = [
     "start_replicas",
     "load_serve_params",
     "build_engine",
+    "FleetSupervisor",
     "Router",
+    "RouterAutoscaler",
     "RequestRejectedError",
     "RetryBudget",
     "FleetKVDirectory",
@@ -86,6 +92,7 @@ _LAZY = {
     "build_engine": "ray_lightning_tpu_torch.serve.server",
     "ServeClient": "ray_lightning_tpu_torch.serve.client",
     "start_replicas": "ray_lightning_tpu_torch.serve.client",
+    "FleetSupervisor": "ray_lightning_tpu_torch.serve.supervisor",
 }
 
 

@@ -47,11 +47,18 @@ client keeps a handle on the KV object store (``serve/kvstore.py``):
 from its manifest after a fleet restart, and
 :meth:`ServeClient.park_session` parks a conversation there.
 
-Not ported yet, and refused naming their ROADMAP queue 1 item: the
-recovery plane (``respawn_replica``, ``add_replica``, ``retire_replica``,
-``prespawn_replacement``, ``preempt_drain``: item 10b), multi-host
-replicas (``hosts_per_replica > 1``: item 11b) and the profiler RPC
-(item 14).
+The recovery plane: ``start_replicas`` keeps each index's spawn recipe as
+the client's ``respawn_fn``, so :class:`serve.supervisor.FleetSupervisor`
+restarts a dead replica from the same resolved config
+(``respawn_replica``), pre-spawns a preempted replica's replacement on
+fresh capacity (``prespawn_replacement``) while ``preempt_drain`` moves
+its unfinishable requests with their prefix KV onto survivors, and
+:class:`serve.router.RouterAutoscaler` grows and shrinks the fleet
+(``add_replica``, ``retire_replica``).
+
+Not ported yet, and refused naming their ROADMAP queue 1 item: multi-host
+replicas (``hosts_per_replica > 1``, ``followers``: item 11b) and the
+profiler RPC (item 14).
 """
 from __future__ import annotations
 
@@ -121,10 +128,14 @@ class ServeClient:
     transient failures are retried with capped exponential backoff +
     jitter before the replica is declared lost. ``roles`` is the
     per-index replica role table, ``kv_queues`` the fleet KV inboxes and
-    ``kvstore`` the driver's handle on the KV object store. The
-    reference's multi-host gang members (``followers``,
-    ``follower_replica``: ROADMAP queue 1 item 11b) and restart recipe
-    (``respawn_fn``: item 10b) are accepted at their defaults only.
+    ``kvstore`` the driver's handle on the KV object store.
+    ``respawn_fn(i, fresh_capacity=False, role=None) -> (leader,
+    followers)`` re-runs replica ``i``'s original spawn (same resolved
+    config, same placement-group bundle, fresh processes): the
+    supervisor's restart path and the autoscaler's. The reference's
+    multi-host gang members (``followers``, ``follower_replica``: ROADMAP
+    queue 1 item 11b) are accepted at their defaults only, so a spawn's
+    followers are always ``[]``.
     """
 
     def __init__(
@@ -161,10 +172,9 @@ class ServeClient:
         if not replicas:
             raise ValueError("need at least one replica")
         for name, value, item in (
-            ("followers", followers or None, "11 (multi-host replicas)"),
-            ("follower_replica", follower_replica, "11 (multi-host "
+            ("followers", followers or None, "11b (multi-host replicas)"),
+            ("follower_replica", follower_replica, "11b (multi-host "
              "replicas)"),
-            ("respawn_fn", respawn_fn, "10b (fleet recovery plane)"),
         ):
             if value is not None:
                 raise NotImplementedError(
@@ -173,6 +183,7 @@ class ServeClient:
                 )
         self._replicas = list(replicas)
         self._pg = pg
+        self._respawn_fn = respawn_fn
         self._init_timeout = float(init_timeout)
         self.rpc_timeout_s = (
             None if rpc_timeout_s is None else float(rpc_timeout_s)
@@ -223,6 +234,27 @@ class ServeClient:
             "rlt_serve_failover_replicas_lost_total",
             "Replicas declared lost by the serve client",
         )
+        # Preemption drain: graceful-drain outcomes (scheduled kills,
+        # consumed instead of crashed through) next to the failover
+        # (crash) counters above.
+        self._m_preempt_drains = reg.counter(
+            "rlt_serve_preempt_drains_total",
+            "Graceful drains run against preempting replicas",
+        )
+        self._m_preempt_requests = reg.counter(
+            "rlt_serve_preempt_requests_total",
+            "Requests handled by a preemption drain (outcome label: "
+            "finished in the grace window, migrated to a survivor, or "
+            "lost with no survivor)",
+        )
+        self._m_preempt_kv_blocks = reg.counter(
+            "rlt_serve_preempt_kv_blocks_total",
+            "Prefix KV blocks handed off replica-to-replica during "
+            "preemption drains",
+        )
+        #: Replacement actors spawned DURING a grace window (capacity
+        #: never dips below N): idx -> actor, consumed by respawn_replica.
+        self._prespawned: Dict[int, Any] = {}
         #: Routing policy (serve.router.Router): submit consults it
         #: instead of round-robin when set. Assignable after
         #: construction (the CLI builds the router once the supervisor
@@ -280,10 +312,15 @@ class ServeClient:
         ] or ["mixed"] * len(self._replicas)
         while len(self._roles) < len(self._replicas):
             self._roles.append("mixed")
-        #: Fleet KV transfer queues (index -> inbox).
-        self._kv_queues: Dict[int, Any] = dict(kv_queues or {})
+        #: Fleet KV transfer queues (index -> inbox), shared with the
+        #: spawn recipe: add_replica broadcasts a new member's inbox to
+        #: the live fleet through register_kv_peer.
+        self._kv_queues: Dict[int, Any] = (
+            kv_queues if kv_queues is not None else {}
+        )
         #: The driver's handle on the KV object store (the directory the
-        #: replicas share): seed_store_directory reads its manifest. None
+        #: replicas share): preemption drains write migrating chains
+        #: through it, and seed_store_directory reads its manifest. None
         #: without a store.
         self.kvstore = kvstore
 
@@ -1123,16 +1160,20 @@ class ServeClient:
         self,
         rid: str,
         exclude: Optional[int] = None,
+        blocks: Optional[list] = None,
         target: Optional[int] = None,
         extra: Optional[Dict[str, Any]] = None,
     ) -> bool:
         """Replay one OPEN request's journal submit record onto a live
         replica (same id, same prompt, same full SamplingParams — the
         survivor's seeded draws reproduce the stream bit-exactly).
-        ``target`` (a ship's decode replica) takes the first attempt when
-        it is alive, and ``extra`` (the fetch hint back to the shipper)
-        rides that submit. Returns False when the id has no open record
-        or no replica can take it (the request is then marked lost)."""
+        ``blocks`` (preemption drain) is the dying replica's exported
+        prefix KV, pushed to the chosen survivor BEFORE the resubmit so
+        its admission walk hits warm. ``target`` (a ship's decode
+        replica) takes the first attempt when it is alive, and ``extra``
+        (the fetch hint back to the shipper) rides that submit. Returns
+        False when the id has no open record or no replica can take it
+        (the request is then marked lost)."""
         with self._lock:
             record = self._open.get(rid)
         if record is None:
@@ -1157,6 +1198,17 @@ class ServeClient:
                 with self._lock:
                     self._open.pop(rid, None)
                 return False
+            if blocks:
+                # Best-effort warmth: a failed handoff only costs the
+                # survivor a cold re-prefill, never the request.
+                try:
+                    n = self._rpc(
+                        idx, "import_prefix_blocks", blocks, retries=0
+                    )
+                    self._m_preempt_kv_blocks.inc(int(n))
+                except Exception:  # noqa: BLE001 - see above
+                    pass
+                blocks = None  # one survivor gets them; don't re-ship
             try:
                 self._submit_rpc(idx, rid, record["prompt"], record,
                                  extra=extra)
@@ -1261,39 +1313,269 @@ class ServeClient:
         lost = [rid for rid, ok in zip(victims, oks) if not ok]
         return {"resubmitted": moved, "lost": lost}
 
-    # -- the recovery plane (ROADMAP queue 1 item 10b) --------------------
+    # -- restart (the supervisor's recover arm) ----------------------------
     def can_respawn(self) -> bool:
-        return False
+        return self._respawn_fn is not None
 
-    def respawn_replica(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            "ServeClient.respawn_replica belongs to the fleet recovery plane, not "
-            "ported yet (ROADMAP queue 1 item 10b)"
-        )
+    def _spawn(self, idx: int, **kw: Any) -> Any:
+        """Run the retained recipe for ``idx`` and wait until the new
+        actor answers a ping (killed if it does not). ``kw`` are the
+        recipe's knobs (``fresh_capacity``, ``role``); a recipe without
+        them (tests, custom wiring) is called with fewer. A recipe's
+        followers must be ``[]``: multi-host replicas are ROADMAP queue 1
+        item 11b."""
+        leader = None
+        try:
+            while True:
+                try:
+                    leader, followers = self._respawn_fn(idx, **kw)
+                    break
+                except TypeError:
+                    if not kw:
+                        raise
+                    kw.pop("role" if "role" in kw else "fresh_capacity")
+            if followers:
+                raise NotImplementedError(
+                    "a spawn recipe returned gang followers: multi-host "
+                    "replicas are not ported yet (ROADMAP queue 1 item 11b)"
+                )
+            fabric.get(leader.ping.remote(), timeout=self._init_timeout)
+        except BaseException:
+            if leader is not None:
+                try:
+                    fabric.kill(leader)
+                except Exception:  # noqa: BLE001
+                    pass
+            raise
+        return leader
 
-    def add_replica(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            "ServeClient.add_replica belongs to the fleet recovery plane, not "
-            "ported yet (ROADMAP queue 1 item 10b)"
-        )
+    def respawn_replica(self, idx: int) -> Any:
+        """Re-run replica ``idx``'s original spawn (same resolved
+        config/bundle — ``build_engine`` reconstructs an engine that
+        captures the same graphs from the same checkpoint) and swap the
+        fresh actor into the routing table; a replacement held by
+        :meth:`prespawn_replacement` is swapped in instead of spawning.
+        The old process is torn down best-effort first (it is typically
+        already dead)."""
+        idx = int(idx)
+        if self._respawn_fn is None:
+            raise RuntimeError(
+                "this client has no respawn path (constructed without "
+                "respawn_fn — use serve.start_replicas)"
+            )
+        try:
+            fabric.kill(self._actor(idx))
+        except Exception:  # noqa: BLE001 - usually already dead
+            pass
+        with self._lock:
+            # A replacement spawned during the grace window (already
+            # pinged healthy) is swapped in — zero spawn latency here.
+            leader = self._prespawned.pop(idx, None)
+        if leader is None:
+            leader = self._spawn(idx)
+        with self._lock:
+            self._replicas[idx] = leader
+            self._excluded.discard(idx)
+            self._lost.discard(idx)
+        self._event("replica_respawned", replica=idx)
+        return leader
 
-    def retire_replica(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            "ServeClient.retire_replica belongs to the fleet recovery plane, not "
-            "ported yet (ROADMAP queue 1 item 10b)"
-        )
+    # -- autoscaling (the router's capacity arm) ---------------------------
+    def add_replica(self, role: Optional[str] = None) -> int:
+        """Scale UP: spawn a brand-new replica at the next index through
+        the retained spawn recipe (fresh capacity — the original
+        placement group reserved exactly N bundles) and add it to the
+        routing table once it pings healthy. ``role`` dedicates the new
+        capacity to one disagg pool (prefill | decode; None = mixed) —
+        how the autoscaler grows the two pools independently. Returns
+        the new index."""
+        if self._respawn_fn is None:
+            raise RuntimeError(
+                "this client has no spawn path (constructed without "
+                "respawn_fn — use serve.start_replicas)"
+            )
+        with self._lock:
+            idx = len(self._replicas)
+            # Reserve the slot so a concurrent add picks the next index;
+            # the placeholder is invisible to routing (excluded) until
+            # the spawn pings healthy.
+            self._replicas.append(None)
+            self._excluded.add(idx)
+            while len(self._roles) <= idx:
+                self._roles.append("mixed")
+            self._roles[idx] = str(role or "mixed")
+        try:
+            leader = self._spawn(idx, fresh_capacity=True, role=role)
+        except BaseException:
+            with self._lock:
+                # The slot stays a tombstone: indices never shift.
+                self._retired.add(idx)
+            raise
+        with self._lock:
+            self._replicas[idx] = leader
+            self._excluded.discard(idx)
+        # Fleet KV plane: the live fleet adopts the new member's inbox
+        # (the spawn recipe created it; the new replica got the full
+        # peer map at spawn). Best-effort — a replica that misses the
+        # registration only loses fetch/ship shortcuts to the newcomer.
+        q = self._kv_queues.get(idx)
+        if q is not None:
+            for j in self._alive(exclude=idx):
+                try:
+                    self._rpc(j, "register_kv_peer", idx, q, retries=0)
+                except Exception:  # noqa: BLE001 - shortcuts only
+                    pass
+        self._event("replica_added", replica=idx)
+        return idx
 
-    def prespawn_replacement(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            "ServeClient.prespawn_replacement belongs to the fleet recovery plane, not "
-            "ported yet (ROADMAP queue 1 item 10b)"
+    def retire_replica(
+        self,
+        idx: int,
+        drain_timeout_s: float = 30.0,
+        poll_s: float = 0.05,
+    ) -> Dict[str, Any]:
+        """Scale DOWN gracefully: exclude ``idx`` from new traffic,
+        wait (bounded) for its routed requests to finish streaming,
+        LIVE-MIGRATE any leftovers onto survivors (journal resubmission
+        under the same id/seed — bit-exact, cursor-deduplicated), then
+        stop the actor. The index remains in the table as a RETIRED
+        tombstone so every id->index mapping stays stable. No request
+        is lost at retire time unless no survivor exists."""
+        idx = int(idx)
+        with self._lock:
+            if idx in self._retired:
+                return {"migrated": [], "lost": [], "already": True}
+        self.exclude(idx)
+        deadline = time.monotonic() + max(0.0, float(drain_timeout_s))
+        while self.requests_on(idx) > 0 and time.monotonic() < deadline:
+            time.sleep(poll_s)
+        with self._lock:
+            victims = sorted(
+                rid for rid, r in self._route.items() if r == idx
+            )
+        oks = self._fanout([
+            (lambda r=rid: self._resubmit_from_journal(r, exclude=idx))
+            for rid in victims
+        ])
+        moved = [rid for rid, ok in zip(victims, oks) if ok]
+        lost = [rid for rid, ok in zip(victims, oks) if not ok]
+        with self._lock:
+            self._retired.add(idx)
+            actor = self._replicas[idx]
+        if actor is not None:
+            try:
+                fabric.get(actor.stop.remote(), timeout=10.0)
+            except Exception:  # noqa: BLE001 - retiring anyway
+                pass
+            try:
+                fabric.kill(actor)
+            except Exception:  # noqa: BLE001
+                pass
+        if self.router is not None:
+            try:
+                self.router.forget_replica(idx)
+            except Exception:  # noqa: BLE001
+                pass
+        self._event(
+            "replica_retired", replica=idx,
+            migrated=len(moved), lost=len(lost),
         )
+        return {"migrated": moved, "lost": lost}
 
-    def preempt_drain(self, *args: Any, **kwargs: Any) -> Any:
-        raise NotImplementedError(
-            "ServeClient.preempt_drain belongs to the fleet recovery plane, not "
-            "ported yet (ROADMAP queue 1 item 10b)"
+    # -- preemption drain (the supervisor's graceful-kill arm) -------------
+    def prespawn_replacement(self, idx: int) -> bool:
+        """Spawn replica ``idx``'s replacement NOW (same recipe as
+        respawn) without touching the live one — the grace-window move
+        that keeps fleet capacity at N through a preemption. The
+        replacement is held (pinged healthy) until ``respawn_replica``
+        swaps it in. Returns False when this client has no respawn path;
+        True when a replacement is (already) held."""
+        idx = int(idx)
+        if self._respawn_fn is None:
+            return False
+        with self._lock:
+            if idx in self._prespawned:
+                return True
+        # Fresh capacity, NOT the replica's placement-group bundle: the
+        # dying replica still occupies that until the swap —
+        # capacity-at-N through the grace window needs headroom outside
+        # the reservation.
+        leader = self._spawn(idx, fresh_capacity=True)
+        with self._lock:
+            self._prespawned[idx] = leader
+        self._event("replica_prespawned", replica=idx)
+        return True
+
+    def preempt_drain(
+        self, idx: int, budget_s: Optional[float] = None
+    ) -> Dict[str, Any]:
+        """Drive a preempting replica's graceful drain: exclude it from
+        new traffic, ask it for the drain plan (finish-in-grace vs
+        migrate, with exported prefix KV per migrating request), then
+        live-migrate the migrate set — each request's blocks imported
+        into a survivor and its journal submit replayed there under the
+        SAME id/seed, so the stream continues bit-exactly with the
+        delivered prefix deduplicated client-side. Requests in the
+        finish set keep streaming from the dying replica until done."""
+        idx = int(idx)
+        self.exclude(idx)
+        wait_s = 15.0
+        timeout = (
+            None if self.rpc_timeout_s is None
+            else max(self.rpc_timeout_s, wait_s + 5.0)
         )
+        plan = self._rpc(
+            idx, "begin_drain", budget_s, wait_s=wait_s, timeout=timeout,
+        )
+        moved: List[str] = []
+        lost: List[str] = []
+        already_done = 0
+        kv_blocks = 0
+        for item in plan.get("migrate", []):
+            rid = item["request_id"]
+            with self._lock:
+                known = rid in self._open
+            if not known:
+                # Terminal before the drain reached it (the client saw
+                # the finish): nothing to migrate.
+                already_done += 1
+                continue
+            blocks = item.get("blocks") or []
+            kv_blocks += len(blocks)
+            if blocks and self.kvstore is not None:
+                # Fleet persistence: the migrating chain outlives BOTH
+                # replicas once it is in the store. A failed put counts
+                # in kvstore_write_errors_total and the drain proceeds
+                # — lost loudly, never silently, never blocking.
+                try:
+                    self.kvstore.put_blocks(blocks)
+                except Exception:  # noqa: BLE001 - best-effort tier
+                    pass
+            if self._resubmit_from_journal(rid, exclude=idx, blocks=blocks):
+                moved.append(rid)
+            else:
+                lost.append(rid)
+        self._m_preempt_drains.inc(1)
+        finish = list(plan.get("finish", []))
+        if finish:
+            self._m_preempt_requests.inc(
+                len(finish), outcome="finished_in_grace"
+            )
+        if moved:
+            self._m_preempt_requests.inc(len(moved), outcome="migrated")
+        if lost:
+            self._m_preempt_requests.inc(len(lost), outcome="lost")
+        self._event(
+            "preempt_drain", level="warn", replica=idx,
+            finish=len(finish), migrated=len(moved), lost=len(lost),
+            kv_blocks=kv_blocks, already_done=already_done,
+        )
+        return {
+            "finish": finish,
+            "migrated": moved,
+            "lost": lost,
+            "kv_blocks": kv_blocks,
+        }
 
     def requests_on(self, idx: int) -> int:
         """Open requests currently routed to replica ``idx`` (the
@@ -1570,10 +1852,15 @@ class ServeClient:
         with self._lock:
             replicas = list(self._replicas)
             retired = set(self._retired)
+            prespawned = list(self._prespawned.items())
+            self._prespawned = {}
         for i, r in enumerate(replicas):
             if r is None or i in retired:
                 continue  # scale-down tombstones are already gone
             _drain("replica", i, r)
+        # Unconsumed grace-window replacements die with the fleet.
+        for i, leader in prespawned:
+            _drain("replica", i, leader)
         if self._pg is not None:
             try:
                 fabric.remove_placement_group(self._pg)
@@ -1678,9 +1965,15 @@ def start_replicas(
     client gets its own handle on the same KV object store, in the
     replicas' namespace (``ServeClient.seed_store_directory``).
 
+    The spawn recipe for each replica index is retained on the returned
+    client as its ``respawn_fn``: ``FleetSupervisor`` restarts a dead
+    replica by re-running exactly this spawn (same resolved config, same
+    placement-group bundle, same role, and with the plane on the same
+    inbox and peer wiring), and ``fresh_capacity=True`` spawns outside
+    the reservation (a preemption's pre-spawn, an autoscaled replica).
+
     Refused, naming its ROADMAP queue 1 item: ``hosts_per_replica > 1``
-    (item 11b). The spawn recipe is not retained for restarts (the
-    recovery plane, item 10b).
+    (item 11b).
     """
     from ray_lightning_tpu_torch.serve.kvfleet import ROLES
 
@@ -1741,7 +2034,9 @@ def start_replicas(
         )
     actor_cls = fabric.remote(ServeReplica)
 
-    def opts_for(bundle_index: int) -> Dict[str, Any]:
+    def opts_for(
+        bundle_index: int, fresh_capacity: bool = False
+    ) -> Dict[str, Any]:
         o: Dict[str, Any] = {
             "num_cpus": num_cpus_per_replica,
             "env": dict(env or {}),
@@ -1749,20 +2044,39 @@ def start_replicas(
         }
         if num_gpus_per_replica:
             o["num_gpus"] = num_gpus_per_replica
-        if pg is not None:
+        if pg is not None and not fresh_capacity:
             o["placement_group"] = pg
             o["placement_group_bundle_index"] = bundle_index
         return o
 
-    # One inbox per replica, made before any spawn: every replica's peer
-    # map must hold the whole fleet.
+    # One inbox per replica, made before any spawn (every replica's peer
+    # map must hold the whole fleet), and lazily for an autoscaled index
+    # (add_replica broadcasts the newcomer's inbox to the live fleet).
     kv_queues: Dict[int, Any] = {}
     if kvfleet_on:
         kv_queues = {i: fabric.Queue() for i in range(num_replicas)}
+    #: index -> resolved role; spawn and respawn both read it, so a
+    #: restarted prefill replica comes back a prefill replica, and an
+    #: autoscaled index keeps its role across restarts.
+    role_by_index: Dict[int, str] = dict(enumerate(roles_list))
 
-    def kwargs_for(i: int) -> Dict[str, Any]:
-        kw = dict(replica_kwargs, device=device, role=roles_list[i])
+    def spawn_replica(
+        i: int, fresh_capacity: bool = False, role: Optional[str] = None
+    ) -> Tuple[Any, List[Any]]:
+        """Spawn replica ``i``'s process from the SAME resolved kwargs and
+        bundle every time: the initial launch and every restart run
+        exactly this (``role`` overrides only for a brand-new autoscaled
+        index; respawns reuse the recorded role). ``fresh_capacity``
+        draws free capacity instead of the replica's placement-group
+        bundle: a preemption's pre-spawn runs while the dying replica
+        still holds its bundle (no headroom fails fast). Returns
+        ``(actor, [])``: no gang followers (item 11b)."""
+        resolved_role = str(role or role_by_index.get(i, "mixed"))
+        role_by_index[i] = resolved_role
+        kw = dict(replica_kwargs, device=device, role=resolved_role)
         if kvfleet_on:
+            if i not in kv_queues:
+                kv_queues[i] = fabric.Queue()
             kw.update(
                 kv_self=i,
                 kv_inbox=kv_queues[i],
@@ -1771,14 +2085,13 @@ def start_replicas(
                 kvfleet_inflight_mb=float(kvfleet_inflight_mb),
                 kvfleet_bandwidth_mbps=float(kvfleet_bandwidth_mbps),
             )
-        return kw
+        return actor_cls.options(**opts_for(i, fresh_capacity)).remote(
+            **kw), []
 
     replicas: List[Any] = []
     try:
         for i in range(num_replicas):
-            replicas.append(
-                actor_cls.options(**opts_for(i)).remote(**kwargs_for(i))
-            )
+            replicas.append(spawn_replica(i)[0])
         fabric.get([r.ping.remote() for r in replicas], timeout=init_timeout)
     except BaseException:
         for r in replicas:
@@ -1813,6 +2126,7 @@ def start_replicas(
     return ServeClient(
         replicas,
         pg=pg,
+        respawn_fn=spawn_replica,
         rpc_timeout_s=rpc_timeout_s,
         init_timeout=init_timeout,
         retry_budget_ratio=retry_budget_ratio,

@@ -33,8 +33,12 @@ carrying ``reason`` and ``retry_after_s``. Paired with the client-side
 the client's optional hedged streaming reads (``hedge_after_s``) re-drive
 a slow-but-healthy replica's stream on a peer bit-exactly.
 
-Not ported yet: the queue-driven ``RouterAutoscaler`` (ROADMAP queue 1
-item 10b) and the ``FleetPoller`` feed (``poller=``, item 14).
+:class:`RouterAutoscaler` is the capacity arm: queue-driven scale up
+through ``ServeClient.add_replica`` and graceful scale down through
+``ServeClient.retire_replica``, within ``[min_replicas, max_replicas]``.
+
+Not ported yet: the ``FleetPoller`` feed (``poller=``, ROADMAP queue 1
+item 14).
 """
 from __future__ import annotations
 
@@ -1169,6 +1173,282 @@ class Router:
             "retry_after_s": self.retry_after_s,
             "directory_shards": self.directory.shards,
         }
+
+
+class RouterAutoscaler:
+    """Queue-driven replica autoscaling within ``[min_replicas,
+    max_replicas]`` bounds.
+
+    Scale UP when the fleet's mean routable queue depth sustains at
+    ``up_queue_per_replica`` (or the router shed anything) for
+    ``sustain_ticks`` consecutive ticks — a new replica spawns through
+    the client's retained spawn recipe (``ServeClient.add_replica``,
+    fresh node capacity). Scale DOWN when the fleet sustains fully idle
+    (zero queue, zero active slots, zero sheds) for
+    ``down_sustain_ticks`` — the highest-index routable replica retires
+    GRACEFULLY (``ServeClient.retire_replica``: excluded first, drained,
+    leftovers migrated — no request lost at retire time). Clock-
+    injectable and drivable by explicit :meth:`tick` calls like the
+    supervisor."""
+
+    def __init__(
+        self,
+        client: Any,
+        router: Optional[Router] = None,
+        min_replicas: int = 1,
+        max_replicas: int = 1,
+        interval_s: float = 2.0,
+        up_queue_per_replica: float = 4.0,
+        sustain_ticks: int = 3,
+        down_sustain_ticks: int = 10,
+        registry: Optional[Any] = None,
+        events: Optional[Any] = None,
+        clock: Callable[[], float] = time.monotonic,
+    ) -> None:
+        from ray_lightning_tpu_torch.obs.events import get_event_log
+        from ray_lightning_tpu_torch.obs.registry import get_registry
+
+        if min_replicas < 1:
+            raise ValueError("min_replicas must be >= 1")
+        if max_replicas < min_replicas:
+            raise ValueError("max_replicas must be >= min_replicas")
+        self.client = client
+        self.router = router
+        self.min_replicas = int(min_replicas)
+        self.max_replicas = int(max_replicas)
+        self.interval_s = float(interval_s)
+        self.up_queue_per_replica = float(up_queue_per_replica)
+        self.sustain_ticks = max(1, int(sustain_ticks))
+        self.down_sustain_ticks = max(1, int(down_sustain_ticks))
+        self._clock = clock
+        self._events = events if events is not None else get_event_log()
+        reg = registry if registry is not None else get_registry()
+        self._m_rebalances = reg.counter(
+            "rlt_router_rebalances_total",
+            "Route-table reweights: replicas excluded from or restored "
+            "to the routable set, by reason",
+        )
+        self._m_replicas = reg.gauge(
+            "rlt_router_autoscale_replicas",
+            "Routable replicas the autoscaler currently targets",
+        )
+        #: Per-role-pool streaks ("mixed" covers a homogeneous fleet):
+        #: prefill and decode pools scale INDEPENDENTLY — a
+        #: heavy-prefill mix grows the prefill pool without touching
+        #: decode capacity, and vice versa.
+        self._up_streaks: Dict[str, int] = {}
+        self._down_streaks: Dict[str, int] = {}
+        self._shed_seen = 0
+        self._breaches_seen = 0
+        self.scale_ups = 0
+        self.scale_downs = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _event(self, name: str, level: str = "info", **kv: Any) -> None:
+        try:
+            self._events.record("router", name, level=level, **kv)
+        except Exception:  # noqa: BLE001
+            pass
+
+    def _role_of(self, idx: int, views: Dict[int, Dict[str, Any]]) -> str:
+        role = (views.get(idx) or {}).get("role")
+        if role:
+            return str(role)
+        role_fn = getattr(self.client, "role_of", None)
+        return str(role_fn(idx)) if role_fn is not None else "mixed"
+
+    def _signals(self) -> Dict[str, Any]:
+        """Fleet load signals for one tick, grouped by role pool:
+        per-pool queue depth / active slots, the router's shed delta,
+        the fleet's SLO-breach delta (the replicas' declarative rules,
+        rolled up through the stats rows), and fleet goodput (the cost
+        ledger) — quality signals next to raw queue depth, so a fleet
+        that is busy-but-breaching scales up even before its queues
+        explode."""
+        alive = list(self.client.alive_replicas())
+        views: Dict[int, Dict[str, Any]] = {}
+        if self.router is not None:
+            views = self.router.views()
+        pools: Dict[str, Dict[str, Any]] = {}
+        for i in alive:
+            role = self._role_of(i, views)
+            pool = pools.setdefault(
+                role,
+                {"members": [], "queue_depth": 0, "active_slots": 0},
+            )
+            pool["members"].append(i)
+            pool["queue_depth"] += views.get(i, {}).get("queue_depth", 0)
+            pool["active_slots"] += views.get(i, {}).get(
+                "active_slots", 0
+            )
+        shed_total = (
+            self.router.shed_count if self.router is not None else 0
+        )
+        shed_delta = max(0, shed_total - self._shed_seen)
+        self._shed_seen = shed_total
+        breach_total = sum(
+            int(views.get(i, {}).get("slo_breaches") or 0)
+            for i in alive
+        )
+        breach_delta = max(0, breach_total - self._breaches_seen)
+        self._breaches_seen = breach_total
+        goodput = sum(
+            float(views.get(i, {}).get("goodput") or 0.0) for i in alive
+        )
+        return {
+            "alive": alive,
+            "pools": pools,
+            "queue_depth": sum(
+                p["queue_depth"] for p in pools.values()
+            ),
+            "active_slots": sum(
+                p["active_slots"] for p in pools.values()
+            ),
+            "shed_delta": shed_delta,
+            "slo_breach_delta": breach_delta,
+            "goodput": round(goodput, 3),
+        }
+
+    def _scale_up(self, role: str, sig: Dict[str, Any]) -> Optional[int]:
+        try:
+            try:
+                idx = self.client.add_replica(
+                    role=None if role == "mixed" else role
+                )
+            except TypeError:
+                # A client without the role knob (tests, custom wiring).
+                idx = self.client.add_replica()
+        except Exception as exc:  # noqa: BLE001 - a failed spawn
+            # must not kill the controller; the pressure persists
+            # and the next sustained window retries.
+            self._event(
+                "autoscale_up_failed", level="warn", role=role,
+                error=f"{type(exc).__name__}: {exc}"[:300],
+            )
+            return None
+        self.scale_ups += 1
+        self._m_rebalances.inc(1, reason="scale_up")
+        self._event(
+            "autoscale_up", replica=idx, role=role,
+            queue_depth=sig["queue_depth"],
+            shed_delta=sig["shed_delta"],
+            slo_breach_delta=sig["slo_breach_delta"],
+        )
+        return idx
+
+    def tick(self) -> Dict[str, Any]:
+        sig = self._signals()
+        alive = sig["alive"]
+        pools = sig["pools"]
+        n = len(alive)
+        self._m_replicas.set(n)
+        out = {"replicas": n, "scaled": None, **sig}
+        if n == 0:
+            return out  # recovery plane's problem, not capacity's
+        # Shed + SLO-breach pressure lands on the pool already deepest
+        # in queue (ties: the decode side — tokens are what shed/SLOs
+        # starve first); a homogeneous fleet has exactly one pool, so
+        # this reduces to the old global behavior.
+        pressure_pool = max(
+            pools,
+            key=lambda r: (
+                pools[r]["queue_depth"],
+                r != "prefill",  # decode/mixed outrank prefill on ties
+            ),
+        )
+        for role in sorted(pools):
+            pool = pools[role]
+            members = pool["members"]
+            extra = (
+                sig["shed_delta"] > 0 or sig["slo_breach_delta"] > 0
+            ) and role == pressure_pool
+            overloaded = (
+                pool["queue_depth"] / max(1, len(members))
+                >= self.up_queue_per_replica
+                or extra
+            )
+            idle = (
+                pool["queue_depth"] == 0
+                and pool["active_slots"] == 0
+                and sig["shed_delta"] == 0
+                and sig["slo_breach_delta"] == 0
+            )
+            self._up_streaks[role] = (
+                self._up_streaks.get(role, 0) + 1 if overloaded else 0
+            )
+            self._down_streaks[role] = (
+                self._down_streaks.get(role, 0) + 1 if idle else 0
+            )
+            if (
+                self._up_streaks[role] >= self.sustain_ticks
+                and n < self.max_replicas
+            ):
+                self._up_streaks[role] = 0
+                self._down_streaks[role] = 0
+                idx = self._scale_up(role, sig)
+                if idx is not None:
+                    out["scaled"] = ("up", idx)
+                return out
+            if (
+                self._down_streaks[role] >= self.down_sustain_ticks
+                and n > self.min_replicas
+                # A role pool never retires its last member: the
+                # router's disagg policy needs one of each while the
+                # fleet runs split.
+                and len(members) > (1 if len(pools) > 1 else 0)
+            ):
+                self._down_streaks[role] = 0
+                self._up_streaks[role] = 0
+                idx = max(members)  # LIFO: newest capacity retires first
+                try:
+                    res = self.client.retire_replica(idx)
+                except Exception as exc:  # noqa: BLE001 - see above
+                    self._event(
+                        "autoscale_down_failed", level="warn",
+                        replica=idx,
+                        error=f"{type(exc).__name__}: {exc}"[:300],
+                    )
+                    return out
+                self.scale_downs += 1
+                self._m_rebalances.inc(1, reason="scale_down")
+                self._event(
+                    "autoscale_down", replica=idx, role=role,
+                    migrated=len(res.get("migrated", [])),
+                    lost=len(res.get("lost", [])),
+                )
+                out["scaled"] = ("down", idx)
+                return out
+        return out
+
+    # -- thread lifecycle --------------------------------------------------
+    def start(self) -> "RouterAutoscaler":
+        if self._thread is not None:
+            return self
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, name="serve-autoscaler", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                self.tick()
+            except Exception as exc:  # noqa: BLE001 - the capacity loop
+                # must outlive a bad tick.
+                self._event(
+                    "tick_error", level="error",
+                    error=f"{type(exc).__name__}: {exc}"[:300],
+                )
+            self._stop.wait(self.interval_s)
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
+            self._thread = None
 
 
 ROUTER_HEADER_KEYS = frozenset((

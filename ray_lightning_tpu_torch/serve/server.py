@@ -23,7 +23,9 @@ are not ported: their options raise unless left at the JAX defaults.
 """
 from __future__ import annotations
 
+import os
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from ray_lightning_tpu_torch.models.gpt import GPTConfig, params_to
@@ -119,6 +121,7 @@ def build_engine(
     )
 
     device = resolve_device(device)
+    t_load = time.perf_counter()
     if mesh not in (None, "1x1"):
         raise NotImplementedError(
             f"build_engine mesh={mesh!r} is not ported yet (ROADMAP queue 1 "
@@ -151,7 +154,8 @@ def build_engine(
         )
         if spec_draft_int8:
             spec_params = quantize_params_int8(params_to(spec_params, device))
-    return DecodeEngine(
+    load_s = time.perf_counter() - t_load
+    engine = DecodeEngine(
         params,
         cfg,
         num_slots=num_slots,
@@ -182,6 +186,10 @@ def build_engine(
         fold_ladder=fold_ladder,
         device=device,
     )
+    #: Seconds the checkpoint took to read (and quantize), before the
+    #: engine was built.
+    engine.load_s = load_s
+    return engine
 
 
 #: ServeReplica options of the JAX signature that the port does not run
@@ -288,6 +296,7 @@ class ServeReplica:
         kvstore_writethrough: bool = False,
         device: Any = "cuda",
     ) -> None:
+        t_init = time.time()
         import torch
 
         from ray_lightning_tpu_torch.obs import blackbox as obs_blackbox
@@ -300,6 +309,7 @@ class ServeReplica:
         from ray_lightning_tpu_torch.serve.metrics import ServeMetrics
         from ray_lightning_tpu_torch.serve.preempt import get_monitor
         from ray_lightning_tpu_torch.serve.scheduler import Scheduler
+        from ray_lightning_tpu_torch.ops import _build
         from ray_lightning_tpu_torch.utils.graphs import capture_stats
 
         given = locals()
@@ -309,6 +319,21 @@ class ServeReplica:
                     f"ServeReplica option {name}={given[name]!r} is not "
                     f"ported yet (ROADMAP {item})"
                 )
+        # Where this replica's start-up goes (``stats()["startup"]``): the
+        # interpreter (the fabric worker stamps RLT_WORKER_T0), the imports
+        # that unpickling this class and the lines above ran, the CUDA
+        # context, the checkpoint read, the engine's set-up, the kernel
+        # library's load and the graph capture.
+        startup: Dict[str, Any] = {
+            "worker_t0": float(os.environ.get("RLT_WORKER_T0") or "nan"),
+            "init_t0": t_init,
+            "imports_end": time.time(),
+        }
+        t = time.perf_counter()
+        if resolve_device(device).type == "cuda":
+            torch.zeros(1, device=device)
+        startup["cuda_context_s"] = time.perf_counter() - t
+        t = time.perf_counter()
         self.engine = build_engine(
             ckpt_path=ckpt_path,
             model_config=model_config,
@@ -340,6 +365,16 @@ class ServeReplica:
             spec_window=spec_window,
             mesh=mesh,
             device=device,
+        )
+        kernel_s = sum(_build.load_seconds.values())
+        startup.update(
+            weights_load_s=self.engine.load_s,
+            engine_setup_s=(time.perf_counter() - t - self.engine.load_s
+                            - self.engine.capture_s),
+            kernel_load_s=kernel_s,
+            # The first capture runs each body once, which loads the
+            # kernel library: the two are split here.
+            capture_s=max(0.0, self.engine.capture_s - kernel_s),
         )
         self.device = self.engine.device
         if self.device.type == "cuda" and self.device.index is None:
@@ -586,6 +621,8 @@ class ServeReplica:
             target=self._loop, name="serve-replica-loop", daemon=True
         )
         self._thread.start()
+        startup["init_end"] = time.time()
+        self._startup = startup
 
     def _compiles_since_init(self) -> int:
         return self._captures.graphs - self._captures_at_init
@@ -761,6 +798,7 @@ class ServeReplica:
                 "capture_s": self.engine.capture_s,
                 "graph_bytes": self.engine.graph_bytes,
                 "kernels": _kernel_counts(),
+                "startup": dict(self._startup),
                 "device": str(self.device),
                 "max_seq": self.engine.max_seq,
                 "prefill_buckets": list(self.engine.prefill_buckets),

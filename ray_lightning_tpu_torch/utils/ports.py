@@ -20,11 +20,12 @@ def find_free_port(host: str = "") -> int:
 def get_node_ip() -> str:
     """This host's address as the fabric's head node reports it.
 
-    The port's fabric runs in local mode only (every actor on this
-    host), so the loopback address is the node's address. The reference
-    resolves its routed address by connecting a UDP socket towards a
-    public one; the port opens no socket towards another host. The
-    remote fabric, which needs a routed address, is ROADMAP queue 1
-    item 10b.
+    Every actor of the port's fabric runs on its head's host (a client in
+    client mode spawns none of its own), so the loopback address is the
+    node's address, and the rendezvous of workers on that host uses it.
+    The reference resolves its routed address by connecting a UDP socket
+    towards a public one; the port opens no socket towards another host.
+    A client on another host reaches the head at the address its server
+    was started with (``--host``).
     """
     return "127.0.0.1"

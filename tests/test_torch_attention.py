@@ -281,12 +281,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ray_lightning_tpu_torch.serve.kvfleet, "
         "ray_lightning_tpu_torch.serve.router, "
         "ray_lightning_tpu_torch.serve.client, "
+        "ray_lightning_tpu_torch.serve.supervisor, "
         "ray_lightning_tpu_torch.serve, "
         "ray_lightning_tpu_torch.fabric, "
         "ray_lightning_tpu_torch.fabric.core, "
         "ray_lightning_tpu_torch.fabric.worker, "
         "ray_lightning_tpu_torch.fabric.queue, "
         "ray_lightning_tpu_torch.fabric.cluster_utils, "
+        "ray_lightning_tpu_torch.fabric.server, "
+        "ray_lightning_tpu_torch.fabric.client, "
         "ray_lightning_tpu_torch.utils.ports, "
         "ray_lightning_tpu_torch.utils.graphs, "
         "ray_lightning_tpu_torch.obs.health, "

@@ -6,7 +6,7 @@ releasing resources, placement groups, queues and heartbeats. It also
 holds the accelerator resource: the GPU probe under ``RLT_NUM_GPUS``,
 ``RLT_REQUIRE_GPU=1`` with no card, and the cards an actor sees through
 ``CUDA_VISIBLE_DEVICES`` (whole cards its own, fractions packed onto one
-card).
+card), and that client mode connects to a head.
 
 This module imports neither JAX nor the JAX package: its actor classes are
 pickled by reference, so every worker imports it. Every wait is bounded.
@@ -337,9 +337,28 @@ def test_gpu_actors_see_their_cards(port_fabric, monkeypatch):
 
 
 def test_client_mode_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10b"):
-        fabric.init(address="127.0.0.1:1")
-    assert core._session is None
+    """Client mode connects (the name is kept from when it raised): a head
+    in a subprocess answers ``fabric.init(address=..., authkey=...)``, the
+    resource queries and ``shutdown`` (a disconnect) go through it, and
+    this process never starts a local session."""
+    from ray_lightning_tpu_torch.fabric import client
+
+    from tests._torch_fabric_head import fabric_head
+
+    with fabric_head(num_cpus=3) as (address, key):
+        fabric.init(address=address, authkey=key)
+        try:
+            assert client.is_connected() and fabric.is_initialized()
+            assert fabric.cluster_resources()["CPU"] == 3
+            assert fabric.available_resources()["CPU"] == 3
+            assert [n["NodeID"] for n in fabric.nodes()] == ["node-0"]
+            fabric.init()  # local init while connected: a no-op
+            with pytest.raises(ValueError, match="no_restart=False"):
+                fabric.kill(object(), no_restart=False)
+        finally:
+            fabric.shutdown()
+        assert not client.is_connected() and not fabric.is_initialized()
+        assert core._session is None
 
 
 # -- fake clusters and placement groups ---------------------------------------

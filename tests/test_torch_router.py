@@ -3,8 +3,9 @@ processes: ``Router`` (plans, picks, rejections, rows), ``RetryBudget``,
 ``DigestChainCache``, ``prompt_block_digests`` and ``FleetKVDirectory`` on
 the same synthetic views and op sequences, and ``ServeClient`` over the
 same in-memory fake replicas (routes, hedges, retry-budget exhaustion,
-failover resubmissions and the driver journal). Each scenario runs once
-against each package and the two records must be equal.
+failover resubmissions, the driver journal, and the recovery plane:
+respawn, prespawn, add, retire and the preemption drain). Each scenario
+runs once against each package and the two records must be equal.
 
 Ids and clocks are injected (``request_id=``, the router's ``clock=``, a
 retry budget's ``clock=``); journal and event timestamps are dropped from
@@ -91,6 +92,10 @@ def _fake_cls(ns):
             self.requests = {}
             self.submit_rpcs = 0
             self.batch_rpcs = 0
+            #: The plan begin_drain answers with (a preemption drain).
+            self.drain_plan = None
+            self.imported = []
+            self.peers = []
 
         @staticmethod
         def tokens_for(prompt, seed, n):
@@ -164,6 +169,20 @@ def _fake_cls(ns):
         def _rpc_ping(self):
             self._check()
             return "ok"
+
+        def _rpc_begin_drain(self, budget_s=None, wait_s=15.0):
+            self._check()
+            return self.drain_plan
+
+        def _rpc_import_prefix_blocks(self, blocks):
+            self._check()
+            self.imported.append(blocks)
+            return len(blocks)
+
+        def _rpc_register_kv_peer(self, idx, queue):
+            self._check()
+            self.peers.append((idx, queue))
+            return True
 
         def __getattr__(self, name):
             fn = object.__getattribute__(self, "__dict__").get(name)
@@ -628,7 +647,141 @@ def _failover_case(ns):
             _journal(client), _event_names(events)]
 
 
+def _preempt_drain_case(ns):
+    """tests/test_preempt.py::
+    test_client_preempt_drain_migrates_with_kv_and_keeps_finishers: the
+    migrate set resubmits on the survivor under the same id (its blocks
+    imported first), the finish set stays on the dying replica, a request
+    already terminal is not migrated, and no survivor means lost."""
+    Fake = _fake_cls(ns)
+    r0, r1 = Fake(), Fake()
+    client, reg, events = _client(ns, [r0, r1])
+    prompt = [3, 1, 4, 1, 5]
+    h_fin = client.submit(prompt, max_new_tokens=6, seed=1, replica=0,
+                          request_id="fin")
+    h_mig = client.submit(prompt, max_new_tokens=9, seed=2, replica=0,
+                          request_id="mig")
+    blocks = [("ab" * 16, np.zeros(2), np.zeros(2))]
+    r0.drain_plan = {"budget_s": 10.0, "finish": ["fin"], "migrate": [
+        {"request_id": "mig", "blocks": blocks},
+        {"request_id": "gone", "blocks": []}]}
+    res = client.preempt_drain(0, budget_s=10.0)
+    routed = [client.requests_on(0), client.requests_on(1)]
+    streams = [list(client.stream_handle(h, timeout_s=10))
+               for h in (h_mig, h_fin)]
+    # The survivor dies too: a second drain's migrant is lost.
+    h_last = client.submit([2, 2], max_new_tokens=3, replica=1,
+                           request_id="last")
+    r0.dead = True
+    r1.drain_plan = {"budget_s": 1.0, "finish": [], "migrate": [
+        {"request_id": "last", "blocks": []}]}
+    res2 = client.preempt_drain(1, budget_s=1.0)
+    return [res, routed, client.excluded(), streams, res2, h_last.replica,
+            [len(b) for b in r1.imported], [s[0] for s in r1.submits],
+            reg.counter("rlt_serve_preempt_drains_total").value(),
+            {o: reg.counter("rlt_serve_preempt_requests_total").value(
+                outcome=o) for o in ("migrated", "finished_in_grace",
+                                     "lost")},
+            reg.counter("rlt_serve_preempt_kv_blocks_total").value(),
+            _journal(client), _event_names(events)]
+
+
+def _respawn_case(ns):
+    """tests/test_preempt.py::
+    test_client_prespawn_replacement_swaps_in_on_respawn, with a respawn
+    that spawns, one whose ping fails (the new actor is killed, the old
+    index stays lost) and a client without a recipe."""
+    Fake = _fake_cls(ns)
+    r0, r1 = Fake(), Fake()
+    spawned, calls = [], []
+
+    def respawn_fn(i, fresh_capacity=False):
+        calls.append((i, fresh_capacity))
+        fresh = Fake()
+        fresh.dead = len(spawned) == 2  # the third spawn never answers
+        spawned.append(fresh)
+        return fresh, []
+
+    client, _, events = _client(ns, [r0, r1], respawn_fn=respawn_fn)
+    out = [client.can_respawn(), client.prespawn_replacement(0),
+           client.prespawn_replacement(0), len(spawned)]
+    client.respawn_replica(0)  # the held replacement swaps in
+    out += [len(spawned), client._actor(0) is spawned[0]]
+    r1.dead = True
+    client.on_replica_lost(1, reason="test")
+    client.respawn_replica(1)  # no replacement held: a fresh spawn
+    out += [client._actor(1) is spawned[1], client.alive_replicas()]
+    spawned[1].dead = True
+    client.on_replica_lost(1, reason="again")
+    out.append(_try(lambda: client.respawn_replica(1)))
+    out += [calls, client.alive_replicas(), client._actor(1) is spawned[1]]
+    bare, _, _ = _client(ns, [Fake()])
+    out += [bare.can_respawn(), bare.prespawn_replacement(0),
+            _try(lambda: bare.respawn_replica(0)),
+            _try(lambda: bare.add_replica())]
+    return out + [_event_names(events)]
+
+
+def _add_retire_case(ns):
+    """tests/test_router.py::test_client_add_and_retire_replica_graceful:
+    an added replica at a stable index (fresh capacity, its role, its
+    inbox broadcast to the live fleet), a retire that migrates a stalled
+    request and leaves a tombstone, an add whose spawn never answers, and
+    recipes without the role or fresh-capacity knobs."""
+    Fake = _fake_cls(ns)
+    r0, r1 = Fake(stats=_stats()), Fake(stats=_stats())
+    spawned = []
+
+    def respawn(i, fresh_capacity=False, role=None):
+        rep = Fake(stats=_stats())
+        rep.dead = len(spawned) == 1  # the second add never answers
+        spawned.append((i, fresh_capacity, role))
+        return rep, []
+
+    queues = {0: "q0", 1: "q1", 2: "q2", 3: "q3"}
+    client, reg, events = _client(ns, [r0, r1], respawn_fn=respawn,
+                                  kv_queues=queues, roles=["mixed"] * 2)
+    idx = client.add_replica(role="decode")
+    out = [idx, spawned, client.alive_replicas(), client.role_of(2),
+           r0.peers, r1.peers]
+    new_rep = client._actor(2)
+    h = client.submit([8, 8], max_new_tokens=3, replica=2,
+                      request_id="n0")
+    out.append(list(client.stream_handle(h, timeout_s=10)))
+    new_rep.stall = True
+    h2 = client.submit([6, 1], max_new_tokens=4, seed=5, replica=2,
+                       request_id="n1")
+    res = client.retire_replica(2, drain_timeout_s=0.05)
+    got = list(client.stream_handle(h2, poll_s=0.01, timeout_s=10))
+    client.restore(2)  # a tombstone stays a tombstone
+    out += [res, got, new_rep.stopped, client.is_retired(2),
+            client.alive_replicas(), client.stats()[2],
+            client.health()[2]["verdict"],
+            client.retire_replica(2)]
+    out.append(_try(lambda: client.add_replica()))
+    out += [client.num_replicas, client.is_retired(3),
+            client.alive_replicas()]
+
+    def no_knobs(i):
+        return Fake(stats=_stats()), []
+
+    def no_role(i, fresh_capacity=False):
+        spawned.append((i, fresh_capacity))
+        return Fake(stats=_stats()), []
+
+    for fn in (no_knobs, no_role):
+        c, _, _ = _client(ns, [Fake(stats=_stats())], respawn_fn=fn)
+        out += [c.add_replica(role="prefill"), c.role_of(1),
+                c.prespawn_replacement(0)]
+    return out + [spawned, _journal(client), _event_names(events),
+                  reg.counter("rlt_serve_failover_requests_total").value(
+                      outcome="resubmitted")]
+
+
 CLIENT_CASES = {
+    "preempt_drain": _preempt_drain_case,
+    "respawn": _respawn_case,
+    "add_retire": _add_retire_case,
     "routing": _routing_case,
     "submit_many": _submit_many_case,
     "hedge": _hedge_case,
@@ -637,14 +790,36 @@ CLIENT_CASES = {
 }
 
 
+@pytest.fixture
+def fabrics(monkeypatch):
+    """Both packages' fabrics in local mode with one CPU and no card: the
+    recovery cases' ``fabric.kill`` of a fake replica needs a session."""
+    monkeypatch.setenv("RLT_NUM_GPUS", "0")
+    j_fabric.init(num_cpus=1)
+    t_fabric.init(num_cpus=1)
+    yield
+    j_fabric.shutdown()
+    t_fabric.shutdown()
+
+
 @pytest.mark.parametrize("case", sorted(CLIENT_CASES))
-def test_client_policy_matches_jax(case):
+def test_client_policy_matches_jax(case, fabrics):
     rec = _both(CLIENT_CASES[case])
     if case == "failover":
         assert rec[1]["lost"] == [] and rec[1]["resubmitted"]
         assert rec[6] == "NoReplicasError"
     if case == "hedge":
         assert rec[0] == [(5 + 28 + i) % 97 for i in range(6)]
+    if case == "preempt_drain":
+        assert rec[0]["migrated"] == ["mig"] and rec[0]["finish"] == ["fin"]
+        assert rec[1] == [1, 1] and rec[4]["lost"] == ["last"]
+    if case == "respawn":
+        assert rec[:6] == [True, True, True, 1, 1, True]
+        assert rec[-5:-3] == [False, False]
+        assert [r[0] for r in rec[-3:-1]] == ["RuntimeError"] * 2
+    if case == "add_retire":
+        assert rec[0] == 2 and rec[1][0] == (2, True, "decode")
+        assert rec[4] == [(2, "q2")] and rec[5] == [(2, "q2")]
 
 
 def _spawned(monkeypatch, n, **kw):
@@ -655,18 +830,25 @@ def _spawned(monkeypatch, n, **kw):
     class _Actor:
         def __init__(self):
             self.ping = _RemoteShim(lambda: "ok")
+            self.peers = []
+            self.register_kv_peer = _RemoteShim(
+                lambda i, q: self.peers.append((i, q)) or True)
 
     class _Cls:
+        def __init__(self, opts=None):
+            self.opts = opts or {}
+
         def options(self, **opts):
-            return self
+            return _Cls(opts)
 
         def remote(self, **kwargs):
-            spawned.append(kwargs)
+            spawned.append(dict(kwargs, opts=self.opts))
             return _Actor()
 
     monkeypatch.setattr(t_client.fabric, "remote", lambda cls: _Cls())
     monkeypatch.setattr(t_client.fabric, "get",
                         lambda refs, timeout=None: refs)
+    monkeypatch.setattr(t_client.fabric, "kill", lambda handle: None)
     monkeypatch.setattr(t_client.fabric, "placement_group",
                         lambda *a, **k: object())
     monkeypatch.setattr(t_client.fabric, "Queue", lambda: object())
@@ -675,22 +857,23 @@ def _spawned(monkeypatch, n, **kw):
 
 
 def test_client_refuses_unported_options(monkeypatch):
-    """What belongs to a later slice raises, naming its ROADMAP item. The
-    fleet KV plane and the KV object store (item 9) are ported: the
-    client takes roles, KV queues and a store handle, parks a session
-    and seeds the directory, and ``start_replicas`` wires every replica's
-    role, inbox, peers and budgets (the plane on by default for a cached
-    multi-replica fleet), refusing only fleets that cannot serve."""
+    """What belongs to a later slice raises, naming its ROADMAP item (the
+    profiler, multi-host replicas). The fleet KV plane and the KV object
+    store are ported: the client takes roles, KV queues and a store
+    handle, parks a session and seeds the directory, and
+    ``start_replicas`` wires every replica's role, inbox, peers and
+    budgets (the plane on by default for a cached multi-replica fleet),
+    refusing only fleets that cannot serve. The recovery plane is
+    ported: ``start_replicas`` retains each index's spawn as the client's
+    ``respawn_fn`` (same kwargs, same bundle, same role, same inbox and
+    peers; fresh capacity outside the placement group), and an added
+    replica's new inbox reaches every live replica."""
     Fake = _fake_cls(PKGS["torch"])
     rep = Fake()
     client, _, _ = _client(PKGS["torch"], [rep])
     h = client.submit([1], max_new_tokens=1, request_id="u")
-    for name, item in (("respawn_replica", "10b"), ("add_replica", "10b"),
-                       ("retire_replica", "10b"),
-                       ("prespawn_replacement", "10b"),
-                       ("preempt_drain", "10b"), ("profile", "item 14")):
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(client, name)(h)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        client.profile(h)
     parked = []
     rep._rpc_park_session = (
         lambda tokens, request_id=None, wait_s=15.0: parked.append(
@@ -700,10 +883,14 @@ def test_client_refuses_unported_options(monkeypatch):
     assert parked == [([1] + Fake.tokens_for([1], 0, 1), "u")]
     assert client.seed_store_directory() == 0  # no store, no router
     assert client.can_respawn() is False
-    for kw, item in (({"followers": [Fake()]}, "item 11"),
-                     ({"respawn_fn": lambda i: None}, "10b")):
-        with pytest.raises(NotImplementedError, match=item):
-            t_client.ServeClient([Fake()], **kw)
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        t_client.ServeClient([Fake()], followers=[Fake()])
+    assert t_client.ServeClient(
+        [Fake()], respawn_fn=lambda i: None).can_respawn() is True
+    gang = t_client.ServeClient([Fake()],
+                                respawn_fn=lambda i: (Fake(), [Fake()]))
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        gang.respawn_replica(0)
     q, store = object(), object()
     c = t_client.ServeClient([Fake()], kv_queues={0: q}, kvstore=store,
                              roles=["prefill"])
@@ -728,6 +915,28 @@ def test_client_refuses_unported_options(monkeypatch):
     assert spawned[0]["kv_peers"] == spawned[1]["kv_peers"] == {
         0: spawned[0]["kv_inbox"], 1: spawned[1]["kv_inbox"]}
     assert client.role_of(1) == "decode" and client.kvstore is None
+    # The retained recipe: a respawn re-runs index 1's spawn (the same
+    # kwargs, inbox and peers, placement-group bundle 1); a pre-spawn
+    # leaves the placement group (fresh capacity) and keeps index 0's
+    # role; an added index gets an inbox of its own, which both live
+    # replicas adopt.
+    live = [client._actor(0), client._actor(1)]
+    client.respawn_replica(1)
+    assert spawned[2] == spawned[1]
+    assert spawned[1]["opts"]["placement_group_bundle_index"] == 1
+    assert client.prespawn_replacement(0) is True
+    assert "placement_group" not in spawned[3]["opts"]
+    assert {k: v for k, v in spawned[3].items() if k != "opts"} == {
+        k: v for k, v in spawned[0].items() if k != "opts"}
+    assert client.add_replica(role="decode") == 2
+    new = spawned[4]
+    assert (new["kv_self"], new["role"], sorted(new["kv_peers"])) == (
+        2, "decode", [0, 1, 2])
+    assert new["kv_inbox"] not in (spawned[0]["kv_inbox"],
+                                   spawned[1]["kv_inbox"])
+    assert "placement_group" not in new["opts"]
+    assert live[0].peers == [(2, new["kv_inbox"])]
+    assert client._actor(1).peers == [(2, new["kv_inbox"])]
     for kw, match in (({"roles": ["prefill"], "prefix_blocks": 8},
                        "never decode"),
                       ({"roles": ["prefill", "decode"]}, "prefix pool"),
