@@ -254,7 +254,28 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    backend, graphs, step time beside phase 14's, tokens/s and peak memory
    per rank, and the phase's wall; afterwards no child process may be
    left and the card's used memory must be within 256 MiB of before.
-16. Print the ``{"kernels": [...]}`` line, the card line, and last
+16. train-gspmd: tensor-parallel training through ``GSPMDStrategy``.
+   Before the fits, K1 out/lse and K2/K3 dq/dk/dv are held against their
+   plain versions at the tensor-parallel shape (B=8, S=1024, H=6, D=64,
+   bf16, strided) and timed beside SDPA and the bound. (a) ``GSPMDStrategy(
+   num_workers=1, mesh_shape={"model": 1})``, one whole-card rank on NCCL,
+   graphed, 6 steps: losses and parameters (SHA-256) bitwise train-dist's
+   first 6, graphs frozen after the first step. (b) two ranks sharing the
+   card over gloo at ``{"model": 2}`` (6 heads and 1536 MLP columns each,
+   ``wte`` whole: the vocab 50257 is odd), eager, 6 steps: each rank
+   launches K1/K2/K3 12 times per step at H=6, losses within 1e-2
+   relative of phase 14's, the driver's gathered parameters of phase 14's
+   shapes; the fit ends with an async sharded checkpoint. (d) that
+   checkpoint resumed in process on the card through ``Trainer.fit(
+   ckpt_path=...)`` at its last step: step 6, parameters on the card
+   bitwise (b)'s gathered ones. (c) fp32, 4 layers, 6 steps, against an
+   in-process fit within 1e-4, under ``GSPMDStrategy({"model": 2})`` and
+   ``RayShardedStrategy(zero_stage=3)`` on two shared-card ranks. Prints
+   each fit's workers-ready seconds, backend, graphs, step time beside
+   phase 14's, tokens/s, peak memory per rank, (b)'s gloo share per
+   step, and the phase's wall; no child process may be left and the
+   card's used memory must be within 256 MiB of before.
+17. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
@@ -676,19 +697,21 @@ def bwd_inputs(B, S, H, D, dtype, gen, causal, window, sinks):
     return q, k, v, do, out, lse
 
 
-def training_bwd_inputs(gen):
+def training_bwd_inputs(gen, heads: int = 0):
     """The attention inputs of one GPT-2-small training layer on the card:
     q, k, v from the port's own fused projection (``gpt._project_qkv``),
     so they are the strided (B, S, 3, H, D) views the training path hands
     K1, K2 and K3 (seq stride 3*H*D, batch stride S*3*H*D); a contiguous
-    dO; out and lse from K1."""
+    dO; out and lse from K1. ``heads``: a tensor-parallel rank's local
+    heads (H/m; the projection's views then have seq stride 3*(H/m)*D)."""
     import torch
 
     from ray_lightning_tpu_torch.models import gpt
     from ray_lightning_tpu_torch.ops.flash_attention import _flash_fwd_cuda
 
     cfg = gpt.GPTConfig.gpt2_small()
-    B, S, H, D, dm = 8, cfg.max_seq, cfg.n_head, cfg.head_dim, cfg.d_model
+    B, S, H, D, dm = (8, cfg.max_seq, heads or cfg.n_head, cfg.head_dim,
+                      cfg.d_model)
     dt = torch.bfloat16
     a = torch.randn((B, S, dm), generator=gen, device="cuda").to(dt)
     lp = {
@@ -761,7 +784,6 @@ def phase_bwd_kernels():
     import importlib
 
     import torch
-    import torch.nn.functional as F
 
     # The ops package re-exports the function under the module's name.
     fa = importlib.import_module("ray_lightning_tpu_torch.ops.flash_attention")
@@ -814,10 +836,21 @@ def phase_bwd_kernels():
     # the strided views of the fused projection that gpt_forward gives the
     # kernels. Held against the plain versions first, then timed.
     q, k, v, do, out, lse = training_bwd_inputs(gen)
-    B, S, H, D = q.shape
-    scale = D ** -0.5
+    scale = q.shape[-1] ** -0.5
     check_training_call(fa, q, k, v, do, out, lse, scale)
     rows = {"flash_fwd": time_fwd_training_call(fa, q, k, v, out, lse, scale)}
+    rows.update(time_bwd_training_call(fa, q, k, v, do, out, lse, scale))
+    return worst, rows
+
+
+def time_bwd_training_call(fa, q, k, v, do, out, lse, scale) -> dict:
+    """K2 and K3 timed at a training call beside the plain backward and
+    the SDPA backward on the same views, with their bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, H, D = q.shape
+    rows = {}
     dq, dk, dv = (
         torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)
     )
@@ -849,13 +882,14 @@ def phase_bwd_kernels():
         print(f"[kernel] {name} timing bf16 causal B={B} S={S} H={H} D={D}: "
               f"{json.dumps(row)} (plain_ms and library_ms are the whole "
               f"backward: dq, dk and dv)")
-    return worst, rows
+    return rows
 
 
 def time_fwd_training_call(fa, q, k, v, out, lse, scale):
     """K1 at the training call: a second run must give bitwise-equal
-    out/lse (one writer per output tile); then its time beside the SDPA
-    forward on the same strided views (a yardstick only) and its bound."""
+    out/lse (one writer per output tile); then its time beside the plain
+    version, the SDPA forward on the same strided views (a yardstick only)
+    and its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -869,6 +903,9 @@ def time_fwd_training_call(fa, q, k, v, out, lse, scale):
             "ms": cuda_ms(
                 lambda: fa._flash_fwd_cuda(q, k, v, True, scale, 0, 0)
             ),
+            "plain_ms": cuda_ms(
+                lambda: fa.flash_attention_plain(q, k, v, True, scale),
+                iters=5, warmup=1),
             "library_ms": cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                        is_causal=True)
@@ -4843,20 +4880,28 @@ def dist_probe(tag: str, digest_at: int = 0):
             from ray_lightning_tpu_torch.ops.flash_attention import counters
 
             counters.reset()
+            timer = getattr(torch.distributed, "_smoke_collective_s", None)
+            if timer is not None:
+                timer[:] = [0.0, 0]
+            self.collective = []
             if torch.cuda.is_available():
                 torch.cuda.reset_peak_memory_stats()
             self.ends, self.losses, self.graphs = [], [], []
             self.digest, self.at_rest = None, 0
 
         def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            import torch
+
             self.ends.append(time.perf_counter())
             self.losses.append(logs["loss"])
             self.graphs.append(sum(p.compiled_count for p in
                                    dict.fromkeys(trainer.train_programs)))
+            timer = getattr(torch.distributed, "_smoke_collective_s", None)
+            if timer is not None:
+                # (seconds, calls) inside collectives up to this step's end.
+                self.collective.append(list(timer))
             if self.digest_at and trainer.global_step == self.digest_at:
                 self.digest = params_digest(trainer.params)
-            import torch
-
             if torch.cuda.is_available():
                 # Between steps: what the fit holds at rest.
                 self.at_rest = torch.cuda.memory_allocated()
@@ -4868,7 +4913,13 @@ def dist_probe(tag: str, digest_at: int = 0):
 
             strat = trainer.strategy
             cuda = torch.cuda.is_available()
+            blocks = trainer.params["blocks"]
             rec = {
+                "local_shapes": {
+                    "wqkv": list(blocks["wqkv"].shape),
+                    "wi": list(blocks["wi"].shape),
+                    "wte": list(trainer.params["wte"].shape)},
+                "collective_s": self.collective,
                 "rank": trainer.global_rank, "world": trainer.world_size,
                 "backend": strat.dist_env.backend,
                 "graphed": bool(trainer.train_programs[0].capture),
@@ -4933,7 +4984,7 @@ def params_equal(a, b) -> bool:
 
 
 def dist_fit(tag: str, strategy, module, root: str, n_steps: int,
-             digest_at: int = 0, **kw) -> dict:
+             digest_at: int = 0, callbacks=(), **kw) -> dict:
     """One launched fit of ``module`` for ``n_steps`` steps through
     ``Trainer.fit`` and the launcher; returns the driver's trainer and the
     ranks' probe records, with the actors' spawn seconds (the fabric's
@@ -4946,7 +4997,7 @@ def dist_fit(tag: str, strategy, module, root: str, n_steps: int,
             os.remove(os.path.join(DIST_ROOT, name))
     trainer = Trainer(strategy=strategy, max_steps=n_steps, seed=0,
                       log_every_n_steps=1, default_root_dir=root,
-                      callbacks=[dist_probe(tag, digest_at)], **kw)
+                      callbacks=[dist_probe(tag, digest_at), *callbacks], **kw)
     t_wall, t0 = time.time(), time.perf_counter()
     trainer.fit(module)
     wall = time.perf_counter() - t0
@@ -5095,6 +5146,8 @@ def phase_train_dist(yard: dict):
                      limit_val_batches=2, check_val_every_n_epoch=5)
         (r,) = a["ranks"]
         tally(a["ranks"])
+        # train-gspmd (a) is held against this digest after 6 steps.
+        yard["digest"] = r["digest"]
         best = a["trainer"].checkpoint_callback.best_model_path
         same_params = params_equal(module.params, yard["params"])
         print(f"[train-dist] (a) RayStrategy(num_workers=1): losses "
@@ -5236,6 +5289,341 @@ def phase_train_dist(yard: dict):
     return launches
 
 
+GSPMD_ROOT = os.path.join(HERE, "build", "smoke_train_gspmd")
+#: Steps of every train-gspmd fit.
+GSPMD_STEPS = 6
+#: (c): fp32, full width, 4 layers, two ranks sharing the card.
+GSPMD_C = dict(n_layer=4, batch=8)
+#: Relative gap allowed between (b)'s bf16 losses and phase 14's: the
+#: model ranks' partial sums are reduced in another order.
+GSPMD_LOSS_RTOL = 1e-2
+
+
+def collective_timer():
+    """An ``init_hook`` for launched fits: each worker times its
+    ``all_reduce`` and all-gather calls (seconds, count in
+    ``torch.distributed._smoke_collective_s``, which the probe reads),
+    each after a device sync, so a call's time is its own and not the
+    wait for the kernels before it (a gloo collective of a CUDA tensor
+    syncs the stream anyway)."""
+
+    def install():
+        import functools
+        import time as _time
+
+        import torch
+        import torch.distributed as dist
+
+        acc = dist._smoke_collective_s = [0.0, 0]
+
+        def timed(fn):
+            @functools.wraps(fn)
+            def call(*args, **kwargs):
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                t0 = _time.perf_counter()
+                out = fn(*args, **kwargs)
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                acc[0] += _time.perf_counter() - t0
+                acc[1] += 1
+                return out
+            return call
+
+        for name in ("all_reduce", "all_gather_single",
+                     "all_gather_into_tensor"):
+            if hasattr(dist, name):
+                setattr(dist, name, timed(getattr(dist, name)))
+
+    return install
+
+
+def tp_kernel_rows(gen) -> dict:
+    """K1, K2 and K3 at a tensor-parallel rank's training call (GPT-2
+    small at a model extent of 2: B=8, S=1024, H=6 local heads, D=64,
+    bf16, the strided views of the rank's fused projection) held against
+    their plain versions, then timed beside the plain versions, SDPA and
+    their bounds."""
+    import importlib
+
+    fa = importlib.import_module("ray_lightning_tpu_torch.ops.flash_attention")
+    q, k, v, do, out, lse = training_bwd_inputs(gen, heads=6)
+    scale = q.shape[-1] ** -0.5
+    check_training_call(fa, q, k, v, do, out, lse, scale)
+    rows = {"flash_fwd": time_fwd_training_call(fa, q, k, v, out, lse,
+                                                scale)}
+    rows.update(time_bwd_training_call(fa, q, k, v, do, out, lse, scale))
+    for row in rows.values():
+        row["shape"] = list(q.shape)
+    return rows
+
+
+def phase_train_gspmd(yard: dict):
+    """train-gspmd: ``GSPMDStrategy`` through ``Trainer.fit`` and the
+    launcher. (a) World 1 on NCCL, graphed, bitwise phase 14's first 6
+    steps; (b) two ranks sharing the card over gloo at a model extent of
+    2 (6 of the 12 heads and 1536 of the 3072 MLP columns each, ``wte``
+    whole: vocab 50257 is odd), eager, losses within 1e-2 of phase 14's,
+    ending with an async sharded checkpoint; (c) fp32, 4 layers, against
+    an in-process fit within 1e-4, under GSPMD and under ZeRO-3 on two
+    shared-card ranks; (d) (b)'s checkpoint restored in process on the
+    card through ``Trainer.fit(ckpt_path=...)``, bitwise. Returns each kernel's launches on the phase's fits and
+    the kernels' rows at the tensor-parallel shape."""
+    import gc
+
+    import torch
+
+    from ray_lightning_tpu_torch import fabric
+    from ray_lightning_tpu_torch.models.gpt import GPTLM, GPTConfig
+    from ray_lightning_tpu_torch.strategies import (
+        GSPMDStrategy,
+        RayShardedStrategy,
+    )
+    from ray_lightning_tpu_torch.trainer import (
+        Callback,
+        ModelCheckpoint,
+        Trainer,
+    )
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = GPTConfig.gpt2_small()
+    batch, n = 8, GSPMD_STEPS
+    tokens = batch * cfg.max_seq
+    quiet = dict(num_sanity_val_steps=0, limit_val_batches=0,
+                 enable_model_summary=False, max_epochs=n // 2)
+
+    def gpt2(**kw):
+        return GPTLM(cfg, batch_size=batch, warmup_steps=2,
+                     n_train=2 * batch, **kw)
+
+    # The kernels at the tensor-parallel shape, before any fit.
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = tp_kernel_rows(gen)
+
+    # (c)'s yardstick, in this process, before the card's memory is read.
+    c_cfg = GPTConfig.gpt2_small(n_layer=GSPMD_C["n_layer"],
+                                 compute_dtype="float32")
+    c_kw = dict(max_steps=n, max_epochs=n, precision="fp32", seed=0,
+                log_every_n_steps=1, limit_val_batches=0,
+                num_sanity_val_steps=0, enable_checkpointing=False,
+                enable_model_summary=False)
+
+    class Losses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.losses.append(logs["loss"])
+
+    c_losses = Losses()
+    c_mod = GPTLM(c_cfg, batch_size=GSPMD_C["batch"], warmup_steps=2,
+                  n_train=2 * GSPMD_C["batch"])
+    Trainer(callbacks=[c_losses], **c_kw).fit(c_mod)
+    c_yard = {"losses": c_losses.losses,
+              "params": {k: (v.cpu() if torch.is_tensor(v)
+                             else {m: t.cpu() for m, t in v.items()})
+                         for k, v in c_mod.params.items()}}
+    del c_mod
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem_before = card_memory_mib()
+    kids_before = child_pids()
+    summaries, launches = [], {"flash_fwd": 0, "flash_bwd_dkv": 0,
+                               "flash_bwd_dq": 0}
+    shapes14 = {k: tuple(t.shape) for k, t in _flat_params(yard["params"])}
+
+    def tally(ranks):
+        for r in ranks:
+            for k in launches:
+                launches[k] += r["launches"][k]
+
+    try:
+        # (a) one whole-card rank, NCCL, graphed: phase 14's first 6 steps.
+        root = os.path.join(GSPMD_ROOT, "a")
+        module = gpt2()
+        # Phase 14's options but its checkpoints: they move no number.
+        a = dist_fit("gspmd-a", GSPMDStrategy(num_workers=1,
+                                              mesh_shape={"model": 1}),
+                     module, root, n, max_epochs=n // 2, limit_val_batches=2,
+                     check_val_every_n_epoch=5, enable_checkpointing=False)
+        (ra,) = a["ranks"]
+        tally(a["ranks"])
+        digest = params_digest(module.params)
+        print(f"[train-gspmd] (a) GSPMDStrategy(num_workers=1, model=1): "
+              f"losses {ra['losses']}; bitwise phase 14's first {n}: losses "
+              f"{ra['losses'] == yard['losses'][:n]}, params "
+              f"{digest == yard['digest']}; graphs per step {ra['graphs']}")
+        if ra["losses"] != yard["losses"][:n]:
+            fail(f"train-gspmd (a): losses {ra['losses']} differ from phase "
+                 f"14's first {n} {yard['losses'][:n]}")
+        if digest != yard["digest"]:
+            fail(f"train-gspmd (a): params after {n} steps differ from "
+                 "phase 14's (SHA-256)")
+        check_dist_kernels("gspmd (a)", a["ranks"], n, cfg.n_layer)
+        if (ra["backend"] != "nccl" or not ra["graphed"]
+                or ra["graphs"][0] < 1 or len(set(ra["graphs"])) != 1):
+            fail(f"train-gspmd (a): backend {ra['backend']}, graphed "
+                 f"{ra['graphed']}, graphs per step {ra['graphs']}: expected "
+                 "nccl, graphed, frozen after the first step")
+        summaries.append(dist_summary("gspmd-a", a, tokens))
+        del module, a
+        shutil.rmtree(root, ignore_errors=True)
+
+        # (b) two ranks on the one card at model=2, gloo, eager, ending
+        # with an async sharded checkpoint (d).
+        root = os.path.join(GSPMD_ROOT, "b")
+        module = gpt2()
+        ck = ModelCheckpoint(dirpath=os.path.join(root, "ckpts"),
+                             save_sharded=True, save_last=True)
+        b = dist_fit("gspmd-b", GSPMDStrategy(
+            num_workers=2, mesh_shape={"model": 2},
+            resources_per_worker={"GPU": 0.5},
+            init_hook=collective_timer()), module, root, n, callbacks=[ck],
+            async_checkpointing=True, **quiet)
+        tally(b["ranks"])
+        got = b["ranks"][0]["losses"]
+        gaps = [abs(x - y) / abs(y) for x, y in zip(got, yard["losses"])]
+        gathered = {k: tuple(t.shape) for k, t in _flat_params(module.params)}
+        print(f"[train-gspmd] (b) GSPMDStrategy(2 ranks, model=2, GPU=0.5): "
+              f"losses {got}; phase 14's {yard['losses'][:n]}; largest "
+              f"relative gap {max(gaps)}; local shapes "
+              f"{[r['local_shapes'] for r in b['ranks']]}; seconds and calls "
+              f"inside gloo collectives by step end "
+              f"{[r['collective_s'] for r in b['ranks']]}")
+        if len(got) != n or not all(math.isfinite(x) for x in got):
+            fail(f"train-gspmd (b): losses {got}")
+        if max(gaps) > GSPMD_LOSS_RTOL:
+            fail(f"train-gspmd (b): losses {got} differ from phase 14's "
+                 f"{yard['losses'][:n]} by {max(gaps)} relative "
+                 f"> {GSPMD_LOSS_RTOL}")
+        for rb in b["ranks"]:
+            if rb["losses"] != got:
+                fail("train-gspmd (b): the ranks logged different losses")
+            want = {"wqkv": [12, 768, 3, 6, 64], "wi": [12, 768, 1536],
+                    "wte": [50257, 768]}
+            if rb["local_shapes"] != want:
+                fail(f"train-gspmd (b) rank {rb['rank']}: local shapes "
+                     f"{rb['local_shapes']}, expected {want}")
+            if (rb["backend"] != "gloo" or rb["graphed"]
+                    or any(rb["graphs"])):
+                fail(f"train-gspmd (b) rank {rb['rank']}: backend "
+                     f"{rb['backend']}, graphed {rb['graphed']}")
+        check_dist_kernels("gspmd (b)", b["ranks"], n, cfg.n_layer,
+                           fwd_want=cfg.n_layer * n)
+        if gathered != shapes14:
+            fail(f"train-gspmd (b): the driver's parameters have shapes "
+                 f"{gathered}, phase 14's {shapes14}")
+        sb = dist_summary("gspmd-b", b, tokens)
+        # Per step, over the steps whose median is the step time: the
+        # seconds inside gloo calls, their calls, and their share of the
+        # step (a step that also writes a checkpoint is longer).
+        for rb in b["ranks"]:
+            coll, ends = rb["collective_s"], rb["ends"]
+            window = range(3, len(ends))
+            secs = [coll[i][0] - coll[i - 1][0] for i in window]
+            rank = rb["rank"]
+            sb[f"collective_s_per_step_rank{rank}"] = statistics_median(secs)
+            sb[f"collective_calls_per_step_rank{rank}"] = statistics_median(
+                [coll[i][1] - coll[i - 1][1] for i in window])
+            sb[f"collective_share_rank{rank}"] = statistics_median(
+                [x / (ends[i] - ends[i - 1]) for x, i in zip(secs, window)])
+        summaries.append(sb)
+
+        # (d) the sharded checkpoint restored in process on the card
+        # through the trainer: a fit resumed from it at its last step (no
+        # step left) reads the directory, places the whole parameters on
+        # the card and restores the step counter.
+        last = ck.last_model_path
+        restored = gpt2()
+        resume = Trainer(max_steps=n, enable_checkpointing=False, **quiet)
+        resume.fit(restored, ckpt_path=last)
+        on_card = dict(_flat_params(restored.params))
+        same = (on_card.keys() == dict(_flat_params(module.params)).keys()
+                and all(on_card[k].is_cuda and torch.equal(on_card[k].cpu(), t)
+                        for k, t in _flat_params(module.params)))
+        print(f"[train-gspmd] (d) async sharded checkpoint {last}: files "
+              f"{sorted(os.listdir(os.path.join(last, 'state')))}; "
+              f"Trainer.fit(ckpt_path=last) on the card: step "
+              f"{resume.global_step}, parameters on the card bitwise (b)'s "
+              f"gathered parameters: {same}")
+        if resume.global_step != n or not same:
+            fail(f"train-gspmd (d): restored step {resume.global_step}, "
+                 f"bitwise {same}")
+        del module, b, restored, resume, on_card
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(root, ignore_errors=True)
+
+        # (c) fp32, 4 layers, against the in-process fit, within 1e-4.
+        for tag, strat, per_rank in (
+            ("gspmd-c", GSPMDStrategy(num_workers=2, mesh_shape={"model": 2},
+                                      resources_per_worker={"GPU": 0.5}),
+             GSPMD_C["batch"]),
+            ("zero3-c", RayShardedStrategy(num_workers=2, zero_stage=3,
+                                           resources_per_worker={"GPU": 0.5}),
+             GSPMD_C["batch"] // 2),
+        ):
+            root = os.path.join(GSPMD_ROOT, tag)
+            module = GPTLM(c_cfg, batch_size=per_rank, warmup_steps=2,
+                           n_train=2 * GSPMD_C["batch"])
+            c = dist_fit(tag, strat, module, root, n,
+                         **{k: v for k, v in c_kw.items()
+                            if k not in ("max_steps", "seed",
+                                         "log_every_n_steps")})
+            tally(c["ranks"])
+            got = c["ranks"][0]["losses"]
+            worst = max(abs(x - y) / abs(y)
+                        for x, y in zip(got, c_yard["losses"]))
+            pdiff = params_max_diff(module.params, c_yard["params"])
+            print(f"[train-gspmd] ({tag}) fp32 {GSPMD_C['n_layer']} layers, "
+                  f"2 ranks at GPU=0.5: losses {got} vs the in-process fit's "
+                  f"{c_yard['losses']}: worst relative {worst}; params max "
+                  f"abs diff {pdiff}")
+            if len(got) != n or worst > 1e-4 or pdiff > 1e-4:
+                fail(f"train-gspmd ({tag}): losses {got} vs "
+                     f"{c_yard['losses']} (worst relative {worst}), params "
+                     f"diff {pdiff}: the bar is 1e-4")
+            check_dist_kernels(f"({tag})", c["ranks"], n, GSPMD_C["n_layer"])
+            summaries.append(dist_summary(
+                tag, c, GSPMD_C["batch"] * c_cfg.max_seq))
+            del module, c
+            shutil.rmtree(root, ignore_errors=True)
+    finally:
+        fabric.shutdown()
+        shutil.rmtree(GSPMD_ROOT, ignore_errors=True)
+        shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    gc.collect()
+    kids = [k for k in child_pids() if k not in kids_before]
+    mem_after = card_memory_mib()
+    for row in summaries:
+        print(f"[train-gspmd] {json.dumps(row)}")
+    print(f"[train-gspmd] step ms: phase 14 {yard['step_ms']}, "
+          + ", ".join(f"({x['fit']}) {x['step_ms_median']}" for x in summaries)
+          + f"; card memory {mem_before} -> {mem_after} MiB; phase wall "
+          f"{time.perf_counter() - t_phase:.3f} s on {card_line()}")
+    if kids:
+        fail(f"train-gspmd: child processes left: {kids}")
+    if mem_after > mem_before + FLEET_MEM_SLACK_MIB:
+        fail(f"train-gspmd: card memory {mem_after} MiB after the phase, "
+             f"{mem_before} MiB before (slack {FLEET_MEM_SLACK_MIB})")
+    n_params = sum(t.numel() for t in tree_leaves(yard["params"]))
+    print(f"[train-gspmd] GPT-2 small parameters {n_params}")
+    return launches, rows
+
+
+def _flat_params(tree, prefix=""):
+    """(path, tensor) of a parameter tree, in tree order."""
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.extend(_flat_params(v, f"{prefix}{k}/"))
+        else:
+            out.append((prefix + k, v))
+    return out
+
+
 def statistics_median(xs) -> float:
     import statistics
 
@@ -5280,6 +5668,8 @@ def main() -> None:
                                     serve4, fleet)
     train_launches, _, yard = timed_phase("train", phase_train)
     dist_launches = timed_phase("train-dist", phase_train_dist, yard)
+    gspmd_launches, tp_rows = timed_phase("train-gspmd", phase_train_gspmd,
+                                          yard)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_fwd",
@@ -5289,7 +5679,7 @@ def main() -> None:
         "launches": serve_launches + spec_launches + fused_launches
         + int8_launches + lifecycle_launches + fleet_launches
         + kvplane_launches + recovery_launches + train_launches["flash_fwd"]
-        + dist_launches["flash_fwd"],
+        + dist_launches["flash_fwd"] + gspmd_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
                              "serve_paged": paged_launches,
@@ -5301,7 +5691,8 @@ def main() -> None:
                              "serve_kvplane": kvplane_launches,
                              "serve_recovery": recovery_launches,
                              "train": train_launches["flash_fwd"],
-                             "train_dist": dist_launches["flash_fwd"]},
+                             "train_dist": dist_launches["flash_fwd"],
+                             "train_gspmd": gspmd_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],
         "ms": timed["ms"],
@@ -5314,7 +5705,9 @@ def main() -> None:
         "host_us_s16": timed["host_us_s16"],
         "shape": [1, timed["S"], 12, 64],
         "train": {key: bwd_rows["flash_fwd"][key]
-                  for key in ("ms", "library_ms", "bound_ms", "tflops")},
+                  for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "tflops")},
+        "train_tp": tp_rows["flash_fwd"],
         "serve_spec": draft_row,
     }]
     for name, line in (("flash_bwd_dkv", 189), ("flash_bwd_dq", 254)):
@@ -5324,9 +5717,11 @@ def main() -> None:
             "route": "cuda",
             "source": src + "flash_bwd.cu",
             "replaces": f"ray_lightning_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name] + dist_launches[name],
+            "launches": (train_launches[name] + dist_launches[name]
+                         + gspmd_launches[name]),
             "launches_by_path": {"train": train_launches[name],
-                                 "train_dist": dist_launches[name]},
+                                 "train_dist": dist_launches[name],
+                                 "train_gspmd": gspmd_launches[name]},
             "max_abs_err": bwd_worst["bfloat16"],
             "max_abs_err_fp32": bwd_worst["float32"],
             "ms": row["ms"],
@@ -5337,6 +5732,7 @@ def main() -> None:
             "tflops": row["tflops"],
             "sass_tensor_core_instructions": tensor_ops[name],
             "shape": [8, 1024, 12, 64],
+            "train_tp": tp_rows[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card_line()}")

@@ -20,7 +20,10 @@ the watchdog, flight recorder and preemption monitor (``obs/health.py``,
 (``serve/kvfleet.py``, ``serve/kvstore.py``), and the distributed trainer:
 ``RayStrategy``, ``HorovodRayStrategy`` and ``RayShardedStrategy``
 (``strategies/``) launched on the fabric (``launchers/``, ``parallel/``),
-with ``Trainer(max_restarts=...)``. It imports ``torch``, never ``jax``,
+with ``Trainer(max_restarts=...)``, and tensor-parallel training:
+``GSPMDStrategy`` over a data x fsdp x model mesh (``parallel/logical.py``,
+``parallel/tp.py``) with sharded and async checkpoints
+(``trainer/checkpoint_io.py``). It imports ``torch``, never ``jax``,
 and nothing of ``ray_lightning_tpu``.
 """
 __version__ = "0.1.0"
@@ -37,6 +40,7 @@ _LAZY = {
     "RayGPUStrategy": "ray_lightning_tpu_torch.strategies",
     "HorovodRayStrategy": "ray_lightning_tpu_torch.strategies",
     "RayShardedStrategy": "ray_lightning_tpu_torch.strategies",
+    "GSPMDStrategy": "ray_lightning_tpu_torch.strategies",
     "init_gpt_params": "ray_lightning_tpu_torch.models.gpt",
     "gpt_generate": "ray_lightning_tpu_torch.models.gpt",
     "params_from_jax": "ray_lightning_tpu_torch.models.weights",

@@ -43,6 +43,11 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ray_lightning_tpu_torch.parallel.tp import (
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+)
 from ray_lightning_tpu_torch.trainer.data import ArrayDataset, DataLoader, Dataset
 from ray_lightning_tpu_torch.trainer.module import TorchModule
 from ray_lightning_tpu_torch.trainer.optim import warmup_cosine_decay_schedule
@@ -318,11 +323,16 @@ def _make_norm(cfg: GPTConfig):
 
 def _dense_mlp(
     m: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: GPTConfig,
-    cdt: torch.dtype,
+    cdt: torch.dtype, tp: Any = None,
 ) -> torch.Tensor:
     """The dense feed-forward on normed input (..., D): GPT-2 gelu (tanh
     approximation, as ``jax.nn.gelu``'s default) or SwiGLU with gate/up
-    stacked in ``wi`` (D, 2, F)."""
+    stacked in ``wi`` (D, 2, F). With ``tp`` (the model group) and ``wi`` /
+    ``wo2`` holding this rank's F/m columns / rows, the partial outputs
+    are summed over the group before ``bo2`` is added, once."""
+    split = tp is not None and lp["wo2"].shape[0] != cfg.ff_dim
+    if split:
+        m = copy_to_model(m, tp)
     if cfg.mlp_variant == "swiglu":
         z = torch.einsum("...d,dcf->...cf", m, dequant(lp["wi"], cdt)) + lp[
             "bi"
@@ -333,9 +343,10 @@ def _dense_mlp(
             "bi"
         ].to(cdt)
         h = F.gelu(z, approximate="tanh")
-    return torch.einsum("...f,fd->...d", h, dequant(lp["wo2"], cdt)) + lp[
-        "bo2"
-    ].to(cdt)
+    out = torch.einsum("...f,fd->...d", h, dequant(lp["wo2"], cdt))
+    if split:
+        out = reduce_from_model(out, tp)
+    return out + lp["bo2"].to(cdt)
 
 
 def _head_weight(params: Dict[str, Any], cfg: GPTConfig) -> torch.Tensor:
@@ -415,6 +426,39 @@ def _project_qkv(
     return q, k, v
 
 
+def _model_group(mesh: Any) -> Any:
+    """The mesh's ``"model"`` group, or None (no mesh, or a model extent of
+    1)."""
+    return None if mesh is None else mesh.group("model")
+
+
+def _embed_tokens(table: Any, tokens: torch.Tensor, cfg: GPTConfig,
+                  tp: Any) -> torch.Tensor:
+    """Rows of ``table`` for ``tokens``. A table holding this rank's
+    V/m rows (a vocab split over the model group) looks up the tokens it
+    holds, zeroes the others and sums over the group."""
+    if tp is None or table.shape[0] == cfg.vocab_size:
+        return embed_rows(table, tokens)
+    import torch.distributed as dist
+
+    local = table.shape[0]
+    idx = tokens - dist.get_rank(tp) * local
+    inside = (idx >= 0) & (idx < local)
+    rows = embed_rows(table, idx.clamp(0, local - 1))
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return reduce_from_model(rows, tp)
+
+
+def gpt_logits(params: Dict[str, Any], x: torch.Tensor, cfg: GPTConfig,
+               tp: Any = None) -> torch.Tensor:
+    """fp32 logits (..., V) of the final hidden states ``x``. A vocab split
+    over the model group gives each rank V/m columns, gathered whole."""
+    w = _head_weight(params, cfg)
+    if tp is None or w.shape[0] == cfg.vocab_size:
+        return _lm_head(x, w)
+    return gather_from_model(_lm_head(copy_to_model(x, tp), w), -1, tp)
+
+
 def gpt_forward(
     params: Dict[str, Any],
     tokens: torch.Tensor,
@@ -434,14 +478,23 @@ def gpt_forward(
     post-final-norm hidden states (B, S, D) instead of logits (the input of
     :func:`chunked_lm_loss`); ``return_aux`` also returns the MoE
     load-balancing loss, zero for the dense configs the port runs.
+
+    ``mesh`` (``parallel/mesh.py``) splits the blocks over its ``"model"``
+    axis, Megatron-style, where ``params`` holds this rank's slices (the
+    specs of :func:`gpt_logical_axes`): the attention of H/m heads (or
+    Hkv/m kv heads) and their rows of ``wo``, the MLP's F/m columns of
+    ``wi`` and rows of ``wo2``; each block's partial output is summed over
+    the group and its bias (``bo``, ``bo2``) added after the sum, once. A
+    vocab split (a vocab the model extent divides) makes the embedding a
+    masked lookup summed over the group and the head's logits a gather.
     """
     from ray_lightning_tpu_torch.ops import attention_reference, flash_attention
 
-    if mesh is not None or seq_axis is not None:
+    if seq_axis is not None:
         raise NotImplementedError(
-            "meshes and sequence parallelism are not ported yet (ROADMAP "
-            "queue 1 items 11 and 13)"
+            "sequence parallelism is not ported yet (ROADMAP queue 1 item 13)"
         )
+    tp = _model_group(mesh)
     cfg.validate_variants()
     if cfg.seq_impl not in ("ring", "zigzag"):
         raise ValueError(
@@ -459,22 +512,31 @@ def gpt_forward(
         if cfg.pos_embed == "rope"
         else None
     )
-    x = embed_rows(params["wte"], tokens)
+    x = _embed_tokens(params["wte"], tokens, cfg, tp)
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][:S]
     x = x.to(cdt)
 
     def block(h: torch.Tensor, lp: Dict[str, torch.Tensor]) -> torch.Tensor:
         a = norm_fn(h, lp["ln1_g"], lp["ln1_b"])
+        split = tp is not None and lp["wo"].shape[0] != cfg.n_head
+        if split:
+            if "wkv" in lp and lp["wkv"].shape[2] == cfg.kv_head:
+                raise ValueError(
+                    f"n_kv_head ({cfg.kv_head}) must be divisible by the "
+                    "model extent when n_head is: the kv heads shard with "
+                    "the query heads")
+            a = copy_to_model(a, tp)
         q, k, v = _project_qkv(a, lp, cfg, cdt, rope_tables)  # (B,S,H,hd)
         o = attn_fn(
             q, k, v, causal=True, window=cfg.attn_window, sinks=cfg.attn_sinks
         )
-        h = h + torch.einsum("bshk,hkd->bsd", o, dequant(lp["wo"], cdt)) + lp[
-            "bo"
-        ].to(cdt)
+        o = torch.einsum("bshk,hkd->bsd", o, dequant(lp["wo"], cdt))
+        if split:
+            o = reduce_from_model(o, tp)
+        h = h + o + lp["bo"].to(cdt)
         m = norm_fn(h, lp["ln2_g"], lp["ln2_b"])
-        return h + _dense_mlp(m, lp, cfg, cdt)
+        return h + _dense_mlp(m, lp, cfg, cdt, tp)
 
     for li in range(cfg.n_layer):
         lp = _layer(params["blocks"], li)
@@ -484,8 +546,63 @@ def gpt_forward(
             x = block(x, lp)
     x = norm_fn(x, params["lnf_g"], params["lnf_b"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    out = x if return_hidden else _lm_head(x, _head_weight(params, cfg))
+    out = x if return_hidden else gpt_logits(params, x, cfg, tp)
     return (out, aux) if return_aux else out
+
+
+def gpt_logical_axes(cfg: GPTConfig) -> Dict[str, Any]:
+    """Logical axis names per parameter (JAX ``gpt.py:270-336``, dense
+    configs), which the strategy resolves to mesh axes through
+    ``parallel/logical.py``'s rules (embed->fsdp, heads/mlp/vocab->model)."""
+    cfg.validate_variants()
+    if cfg.mlp_variant == "swiglu":
+        mlp = {
+            "wi": ("layers", "embed", None, "mlp"),
+            "bi": ("layers", None, "mlp"),
+            "wo2": ("layers", "mlp", "embed"),
+            "bo2": ("layers", None),
+        }
+    else:
+        mlp = {
+            "wi": ("layers", "embed", "mlp"),
+            "bi": ("layers", "mlp"),
+            "wo2": ("layers", "mlp", "embed"),
+            "bo2": ("layers", None),
+        }
+    if cfg.kv_head == cfg.n_head:
+        attn = {
+            "wqkv": ("layers", "embed", None, "heads", "kv"),
+            "bqkv": ("layers", None, "heads", "kv"),
+        }
+    else:
+        # GQA: kv heads shard over "heads" too (n_kv_head divisible by the
+        # model extent, like n_head).
+        attn = {
+            "wq": ("layers", "embed", "heads", "kv"),
+            "bq": ("layers", "heads", "kv"),
+            "wkv": ("layers", "embed", None, "heads", "kv"),
+            "bkv": ("layers", None, "heads", "kv"),
+        }
+    out: Dict[str, Any] = {
+        "wte": ("vocab", "embed"),
+        "blocks": {
+            "ln1_g": ("layers", None),
+            "ln1_b": ("layers", None),
+            **attn,
+            "wo": ("layers", "heads", "kv", "embed"),
+            "bo": ("layers", None),
+            "ln2_g": ("layers", None),
+            "ln2_b": ("layers", None),
+            **mlp,
+        },
+        "lnf_g": (None,),
+        "lnf_b": (None,),
+    }
+    if cfg.pos_embed == "learned":
+        out["wpe"] = (None, "embed")
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = ("vocab", "embed")
+    return out
 
 
 def lm_loss(
@@ -1887,18 +2004,43 @@ class GPTLM(TorchModule):
         self.n_train = n_train
         self._dataset = dataset
         self.weight_decay = weight_decay
+        self._mesh: Any = None
+
+    # -- strategy hooks --------------------------------------------------
+    def bind_mesh(self, mesh: Any, seq_axis: Optional[str] = None) -> None:
+        """Run the forward over ``mesh`` (``parallel/mesh.py``): the
+        strategy's hook (JAX ``gpt.py:2418-2420``). Sequence parallelism,
+        and seq, ep or pp axes larger than 1, raise."""
+        if seq_axis is not None:
+            raise NotImplementedError(
+                "sequence parallelism is not ported yet (ROADMAP queue 1 "
+                "item 13)")
+        for axis in ("seq", "ep", "pp"):
+            if mesh is not None and mesh.size(axis) > 1:
+                raise NotImplementedError(
+                    f"a {axis!r} mesh axis larger than 1 (sequence, expert "
+                    "and pipeline parallelism) is not ported yet (ROADMAP "
+                    "queue 1 item 13)")
+        self._mesh = mesh
+
+    def param_logical_axes(self) -> Dict[str, Any]:
+        return gpt_logical_axes(self.config)
 
     # -- model -----------------------------------------------------------
     def init_params(self, generator: torch.Generator, batch: Any) -> Any:
         return init_gpt_params(generator, self.config)
 
     def _forward(self, params: Any, tokens: torch.Tensor) -> torch.Tensor:
-        return gpt_forward(params, tokens, self.config)
+        return gpt_forward(params, tokens, self.config, mesh=self._mesh)
 
     def _loss(self, params: Any, batch: Any) -> Tuple[torch.Tensor, torch.Tensor]:
         toks = batch[0] if isinstance(batch, (tuple, list)) else batch
         toks = toks.long()
         if self.config.loss_chunk > 0:
+            if self._mesh is not None and self._mesh.size("model") > 1:
+                raise NotImplementedError(
+                    "loss_chunk under a model axis is not ported yet (ROADMAP "
+                    "queue 1 item 11b)")
             h = gpt_forward(params, toks[:, :-1], self.config, return_hidden=True)
             return chunked_lm_loss(
                 h, _head_weight(params, self.config), toks[:, 1:],

@@ -1,19 +1,30 @@
-"""Process-group bootstrap (the subset of ``ray_lightning_tpu/parallel/
-mesh.py`` that data parallelism needs).
+"""Process groups of the launched strategies (the port of
+``ray_lightning_tpu/parallel/mesh.py``).
 
 The JAX package rendezvous with ``jax.distributed.initialize`` and builds
-a ``Mesh`` over every chip; the port does what the reference does
+a ``Mesh`` over every chip, and XLA routes each collective over the mesh
+axes its shardings name. The port does what the reference does
 (``ray_ddp.py:192-196``): ``torch.distributed.init_process_group`` on a
-TCP store at the coordinator, one rank per process. ``build_mesh`` gives
-the group as a 1-D ``DeviceMesh`` named ``"data"``, for later slices to
-extend; ``parse_mesh_spec`` and ``mesh_from_spec`` (serving meshes) are
-ROADMAP queue 1 item 11b.
+TCP store at the coordinator, one rank per process, and then
+:func:`build_mesh` lays the ranks out on the six axes of the JAX
+strategy, ``("data", "fsdp", "model", "seq", "ep", "pp")``: rank ``r``
+sits at ``np.unravel_index(r, sizes)``, row-major, so the data-parallel
+axes lead as the JAX device order does. The mesh holds one process group
+per axis larger than 1 and one for the data-parallel extent (data x
+fsdp), each made once per world with ``new_group``.
+
+Gloo, the only group ranks sharing a card can form, has no all-gather of
+CUDA tensors: :func:`all_gather` stages such a tensor through pinned host
+memory, on gloo only; on NCCL it is the plain collective, which a CUDA
+graph captures. ``parse_mesh_spec`` and ``mesh_from_spec`` (serving
+meshes) are ROADMAP queue 1 item 11b.
 """
 from __future__ import annotations
 
 import datetime
-from typing import Any, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.parallel.env import DistEnv
@@ -55,14 +66,158 @@ def teardown_distributed() -> None:
     """Leave the process group, if this process is in one."""
     import torch.distributed as dist
 
+    _MESHES.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
 
 
-def build_mesh(device: torch.device) -> Any:
-    """The group as a 1-D ``DeviceMesh`` named ``"data"``."""
-    import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+#: The mesh axes, in the JAX strategy's order (JAX ``strategies/gspmd.py:21``).
+AXES: Tuple[str, ...] = ("data", "fsdp", "model", "seq", "ep", "pp")
 
-    return init_device_mesh(device.type, (dist.get_world_size(),),
-                            mesh_dim_names=("data",))
+#: Meshes of this process's world, by their axis sizes (built once).
+_MESHES: Dict[Tuple[int, ...], "Mesh"] = {}
+
+
+def mesh_coords(rank: int, sizes: Mapping[str, int]) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate on each axis: ``np.unravel_index`` of the
+    rank over the axis sizes in :data:`AXES` order (row-major)."""
+    dims = tuple(int(sizes.get(ax, 1)) for ax in AXES)
+    return dict(zip(AXES, (int(c) for c in np.unravel_index(int(rank), dims))))
+
+
+class Mesh:
+    """This rank's place on the six-axis mesh and the groups it belongs
+    to. ``shape`` maps every axis to its size; :meth:`group` is None for an
+    axis of size 1 (nothing to reduce over)."""
+
+    def __init__(self, sizes: Mapping[str, int], rank: int,
+                 groups: Dict[str, Any], backend: Optional[str]) -> None:
+        self.shape: Dict[str, int] = {ax: int(sizes.get(ax, 1)) for ax in AXES}
+        self.rank = int(rank)
+        self.coords = mesh_coords(rank, self.shape)
+        self.backend = backend
+        self._groups = groups
+
+    @property
+    def mesh_dim_names(self) -> Tuple[str, ...]:
+        return AXES
+
+    @property
+    def dp_size(self) -> int:
+        """The data-parallel extent: data x fsdp."""
+        return self.shape["data"] * self.shape["fsdp"]
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's data-parallel shard."""
+        return self.coords["data"] * self.shape["fsdp"] + self.coords["fsdp"]
+
+    @property
+    def replica_head(self) -> bool:
+        """Whether this rank is the first of the ranks holding its data-
+        parallel shard (coordinate 0 on every other axis)."""
+        return all(self.coords[ax] == 0 for ax in AXES[2:])
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def group(self, axis: str) -> Any:
+        """The group of the ranks that differ from this one on ``axis``
+        alone (``"dp"``: on data and fsdp), or None at size 1."""
+        return self._groups.get(axis)
+
+
+def _axis_members(rank: int, sizes: Dict[str, int],
+                  axes: Tuple[str, ...]) -> Tuple[int, ...]:
+    """The ranks that share ``rank``'s coordinates off ``axes``, in
+    ascending order."""
+    mine = mesh_coords(rank, sizes)
+    world = int(np.prod([sizes[ax] for ax in AXES]))
+    return tuple(r for r in range(world)
+                 if all(mesh_coords(r, sizes)[ax] == mine[ax]
+                        for ax in AXES if ax not in axes))
+
+
+def build_mesh(sizes: Optional[Mapping[str, int]] = None) -> Mesh:
+    """This process's :class:`Mesh` over the world it joined (a collective
+    the first time for a given shape: every rank makes every group, in one
+    order). ``sizes`` maps axis names to sizes, missing axes 1; None puts
+    the whole world on ``"data"``. The sizes must multiply to the world."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    shape = {ax: 1 for ax in AXES}
+    shape.update({k: int(v) for k, v in (sizes or {"data": world}).items()})
+    unknown = [k for k in shape if k not in AXES]
+    if unknown:
+        raise ValueError(f"unknown mesh axis {unknown[0]!r}; valid: {AXES}")
+    if int(np.prod(list(shape.values()))) != world:
+        named = ", ".join(f"{ax}={shape[ax]}" for ax in AXES if shape[ax] > 1)
+        raise ValueError(
+            f"mesh shape ({named or 'all 1'}) covers "
+            f"{int(np.prod(list(shape.values())))} rank(s) but the world "
+            f"has {world}: the axis sizes must multiply to exactly the "
+            "world size")
+    key = tuple(shape[ax] for ax in AXES)
+    if key in _MESHES:
+        return _MESHES[key]
+    groups: Dict[str, Any] = {}
+    sets = [(ax, (ax,)) for ax in AXES] + [("dp", ("data", "fsdp"))]
+    for name, axes in sets:
+        n = int(np.prod([shape[ax] for ax in axes]))
+        if n <= 1:
+            continue
+        if n == world:
+            groups[name] = dist.group.WORLD
+            continue
+        # Every rank makes every group of this kind, lowest member first.
+        seen = set()
+        for r in range(world):
+            members = _axis_members(r, shape, axes)
+            if members in seen:
+                continue
+            seen.add(members)
+            g = dist.new_group(list(members))
+            if rank in members:
+                groups[name] = g
+    backend = dist.get_backend() if dist.is_initialized() else None
+    mesh = _MESHES[key] = Mesh(shape, rank, groups, backend)
+    return mesh
+
+
+# -- collectives that gloo lacks for CUDA tensors ---------------------------
+
+
+def _staged(t: torch.Tensor, group: Any) -> bool:
+    """Whether a collective of ``t`` over ``group`` goes through host
+    memory: a CUDA tensor on a gloo group."""
+    import torch.distributed as dist
+
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _all_gather_single(out: torch.Tensor, inp: torch.Tensor,
+                       group: Any) -> None:
+    import torch.distributed as dist
+
+    # torch 2.13 names this collective all_gather_single and deprecates
+    # all_gather_into_tensor, the only name earlier releases (2.11) have.
+    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+@torch.no_grad()
+def all_gather(out: torch.Tensor, inp: torch.Tensor, group: Any = None) -> None:
+    """Every rank's ``inp`` into ``out``, stacked along dim 0 in group-
+    rank order (the group's ranks ascend, so along the mesh axis). A CUDA
+    tensor on gloo goes through pinned host buffers."""
+    if not _staged(inp, group):
+        _all_gather_single(out, inp.contiguous(), group)
+        return
+    pin = inp.is_cuda
+    host_in = torch.empty(inp.shape, dtype=inp.dtype, pin_memory=pin)
+    host_in.copy_(inp)
+    host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=pin)
+    _all_gather_single(host_out, host_in, group)
+    out.copy_(host_out)

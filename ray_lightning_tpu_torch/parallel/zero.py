@@ -46,50 +46,47 @@ def shard_slice(full: torch.Tensor, dim: Optional[int], rank: int,
     return full.narrow(dim, rank * n, n)
 
 
-def _all_gather(out: torch.Tensor, inp: torch.Tensor) -> None:
-    import torch.distributed as dist
-
-    # torch 2.13 names this collective all_gather_single and deprecates
-    # all_gather_into_tensor, the only name earlier releases (2.11) have.
-    fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    fn(out, inp)
-
-
 @torch.no_grad()
 def all_gather_into(full: torch.Tensor, shard: torch.Tensor, dim: int,
-                    world: int) -> None:
+                    world: int, group: Any = None) -> None:
     """Write every rank's ``shard`` into ``full`` (split along ``dim``),
-    in place: straight into ``full`` when ``dim`` is 0, else through a
-    stacked buffer and one copy."""
+    in place, over ``group`` (the world by default): straight into
+    ``full`` when ``dim`` is 0, else through a stacked buffer and one
+    copy. A CUDA tensor on gloo goes through host memory
+    (:func:`~ray_lightning_tpu_torch.parallel.mesh.all_gather`)."""
+    from ray_lightning_tpu_torch.parallel.mesh import all_gather
+
     if dim == 0 and full.is_contiguous():
-        _all_gather(full, shard.contiguous())
+        all_gather(full, shard.contiguous(), group)
         return
     shape = tuple(shard.shape)
     buf = torch.empty((world * shape[0],) + shape[1:], dtype=shard.dtype,
                       device=shard.device)
-    _all_gather(buf, shard.contiguous())
+    all_gather(buf, shard.contiguous(), group)
     full.copy_(buf.view((world,) + shape).movedim(0, dim).reshape(full.shape))
 
 
-def gather_full(shard: torch.Tensor, dim: Optional[int],
-                world: int) -> torch.Tensor:
+def gather_full(shard: torch.Tensor, dim: Optional[int], world: int,
+                group: Any = None) -> torch.Tensor:
     """A new full tensor from every rank's ``shard`` (collective)."""
     if dim is None:
         return shard
     shape = list(shard.shape)
     shape[dim] *= world
     full = torch.empty(shape, dtype=shard.dtype, device=shard.device)
-    all_gather_into(full, shard, dim, world)
+    all_gather_into(full, shard, dim, world, group)
     return full
 
 
-def gather_to_host(shards: Any, dims: Any, world: int) -> Any:
-    """All-gather a tree of slices (split as ``dims`` says) into a tree of
-    full CPU tensors: the checkpoint path of sharded state. Every rank
-    must call it."""
+def gather_to_host(shards: Any, dims: Any, world: int,
+                   group: Any = None) -> Any:
+    """All-gather a tree of slices (split as ``dims`` says) over ``group``
+    into a tree of full CPU tensors: the checkpoint path of sharded state.
+    Every rank of the group must call it."""
     dim_leaves = iter(tree_leaves(dims))
     return tree_map(
-        lambda x: gather_full(x, next(dim_leaves), world).detach().cpu(),
+        lambda x: gather_full(x, next(dim_leaves), world, group)
+        .detach().cpu(),
         shards)
 
 

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from ray_lightning_tpu_torch.parallel.env import DistEnv
-from ray_lightning_tpu_torch.trainer.optim import TrainOptimizer, global_norm
+from ray_lightning_tpu_torch.trainer.optim import TrainOptimizer
 from ray_lightning_tpu_torch.utils.device import resolve_device
 from ray_lightning_tpu_torch.utils.graphs import Program, pinned_copy
 from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -263,13 +263,27 @@ class Strategy:
 
     @property
     def mesh(self) -> Any:
-        """The group as a 1-D ``DeviceMesh`` named ``"data"`` (built on
-        first use)."""
+        """The group on the six-axis mesh (``parallel/mesh.py``), every
+        rank on ``"data"`` (built on first use)."""
         if self._mesh is None:
             from ray_lightning_tpu_torch.parallel.mesh import build_mesh
 
-            self._mesh = build_mesh(self.device)
+            self._mesh = build_mesh()
         return self._mesh
+
+    def ckpt_layout(self) -> Tuple[Dict[str, int], Dict[str, int]]:
+        """The mesh a sharded checkpoint records: ``(axis sizes, this
+        rank's coordinates)``. Data parallelism puts every rank on
+        ``"data"``."""
+        world = self.dist_env.world_size if self.grouped else 1
+        return {"data": world}, {"data": self.global_rank}
+
+    def prediction_owner(self) -> Tuple[Optional[int], int]:
+        """``(block, blocks)``: the global batch's rows split into
+        ``blocks`` equal blocks in rank order, and the block this rank's
+        callbacks own (None: none)."""
+        world = self.dist_env.world_size if self.grouped else 1
+        return self.global_rank, world
 
     @property
     def grouped(self) -> bool:
@@ -675,7 +689,7 @@ class TrainProgram:
                 logs = strategy.reduce_logs(logs)
                 if self.log_grad_norm:
                     # Of the reduced gradients: the same on every rank.
-                    logs["grad_norm"] = global_norm(grads)
+                    logs["grad_norm"] = self.optimizer.norm(grads)
                 self.optimizer.take(grads, pos, updates, self.lrs[k])
                 for name, v in logs.items():
                     if name not in self.out:  # a warm-up run, before capture

@@ -31,6 +31,10 @@ collectives are explicit:
   (:meth:`ShardedTrainOptimizer.full_params`); after a fit they stay
   whole.
 
+Ranks that share a card join over gloo, which has no all-gather of CUDA
+tensors: the gathers there go through pinned host memory
+(``parallel/mesh.py:all_gather``).
+
 A checkpoint holds full parameters and full optimizer state, gathered
 (:meth:`ShardedTrainOptimizer.gathered_state_dict`), so it has the data-
 parallel checkpoint's format and resumes at another world size.
@@ -48,7 +52,6 @@ from ray_lightning_tpu_torch.parallel.zero import (
     shard_dim_for,
     shard_slice,
 )
-from ray_lightning_tpu_torch.strategies.base import not_ported
 from ray_lightning_tpu_torch.strategies.ddp import RayGPUStrategy
 from ray_lightning_tpu_torch.trainer.optim import TrainOptimizer
 
@@ -71,24 +74,28 @@ class ShardedTrainOptimizer(TrainOptimizer):
         stage: int,
         rank: int,
         world: int,
+        dims: Optional[Sequence[Optional[int]]] = None,
+        group: Any = None,
+        axis: str = "data",
     ) -> None:
         self.stage = int(stage)
         self.rank = int(rank)
         self.world = int(world)
-        self.dims = [shard_dim_for(tuple(p.shape), self.world) for p in leaves]
+        #: The group the slices are gathered over (the world by default)
+        #: and the mesh axis it spans.
+        self.group = group
+        self.axis = axis
+        self.dims = (list(dims) if dims is not None else
+                     [shard_dim_for(tuple(p.shape), self.world)
+                      for p in leaves])
         with torch.no_grad():
             self.shards = [
                 p if d is None
                 else shard_slice(p.detach(), d, self.rank, self.world).clone()
                 for p, d in zip(leaves, self.dims)
             ]
-        super().__init__(lambda _: factory(self.shards), leaves, lr_schedule,
-                         clip=clip, accumulate=accumulate)
-        # The optimizer's state index -> leaf position (torch numbers the
-        # params in the order its groups list them).
-        pos = {id(s): i for i, s in enumerate(self.shards)}
-        self._order = [pos[id(p)] for g in self.opt.param_groups
-                       for p in g["params"]]
+        super().__init__(factory, leaves, lr_schedule, clip=clip,
+                         accumulate=accumulate, stepped=self.shards)
         #: The bytes of each full leaf's storage, allocated again to gather.
         self._nbytes = [p.untyped_storage().nbytes() for p in leaves]
         if self.stage >= 3:
@@ -106,7 +113,7 @@ class ShardedTrainOptimizer(TrainOptimizer):
         """Every rank's slices into the full leaves, in place."""
         for p, s, d in zip(self.leaves, self.shards, self.dims):
             if d is not None:
-                all_gather_into(p.data, s, d, self.world)
+                all_gather_into(p.data, s, d, self.world, self.group)
 
     def _step(self, grads: List[torch.Tensor]) -> None:
         for s, g, d in zip(self.shards, grads, self.dims):
@@ -171,9 +178,17 @@ class ShardedTrainOptimizer(TrainOptimizer):
         state = self.state_dict()
         opt = dict(state["optimizer"])
         opt["state"] = self._state_slices(
-            opt["state"], lambda v, d: gather_full(v, d, self.world),
+            opt["state"],
+            lambda v, d: gather_full(v, d, self.world, self.group),
             lambda i: tuple(self.shards[i].shape))
         return dict(state, optimizer=opt)
+
+    def piece_spec(self, i: int, shape: Sequence[int]) -> tuple:
+        spec = [None] * len(shape)
+        if self.dims[i] is not None and tuple(shape) == tuple(
+                self.shards[i].shape):
+            spec[self.dims[i]] = self.axis
+        return tuple(spec)
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         """Load a full (single-device format) state: each rank keeps its
@@ -203,11 +218,6 @@ class RayShardedStrategy(RayGPUStrategy):
             raise ValueError(f"zero_stage must be 1, 2 or 3, got {zero_stage}")
         self.zero_stage = int(zero_stage)
         super().__init__(*args, **kwargs)
-        if self.use_gpu and self.gpu_share < 1.0:
-            # gloo, the only group ranks sharing a card can form, has no
-            # all-gather of CUDA tensors.
-            raise not_ported("RayShardedStrategy on ranks that share a card",
-                             "11b")
 
     def make_optimizer(self, factory, leaves, lr_schedule, clip, accumulate):
         if not self.grouped:

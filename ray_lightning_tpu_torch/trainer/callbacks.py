@@ -45,8 +45,14 @@ def _metric_value(trainer: Any, monitor: str) -> Optional[float]:
 
 
 def _remove(path: str) -> None:
+    """Delete a checkpoint file or sharded checkpoint directory."""
+    import shutil
+
     try:
-        os.remove(path)
+        if os.path.isdir(path):
+            shutil.rmtree(path)
+        else:
+            os.remove(path)
     except OSError:
         pass
 
@@ -57,6 +63,9 @@ class ModelCheckpoint(Callback):
 
     Files are state streams (``utils/state_stream.py``) holding params,
     optimizer state and the loop's counters, so a fit resumes exactly.
+    ``save_sharded=True`` writes sharded checkpoint directories instead
+    (``trainer/checkpoint_io.py``): every rank writes its own slices, and
+    rank 0 keeps the bookkeeping.
     """
 
     def __init__(
@@ -70,11 +79,7 @@ class ModelCheckpoint(Callback):
         save_sharded: bool = False,
     ) -> None:
         assert mode in ("min", "max")
-        if save_sharded:
-            raise NotImplementedError(
-                "sharded checkpoints are not ported yet (ROADMAP queue 1 "
-                "item 11b)"
-            )
+        self.save_sharded = bool(save_sharded)
         self.dirpath = dirpath
         self.filename = filename
         self.monitor = monitor
@@ -107,7 +112,8 @@ class ModelCheckpoint(Callback):
         if self.save_top_k == 0:
             return
         rank = getattr(trainer, "global_rank", 0)
-        if rank != 0 and not getattr(trainer, "gather_is_collective", False):
+        if (rank != 0 and not self.save_sharded
+                and not getattr(trainer, "gather_is_collective", False)):
             # Only rank 0 writes; the other ranks have no gather to join.
             return
         dirpath = self.dirpath or os.path.join(
@@ -117,18 +123,37 @@ class ModelCheckpoint(Callback):
         name = self.filename.format(
             epoch=trainer.current_epoch, step=trainer.global_step
         )
-        path = os.path.join(dirpath, name + ".ckpt")
-        # Every rank that got here enters save_checkpoint: its gather is a
-        # collective; rank 0 alone writes and keeps the bookkeeping.
-        trainer.save_checkpoint(path)
-        last = None
-        if self.save_last:
-            last = os.path.join(dirpath, "last.ckpt")
-            trainer.save_checkpoint(last)
-        if rank != 0:
-            return
-        if last:
-            self.last_model_path = last
+        if self.save_sharded:
+            # A directory; every rank writes its slices, rank 0 keeps the
+            # bookkeeping.
+            path = os.path.join(dirpath, name)
+            trainer.save_checkpoint(path, sharded=True)
+            if self.save_last:
+                last = os.path.join(dirpath, "last")
+                trainer.save_checkpoint(last, sharded=True)
+                self.last_model_path = last
+            if self.monitor is not None and self.save_top_k >= 0:
+                # Pruning may delete the save just dispatched (the worst
+                # score): every rank drains its async writes before rank 0
+                # deletes. Without a monitor only the previous save is
+                # pruned, which this save's dispatch already finalized.
+                trainer.finalize_checkpoints()
+            if rank != 0:
+                return
+        else:
+            path = os.path.join(dirpath, name + ".ckpt")
+            # Every rank that got here enters save_checkpoint: its gather
+            # is a collective; rank 0 alone writes and keeps the
+            # bookkeeping.
+            trainer.save_checkpoint(path)
+            last = None
+            if self.save_last:
+                last = os.path.join(dirpath, "last.ckpt")
+                trainer.save_checkpoint(last)
+            if rank != 0:
+                return
+            if last:
+                self.last_model_path = last
         score = _metric_value(trainer, self.monitor) if self.monitor else None
         if self.monitor is None:
             # No monitor: the latest checkpoint is "best" and the previous

@@ -40,8 +40,13 @@ each rank's callbacks see the rows it owns (:meth:`TrainingLoop.
 _owner_rows`); :meth:`TrainingLoop.collect_rank_zero_results` packs what
 the driver recovers.
 
-Not here (raised by ``Trainer``): EMA, sharded checkpoints, the telemetry
-and the watchdog.
+Sharded checkpoints (``save_checkpoint(path, sharded=True)``,
+``trainer/checkpoint_io.py``): every rank writes its own slices, no
+gather; with ``async_checkpointing`` a background thread writes them and
+the meta marker follows at the next save or the fit's end. A resume
+reads whole leaves from the pieces of any mesh.
+
+Not here (raised by ``Trainer``): EMA, the telemetry and the watchdog.
 """
 from __future__ import annotations
 
@@ -95,6 +100,8 @@ class TrainerSpec:
     log_grad_norm: bool = False
     enable_model_summary: bool = True
     return_predictions: bool = True
+    # Sharded saves write from a background thread (checkpoint_io.py).
+    async_checkpointing: bool = False
     callbacks: List[Any] = field(default_factory=list)
 
 
@@ -128,6 +135,21 @@ def _chunks(batches, k: int):
             group = []
     for b in group:
         yield [b]
+
+
+def _load_checkpoint(ckpt: Any, params_only: bool = False) -> Dict[str, Any]:
+    """A checkpoint's whole state: a state stream's bytes, or a sharded
+    directory's ``{"sharded_path": path}`` (``Trainer._read_ckpt``), its
+    pieces assembled whole and its meta merged in."""
+    if isinstance(ckpt, dict) and "sharded_path" in ckpt:
+        from ray_lightning_tpu_torch.trainer.checkpoint_io import (
+            ShardedCheckpointIO,
+        )
+
+        restored, meta = ShardedCheckpointIO().restore(
+            ckpt["sharded_path"], partial=params_only)
+        return dict(meta, **restored)
+    return load_state_stream(ckpt)
 
 
 def _limit(n_batches: int, limit: Any) -> int:
@@ -170,6 +192,7 @@ class TrainingLoop:
         self._fit_deadline: Optional[float] = None
         self._val_loader = None
         self._train_loader = None
+        self._sharded_io: Any = None
 
     # -- facade properties used by callbacks ---------------------------
     @property
@@ -256,7 +279,7 @@ class TrainingLoop:
         params = self.module.init_params(generator, sample_batch)
         state = None
         if ckpt_stream is not None:
-            state = load_state_stream(ckpt_stream)
+            state = _load_checkpoint(ckpt_stream)
             params = state["params"]
         self.strategy.bind_module(self.module)
         self.params = self.strategy.place_params(params)
@@ -315,9 +338,14 @@ class TrainingLoop:
                 cb.load_state_dict(cb_state)
 
     # ------------------------------------------------------------------
-    def save_checkpoint(self, path: str) -> None:
+    def save_checkpoint(self, path: str, sharded: bool = False) -> None:
         """Write the full training state as a state-stream file: rank 0
-        writes; the other ranks enter only a collective gather."""
+        writes; the other ranks enter only a collective gather.
+        ``sharded=True``: a checkpoint directory where every rank writes
+        the slices it holds, with no gather (call from every rank)."""
+        if sharded:
+            self._save_sharded(path)
+            return
         if self.global_rank != 0 and not self.gather_is_collective:
             return
         state = self.checkpoint_state()
@@ -325,10 +353,42 @@ class TrainingLoop:
             return
         state_stream_to_file(to_state_stream(state), path)
 
+    def _save_sharded(self, path: str) -> None:
+        from ray_lightning_tpu_torch.trainer.checkpoint_io import (
+            AsyncShardedCheckpointIO,
+            ShardedCheckpointIO,
+        )
+
+        meta = {
+            "epoch": self.current_epoch,
+            "mid_epoch": not self._epoch_complete,
+            "global_step": self.global_step,
+            "callbacks": {
+                type(cb).__name__: cb.state_dict() for cb in self.callbacks
+            },
+        }
+        if self._preempt_resume_batch:
+            meta["resume_batch"] = int(self._preempt_resume_batch)
+        if self._sharded_io is None:
+            self._sharded_io = (AsyncShardedCheckpointIO()
+                                if self.spec.async_checkpointing
+                                else ShardedCheckpointIO())
+        skeleton, pieces = self.optimizer.sharded_state()
+        refs = iter(skeleton["params"])
+        skeleton["params"] = tree_map(lambda _: next(refs), self.params)
+        self._sharded_io.save(
+            path, skeleton, pieces, self.strategy.ckpt_layout(), meta,
+            is_rank_zero=self.global_rank == 0,
+            barrier=lambda: self.strategy.barrier("sharded_checkpoint"))
+
     def finalize_checkpoints(self) -> None:
         """Every rank's checkpoint work is done once this returns on any
-        rank (a barrier: callbacks that delete checkpoint files rely on
+        rank: an async sharded save in flight is drained and its meta
+        written, then a barrier (callbacks that delete checkpoints rely on
         the ordering this call gives, not on the writes' own)."""
+        if self._sharded_io is not None:
+            self._sharded_io.finalize(
+                lambda: self.strategy.barrier("sharded_checkpoint"))
         self.strategy.barrier("finalize_checkpoints")
 
     def full_params(self) -> Any:
@@ -767,10 +827,11 @@ class TrainingLoop:
         block of the rank-ordered concatenation. The ranks' masks
         partition [0, n), so each row reaches exactly one rank's
         callbacks (PredictionWriter shards are disjoint and complete)."""
-        world = self.world_size
+        block, blocks = self.strategy.prediction_owner()
         own = np.zeros(n, dtype=bool)
-        per = n // world
-        own[self.global_rank * per:(self.global_rank + 1) * per] = True
+        per = n // blocks
+        if block is not None:
+            own[block * per:(block + 1) * per] = True
         return own
 
     # ------------------------------------------------------------------
@@ -830,10 +891,12 @@ class TrainingLoop:
             callback_states=callback_states,
         )
 
-    def _restore_or_adopt(self, ckpt_stream: Optional[bytes]) -> None:
-        """Load params from a checkpoint or adopt the module's own."""
+    def _restore_or_adopt(self, ckpt_stream: Optional[Any]) -> None:
+        """Load params from a checkpoint (a state stream, or a sharded
+        directory's marker: its parameters only) or adopt the module's
+        own."""
         if ckpt_stream is not None:
-            state = load_state_stream(ckpt_stream)
+            state = _load_checkpoint(ckpt_stream, params_only=True)
             params = state["params"] if "params" in state else state
         elif self.module.params is not None:
             params = self.module.params
@@ -841,4 +904,5 @@ class TrainingLoop:
             raise RuntimeError(
                 "no parameters available: fit first, or pass ckpt_path"
             )
+        self.strategy.bind_module(self.module)
         self.params = self.strategy.place_params(params)

@@ -65,6 +65,10 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 _TINY = float(torch.finfo(torch.float32).tiny)
 
 
+class PieceRef(str):
+    """The key of a tensor in a sharded checkpoint's skeleton."""
+
+
 def _step_is_graph_safe(opt: torch.optim.Optimizer, scheduled: bool) -> bool:
     """Whether ``opt.step()`` reads nothing back to the host once every
     group that has torch's ``capturable`` option has it on (its step
@@ -103,9 +107,19 @@ class TrainOptimizer:
         clip: Optional[float] = None,
         accumulate: int = 1,
         capturable: Optional[bool] = None,
+        stepped: Optional[List[torch.Tensor]] = None,
     ) -> None:
         self.leaves = leaves
-        self.opt = factory(leaves)
+        #: The tensors the module's optimizer steps (the leaves, or a
+        #: rank's slices of them under the sharded strategies).
+        self.stepped: List[torch.Tensor] = list(
+            leaves if stepped is None else stepped)
+        self.opt = factory(self.stepped)
+        # The optimizer's state index -> leaf position (torch numbers the
+        # params in the order its groups list them).
+        pos = {id(s): i for i, s in enumerate(self.stepped)}
+        self._order = [pos[id(p)] for g in self.opt.param_groups
+                       for p in g["params"]]
         self.lr_schedule = lr_schedule
         self.clip = float(clip) if clip else None
         self.accumulate = int(accumulate)
@@ -194,9 +208,14 @@ class TrainOptimizer:
         self.reset_window()
         return True
 
+    def norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The 2-norm of the whole gradient whose pieces this rank holds
+        (:func:`global_norm` here; a tensor-parallel rank holds slices)."""
+        return global_norm(grads)
+
     def _apply(self, grads: List[torch.Tensor], lr: Any) -> None:
         if self.clip is not None:
-            norm = global_norm(grads)
+            norm = self.norm(grads)
             grads = [torch.where(norm < self.clip, g,
                                  g / norm.to(g.dtype) * self.clip)
                      for g in grads]
@@ -243,6 +262,40 @@ class TrainOptimizer:
         """:meth:`state_dict` with every tensor whole: the checkpoint
         form, whatever the ranks hold."""
         return self.state_dict()
+
+    def piece_spec(self, i: int, shape: Sequence[int]) -> Tuple[Any, ...]:
+        """The placement (per dim, the mesh axis it is split over, or
+        None) of a tensor of ``shape`` that this rank holds for leaf ``i``:
+        the leaf, its stepped slice, or their optimizer state. Here every
+        tensor is whole."""
+        return (None,) * len(shape)
+
+    def sharded_state(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """What a sharded checkpoint writes of this rank: a skeleton of
+        ``{"params": [leaf i], "opt_state": state_dict()}`` whose tensors
+        are replaced by their keys, and ``{key: (tensor, spec)}`` for the
+        tensors as this rank holds them (the parameters at rest: the
+        stepped slices)."""
+        pieces: Dict[str, Any] = {}
+
+        def ref(key: str, t: Any, i: int) -> Any:
+            if not isinstance(t, torch.Tensor):
+                return t
+            pieces[key] = (t.detach(), self.piece_spec(i, tuple(t.shape)))
+            return PieceRef(key)
+
+        params = [ref(f"params/{i}", s, i) for i, s in enumerate(self.stepped)]
+        state = self.state_dict()
+        opt = dict(state["optimizer"])
+        opt["state"] = {
+            idx: {k: ref(f"opt/{idx}/{k}", v, self._order[int(idx)])
+                  for k, v in st.items()}
+            for idx, st in opt["state"].items()}
+        acc = state.get("acc")
+        if acc is not None:
+            acc = [ref(f"acc/{i}", a, i) for i, a in enumerate(acc)]
+        return {"params": params,
+                "opt_state": dict(state, optimizer=opt, acc=acc)}, pieces
 
     # -- state -----------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:

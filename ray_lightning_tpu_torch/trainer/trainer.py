@@ -129,8 +129,6 @@ class Trainer:
             )
         if ema_decay is not None or eval_ema:
             raise _not_ported("ema_decay / eval_ema", "15")
-        if async_checkpointing:
-            raise _not_ported("async_checkpointing (sharded checkpoints)", "11b")
         if int(max_restarts) < 0:
             raise ValueError(f"max_restarts must be >= 0, got {max_restarts}")
         if detect_anomaly:
@@ -186,6 +184,10 @@ class Trainer:
         self.seed = seed_everything(seed)
         self.precision = precision
         self.max_restarts = int(max_restarts)
+        #: Sharded saves (``ModelCheckpoint(save_sharded=True)``) write
+        #: from a background thread; their meta follows at the next save
+        #: or the fit's end (``trainer/checkpoint_io.py``).
+        self.async_checkpointing = bool(async_checkpointing)
         # State after a run
         self.callback_metrics: Dict[str, float] = {}
         self.logged_metrics: Dict[str, float] = {}
@@ -219,6 +221,7 @@ class Trainer:
             precision=self.precision,
             log_grad_norm=self.log_grad_norm,
             return_predictions=self._return_predictions,
+            async_checkpointing=self.async_checkpointing,
             callbacks=self.callbacks,
         )
 
@@ -346,9 +349,19 @@ class Trainer:
         return output.results
 
     @staticmethod
-    def _read_ckpt(ckpt_path: Optional[str]) -> Optional[bytes]:
+    def _read_ckpt(ckpt_path: Optional[str]) -> Optional[Any]:
+        """A checkpoint file's bytes, or, for a sharded checkpoint
+        directory, ``{"sharded_path": path}``: each process reads the
+        pieces itself, into its own mesh (the directory must be reachable
+        from every worker)."""
         if ckpt_path is None:
             return None
+        from ray_lightning_tpu_torch.trainer.checkpoint_io import (
+            is_sharded_checkpoint,
+        )
+
+        if is_sharded_checkpoint(ckpt_path):
+            return {"sharded_path": os.path.abspath(ckpt_path)}
         with open(ckpt_path, "rb") as f:
             return f.read()
 
@@ -387,15 +400,20 @@ class Trainer:
 
     @staticmethod
     def _ckpt_candidates(d: str) -> List[Tuple[str, float]]:
-        """(path, mtime) of the checkpoint files in a directory; a file
-        that vanishes between the listing and the stat is skipped."""
+        """(path, mtime) of the checkpoints in a directory, files and
+        sharded directories; one that vanishes between the listing and the
+        stat is skipped."""
+        from ray_lightning_tpu_torch.trainer.checkpoint_io import (
+            is_sharded_checkpoint,
+        )
+
         out = []
         if not os.path.isdir(d):
             return out
         for name in os.listdir(d):
-            if not name.endswith(".ckpt"):
-                continue
             p = os.path.join(d, name)
+            if not (name.endswith(".ckpt") or is_sharded_checkpoint(p)):
+                continue
             try:
                 out.append((p, os.path.getmtime(p)))
             except OSError:
@@ -409,7 +427,9 @@ class Trainer:
         it started: a shared directory may hold other runs' files), the
         rolling ``last*`` files first; an unreadable candidate (a save cut
         by the crash) falls through to the next newest. Returns ``(path,
-        bytes)``, so the resume reads the file once."""
+        bytes)``, so the resume reads the file once (a sharded directory:
+        ``(path, its marker)``)."""
+        from ray_lightning_tpu_torch.trainer.checkpoint_io import _META_FILE
         from ray_lightning_tpu_torch.utils.state_stream import (
             load_state_stream,
         )
@@ -425,7 +445,13 @@ class Trainer:
             for path, _ in ordered:
                 try:
                     data = self._read_ckpt(path)
-                    load_state_stream(data)
+                    if isinstance(data, bytes):
+                        load_state_stream(data)
+                    else:
+                        # A sharded directory is finished once its meta,
+                        # written after every rank's pieces, loads.
+                        with open(os.path.join(path, _META_FILE), "rb") as f:
+                            load_state_stream(f.read())
                 except Exception as exc:  # noqa: BLE001 - try an older one
                     warnings.warn(
                         f"skipping unreadable checkpoint {path}: {exc}",

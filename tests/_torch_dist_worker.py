@@ -33,7 +33,7 @@ def leave() -> None:
 def mesh_shape() -> List[Any]:
     strategy = _strategy("ddp")
     mesh = strategy.mesh
-    return [tuple(mesh.shape), tuple(mesh.mesh_dim_names)]
+    return [tuple(mesh.shape.values()), tuple(mesh.mesh_dim_names)]
 
 
 def _strategy(name: str) -> Any:
@@ -276,3 +276,289 @@ class Record(Callback):
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.losses = list(state.get("losses", []))
         self.metrics = dict(state.get("metrics", {}))
+
+
+# -- tensor parallelism (tests/test_torch_gspmd.py) --------------------------
+
+
+def gspmd(mesh_shape: Dict[str, int], **kw: Any) -> Any:
+    """A ``GSPMDStrategy`` over this world's ranks at ``mesh_shape``,
+    attached to the group the actor joined; its mesh (a collective the
+    first time for a shape) is built here, on every rank at once."""
+    from ray_lightning_tpu_torch.strategies import GSPMDStrategy
+
+    s = GSPMDStrategy(num_workers=_ENV.world_size, use_gpu=False,
+                      mesh_shape=mesh_shape, **kw)
+    s.dist_env = _ENV
+    s.device = torch.device("cpu")
+    s._is_remote = True
+    _ = s.mesh
+    return s
+
+
+def _dp_rows(x: np.ndarray, mesh: Any) -> np.ndarray:
+    """The rows of a global batch this rank's data-parallel shard holds
+    (contiguous blocks in shard order)."""
+    per = len(x) // mesh.dp_size
+    return x[mesh.dp_rank * per:(mesh.dp_rank + 1) * per]
+
+
+def mesh_info(mesh_shape: Dict[str, int]) -> Dict[str, Any]:
+    """This rank's coordinates and the members of its groups."""
+    import torch.distributed as dist
+
+    mesh = gspmd(mesh_shape).mesh
+    groups = {}
+    for name in ("data", "fsdp", "model", "dp"):
+        g = mesh.group(name)
+        groups[name] = (None if g is None else
+                        sorted(dist.get_process_group_ranks(g)))
+    return {"coords": mesh.coords, "groups": groups, "dp_rank": mesh.dp_rank}
+
+
+def collectives(mesh_shape: Dict[str, int]) -> Dict[str, Any]:
+    """``parallel/mesh.py``'s all-gather over this rank's model group, as
+    it is and staged through host buffers (the path a CUDA tensor takes
+    on gloo)."""
+    from ray_lightning_tpu_torch.parallel import mesh as pmesh
+
+    mesh = gspmd(mesh_shape).mesh
+    group, m = mesh.group("model"), mesh.size("model")
+    mine = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * _ENV.host_rank
+    out = {}
+    saved = pmesh._staged
+    try:
+        for staged in (False, True):
+            if staged:
+                pmesh._staged = lambda t, g: True
+            buf = torch.empty((2 * m, 3))
+            pmesh.all_gather(buf, mine, group)
+            out[f"gather_staged={staged}"] = buf.numpy()
+    finally:
+        pmesh._staged = saved
+    return out
+
+
+def tp_forward(mesh_shape: Dict[str, int], gpt_cfg: Dict[str, Any],
+               params: Any, tokens: np.ndarray) -> Dict[str, Any]:
+    """The GPT's logits on this rank's data-parallel rows, from its slices
+    of ``params``: the rows' indices and the logits."""
+    s = gspmd(mesh_shape)
+    module = _module("gpt", gpt_cfg)
+    s.bind_module(module)
+    placed = s.place_params(_from_numpy(params))
+    rows = _dp_rows(tokens, s.mesh)
+    with torch.no_grad():
+        logits = module._forward(placed, torch.as_tensor(rows).long())
+    return {"dp_rank": s.mesh.dp_rank, "logits": logits.numpy(),
+            "wte_rows": int(placed["wte"].shape[0])}
+
+
+def gspmd_train(mesh_shape: Dict[str, int], kind: str, params: Any,
+                batches: List[np.ndarray], clip: Optional[float],
+                gpt_cfg: Optional[Dict[str, Any]] = None,
+                staged: bool = False) -> Dict[str, Any]:
+    """Steps of ``GSPMDStrategy`` on this rank's data-parallel rows of each
+    global batch: every step's logs, the whole parameters gathered after,
+    this rank's replicated leaves as it holds them, and the shapes its
+    optimizer state holds. ``staged``: every all-gather goes through host
+    buffers (the path CUDA tensors take on gloo)."""
+    from ray_lightning_tpu_torch.parallel import mesh as pmesh
+    from ray_lightning_tpu_torch.strategies.gspmd import _spec_leaves
+    from ray_lightning_tpu_torch.trainer.module import unpack_optimizers
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    s = gspmd(mesh_shape)
+    module = _module(kind, gpt_cfg)
+    module.precision = "fp32"
+    s.bind_module(module)
+    saved = pmesh._staged
+    if staged:
+        pmesh._staged = lambda t, g: True
+    try:
+        placed = s.place_params(_from_numpy(params))
+        factory, sched = unpack_optimizers(module.configure_optimizers())
+        opt = s.make_optimizer(factory, tree_leaves(placed), sched, clip, 1)
+        program = s.compile_train_step(module, opt, seed=0,
+                                       log_grad_norm=True)
+        logs = []
+        for i, batch in enumerate(batches):
+            out = program(placed, [_dp_rows(batch, s.mesh)], i)
+            logs.append({k: float(v[0]) for k, v in out.items()})
+        with opt.full_params():
+            gathered = _to_numpy(s.gather_state(placed))
+            replicated = {}
+            for (path, leaf), spec in zip(_paths(placed),
+                                          _spec_leaves(s._param_specs)):
+                if all(ax is None for ax in spec):
+                    replicated[path] = leaf.detach().clone().numpy()
+        full_state = opt.gathered_state_dict()["optimizer"]["state"]
+    finally:
+        pmesh._staged = saved
+    return {
+        "logs": logs, "gathered": gathered, "replicated": replicated,
+        "coords": s.mesh.coords,
+        "specs": {p: sp for (p, _), sp in zip(_paths(placed),
+                                              _spec_leaves(s._param_specs))},
+        "shard_shapes": [tuple(t.shape) for t in opt.shards],
+        "state_shapes": sorted(tuple(v.shape) for st in opt.opt.state.values()
+                               for v in st.values()
+                               if torch.is_tensor(v) and v.dim() > 0),
+        "full_state_shapes": sorted(tuple(v.shape) for st in full_state.values()
+                                    for v in st.values()
+                                    if torch.is_tensor(v) and v.dim() > 0),
+    }
+
+
+def _paths(tree: Any, prefix: str = "") -> List[Any]:
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.extend(_paths(v, f"{prefix}{k}/"))
+        else:
+            out.append((prefix + k, v))
+    return out
+
+
+def zero3_train(params: Any, batches: List[np.ndarray], staged: bool,
+                gpt_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """``RayShardedStrategy(zero_stage=3)`` steps on this rank's rows, its
+    gathers host-staged or not: the logs and the gathered parameters."""
+    from ray_lightning_tpu_torch.parallel import mesh as pmesh
+
+    saved = pmesh._staged
+    if staged:
+        pmesh._staged = lambda t, g: True
+    try:
+        out = train_case("zero3", "gpt", params, batches, 1, None, gpt_cfg)
+    finally:
+        pmesh._staged = saved
+    return {"logs": out["logs"], "gathered": out["gathered"]}
+
+
+def gspmd_save_sharded(mesh_shape: Dict[str, int], params: Any,
+                       batches: List[np.ndarray], gpt_cfg: Dict[str, Any],
+                       path: str) -> Dict[str, Any]:
+    """Train on ``mesh_shape``, write a sharded checkpoint of the state
+    from every rank, and return the whole (gathered) state."""
+    from ray_lightning_tpu_torch.trainer.checkpoint_io import (
+        ShardedCheckpointIO,
+    )
+    from ray_lightning_tpu_torch.trainer.module import unpack_optimizers
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    s = gspmd(mesh_shape)
+    module = _module("gpt", gpt_cfg)
+    s.bind_module(module)
+    placed = s.place_params(_from_numpy(params))
+    factory, sched = unpack_optimizers(module.configure_optimizers())
+    opt = s.make_optimizer(factory, tree_leaves(placed), sched, 0.3, 1)
+    program = s.compile_train_step(module, opt, seed=0)
+    for i, batch in enumerate(batches):
+        program(placed, [_dp_rows(batch, s.mesh)], i)
+    skeleton, pieces = opt.sharded_state()
+    refs = iter(skeleton["params"])
+    skeleton["params"] = tree_map(lambda _: next(refs), placed)
+    ShardedCheckpointIO().save(path, skeleton, pieces, s.ckpt_layout(),
+                               {"global_step": len(batches)},
+                               is_rank_zero=_ENV.host_rank == 0,
+                               barrier=s.barrier)
+    with opt.full_params():
+        params_full = s.gather_state(placed)
+    return {"params": _to_numpy(params_full),
+            "opt": _state_numpy(opt.gathered_state_dict())}
+
+
+def _state_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """An optimizer's whole state's tensors by (index, key), as numpy."""
+    return {f"{idx}/{k}": v.detach().cpu().clone().numpy()
+            for idx, st in state["optimizer"]["state"].items()
+            for k, v in st.items() if torch.is_tensor(v)}
+
+
+def gspmd_restore_sharded(mesh_shape: Dict[str, int], path: str,
+                          gpt_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """Restore a sharded checkpoint onto ``mesh_shape`` (place the whole
+    parameters, load the whole optimizer state) and return the state
+    gathered whole again."""
+    from ray_lightning_tpu_torch.trainer.checkpoint_io import (
+        ShardedCheckpointIO,
+    )
+    from ray_lightning_tpu_torch.trainer.module import unpack_optimizers
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    s = gspmd(mesh_shape)
+    module = _module("gpt", gpt_cfg)
+    s.bind_module(module)
+    state, meta = ShardedCheckpointIO().restore(path)
+    placed = s.place_params(state["params"])
+    factory, sched = unpack_optimizers(module.configure_optimizers())
+    opt = s.make_optimizer(factory, tree_leaves(placed), sched, 0.3, 1)
+    opt.load_state_dict(state["opt_state"])
+    with opt.full_params():
+        params_full = s.gather_state(placed)
+    return {"params": _to_numpy(params_full),
+            "opt": _state_numpy(opt.gathered_state_dict()),
+            "step": meta.get("global_step")}
+
+
+def gspmd_fit(mesh_shape: Dict[str, int], gpt_cfg: Dict[str, Any],
+              root: str, epochs: int, ckpt: Optional[str] = None,
+              async_ckpt: bool = False, fold: int = 1) -> Dict[str, Any]:
+    """``TrainingLoop.run_fit`` of ``SharedGPT`` under ``GSPMDStrategy`` on
+    this world, with ``ModelCheckpoint(save_sharded=True, save_last=True)``
+    under ``root``, from scratch or from the sharded checkpoint ``ckpt``:
+    the last checkpoint's path, the losses and the gathered params."""
+    import os
+
+    from ray_lightning_tpu_torch.trainer import ModelCheckpoint
+    from ray_lightning_tpu_torch.trainer.loop import TrainerSpec, TrainingLoop
+
+    s = gspmd(mesh_shape)
+    module = SharedGPT(gpt_cfg, batch_size=8 // s.mesh.dp_size,
+                       n_train=16, warmup_steps=2)
+    record = Record()
+    ck = ModelCheckpoint(dirpath=os.path.join(root, "ckpts"),
+                         save_sharded=True, save_last=True)
+    spec = TrainerSpec(max_epochs=epochs, seed=0, log_every_n_steps=1,
+                       limit_val_batches=0, num_sanity_val_steps=0,
+                       enable_model_summary=False, default_root_dir=root,
+                       async_checkpointing=async_ckpt,
+                       steps_per_execution=fold,
+                       callbacks=[record, ck])
+    loop = TrainingLoop(spec, module, s)
+    loop.run_fit(None if ckpt is None else {"sharded_path": ckpt})
+    with loop.full_params():
+        params_full = s.gather_state(loop.params)
+    return {"last": ck.last_model_path, "losses": record.losses,
+            "params": _to_numpy(params_full), "step": loop.global_step}
+
+
+def gspmd_eval(mesh_shape: Dict[str, int], gpt_cfg: Dict[str, Any],
+               params: Any) -> Dict[str, Any]:
+    """``TrainingLoop``'s validate and predict of ``SharedGPT`` under
+    ``GSPMDStrategy``: the metrics, the predictions this rank returns
+    (rank 0: the whole set) and the rows its callbacks own."""
+    from ray_lightning_tpu_torch.trainer.data import DataLoader
+    from ray_lightning_tpu_torch.trainer.loop import TrainerSpec, TrainingLoop
+
+    class Predicting(SharedGPT):
+        def predict_dataloader(self):
+            return DataLoader(self._data(), batch_size=self.batch_size)
+
+    class Rows(Callback):
+        def __init__(self):
+            self.rows = 0
+
+        def on_predict_batch_end(self, trainer, module, prediction, idx):
+            self.rows += len(prediction)
+
+    s = gspmd(mesh_shape)
+    module = Predicting(gpt_cfg, batch_size=4 // s.mesh.dp_size, n_train=12)
+    module.params = _from_numpy(params)
+    rows = Rows()
+    spec = TrainerSpec(seed=0, callbacks=[rows], limit_val_batches=1)
+    metrics = TrainingLoop(spec, module, s).run_evaluate("validate")[0]
+    preds = TrainingLoop(spec, module, s).run_predict()
+    return {"metrics": metrics, "preds": [p.numpy() for p in preds],
+            "rows": rows.rows}

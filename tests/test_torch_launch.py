@@ -123,18 +123,24 @@ def uninterrupted(port_fabric, tmp_path_factory):
             "ckpt": ckpt, "stamps": stamp_dir}
 
 
-def test_launched_gpt_fit_matches_the_jax_fit(uninterrupted, tmp_path):
-    """Every logged loss and the driver's recovered parameters against
-    the JAX in-process fit of the same global batches; the driver's
-    metrics are rank 0's; the best checkpoint's path comes back."""
+@pytest.fixture(scope="module")
+def jax_fit(tmp_path_factory):
+    """The JAX in-process fit every launched GPT fit is held against."""
     jrec = _JRecord()
     jt = JTrainer(max_epochs=EPOCHS, seed=0, log_every_n_steps=1,
                   limit_val_batches=2, enable_checkpointing=False,
                   enable_model_summary=False, callbacks=[jrec],
-                  default_root_dir=str(tmp_path))
+                  default_root_dir=str(tmp_path_factory.mktemp("jax")))
     jm = _JGPTShared(JCFG, batch_size=1, **GPT)
     jt.fit(jm)
+    return jt, jm, jrec
 
+
+def test_launched_gpt_fit_matches_the_jax_fit(uninterrupted, jax_fit):
+    """Every logged loss and the driver's recovered parameters against
+    the JAX in-process fit of the same global batches; the driver's
+    metrics are rank 0's; the best checkpoint's path comes back."""
+    jt, jm, jrec = jax_fit
     t, rec = uninterrupted["trainer"], uninterrupted["record"]
     assert len(rec.losses) == len(jrec.losses) == 2 * EPOCHS
     np.testing.assert_allclose(rec.losses, jrec.losses, **TOL)
@@ -150,6 +156,40 @@ def test_launched_gpt_fit_matches_the_jax_fit(uninterrupted, tmp_path):
     best = uninterrupted["ckpt"].best_model_path
     assert best and os.path.exists(best) and best.endswith(".ckpt")
     assert uninterrupted["module"].opt_state is not None
+
+
+def test_launched_gspmd_fit_matches_the_jax_fit(port_fabric, jax_fit,
+                                                tmp_path):
+    """``GSPMDStrategy(num_workers=2, mesh_shape={"model": 2})`` through the
+    launcher (JAX ``tests/test_gpt.py:325-342``): both ranks hold half the
+    heads, MLP columns and vocab rows and load the same rows (one data-
+    parallel shard of the global batch of 8); the driver's recovered
+    parameters are whole and, with every loss and ``val_loss``, within
+    the model bar of the JAX fit; the sharded checkpoint the fit wrote
+    restores to the same parameters."""
+    from ray_lightning_tpu_torch.strategies import GSPMDStrategy
+    from ray_lightning_tpu_torch.trainer.checkpoint_io import (
+        ShardedCheckpointIO,
+    )
+
+    jt, jm, jrec = jax_fit
+    record = W.Record()
+    ckpt = ModelCheckpoint(dirpath=str(tmp_path / "ckpts"), save_sharded=True,
+                           save_last=True)
+    trainer = _trainer(tmp_path, GSPMDStrategy(num_workers=2, use_gpu=False,
+                                               mesh_shape={"model": 2}),
+                       record, callbacks=[ckpt], async_checkpointing=True)
+    module = W.SharedGPT(CFG, batch_size=8, **GPT)
+    trainer.fit(module)
+    np.testing.assert_allclose(record.losses, jrec.losses, **TOL)
+    _assert_close(module.params, jm.params, TOL)
+    np.testing.assert_allclose(trainer.callback_metrics["val_loss"],
+                               jt.callback_metrics["val_loss"], **TOL)
+    assert trainer.global_step == jt.global_step == 2 * EPOCHS
+    assert module.opt_state is not None
+    state, meta = ShardedCheckpointIO().restore(ckpt.last_model_path)
+    assert meta["global_step"] == 2 * EPOCHS
+    _assert_close(state["params"], module.params, dict(rtol=0, atol=0))
 
 
 def _flat_tensors(tree):

@@ -142,8 +142,10 @@ def test_fractional_gpu_warns_and_joins_over_gloo(caplog):
         plans, _ = s.plan_workers()
     assert "fractional GPU" in caplog.text and "eagerly" in caplog.text
     assert s.backend == "gloo" and all(p.num_gpus == 0.5 for p in plans)
-    with pytest.raises(NotImplementedError, match="11b"):
-        RayShardedStrategy(num_workers=2, resources_per_worker={"GPU": 0.5})
+    # ZeRO on a shared card: gloo, its gathers staged through host memory.
+    z = RayShardedStrategy(num_workers=2, zero_stage=3,
+                           resources_per_worker={"GPU": 0.5})
+    assert z.backend == "gloo" and z.gpu_share == 0.5 and z.zero_stage == 3
 
 
 class _FakeActor:
@@ -202,8 +204,11 @@ def test_ctor_surfaces():
     assert z.gather_is_collective
     with pytest.raises(ValueError, match="zero_stage"):
         RayShardedStrategy(num_workers=2, zero_stage=5)
-    with pytest.raises(NotImplementedError, match="11b"):
-        GSPMDStrategy(num_workers=2)
+    g = GSPMDStrategy(num_workers=2, mesh_shape={"model": 2})
+    assert g.strategy_name == "gspmd_ray" and g.use_gpu
+    assert g.gather_is_collective and g.mesh_shape == {"model": 2}
+    with pytest.raises(NotImplementedError, match="item 13"):
+        GSPMDStrategy(num_workers=2, mesh_shape={"seq": 2})
 
 
 # -- the two-rank world ----------------------------------------------------
@@ -241,7 +246,10 @@ def world():
 
 
 def test_world_builds_a_data_mesh(world):
-    assert world(W.mesh_shape) == [[(2,), ("data",)]] * 2
+    """The data-parallel strategies' mesh: the six axes of the JAX
+    strategy, every rank on ``"data"``."""
+    axes = ("data", "fsdp", "model", "seq", "ep", "pp")
+    assert world(W.mesh_shape) == [[(2, 1, 1, 1, 1, 1), axes]] * 2
 
 
 _JAX_CACHE = {}

@@ -652,7 +652,6 @@ def test_preempt_notice_checkpoints_and_resumes_exact(tmp_path, fold):
     [
         (dict(ema_decay=0.9), "item 15"),
         (dict(eval_ema=True), "item 15"),
-        (dict(async_checkpointing=True), "item 11b"),
         (dict(detect_anomaly=True), "item 15"),
         (dict(overfit_batches=2), "item 15"),
         (dict(fast_dev_run=True), "item 15"),
@@ -663,10 +662,23 @@ def test_unported_trainer_options_raise(kwargs, item):
         TTrainer(device="cpu", **kwargs)
 
 
+def test_async_checkpointing_and_sharded_saves_construct():
+    """``async_checkpointing`` and ``ModelCheckpoint(save_sharded=True)``
+    are ported (their fits: tests/test_torch_checkpoint_io.py): both
+    construct and reach the loop's spec."""
+    from ray_lightning_tpu_torch.trainer import ModelCheckpoint
+
+    ck = ModelCheckpoint(save_sharded=True)
+    t = TTrainer(device="cpu", async_checkpointing=True, callbacks=[ck])
+    assert ck.save_sharded and t.async_checkpointing
+    assert t._make_spec().async_checkpointing
+
+
 def test_unported_strategies_and_finders_raise():
-    """The three launched strategies construct a Trainer (their fits are
-    held in tests/test_torch_strategies.py and tests/test_torch_launch.py);
-    tensor parallelism still raises."""
+    """The four launched strategies construct a Trainer (their fits are
+    held in tests/test_torch_strategies.py, tests/test_torch_gspmd.py and
+    tests/test_torch_launch.py); the mesh axes the port does not run (seq,
+    ep, pp, sequence parallelism) still raise, naming item 13."""
     from ray_lightning_tpu_torch.strategies import (
         GSPMDStrategy,
         HorovodRayStrategy,
@@ -679,10 +691,14 @@ def test_unported_strategies_and_finders_raise():
         RayStrategy(num_workers=2, use_gpu=False),
         HorovodRayStrategy(num_workers=2, use_gpu=False),
         RayShardedStrategy(num_workers=2, use_gpu=False, zero_stage=3),
+        GSPMDStrategy(num_workers=2, use_gpu=False,
+                      mesh_shape={"model": 2}),
     ):
         assert TTrainer(strategy=strategy).strategy is strategy
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        GSPMDStrategy(num_workers=2)
+    for kw in (dict(mesh_shape={"pp": 2}), dict(mesh_shape={"ep": 2}),
+               dict(mesh_shape={"seq": 2}, sequence_parallel=True)):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            GSPMDStrategy(num_workers=2, use_gpu=False, **kw)
     TTrainer(strategy=SingleDeviceStrategy("cpu"))
     with pytest.raises(NotImplementedError, match="item 14"):
         lr_find(TTrainer(device="cpu"), TBoring())
