@@ -84,8 +84,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    accept rates, tokens per verify and ms per fold beside spec="off".
    Phases 4-7 build their engines with ``pipeline=False``.
 8. serve-fused: piggybacked prefill chunks, the fold-depth ladder and the
-   pipelined (double-buffered) dispatch. (a) The serve-paged engine with
-   ``piggyback_chunks=4``, ``fold_ladder=[1, 2, 4, 8]``, ``pipeline=True``
+   pipelined (double-buffered) dispatch; (a) and (b) at GPT-2 small's
+   width and its first ``FUSED_LAYERS`` = 6 blocks. (a) The serve-paged
+   engine with ``piggyback_chunks=4``, ``fold_ladder=[1, 2, 4, 8]``, ``pipeline=True``
    on the serve-paged traffic and, 4 steps later, 4 unrelated prompts of
    768-896 tokens (one sampled) arriving while every slot decodes; the
    same engine with ``pipeline=False``, and the serve-paged engine, on the
@@ -275,7 +276,29 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    phase 14's, tokens/s, peak memory per rank, (b)'s gloo share per
    step, and the phase's wall; no child process may be left and the
    card's used memory must be within 256 MiB of before.
-17. Print the ``{"kernels": [...]}`` line, the card line, and last
+17. serve-mesh: tensor-parallel serving as a gang of ranks. K1 is held
+   against its plain version at a rank's admission (B=1, S=1024, H=6,
+   D=64, bf16, causal, strided) and timed beside SDPA and its bound. The
+   serve phase's weights, written once under ``build/smoke_mesh``
+   (removed after), serve through ``start_replicas(1, hosts_per_replica=2,
+   mesh="2x1")``: a leader ``ServeReplica`` and a ``ServeShardFollower``
+   replaying its op stream, each rank on its 6 heads and 1536 MLP
+   columns, two gloo all-reduces per layer per decode iteration. (a) At
+   half a card per rank, the serve phase's 8 requests: greedy tokens equal
+   the serve phase's in-process engine's except at near-ties (sampled ones
+   reported); both ranks' token digests equal; on every rank gloo, eager,
+   ``compiled_count`` frozen, K1 12 times per admission and the reference
+   path never, the KV cache's per-rank bytes half the unsplit engine's.
+   (b) At a quarter
+   card per rank with a ``FleetSupervisor``: a ``preempt`` fault on the
+   follower under the same requests; the notice, read from the
+   follower's heartbeat, drains the gang (0 lost) and a pre-spawned gang
+   replaces it as a unit; the preempted and the fresh gang's tokens are
+   bitwise (a)'s. No child process may be left and the card's memory must
+   be back. Prints each rank's start-up, TTFT, tokens/s, ms per step, the
+   all-reduces and gloo seconds per fold, the KV bytes per rank, the
+   notice-to-swap seconds and the phase's wall.
+18. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
@@ -2338,11 +2361,21 @@ def serve_fused_mono(params, cfg, serve4: dict) -> dict:
             "wall_s_nopipe": [r["wall"] for r in nopipe]}
 
 
+#: serve-fused (a) and (b) run GPT-2 small's width at this depth (its
+#: embeddings, final norm and first blocks): their gates hold the phase's
+#: engines against each other and against solos on the same weights, and
+#: the whole script's time asked for a cut (it ran past ~950 s when the
+#: serve-mesh phase came). (c) holds phase 4's tokens at full depth.
+FUSED_LAYERS = 6
+
+
 def phase_serve_fused(serve4: dict):
     """Piggybacked chunks, the fold ladder and the pipelined dispatch at
-    GPT-2-small width (``serve_fused_paged``, ``serve_fused_spec``,
-    ``serve_fused_mono``); returns K1's launches on (c), the one sub-phase
-    that launches it."""
+    GPT-2-small width (``serve_fused_paged``, ``serve_fused_spec`` at
+    ``FUSED_LAYERS`` blocks, ``serve_fused_mono`` at full depth); returns
+    K1's launches on (c), the one sub-phase that launches it."""
+    import dataclasses
+
     import torch
 
     from ray_lightning_tpu_torch.models import gpt
@@ -2351,10 +2384,12 @@ def phase_serve_fused(serve4: dict):
     params = gpt.init_gpt_params(
         torch.Generator(device="cuda").manual_seed(0), cfg
     )
+    cut = (draft_params_of(params, FUSED_LAYERS),
+           dataclasses.replace(cfg, n_layer=FUSED_LAYERS), "cuda")
     out = {}
     for tag, fn, args in (
-        ("paged", serve_fused_paged, (params, cfg, "cuda")),
-        ("spec", serve_fused_spec, (params, cfg, "cuda")),
+        ("paged", serve_fused_paged, cut),
+        ("spec", serve_fused_spec, cut),
         ("mono", serve_fused_mono, (params, cfg, serve4)),
     ):
         t0 = time.perf_counter()
@@ -5613,6 +5648,419 @@ def phase_train_gspmd(yard: dict):
     return launches, rows
 
 
+#: serve-mesh: one tensor-parallel gang (``"2x1"``: two ranks, 6 of the 12
+#: heads and 1536 of the 3072 MLP columns each, ``wte`` whole) through
+#: ``start_replicas(hosts_per_replica=2)``. (a) runs each rank at
+#: MESH_GPUS of the card; (b) at MESH_GPUS_B, so the gang's pre-spawned
+#: replacement fits beside it, with a ``preempt`` fault (MESH_GRACE_S of
+#: grace) on the follower and a supervisor ticking every MESH_TICK_S.
+MESH_SPEC = "2x1"
+MESH_GPUS = 0.5
+MESH_GPUS_B = 0.25
+MESH_GRACE_S = 60.0
+MESH_TICK_S = 0.25
+#: (b)'s leader waits this long at each fold boundary once every request
+#: is admitted, so the residents are still decoding when the notice lands.
+MESH_DRAIN_DELAY_S = 0.5
+MESH_ENV = {"RLT_HEARTBEAT_S": "0.5"}
+
+
+def mesh_compare(tag, reqs, got, exact, params, cfg, device) -> tuple:
+    """Each request's tokens against the serve phase's in-process engine
+    (``exact``): a greedy token may differ only where that engine's next
+    token was a near-tie (``draw_margin`` below MARGIN). The split sums its
+    fp32 partial products in another order and rounds the sum to bf16, so
+    a hidden state can land one bf16 step off the unsplit one; a sampled
+    request's top-k / top-p cut and Gumbel draw see those logits, and its
+    differences are reported with their margins, not gated (the serve
+    phase holds no sampled request against a solo either). Returns (greedy
+    requests that differ, sampled requests that differ)."""
+    near, sampled = 0, 0
+    for rid, prompt, sp in reqs:
+        want = exact[rid]
+        if got[rid] == want:
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(got[rid], want))
+                  if a != b), None)
+        if j is None:
+            fail(f"{tag} {rid}: {len(got[rid])} tokens, {len(want)} wanted")
+        margin = draw_margin(params, cfg, prompt + want[:j], sp, j, device)
+        gated = sp.temperature <= 0
+        print(f"[serve-mesh] {tag} {rid}: differs from the in-process engine "
+              f"first at token {j} ({'greedy' if gated else 'sampled'}), "
+              f"its margin {margin}{'' if gated else ' (reported)'}")
+        if not gated:
+            sampled += 1
+            continue
+        if margin >= MARGIN:
+            fail(f"{tag} {rid}: mismatch at token {j} with margin {margin}")
+        near += 1
+    return near, sampled
+
+
+def gang_of(client, idx: int = 0) -> list:
+    """Replica ``idx``'s gang: the leader's actor, then its followers."""
+    return [client._actor(idx)] + client.followers_of(idx)
+
+
+def gang_rows(gang: list) -> list:
+    """Every rank's ``stats()`` (kernel counts, collectives, memory,
+    graphs, backend, start-up), leader first."""
+    from ray_lightning_tpu_torch import fabric
+
+    return fabric.get([a.stats.remote() for a in gang], timeout=300)
+
+
+def gang_digests(gang: list) -> list:
+    """Each rank's digest of the tokens its engine emitted, leader first,
+    once every follower has replayed as many ops as the leader ran (a
+    follower records its last op a moment after the leader's client has
+    seen its tokens)."""
+    from ray_lightning_tpu_torch import fabric
+
+    deadline = time.monotonic() + 60
+    while True:
+        out = fabric.get([a.token_digest.remote() for a in gang],
+                         timeout=300)
+        if len({d["ops"] for d in out}) == 1 or time.monotonic() > deadline:
+            return out
+        time.sleep(0.05)
+
+
+def check_gang(tag, before, after, cfg, cuda: bool, kv_bytes: int) -> dict:
+    """Gates on each rank of a gang over a stretch of traffic (``before``
+    and ``after`` from :func:`gang_rows`): gloo, eager, the graph count
+    frozen, each rank's KV cache half the unsplit engine's ``kv_bytes``,
+    and on the card K1 12 times per admission on every rank and the
+    reference path never. Returns the K1 launches and per-rank records."""
+    admitted = after[0]["admitted"] - before[0]["admitted"]
+    launches, ranks = 0, []
+    for r, (a, b) in enumerate(zip(before, after)):
+        k1 = b["kernels"]["launches"] - a["kernels"]["launches"]
+        ref = b["kernels"]["reference"] - a["kernels"]["reference"]
+        calls = b["collectives"]["calls"] - a["collectives"]["calls"]
+        secs = b["collectives"]["seconds"] - a["collectives"]["seconds"]
+        kv = b["memory"]["kv_cache"]
+        launches += k1
+        ranks.append({"rank": r, "k1_launches": k1, "reference": ref,
+                      "all_reduces": calls, "gloo_s": secs,
+                      "kv_per_device_bytes": kv["per_device_bytes"],
+                      "kv_bytes": kv["bytes"], "backend": b["backend"],
+                      "graphed": b["graphed"],
+                      "compiled_count": b["compiled_count"]})
+        if (b["backend"], b["graphed"], b["mesh"]) != ("gloo", False,
+                                                       MESH_SPEC):
+            fail(f"{tag} rank {r}: backend {b['backend']}, graphed "
+                 f"{b['graphed']}, mesh {b['mesh']}")
+        if b["compiled_count"] != a["compiled_count"]:
+            fail(f"{tag} rank {r}: compiled_count moved {a['compiled_count']}"
+                 f" -> {b['compiled_count']}")
+        if kv["bytes"] != kv_bytes or kv["per_device_bytes"] * 2 != kv_bytes:
+            fail(f"{tag} rank {r}: KV cache {kv}, the unsplit engine's "
+                 f"{kv_bytes} bytes")
+        if cuda and (k1 != admitted * cfg.n_layer or ref):
+            fail(f"{tag} rank {r}: K1 launches {k1} for {admitted} "
+                 f"admissions ({cfg.n_layer} each), reference calls {ref}")
+        if b.get("error"):
+            fail(f"{tag} rank {r}: its op loop stopped: {b['error']}")
+    print(f"[serve-mesh] {tag}: {admitted} admissions; "
+          f"{json.dumps(ranks)}")
+    return {"launches": launches, "ranks": ranks, "admitted": admitted}
+
+
+def serve_mesh_run(params, cfg, device, ckpt: str, reqs, exact: dict,
+                   kv_bytes: int) -> dict:
+    """The serve-mesh traffic (see ``phase_serve_mesh``) on ``device``:
+    ``reqs`` are the serve phase's requests, ``exact`` its in-process
+    engine's tokens and ``kv_bytes`` that engine's KV cache. On the CPU (a
+    rehearsal at a tiny width) set ``RLT_NUM_GPUS`` so the fabric has a
+    card to share out; the launch gate then checks nothing."""
+    import torch
+
+    from ray_lightning_tpu_torch import fabric
+    from ray_lightning_tpu_torch.obs.events import EventLog
+    from ray_lightning_tpu_torch.obs.registry import get_registry
+    from ray_lightning_tpu_torch.serve.client import start_replicas
+    from ray_lightning_tpu_torch.serve.supervisor import FleetSupervisor
+
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    fabric.init()
+    try:
+        # -- (a) the gang at half a card per rank -----------------------
+        t0 = time.perf_counter()
+        client = start_replicas(
+            1, hosts_per_replica=2, mesh=MESH_SPEC,
+            num_gpus_per_replica=MESH_GPUS, ckpt_path=ckpt, device=device,
+            env=MESH_ENV, rpc_timeout_s=300.0, init_timeout=600.0,
+            **SERVE_ENGINE)
+        spawn_wall = time.perf_counter() - t0
+        cards = [a.visible_cards for a in
+                 [client._actor(0)] + client.followers_of(0)]
+        if cards != [["0"], ["0"]]:
+            fail(f"serve-mesh (a): the gang's ranks landed on {cards}")
+        gang = gang_of(client)
+        before = gang_rows(gang)
+        w = fleet_wave(client, reqs)
+        after = gang_rows(gang)
+        gate = check_gang("(a)", before, after, cfg, cuda, kv_bytes)
+        near, sampled_diff = mesh_compare("(a)", reqs, w["toks"], exact,
+                                          params, cfg, device)
+        digests = gang_digests(gang)
+        if len({d["sha256"] for d in digests}) != 1 or not digests[0][
+                "tokens"]:
+            fail(f"serve-mesh (a): the ranks' token digests differ: "
+                 f"{digests}")
+        lead = after[0]
+        ttfts = sorted(w["ttft"].values())
+        n_tok = sum(len(t) for t in w["toks"].values())
+        folds = sum(int(n) for n in lead["fold_k"]["dispatches"].values())
+        out["a"] = {
+            "spawn_wall_s": spawn_wall,
+            "rank_startup_s": [r["startup"]["init_end"]
+                               - r["startup"]["worker_t0"] for r in after],
+            "requests": len(reqs),
+            "near_tie_mismatches": near,
+            "sampled_differ": sampled_diff,
+            "ttft_p50_s": ttfts[len(ttfts) // 2],
+            "ttft_max_s": ttfts[-1],
+            "tokens_per_s": n_tok / w["wall"],
+            "wall_s": w["wall"],
+            "ms_per_step_p50": 1e3 * lead.get("step_time_p50_s",
+                                              float("nan")),
+            "folds": folds,
+            "admissions": gate["admitted"],
+            "all_reduces": [r["all_reduces"] for r in gate["ranks"]],
+            "gloo_s": [r["gloo_s"] for r in gate["ranks"]],
+            "gloo_s_per_fold": [r["gloo_s"] / folds for r in gate["ranks"]],
+            "gloo_share_of_wave": [r["gloo_s"] / w["wall"]
+                                   for r in gate["ranks"]],
+            "kv_per_device_bytes": [r["kv_per_device_bytes"]
+                                    for r in gate["ranks"]],
+            "kv_bytes_unsplit": kv_bytes,
+            "digest": digests[0],
+        }
+        if cuda:
+            out["a"]["card_mib"] = card_memory_mib()
+        print(f"[serve-mesh] (a) {json.dumps(out['a'])}")
+        launches = gate["launches"]
+        client.shutdown()
+
+        # -- (b) a follower's preemption: drained, respawned as a unit ----
+        reg = get_registry()
+
+        def lost_count():
+            return (reg.counter("rlt_serve_failover_requests_total").value(
+                outcome="lost") + reg.counter(
+                "rlt_serve_preempt_requests_total").value(outcome="lost"))
+
+        # Every request admitted in the wave's first step, so none is
+        # queued when the notice lands (a queued request migrates, and this
+        # fleet has no survivor to take it); the tokens do not depend on it.
+        t0 = time.perf_counter()
+        client = start_replicas(
+            1, hosts_per_replica=2, mesh=MESH_SPEC,
+            num_gpus_per_replica=MESH_GPUS_B, ckpt_path=ckpt, device=device,
+            env=MESH_ENV, rpc_timeout_s=300.0, init_timeout=600.0,
+            max_prefills_per_step=len(reqs), **SERVE_ENGINE)
+        spawn_b = time.perf_counter() - t0
+        sup_events = EventLog()
+        sup = FleetSupervisor(client, interval_s=MESH_TICK_S,
+                              events=sup_events)
+        lost0 = lost_count()
+        old = gang_of(client)
+        before = gang_rows(old)
+        sup.start()
+        try:
+            # Armed once every request is admitted (each has its first
+            # token): the drain finds them all resident, and with no
+            # survivor in the fleet they must finish in the grace window.
+            def all_admitted(handles, t_first):
+                return len(t_first) == len(wave)
+
+            def preempt_follower(handles):
+                client.inject_fault(0, [
+                    {"point": "fold_boundary", "action": "delay",
+                     "seconds": MESH_DRAIN_DELAY_S, "after": k}
+                    for k in range(1, 40)])
+                client.inject_fault(0, [{"point": "follower_op",
+                                         "action": "preempt",
+                                         "seconds": MESH_GRACE_S}],
+                                    follower=0)
+
+            wave = [(f"{rid}b", p, sp) for rid, p, sp in reqs]
+            try:
+                wb = fleet_wave(client, wave,
+                                trigger=(all_admitted, preempt_follower))
+            except SystemExit:
+                print("[serve-mesh] (b) supervisor events: "
+                      f"{json.dumps(sup_events.tail(64), default=str)}")
+                raise
+            try:
+                # The old gang's launches, while it still lives (the
+                # swap kills it once the client has seen every finish).
+                old_after = gang_rows(old)
+            except Exception:  # noqa: BLE001 - already swapped out
+                old_after = None
+            deadline = time.monotonic() + 600
+            while not event_ts(sup_events, "replica_preempt_replaced",
+                               replica=0):
+                if time.monotonic() > deadline or sup.rows()[0]["state"] in (
+                        "failed", "dead"):
+                    fail(f"serve-mesh (b): the gang was not replaced: "
+                         f"{sup.rows()[0]}; events "
+                         f"{[e['name'] for e in sup_events.tail(64)]}")
+                time.sleep(0.05)
+        finally:
+            sup.stop()
+        (ev,) = [e for e in sup_events.tail(256)
+                 if e["name"] == "replica_preempting"]
+        (drained,) = [e for e in sup_events.tail(256)
+                      if e["name"] == "replica_preempt_drained"]
+        swapped = event_ts(sup_events, "replica_preempt_replaced",
+                           replica=0)[0]
+        new = gang_of(client)
+        lost = lost_count() - lost0
+        if (ev.get("member") != "follower" or lost or drained["lost"]
+                or not drained["finished_in_grace"]):
+            fail(f"serve-mesh (b): member {ev.get('member')}, lost {lost}, "
+                 f"drain {drained} (its residents must finish in grace)")
+        if any(a is b for a in new for b in old) or any(
+                a.is_alive() for a in old):
+            fail("serve-mesh (b): the gang was not replaced as a unit")
+        got_b = {rid[:-1]: t for rid, t in wb["toks"].items()}
+        if got_b != w["toks"]:
+            fail(f"serve-mesh (b): the preempted gang's tokens differ from "
+                 f"(a)'s: {got_b} vs {w['toks']}")
+        again = [(f"{rid}c", p, sp) for rid, p, sp in reqs]
+        mid = gang_rows(new)
+        wc = fleet_wave(client, again)
+        end = gang_rows(new)
+        gate_c = check_gang("(b) fresh gang", mid, end, cfg, cuda, kv_bytes)
+        got_c = {rid[:-1]: t for rid, t in wc["toks"].items()}
+        if got_c != w["toks"]:
+            fail(f"serve-mesh (b): the fresh gang's tokens differ from "
+                 f"(a)'s: {got_c} vs {w['toks']}")
+        launches += gate_c["launches"]
+        if old_after is not None:
+            launches += check_gang("(b) preempted gang", before, old_after,
+                                   cfg, cuda, kv_bytes)["launches"]
+        out["b"] = {
+            "spawn_wall_s": spawn_b,
+            "finished_in_grace": drained["finished_in_grace"],
+            "migrated": drained["migrated"],
+            "lost": lost,
+            "notice_to_swap_s": swapped - event_ts(
+                sup_events, "replica_preempting", replica=0)[0],
+            "fresh_rank_startup_s": [r["startup"]["init_end"]
+                                     - r["startup"]["worker_t0"]
+                                     for r in end],
+            "old_gang_counted": old_after is not None,
+        }
+        print(f"[serve-mesh] (b) {json.dumps(out['b'])}")
+        client.shutdown()
+    finally:
+        fabric.shutdown()
+    out["launches"] = launches
+    return out
+
+
+def phase_serve_mesh(serve4: dict):
+    """serve-mesh: tensor-parallel serving as a gang of ranks at GPT-2
+    small's full width and depth, the serve phase's weights written once
+    to a checkpoint under ``build/smoke_mesh`` (removed after). First K1
+    is held against its plain version at a rank's admission (B=1, S=1024,
+    H=6, D=64, bf16, causal, q/k/v the strided views of the rank's slice of
+    the fused projection) and timed beside SDPA and its bound. Then
+    (``serve_mesh_run``) ``start_replicas(1, hosts_per_replica=2,
+    mesh="2x1")`` -> ``ServeClient`` -> the leader's ``ServeReplica`` ->
+    ``Scheduler`` -> ``_GangLeaderEngine`` -> ``DecodeEngine`` on each
+    rank's half of the heads, the follower replaying the op stream: (a) at
+    half a card per rank, the serve phase's 8 requests; (b) at a quarter
+    card per rank with a ``FleetSupervisor``, a ``preempt`` fault on the
+    follower under the same requests: the supervisor reads the notice
+    from the follower's heartbeat, drains the gang, pre-spawns a whole
+    gang and swaps it in; the fresh gang serves the requests again.
+    Gates: every request finishes with its count; (a)'s greedy tokens
+    equal the serve phase's in-process engine's except at near-ties
+    (``draw_margin`` below MARGIN; sampled ones reported against it); both
+    ranks' token digests equal; on every rank gloo,
+    eager (``graphed`` False), ``compiled_count`` frozen, K1 12 times per
+    admission and the reference path never, the KV cache's per-rank bytes
+    half the unsplit engine's; (b) the preemption read from a follower,
+    0 lost, the gang replaced as a unit (no old actor alive), the
+    preempted and the fresh gang's tokens bitwise (a)'s; no child process
+    left and the card's used memory back within ``FLEET_MEM_SLACK_MIB``.
+    Returns K1's launches on the ranks and K1's row at the rank's
+    shape."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.models.gpt import params_to
+    from ray_lightning_tpu_torch.parallel.mesh import Mesh
+    from ray_lightning_tpu_torch.utils.state_stream import (
+        state_stream_to_file, to_state_stream)
+
+    t_phase = time.perf_counter()
+    cfg = gpt.GPTConfig.gpt2_small()
+    params = gpt.init_gpt_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg)
+    rank0 = Mesh({"model": 2}, 0, {"model": None}, None)
+    local = gpt.cast_params(gpt.gpt_param_slices(params, cfg, rank0), cfg)
+    row = check_k1_prefill(local, cfg, 1, cfg.max_seq, "serve-mesh")
+    del local
+    if row["shape"] != [1, cfg.max_seq, cfg.n_head // 2, cfg.head_dim]:
+        fail(f"serve-mesh: K1 ran at {row['shape']}, not a rank's heads")
+    workdir = os.path.join(HERE, "build", "smoke_mesh")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    ckpt = os.path.join(workdir, "gpt.ckpt")
+    state_stream_to_file(to_state_stream({
+        "params": params_to(params, torch.device("cpu")),
+        "gpt_config": dataclasses.asdict(cfg)}), ckpt)
+    os.environ["RLT_REQUIRE_GPU"] = "1"
+    kids0 = child_pids()
+    mem0 = card_memory_mib()
+    reqs = serve_workload(cfg.vocab_size, np.random.default_rng(0))
+    kv_bytes = serve4["sched"].engine.memory_stats()["kv_cache"]["bytes"]
+    try:
+        out = serve_mesh_run(params, cfg, "cuda", ckpt, reqs, serve4["toks"],
+                             kv_bytes)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and (
+            set(child_pids()) - set(kids0)
+            or card_memory_mib() > mem0 + FLEET_MEM_SLACK_MIB):
+        time.sleep(0.5)
+    kids, mem = set(child_pids()) - set(kids0), card_memory_mib()
+    if kids:
+        fail(f"serve-mesh: child processes left: {sorted(kids)}")
+    if mem > mem0 + FLEET_MEM_SLACK_MIB:
+        fail(f"serve-mesh: card memory {mem} MiB after the phase, {mem0} "
+             "MiB before")
+    single = sum(len(t) for t in serve4["toks"].values()) / serve4["wall"]
+    summary = {
+        "spawn_wall_s": out["a"]["spawn_wall_s"],
+        "rank_startup_s": out["a"]["rank_startup_s"],
+        "ttft_p50_s": out["a"]["ttft_p50_s"],
+        "tokens_per_s": out["a"]["tokens_per_s"],
+        "single_engine_tokens_per_s_phase_serve": single,
+        "ms_per_step_p50": out["a"]["ms_per_step_p50"],
+        "gloo_s_per_fold": out["a"]["gloo_s_per_fold"],
+        "kv_per_device_bytes": out["a"]["kv_per_device_bytes"],
+        "notice_to_swap_s": out["b"]["notice_to_swap_s"],
+        "card_mib": [mem0, out["a"].get("card_mib"), mem],
+        "k1_rank_ms": row["ms"],
+        "phase_wall_s": time.perf_counter() - t_phase,
+    }
+    print(f"[serve-mesh] {json.dumps(summary)} on {card_line()}")
+    return out["launches"], row
+
+
 def _flat_params(tree, prefix=""):
     """(path, tensor) of a parameter tree, in tree order."""
     out = []
@@ -5670,6 +6118,8 @@ def main() -> None:
     dist_launches = timed_phase("train-dist", phase_train_dist, yard)
     gspmd_launches, tp_rows = timed_phase("train-gspmd", phase_train_gspmd,
                                           yard)
+    mesh_launches, mesh_row = timed_phase("serve-mesh", phase_serve_mesh,
+                                          serve4)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_fwd",
@@ -5679,7 +6129,8 @@ def main() -> None:
         "launches": serve_launches + spec_launches + fused_launches
         + int8_launches + lifecycle_launches + fleet_launches
         + kvplane_launches + recovery_launches + train_launches["flash_fwd"]
-        + dist_launches["flash_fwd"] + gspmd_launches["flash_fwd"],
+        + dist_launches["flash_fwd"] + gspmd_launches["flash_fwd"]
+        + mesh_launches,
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
                              "serve_paged": paged_launches,
@@ -5692,7 +6143,8 @@ def main() -> None:
                              "serve_recovery": recovery_launches,
                              "train": train_launches["flash_fwd"],
                              "train_dist": dist_launches["flash_fwd"],
-                             "train_gspmd": gspmd_launches["flash_fwd"]},
+                             "train_gspmd": gspmd_launches["flash_fwd"],
+                             "serve_mesh": mesh_launches},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],
         "ms": timed["ms"],
@@ -5709,6 +6161,7 @@ def main() -> None:
                               "tflops")},
         "train_tp": tp_rows["flash_fwd"],
         "serve_spec": draft_row,
+        "serve_tp": mesh_row,
     }]
     for name, line in (("flash_bwd_dkv", 189), ("flash_bwd_dq", 254)):
         row = bwd_rows[name]

@@ -897,6 +897,14 @@ class ActorHandle:
     def is_alive(self) -> bool:
         return self._alive and self._process.is_alive()
 
+    def init_ref(self) -> TaskRef:
+        """The future of this actor's construction: ``get`` of it returns
+        once the constructor has run and raises its error if it failed
+        (how a caller waits on a ``lazy_init`` actor; a later call on an
+        actor whose constructor failed only says it is not
+        initialized)."""
+        return TaskRef(actor_id=self.actor_id, call_id=-1)
+
     # -- plumbing ---------------------------------------------------------
     def _reader_loop(self) -> None:
         sess = _session

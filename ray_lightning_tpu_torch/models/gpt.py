@@ -333,6 +333,19 @@ def _dense_mlp(
     split = tp is not None and lp["wo2"].shape[0] != cfg.ff_dim
     if split:
         m = copy_to_model(m, tp)
+    out = _mlp_out(m, lp, cfg, cdt)
+    if split:
+        out = reduce_from_model(out, tp)
+    return out + lp["bo2"].to(cdt)
+
+
+def _mlp_out(
+    m: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: GPTConfig,
+    cdt: torch.dtype, acc: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The feed-forward's down projection of normed input (..., D), before
+    ``bo2``: over this rank's F/m columns a partial sum, in ``acc`` (the
+    product's operands taken to it) when given, else in ``cdt``."""
     if cfg.mlp_variant == "swiglu":
         z = torch.einsum("...d,dcf->...cf", m, dequant(lp["wi"], cdt)) + lp[
             "bi"
@@ -343,10 +356,19 @@ def _dense_mlp(
             "bi"
         ].to(cdt)
         h = F.gelu(z, approximate="tanh")
-    out = torch.einsum("...f,fd->...d", h, dequant(lp["wo2"], cdt))
-    if split:
-        out = reduce_from_model(out, tp)
-    return out + lp["bo2"].to(cdt)
+    w = dequant(lp["wo2"], cdt)
+    if acc is not None:
+        h, w = h.to(acc), w.to(acc)
+    return torch.einsum("...f,fd->...d", h, w)
+
+
+def _row_split_sum(x: torch.Tensor, tp: Any, cdt: torch.dtype
+                   ) -> torch.Tensor:
+    """The sum over the model group of this rank's fp32 partial products,
+    rounded to ``cdt`` once: the unsplit product accumulates in fp32 and
+    rounds once, so the split differs from it only in the order of the
+    fp32 sums."""
+    return reduce_from_model(x, tp).to(cdt)
 
 
 def _head_weight(params: Dict[str, Any], cfg: GPTConfig) -> torch.Tensor:
@@ -430,6 +452,14 @@ def _model_group(mesh: Any) -> Any:
     """The mesh's ``"model"`` group, or None (no mesh, or a model extent of
     1)."""
     return None if mesh is None else mesh.group("model")
+
+
+def _local_kv_heads(params: Dict[str, Any], cfg: GPTConfig) -> int:
+    """The KV heads ``params`` hold: Hkv, or this rank's Hkv/m of a
+    slice."""
+    blocks = params["blocks"]
+    w = blocks["wqkv"] if cfg.kv_head == cfg.n_head else blocks["wkv"]
+    return int((w["q"] if is_quantized(w) else w).shape[3])
 
 
 def _embed_tokens(table: Any, tokens: torch.Tensor, cfg: GPTConfig,
@@ -603,6 +633,89 @@ def gpt_logical_axes(cfg: GPTConfig) -> Dict[str, Any]:
     if not cfg.tie_word_embeddings:
         out["lm_head"] = ("vocab", "embed")
     return out
+
+
+#: Logical axes of the serving engine's (L, slots, S, Hkv, hd) KV tensors
+#: (JAX ``gpt.py:343-345``): the per-slot decode cache and the prefix-pool
+#: blocks share the layout. KV heads split over the mesh's "model" axis;
+#: slots, positions and head_dim are whole on every rank, so slot
+#: bookkeeping and the per-fold token harvest never cross ranks.
+DECODE_CACHE_AXES: Tuple[Optional[str], ...] = (
+    "layers", None, None, "heads", "kv",
+)
+
+
+def check_decode_mesh(cfg: GPTConfig, mesh: Any) -> None:
+    """Fail fast when a serving mesh cannot split this config's heads (JAX
+    ``gpt.py:348-368``): each rank needs a whole number of q heads AND kv
+    heads, checked before anything is allocated."""
+    m = int(mesh.shape.get("model", 1))
+    if m <= 1:
+        return
+    if cfg.n_head % m or cfg.kv_head % m:
+        raise ValueError(
+            f"mesh model axis ({m}) must divide n_head ({cfg.n_head}) and "
+            f"n_kv_head ({cfg.kv_head}): attention heads and the KV cache "
+            "shard over the model axis, so each device needs a whole "
+            "number of q and kv heads — use a smaller model axis or a "
+            "head count divisible by it"
+        )
+
+
+def gpt_param_slices(
+    params: Dict[str, Any],
+    cfg: GPTConfig,
+    mesh: Any,
+    rules: Optional[Sequence[Tuple[str, Optional[str]]]] = None,
+) -> Dict[str, Any]:
+    """This rank's slices of a (possibly int8) GPT parameter tree on a
+    serving mesh: the counterpart of JAX ``gpt_param_shardings`` (``gpt.py:
+    371-411``), whose specs come from :func:`gpt_logical_axes` through
+    ``parallel/logical.py``'s rules (heads, MLP columns and a vocab the
+    model extent divides split over ``"model"``; 50257 does not, so
+    GPT-2's ``wte`` stays whole). A leaf already at its slice's shape is
+    taken as cut. An int8 node's ``q`` is cut like its leaf; its scales
+    ``s`` are cut only on the dims where they are not 1 (the output
+    channels), so they broadcast over this rank's ``q`` as the JAX
+    package's whole scales do over its sharded one. Slices are copies:
+    the whole tree can be dropped."""
+    from ray_lightning_tpu_torch.parallel.logical import (
+        DEFAULT_RULES,
+        shard_of,
+        spec_from_logical,
+    )
+
+    if mesh is None:
+        return params
+    rule_list = tuple(rules) if rules is not None else DEFAULT_RULES
+
+    def cut(x: Any, full: Tuple[int, ...], spec: Tuple, path: str) -> Any:
+        x = torch.as_tensor(x)
+        if tuple(x.shape) == tuple(full):
+            x = shard_of(x, spec, mesh.coords, mesh.shape)
+            return x.clone(memory_format=torch.contiguous_format)
+        local = tuple(n // int(mesh.shape[a]) if a else n
+                      for n, a in zip(full, spec))
+        if tuple(x.shape) != local:
+            raise ValueError(
+                f"{path}: shape {tuple(x.shape)} is neither the whole leaf "
+                f"{tuple(full)} nor this rank's slice {local}")
+        return x
+
+    def walk(node: Any, shape: Any, axes: Any, path: str) -> Any:
+        if isinstance(shape, dict):
+            return {k: walk(node[k], shape[k], axes[k], f"{path}/{k}")
+                    for k in shape}
+        spec = spec_from_logical(tuple(shape), axes, rule_list, mesh.shape)
+        if not is_quantized(node):
+            return cut(node, tuple(shape), spec, path)
+        s_full = tuple(1 if n == 1 else m
+                       for n, m in zip(node["s"].shape, shape))
+        s_spec = tuple(a if n != 1 else None for n, a in zip(s_full, spec))
+        return {"q": cut(node["q"], tuple(shape), spec, path + "/q"),
+                "s": cut(node["s"], s_full, s_spec, path + "/s")}
+
+    return walk(params, param_shapes(cfg), gpt_logical_axes(cfg), "")
 
 
 def lm_loss(
@@ -825,6 +938,7 @@ def gpt_prefill(
     params: Dict[str, Any],
     cfg: GPTConfig,
     prompt: torch.Tensor,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One parallel forward over ``prompt`` (B, P) that yields the decode
     cache: returns pre-final-norm hidden states (B, P, D) and the stacked
@@ -837,26 +951,33 @@ def gpt_prefill(
     Otherwise the prefill is one :func:`gpt_prefill_chunk` at position 0
     into an empty cache, so a prompt prefilled whole and one prefilled in
     chunks (or seeded from the prefix cache) get the same rows bit for bit.
+
+    ``mesh`` (a serving mesh, ``parallel/mesh.py:mesh_from_spec``) splits
+    the blocks over its ``"model"`` group where ``params`` holds this
+    rank's slices (:func:`gpt_param_slices`): each rank's flash call runs
+    on its H/m heads, and the K/V it returns are its Hkv/m heads.
     """
     from ray_lightning_tpu_torch.ops import flash_attention
 
     cfg.validate_variants()
+    tp = _model_group(mesh)
     cdt = compute_dtype(cfg)
     H, hd = cfg.n_head, cfg.head_dim
     Hkv = cfg.kv_head
     rep = H // Hkv
     B, P = prompt.shape
     if cfg.attn_impl != "flash":
-        shape = (cfg.n_layer, B, P, Hkv, hd)
+        shape = (cfg.n_layer, B, P, _local_kv_heads(params, cfg), hd)
         k = torch.zeros(shape, dtype=cdt, device=prompt.device)
-        return gpt_prefill_chunk(params, cfg, prompt, k, torch.zeros_like(k), 0)
+        return gpt_prefill_chunk(params, cfg, prompt, k, torch.zeros_like(k), 0,
+                                 mesh=mesh)
     norm_fn = _make_norm(cfg)
     pf_tables = (
         _rope_tables(torch.arange(P, device=prompt.device), cfg.rope_theta, hd)
         if cfg.pos_embed == "rope"
         else None
     )
-    h = embed_rows(params["wte"], prompt)
+    h = _embed_tokens(params["wte"], prompt, cfg, tp)
     if cfg.pos_embed == "learned":
         h = h + params["wpe"][:P]
     h = h.to(cdt)
@@ -875,11 +996,22 @@ def gpt_prefill(
             q, k_att, v_att, causal=True, window=cfg.attn_window,
             sinks=cfg.attn_sinks,
         )
-        h = h + torch.einsum("bshk,hkd->bsd", o, dequant(lp["wo"], cdt)) + lp[
-            "bo"
-        ].to(cdt)
-        m = norm_fn(h, lp["ln2_g"], lp["ln2_b"])
-        h = h + _dense_mlp(m, lp, cfg, cdt)
+        if tp is None:
+            h = h + torch.einsum(
+                "bshk,hkd->bsd", o, dequant(lp["wo"], cdt)
+            ) + lp["bo"].to(cdt)
+            m = norm_fn(h, lp["ln2_g"], lp["ln2_b"])
+            h = h + _dense_mlp(m, lp, cfg, cdt)
+        else:
+            # As _out_mlp: fp32 partial products, one rounding after the
+            # sum.
+            f32 = torch.float32
+            o = torch.einsum("bshk,hkd->bsd", o.to(f32),
+                             dequant(lp["wo"], cdt).to(f32))
+            h = h + _row_split_sum(o, tp, cdt) + lp["bo"].to(cdt)
+            m = norm_fn(h, lp["ln2_g"], lp["ln2_b"])
+            mlp = _row_split_sum(_mlp_out(m, lp, cfg, cdt, acc=f32), tp, cdt)
+            h = h + (mlp + lp["bo2"].to(cdt))
         ks.append(k_kv.to(cdt))
         vs.append(v_kv.to(cdt))
     return h, torch.stack(ks), torch.stack(vs)
@@ -964,6 +1096,36 @@ def _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn):
     return hb + _dense_mlp(m, lp, cfg, cdt)
 
 
+def _out_mlp(rows_fn, h, o, lp, cfg, cdt, norm_fn, tp):
+    """The block's output rows from rows ``h`` and their attention output
+    ``o``, the row-wise work in ``rows_fn``'s blocks (:func:`_in_row_blocks`
+    or :func:`_in_prefill_rows`). With ``tp`` (the model group; ``wo`` and
+    ``wo2`` hold this rank's rows) the out projection's partial sums of
+    every block are summed over the group in one all-reduce of all the
+    rows, then the residual, second norm and MLP run per block and the
+    MLP's partial sums take one more: two collectives per layer whatever
+    the row count. The partial products are fp32, rounded to the compute
+    dtype once after the sum (:func:`_row_split_sum`); ``bo`` and ``bo2``
+    are added after it, in the order the unsplit block adds them. A row's
+    sums do not depend on the other rows, so the blocks keep the batch
+    invariance."""
+    if tp is None:
+        return rows_fn(
+            lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
+        )
+    f32 = torch.float32
+    wo = dequant(lp["wo"], cdt).to(f32)
+    att = rows_fn(lambda ob: torch.einsum("bhk,hkd->bd", ob.to(f32), wo), o)
+    h = h + _row_split_sum(att, tp, cdt) + lp["bo"].to(cdt)
+    mlp = rows_fn(
+        lambda hb: _mlp_out(
+            norm_fn(hb[:, None], lp["ln2_g"], lp["ln2_b"])[:, 0], lp, cfg,
+            cdt, acc=f32),
+        h,
+    )
+    return h + (_row_split_sum(mlp, tp, cdt) + lp["bo2"].to(cdt))
+
+
 def _attend_cache(
     q: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
     allowed: torch.Tensor, sm_scale: float,
@@ -1007,6 +1169,7 @@ def gpt_prefill_chunk(
     v_cache: torch.Tensor,
     start_pos: Any,
     true_len: Any = None,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cache-seeded chunked prefill: extend an existing KV range
     (``gpt.py:1114`` of the JAX package).
@@ -1031,10 +1194,15 @@ def gpt_prefill_chunk(
     attention's sums in fp64, so a row comes out bit for bit the same
     whatever the chunking: the property the serving engine's chunked
     prefill and prefix cache rest on.
+
+    With ``mesh`` (:func:`gpt_prefill`) ``params`` and the caches hold this
+    rank's heads; each layer's two partial sums take one all-reduce each
+    over all the chunk's rows (:func:`_out_mlp`).
     """
     from ray_lightning_tpu_torch.ops.attention import band_allowed
 
     cfg.validate_variants()
+    tp = _model_group(mesh)
     cdt = compute_dtype(cfg)
     norm_fn = _make_norm(cfg)
     B, C = chunk.shape
@@ -1053,7 +1221,7 @@ def gpt_prefill_chunk(
     positions = offs + start_pos
     tgt = _chunk_targets(positions, S, C)
     write = ((offs < tl) & (positions < S))[None, :, None, None]
-    x = embed_rows(params["wte"], chunk)
+    x = _embed_tokens(params["wte"], chunk, cfg, tp)
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][positions.clamp(max=cfg.max_seq - 1)]
     h = x.to(cdt)
@@ -1079,9 +1247,7 @@ def gpt_prefill_chunk(
         kc[:, tgt] = torch.where(write, k_new.to(kc.dtype), kc[:, tgt])
         vc[:, tgt] = torch.where(write, v_new.to(vc.dtype), vc[:, tgt])
         o = _attend_cache(q, kc, vc, allowed, sm_scale)
-        h = _in_prefill_rows(
-            lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
-        )
+        h = _out_mlp(_in_prefill_rows, h, o, lp, cfg, cdt, norm_fn, tp)
     return h, k_cache, v_cache
 
 
@@ -1092,6 +1258,7 @@ def gpt_decode_step(
     pos: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One KV-cached decode step with per-slot positions.
 
@@ -1108,10 +1275,17 @@ def gpt_decode_step(
     whole cache) is clamped for the embedding read and the cache write,
     where XLA clamps its gather and dynamic_update_slice; such a slot's
     output is never read.
+
+    With ``mesh`` (:func:`gpt_prefill`) each rank runs the fp64 attention
+    on its own heads only (heads are independent, so those rows are
+    bitwise the unsplit step's) and sums the out projection's and the
+    MLP's partial outputs over the model group, two all-reduces of the
+    (Bp, D) rows per layer (:func:`_out_mlp`).
     """
     from ray_lightning_tpu_torch.ops.attention import band_allowed
 
     cfg.validate_variants()
+    tp = _model_group(mesh)
     cdt = compute_dtype(cfg)
     norm_fn = _make_norm(cfg)
     hd = cfg.head_dim
@@ -1121,7 +1295,7 @@ def gpt_decode_step(
     pos_w = pos.clamp(max=S - 1)
     slots = torch.arange(B, device=cur.device)
 
-    x = embed_rows(params["wte"], cur)
+    x = _embed_tokens(params["wte"], cur, cfg, tp)
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][pos.clamp(max=cfg.max_seq - 1)]
     # (Bp, D): the rows past B are zeros, carried along and never read.
@@ -1152,10 +1326,8 @@ def gpt_decode_step(
         vc[slots, pos_w] = v_new.to(vc.dtype)
         o = _decode_attend(q, kc.double(), vc.double(), allowed, cdt)
         o = F.pad(o, (0, 0, 0, 0, 0, Bp - B))
-        h = _in_row_blocks(
-            lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
-        )
-    return _decode_logits(params, cfg, h, norm_fn)[:B], k_cache, v_cache
+        h = _out_mlp(_in_row_blocks, h, o, lp, cfg, cdt, norm_fn, tp)
+    return _decode_logits(params, cfg, h, norm_fn, tp)[:B], k_cache, v_cache
 
 
 def _decode_attend(
@@ -1178,16 +1350,21 @@ def _decode_attend(
     return torch.einsum("bgrs,bsgk->bgrk", p, vd).reshape(B, H, hd).to(cdt)
 
 
-def _decode_logits(params, cfg, h, norm_fn) -> torch.Tensor:
+def _decode_logits(params, cfg, h, norm_fn, tp=None) -> torch.Tensor:
     """Final norm and LM head of decode rows h (R, D), R a multiple of
-    ``DECODE_ROWS``, in blocks of that many rows: fp32 logits (R, V)."""
+    ``DECODE_ROWS``, in blocks of that many rows: fp32 logits (R, V). A
+    head split over the model group ``tp`` (a vocab it divides) gives each
+    rank V/m columns, gathered whole."""
     w_head = _head_weight(params, cfg)
 
     def head(hb):
         hb = norm_fn(hb[:, None], params["lnf_g"], params["lnf_b"])[:, 0]
         return _lm_head(hb, w_head)
 
-    return _in_row_blocks(head, h)
+    out = _in_row_blocks(head, h)
+    if tp is None or w_head.shape[0] == cfg.vocab_size:
+        return out
+    return gather_from_model(out, -1, tp)
 
 
 def gpt_decode_fold(
@@ -1211,6 +1388,7 @@ def gpt_decode_fold(
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 0,
     piggyback: Optional[ChunkRows] = None,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, ...]:
     """``fold`` decode+sample iterations with per-slot termination on the
     device: the serving engine's hot loop.
@@ -1233,18 +1411,20 @@ def gpt_decode_fold(
     k_cache, v_cache)``: the JAX fold's outputs with the counters where it
     returns its keys. With ``piggyback`` (:func:`piggyback_prefill`) its
     chunk rows run after the iterations and their ``pb_toks`` are
-    appended.
+    appended. ``mesh``: see :func:`gpt_decode_step`; every rank samples
+    the same reduced logits with the same draws, so the ranks emit the
+    same tokens.
     """
     toks_out, emits_out = [], []
     for _ in range(int(fold)):
         if page_table is None:
             logits, k_cache, v_cache = gpt_decode_step(
-                params, cfg, cur, pos, k_cache, v_cache
+                params, cfg, cur, pos, k_cache, v_cache, mesh=mesh
             )
         else:
             logits, k_cache, v_cache = gpt_decode_step_paged(
                 params, cfg, cur, pos, k_cache, v_cache, page_table,
-                page_size,
+                page_size, mesh=mesh,
             )
         toks = sample_logits_batched(logits, temps, top_ks, top_ps, seeds,
                                      counters, sampling).to(cur.dtype)
@@ -1265,7 +1445,7 @@ def gpt_decode_fold(
     return out + (piggyback_prefill(
         params, cfg, piggyback, cur, pos, counters, active, remaining, temps,
         top_ks, top_ps, seeds, k_cache, v_cache, sampling=sampling,
-        page_table=page_table, page_size=page_size,
+        page_table=page_table, page_size=page_size, mesh=mesh,
     ),)
 
 
@@ -1276,6 +1456,7 @@ def gpt_decode_verify(
     pos: torch.Tensor,
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One forward over Q candidate tokens per slot: the verify half of
     speculative decoding (``gpt.py:1697`` of the JAX package).
@@ -1295,11 +1476,12 @@ def gpt_decode_verify(
     so ``logits[:, i]`` is bitwise what i + 1 sequential decode steps
     give. Rows of rejected drafts leave K/V above the slot's accepted
     position: masked there, and rewritten by the next verify before any
-    query reads them.
+    query reads them. ``mesh``: as :func:`gpt_decode_step`.
     """
     from ray_lightning_tpu_torch.ops.attention import band_allowed
 
     cfg.validate_variants()
+    tp = _model_group(mesh)
     cdt = compute_dtype(cfg)
     norm_fn = _make_norm(cfg)
     B, Q = toks.shape
@@ -1309,7 +1491,7 @@ def gpt_decode_verify(
     dev = toks.device
     positions = pos[:, None] + torch.arange(Q, device=dev)[None]  # (B, Q)
     flat = positions.reshape(-1)
-    x = embed_rows(params["wte"], toks.reshape(-1))
+    x = _embed_tokens(params["wte"], toks.reshape(-1), cfg, tp)
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][flat.clamp(max=cfg.max_seq - 1)]
     # (Rp, D), row b * Q + i; the rows past R are zeros, never read.
@@ -1357,10 +1539,8 @@ def gpt_decode_verify(
             dim=1,
         )
         o = F.pad(o.reshape(R, *o.shape[2:]), (0, 0, 0, 0, 0, Rp - R))
-        h = _in_row_blocks(
-            lambda hb, ob: _out_mlp_rows(hb, ob, lp, cfg, cdt, norm_fn), h, o
-        )
-    logits = _decode_logits(params, cfg, h, norm_fn)[:R]
+        h = _out_mlp(_in_row_blocks, h, o, lp, cfg, cdt, norm_fn, tp)
+    logits = _decode_logits(params, cfg, h, norm_fn, tp)[:R]
     return logits.reshape(B, Q, -1), k_cache, v_cache
 
 
@@ -1414,6 +1594,7 @@ def gpt_decode_step_paged(
     pool_v: torch.Tensor,
     table: torch.Tensor,
     page: int,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`gpt_decode_step` over a paged cache (``gpt.py:1916`` of the
     JAX package): gather each slot's pages, run the dense step unchanged
@@ -1424,7 +1605,7 @@ def gpt_decode_step_paged(
     k_view = paged_gather(pool_k, table, page)
     v_view = paged_gather(pool_v, table, page)
     logits, k_view, v_view = gpt_decode_step(
-        params, cfg, cur, pos, k_view, v_view
+        params, cfg, cur, pos, k_view, v_view, mesh=mesh
     )
     p = pos.clamp(0, S - 1)
     slots = torch.arange(cur.shape[0], device=cur.device)
@@ -1446,6 +1627,7 @@ def gpt_decode_verify_paged(
     pool_v: torch.Tensor,
     table: torch.Tensor,
     page: int,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`gpt_decode_verify` over a paged cache (``gpt.py:1948`` of the
     JAX package): gather, the dense verify unchanged, and scatter rows
@@ -1456,7 +1638,7 @@ def gpt_decode_verify_paged(
     k_view = paged_gather(pool_k, table, page)
     v_view = paged_gather(pool_v, table, page)
     logits, k_view, v_view = gpt_decode_verify(
-        params, cfg, toks, pos, k_view, v_view
+        params, cfg, toks, pos, k_view, v_view, mesh=mesh
     )
     rows = pos[:, None] + torch.arange(Q, device=toks.device)[None]
     valid = rows < S
@@ -1478,6 +1660,7 @@ def gpt_prefill_chunk_paged(
     true_len: Any = None,
     *,
     page: int,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`gpt_prefill_chunk` for one paged slot (``gpt.py:1981`` of the
     JAX package): ``table_row`` (1, n) is that slot's page table. Gather
@@ -1490,7 +1673,7 @@ def gpt_prefill_chunk_paged(
     k_view = paged_gather(pool_k, table_row, page)
     v_view = paged_gather(pool_v, table_row, page)
     h, k_view, v_view = gpt_prefill_chunk(
-        params, cfg, chunk, k_view, v_view, start_pos, tl
+        params, cfg, chunk, k_view, v_view, start_pos, tl, mesh=mesh
     )
     offs = torch.arange(C, device=chunk.device)
     if isinstance(start_pos, torch.Tensor):
@@ -1519,13 +1702,14 @@ def first_token(
     seeds: torch.Tensor,
     counters: torch.Tensor,
     sampling: bool = True,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Prompts' first tokens from ``h_last`` (N, 1, D), the pre-final-norm
     hidden state of each prompt's last position: final norm, LM head, and
     draw ``counters`` of streams ``seeds`` under the (N,) knobs (greedy
     where ``temps`` <= 0). Returns (N,) on the device."""
     h = _make_norm(cfg)(h_last, params["lnf_g"], params["lnf_b"])
-    logits = _lm_head(h[:, 0], _head_weight(params, cfg))
+    logits = gpt_logits(params, h[:, 0], cfg, _model_group(mesh))
     return sample_logits_batched(logits, temps, top_ks, top_ps, seeds,
                                  counters, sampling)
 
@@ -1595,7 +1779,7 @@ class ChunkRows:
 
 
 def _prefill_slot(params, cfg, chunk, k_cache, v_cache, slot, start, length,
-                  page_table, page_size) -> torch.Tensor:
+                  page_table, page_size, mesh=None) -> torch.Tensor:
     """:func:`gpt_prefill_chunk` of one (1, C) chunk on the slot named by
     the (1,) tensor ``slot``: its view of the cache (its rows, or its pages
     through its table row) gathered, the chunk run on the view, and the
@@ -1605,10 +1789,12 @@ def _prefill_slot(params, cfg, chunk, k_cache, v_cache, slot, start, length,
         h, _, _ = gpt_prefill_chunk_paged(
             params, cfg, chunk, k_cache, v_cache,
             page_table.index_select(0, slot), start, length, page=page_size,
+            mesh=mesh,
         )
         return h
     kv, vv = k_cache.index_select(1, slot), v_cache.index_select(1, slot)
-    h, kv, vv = gpt_prefill_chunk(params, cfg, chunk, kv, vv, start, length)
+    h, kv, vv = gpt_prefill_chunk(params, cfg, chunk, kv, vv, start, length,
+                                  mesh=mesh)
     C, S = chunk.shape[1], k_cache.shape[2]
     tgt = _chunk_targets(torch.arange(C, device=chunk.device) + start, S, C)
     rows = slot.expand(C)
@@ -1647,6 +1833,7 @@ def piggyback_prefill(
     hist: Optional[torch.Tensor] = None,
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 0,
+    mesh: Any = None,
 ) -> torch.Tensor:
     """Prefill chunk rows, each on its own slot (``_piggyback_prefill``,
     ``gpt.py:1459`` of the JAX package): :func:`gpt_prefill_chunk` over
@@ -1674,7 +1861,7 @@ def piggyback_prefill(
         start, n = rows.start[i], rows.length[i]
         h = _prefill_slot(params, cfg, rows.chunk[i : i + 1], k_cache,
                           v_cache, s, start, torch.where(ok, n, 0),
-                          page_table, page_size)
+                          page_table, page_size, mesh)
         end = start + n
         if hist is not None:
             cols = torch.arange(hist.shape[1], device=hist.device)
@@ -1690,6 +1877,7 @@ def piggyback_prefill(
             params, cfg, h_last, temps.index_select(0, s),
             top_ks.index_select(0, s), top_ps.index_select(0, s),
             seeds.index_select(0, s), torch.zeros_like(s), sampling,
+            mesh=mesh,
         ).to(cur.dtype)
         _put(cur, s, fin, tok)
         _put(active, s, fin, (rows.n_new[i] > 1) & (tok != rows.eos[i]))
@@ -1812,6 +2000,7 @@ def gpt_decode_fold_spec(
     page_table: Optional[torch.Tensor] = None,
     page_size: int = 0,
     piggyback: Optional[ChunkRows] = None,
+    mesh: Any = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Speculative :func:`gpt_decode_fold` (``gpt.py:2113`` of the JAX
     package): each of the ``fold`` iterations drafts ``depth`` tokens per
@@ -1838,7 +2027,9 @@ def gpt_decode_fold_spec(
     lanes, emit_block, cur, pos, counters, active, remaining, hist,
     k_cache, v_cache)``; with ``piggyback`` its chunk rows run after the
     iterations (:func:`piggyback_prefill`, which also heals their history
-    rows) and ``pb_toks`` is appended.
+    rows) and ``pb_toks`` is appended. ``mesh``: as
+    :func:`gpt_decode_fold`; ``draft_fn`` runs on whole weights on every
+    rank (a draft model is not split).
     """
     D = int(depth)
     B = cur.shape[0]
@@ -1854,12 +2045,12 @@ def gpt_decode_fold_spec(
         toks_in = torch.cat([cur[:, None], drafts], dim=1)
         if page_table is None:
             logits, k_cache, v_cache = gpt_decode_verify(
-                params, cfg, toks_in, pos, k_cache, v_cache
+                params, cfg, toks_in, pos, k_cache, v_cache, mesh=mesh
             )
         else:
             logits, k_cache, v_cache = gpt_decode_verify_paged(
                 params, cfg, toks_in, pos, k_cache, v_cache, page_table,
-                page_size,
+                page_size, mesh=mesh,
             )
         pos0 = pos
         # The last index has no draft to match: the -1 sentinel stops the
@@ -1898,7 +2089,7 @@ def gpt_decode_fold_spec(
     return out + (piggyback_prefill(
         params, cfg, piggyback, cur, pos, counters, active, remaining, temps,
         top_ks, top_ps, seeds, k_cache, v_cache, sampling=sampling, hist=hist,
-        page_table=page_table, page_size=page_size,
+        page_table=page_table, page_size=page_size, mesh=mesh,
     ),)
 
 

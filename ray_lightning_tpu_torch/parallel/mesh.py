@@ -16,13 +16,19 @@ fsdp), each made once per world with ``new_group``.
 Gloo, the only group ranks sharing a card can form, has no all-gather of
 CUDA tensors: :func:`all_gather` stages such a tensor through pinned host
 memory, on gloo only; on NCCL it is the plain collective, which a CUDA
-graph captures. ``parse_mesh_spec`` and ``mesh_from_spec`` (serving
-meshes) are ROADMAP queue 1 item 11b.
+graph captures.
+
+A serving mesh is ``"MODELxDATA"`` (:func:`parse_mesh_spec`):
+:func:`mesh_from_spec` lays the joined world out as ``model`` x ``data``
+ranks through :func:`build_mesh`. Each rank of a serving gang holds its
+``1/model`` of the heads and MLP columns; the ``data`` ranks hold the same
+slices and run the same work (the JAX engine replicates its slots over
+``"data"``), so no collective crosses that axis.
 """
 from __future__ import annotations
 
 import datetime
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -184,6 +190,73 @@ def build_mesh(sizes: Optional[Mapping[str, int]] = None) -> Mesh:
     backend = dist.get_backend() if dist.is_initialized() else None
     mesh = _MESHES[key] = Mesh(shape, rank, groups, backend)
     return mesh
+
+
+# -- serving meshes -----------------------------------------------------------
+
+
+def parse_mesh_spec(spec: Union[str, int, None]) -> Tuple[int, int]:
+    """Parse a serving mesh spec ``"MODELxDATA"`` into ``(model, data)``
+    (JAX ``parallel/mesh.py:21-62``, the same vocabulary and messages):
+    ``"1x1"`` (one rank), ``"4x1"`` (4-way tensor parallel), ``"4x2"``, or
+    a bare integer / ``"8"`` meaning ``8x1``. Anything else raises naming
+    the valid forms. Whether the sizes factor the world is
+    :func:`mesh_from_spec`'s check, which needs the joined group."""
+    if spec is None:
+        return (1, 1)
+    if isinstance(spec, bool):  # YAML 1.1: a bare "on"/"off" typo
+        raise ValueError(
+            f"malformed mesh spec {spec!r}: use 'MODELxDATA' (e.g. '1x1', "
+            "'4x1', '4x2') or a bare model-axis size like '8'"
+        )
+    if isinstance(spec, int):
+        parts: Tuple[Union[str, int], ...] = (spec, 1)
+    else:
+        text = str(spec).strip().lower()
+        parts = tuple(text.split("x")) if text else ()
+        if len(parts) == 1:
+            parts = (parts[0], 1)
+    try:
+        if len(parts) != 2:
+            raise ValueError
+        model, data = (int(p) for p in parts)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"malformed mesh spec {spec!r}: use 'MODELxDATA' with positive "
+            "integer axis sizes (e.g. '1x1', '4x1', '4x2'), or a bare "
+            "model-axis size like '8'"
+        ) from None
+    if model < 1 or data < 1:
+        raise ValueError(
+            f"malformed mesh spec {spec!r}: 'MODELxDATA' axis sizes must "
+            "be >= 1 (e.g. '1x1', '4x1', '4x2')"
+        )
+    return model, data
+
+
+def mesh_from_spec(spec: Union[str, int, None]) -> Optional[Mesh]:
+    """This rank's serving mesh from a ``"MODELxDATA"`` spec: None for
+    ``None`` / ``"1x1"`` (the one-card engine), else :func:`build_mesh`
+    with ``{"model": model, "data": data}`` over the joined world (a
+    collective the first time: every rank calls it together). The port
+    runs one rank per card, so the world must be exactly ``model x
+    data`` ranks (JAX ``:86-103`` asks the same of the devices)."""
+    import torch.distributed as dist
+
+    model, data = parse_mesh_spec(spec)
+    if model * data == 1:
+        return None
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if model * data != world:
+        raise ValueError(
+            f"mesh shape (model={model}, data={data}) covers {model * data} "
+            f"rank(s) but the serving world has {world}: the axis sizes must "
+            f"multiply to EXACTLY the number of ranks. Pick sizes that "
+            f"factor {world} (e.g. shrink an axis), or start the gang with "
+            f"{model * data} ranks (start_replicas(hosts_per_replica="
+            f"{model * data}), one process per card)"
+        )
+    return build_mesh({"model": model, "data": data})
 
 
 # -- collectives that gloo lacks for CUDA tensors ---------------------------

@@ -21,16 +21,43 @@ CUDA tensors through host memory on gloo.
 """
 from __future__ import annotations
 
+import time
+from dataclasses import dataclass
 from typing import Any
 
 import torch
+
+
+@dataclass
+class CollectiveStats:
+    """The model group's all-reduces this process ran (``calls``) and, for
+    those on gloo, their host seconds (``seconds``): each timed from a
+    device sync before it to its return (a gloo collective of a CUDA
+    tensor stages through the host and waits for the stream anyway). An
+    NCCL all-reduce is counted, not timed: it is queued on the stream, and
+    inside a CUDA graph it runs at each replay, not at the call."""
+
+    calls: int = 0
+    seconds: float = 0.0
+
+
+collective_stats = CollectiveStats()
 
 
 def _all_reduce(x: torch.Tensor, group: Any) -> torch.Tensor:
     import torch.distributed as dist
 
     out = x.contiguous().clone()
+    if dist.get_backend(group) != "gloo":
+        collective_stats.calls += 1
+        dist.all_reduce(out, group=group)
+        return out
+    if out.is_cuda:
+        torch.cuda.synchronize(out.device)
+    t0 = time.perf_counter()
     dist.all_reduce(out, group=group)
+    collective_stats.seconds += time.perf_counter() - t0
+    collective_stats.calls += 1
     return out
 
 

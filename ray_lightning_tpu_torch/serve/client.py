@@ -56,9 +56,18 @@ its unfinishable requests with their prefix KV onto survivors, and
 :class:`serve.router.RouterAutoscaler` grows and shrinks the fleet
 (``add_replica``, ``retire_replica``).
 
-Not ported yet, and refused naming their ROADMAP queue 1 item: multi-host
-replicas (``hosts_per_replica > 1``, ``followers``: item 11b) and the
-profiler RPC (item 14).
+A tensor-parallel replica is a gang (``start_replicas(hosts_per_replica=N,
+mesh="MODELxDATA")``): a leader ``ServeReplica`` that takes the traffic and
+N - 1 ``ServeShardFollower`` ranks that replay its engine's op stream, one
+process per card (or per share of one). The client keeps the followers
+beside their leader's index (``followers_of``): they are respawned,
+pre-spawned, added, retired and torn down with it, a dead follower makes
+its gang dead (``replica_is_alive``), and a follower's preemption notice,
+read from its heartbeat (``gang_preempt_state``), dooms the gang.
+
+Not ported yet, and refused naming their ROADMAP queue 1 item: several
+cards per worker process (a gang's ranks other than model x data, item
+11b) and the profiler RPC (item 14).
 """
 from __future__ import annotations
 
@@ -73,7 +82,20 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 from ray_lightning_tpu_torch import fabric
 from ray_lightning_tpu_torch.obs import trace as _trace
 from ray_lightning_tpu_torch.serve.router import RequestRejectedError
-from ray_lightning_tpu_torch.serve.server import ServeReplica
+from ray_lightning_tpu_torch.serve.server import (
+    ENGINE_KEYS,
+    ServeReplica,
+    ServeShardFollower,
+)
+from ray_lightning_tpu_torch.utils.ports import find_free_port
+
+
+def _ready(actor: Any) -> Any:
+    """The future a spawn waits on: a lazily constructed actor's
+    construction (which raises its constructor's error), else a ping."""
+    ref = getattr(actor, "init_ref", None)
+    return ref() if ref is not None and actor.actor_options.get(
+        "lazy_init") else actor.ping.remote()
 
 
 class ReplicaLostError(RuntimeError):
@@ -132,10 +154,11 @@ class ServeClient:
     ``respawn_fn(i, fresh_capacity=False, role=None) -> (leader,
     followers)`` re-runs replica ``i``'s original spawn (same resolved
     config, same placement-group bundle, fresh processes): the
-    supervisor's restart path and the autoscaler's. The reference's
-    multi-host gang members (``followers``, ``follower_replica``: ROADMAP
-    queue 1 item 11b) are accepted at their defaults only, so a spawn's
-    followers are always ``[]``.
+    supervisor's restart path and the autoscaler's. ``followers`` are
+    the rank > 0 members of tensor-parallel gangs (they take no requests)
+    and ``follower_replica`` the replica index each belongs to (a
+    parallel list; replica 0 by default): they go down, and come back,
+    with their leader.
     """
 
     def __init__(
@@ -171,17 +194,13 @@ class ServeClient:
 
         if not replicas:
             raise ValueError("need at least one replica")
-        for name, value, item in (
-            ("followers", followers or None, "11b (multi-host replicas)"),
-            ("follower_replica", follower_replica, "11b (multi-host "
-             "replicas)"),
-        ):
-            if value is not None:
-                raise NotImplementedError(
-                    f"ServeClient option {name} is not ported yet "
-                    f"(ROADMAP queue 1 item {item})"
-                )
         self._replicas = list(replicas)
+        self._followers = list(followers or [])
+        self._follower_replica = list(
+            follower_replica
+            if follower_replica is not None
+            else [0] * len(self._followers)
+        )
         self._pg = pg
         self._respawn_fn = respawn_fn
         self._init_timeout = float(init_timeout)
@@ -342,6 +361,33 @@ class ServeClient:
     def _actor(self, idx: int) -> Any:
         with self._lock:
             return self._replicas[idx]
+
+    def followers_of(self, idx: int) -> List[Any]:
+        """Replica ``idx``'s gang followers, in rank order ([] for a
+        one-process replica)."""
+        with self._lock:
+            return [f for f, owner in zip(self._followers,
+                                          self._follower_replica)
+                    if owner == int(idx)]
+
+    def _set_gang(self, idx: int, leader: Any, followers: List[Any]) -> None:
+        """Make ``leader`` and ``followers`` replica ``idx``'s processes."""
+        with self._lock:
+            self._replicas[idx] = leader
+            kept = [(f, o) for f, o in zip(self._followers,
+                                           self._follower_replica)
+                    if o != idx]
+            kept += [(f, idx) for f in followers]
+            self._followers = [f for f, _ in kept]
+            self._follower_replica = [o for _, o in kept]
+
+    @staticmethod
+    def _kill_all(actors: Sequence[Any]) -> None:
+        for a in actors:
+            try:
+                fabric.kill(a)
+            except Exception:  # noqa: BLE001 - usually already dead
+                pass
 
     def _rpc(
         self,
@@ -1317,14 +1363,14 @@ class ServeClient:
     def can_respawn(self) -> bool:
         return self._respawn_fn is not None
 
-    def _spawn(self, idx: int, **kw: Any) -> Any:
+    def _spawn(self, idx: int, **kw: Any) -> Tuple[Any, List[Any]]:
         """Run the retained recipe for ``idx`` and wait until the new
-        actor answers a ping (killed if it does not). ``kw`` are the
-        recipe's knobs (``fresh_capacity``, ``role``); a recipe without
-        them (tests, custom wiring) is called with fewer. A recipe's
-        followers must be ``[]``: multi-host replicas are ROADMAP queue 1
-        item 11b."""
-        leader = None
+        leader and every follower of its gang answer a ping (the whole
+        gang is killed if one does not). ``kw`` are the recipe's knobs
+        (``fresh_capacity``, ``role``); a recipe without them (tests,
+        custom wiring) is called with fewer. Returns ``(leader,
+        followers)``."""
+        leader, followers = None, []
         try:
             while True:
                 try:
@@ -1334,20 +1380,13 @@ class ServeClient:
                     if not kw:
                         raise
                     kw.pop("role" if "role" in kw else "fresh_capacity")
-            if followers:
-                raise NotImplementedError(
-                    "a spawn recipe returned gang followers: multi-host "
-                    "replicas are not ported yet (ROADMAP queue 1 item 11b)"
-                )
-            fabric.get(leader.ping.remote(), timeout=self._init_timeout)
+            fabric.get([_ready(a) for a in [leader] + list(followers)],
+                       timeout=self._init_timeout)
         except BaseException:
-            if leader is not None:
-                try:
-                    fabric.kill(leader)
-                except Exception:  # noqa: BLE001
-                    pass
+            self._kill_all(([leader] if leader is not None else [])
+                           + list(followers))
             raise
-        return leader
+        return leader, list(followers)
 
     def respawn_replica(self, idx: int) -> Any:
         """Re-run replica ``idx``'s original spawn (same resolved
@@ -1355,26 +1394,22 @@ class ServeClient:
         captures the same graphs from the same checkpoint) and swap the
         fresh actor into the routing table; a replacement held by
         :meth:`prespawn_replacement` is swapped in instead of spawning.
-        The old process is torn down best-effort first (it is typically
-        already dead)."""
+        The old processes (a gang's leader and followers, as a unit) are
+        torn down best-effort first (they are typically already dead)."""
         idx = int(idx)
         if self._respawn_fn is None:
             raise RuntimeError(
                 "this client has no respawn path (constructed without "
                 "respawn_fn — use serve.start_replicas)"
             )
-        try:
-            fabric.kill(self._actor(idx))
-        except Exception:  # noqa: BLE001 - usually already dead
-            pass
+        self._kill_all([self._actor(idx)] + self.followers_of(idx))
         with self._lock:
             # A replacement spawned during the grace window (already
             # pinged healthy) is swapped in — zero spawn latency here.
-            leader = self._prespawned.pop(idx, None)
-        if leader is None:
-            leader = self._spawn(idx)
+            gang = self._prespawned.pop(idx, None)
+        leader, followers = gang if gang is not None else self._spawn(idx)
+        self._set_gang(idx, leader, followers)
         with self._lock:
-            self._replicas[idx] = leader
             self._excluded.discard(idx)
             self._lost.discard(idx)
         self._event("replica_respawned", replica=idx)
@@ -1405,14 +1440,15 @@ class ServeClient:
                 self._roles.append("mixed")
             self._roles[idx] = str(role or "mixed")
         try:
-            leader = self._spawn(idx, fresh_capacity=True, role=role)
+            leader, followers = self._spawn(idx, fresh_capacity=True,
+                                            role=role)
         except BaseException:
             with self._lock:
                 # The slot stays a tombstone: indices never shift.
                 self._retired.add(idx)
             raise
+        self._set_gang(idx, leader, followers)
         with self._lock:
-            self._replicas[idx] = leader
             self._excluded.discard(idx)
         # Fleet KV plane: the live fleet adopts the new member's inbox
         # (the spawn recipe created it; the new replica got the full
@@ -1467,10 +1503,9 @@ class ServeClient:
                 fabric.get(actor.stop.remote(), timeout=10.0)
             except Exception:  # noqa: BLE001 - retiring anyway
                 pass
-            try:
-                fabric.kill(actor)
-            except Exception:  # noqa: BLE001
-                pass
+            # The gang goes as a unit: the leader's stop sent its
+            # followers the drain sentinel.
+            self._kill_all([actor] + self.followers_of(idx))
         if self.router is not None:
             try:
                 self.router.forget_replica(idx)
@@ -1499,10 +1534,10 @@ class ServeClient:
         # Fresh capacity, NOT the replica's placement-group bundle: the
         # dying replica still occupies that until the swap —
         # capacity-at-N through the grace window needs headroom outside
-        # the reservation.
-        leader = self._spawn(idx, fresh_capacity=True)
+        # the reservation. A gang's replacement is a whole gang.
+        gang = self._spawn(idx, fresh_capacity=True)
         with self._lock:
-            self._prespawned[idx] = leader
+            self._prespawned[idx] = gang
         self._event("replica_prespawned", replica=idx)
         return True
 
@@ -1584,11 +1619,43 @@ class ServeClient:
         with self._lock:
             return sum(1 for r in self._route.values() if r == idx)
 
+    def gang_preempt_state(self, idx: int) -> Optional[Dict[str, Any]]:
+        """A pending preemption on any of replica ``idx``'s gang
+        followers, read from their fabric heartbeats (a follower has no
+        client-facing RPC surface: the heartbeat is its signal path);
+        None when no follower reports one."""
+        try:
+            beats = fabric.heartbeats()
+        except Exception:  # noqa: BLE001 - heartbeats are best-effort
+            return None
+        for f in self.followers_of(idx):
+            actor_id = getattr(f, "actor_id", None)
+            if actor_id is None:
+                continue
+            p = (beats.get(actor_id) or {}).get("preempt")
+            if isinstance(p, dict) and p.get("pending"):
+                return p
+        return None
+
     # -- fault injection (chaos tests) -----------------------------------
-    def inject_fault(self, replica: int, plan: Any) -> list:
+    def inject_fault(self, replica: int, plan: Any,
+                     follower: Optional[int] = None) -> list:
         """Arm a deterministic fault plan (serve.faults) on ONE live
-        replica; returns the armed rules."""
+        replica, or with ``follower`` on that member of its gang
+        (:meth:`inject_follower_fault`); returns the armed rules."""
+        if follower is not None:
+            return self.inject_follower_fault(replica, follower, plan)
         return self._rpc(int(replica), "inject_fault", plan)
+
+    def inject_follower_fault(self, idx: int, follower: int,
+                              plan: Any) -> list:
+        """Arm a fault plan on the ``follower``-th gang member of replica
+        ``idx`` (a test targets ONE member of a live gang; the env gate
+        would arm every process alike)."""
+        return fabric.get(
+            self.followers_of(idx)[int(follower)].inject_fault.remote(plan),
+            timeout=30.0,
+        )
 
     # -- ops ---------------------------------------------------------------
     @property
@@ -1597,10 +1664,13 @@ class ServeClient:
             return len(self._replicas)
 
     def replica_is_alive(self, idx: int) -> bool:
-        """Process-level liveness of replica ``idx``'s actor (no RPC):
-        False once the fabric observed the process exit."""
+        """Process-level liveness of replica ``idx``'s actors (no RPC):
+        False once the fabric observed a process exit. A gang lives only
+        while its leader and every follower do: a dead follower leaves
+        the leader's collectives unanswered."""
         try:
-            return bool(self._actor(int(idx)).is_alive())
+            return all(bool(a.is_alive()) for a in
+                       [self._actor(int(idx))] + self.followers_of(idx))
         except Exception:  # noqa: BLE001 - a broken handle is not alive
             return False
 
@@ -1666,10 +1736,11 @@ class ServeClient:
 
     def trace_dumps(self, n: int = 16) -> List[Dict[str, Any]]:
         """Every process's trace ring in the stitching wire form: the
-        client's own and each replica's, tagged with display names
-        (``client`` / ``replica{i}``). Pulls are best-effort — a dead
-        replica must not block the trace of the fleet that outlived
-        it."""
+        client's own, each replica's and each gang follower's, tagged
+        with display names (``client`` / ``replica{i}`` /
+        ``follower{j}``). Pulls are best-effort — a dead replica or a
+        wedged follower must not block the trace of the fleet that
+        outlived it."""
         dumps = [{"name": "client", **self.tracer.dump(n)}]
         for i in range(self.num_replicas):
             try:
@@ -1677,12 +1748,21 @@ class ServeClient:
             except Exception:  # noqa: BLE001 - best-effort forensics
                 continue
             dumps.append({"name": f"replica{i}", **d})
+        with self._lock:
+            followers = list(self._followers)
+        for j, f in enumerate(followers):
+            try:
+                d = fabric.get(f.trace_dump.remote(n), timeout=30.0)
+            except Exception:  # noqa: BLE001 - best-effort forensics
+                continue
+            dumps.append({"name": f"follower{j}", **d})
         return dumps
 
     def export_stitched_trace(self, n: int = 16) -> Dict[str, Any]:
         """ONE Chrome trace across every process a request touched:
-        client submit spans and each replica's scheduler/engine spans, on
-        distinct process tracks aligned on the wall clock."""
+        client submit spans, each replica's scheduler/engine spans and
+        each gang follower's engine spans, on distinct process tracks
+        aligned on the wall clock."""
         from ray_lightning_tpu_torch.obs.trace import merge_chrome_trace
 
         return merge_chrome_trace(self.trace_dumps(n))
@@ -1854,13 +1934,20 @@ class ServeClient:
             retired = set(self._retired)
             prespawned = list(self._prespawned.items())
             self._prespawned = {}
+            followers = list(zip(self._followers, self._follower_replica))
         for i, r in enumerate(replicas):
             if r is None or i in retired:
                 continue  # scale-down tombstones are already gone
             _drain("replica", i, r)
+        # After their leaders, whose stop sent them the drain sentinel.
+        for f, i in followers:
+            if i not in retired:
+                _drain("follower", i, f)
         # Unconsumed grace-window replacements die with the fleet.
-        for i, leader in prespawned:
+        for i, (leader, gang) in prespawned:
             _drain("replica", i, leader)
+            for f in gang:
+                _drain("follower", i, f)
         if self._pg is not None:
             try:
                 fabric.remove_placement_group(self._pg)
@@ -1972,18 +2059,41 @@ def start_replicas(
     inbox and peer wiring), and ``fresh_capacity=True`` spawns outside
     the reservation (a preemption's pre-spawn, an autoscaled replica).
 
-    Refused, naming its ROADMAP queue 1 item: ``hosts_per_replica > 1``
-    (item 11b).
+    ``hosts_per_replica > 1`` with ``mesh="MODELxDATA"`` spawns each
+    replica as a tensor-parallel gang: the leader (rank 0, the RPC
+    surface) and ``hosts_per_replica - 1`` ``ServeShardFollower`` ranks,
+    each a fabric actor with its own ``num_gpus_per_replica`` share of a
+    card, joined into one ``torch.distributed`` world at a free port of
+    ``coordinator_host`` (NCCL where each rank owns a whole card, gloo
+    where ranks share one or run on the CPU); the leader streams its
+    engine ops to the followers over one fabric queue each. The whole gang
+    is placed before any constructor returns (every member blocks in the
+    rendezvous until all have joined), and a half-spawned gang is torn
+    down. The port runs one process per card, so ``hosts_per_replica``
+    must equal model x data: anything else is several cards per worker
+    process (ROADMAP queue 1 item 11b) and raises.
     """
+    from ray_lightning_tpu_torch.parallel.mesh import parse_mesh_spec
     from ray_lightning_tpu_torch.serve.kvfleet import ROLES
 
     if num_replicas < 1:
         raise ValueError("num_replicas must be >= 1")
-    if int(hosts_per_replica) != 1:
+    hosts = int(hosts_per_replica)
+    if hosts < 1:
+        raise ValueError("hosts_per_replica must be >= 1")
+    model, data = parse_mesh_spec(replica_kwargs.get("mesh"))
+    if model * data != hosts:
         raise NotImplementedError(
-            f"hosts_per_replica={hosts_per_replica} (multi-host replicas) "
-            "is not ported yet (ROADMAP queue 1 item 11b)"
+            f"hosts_per_replica={hosts} with mesh "
+            f"{replica_kwargs.get('mesh')!r} ({model}x{data} = "
+            f"{model * data} ranks): the port runs one process per card, so "
+            "a gang has exactly model x data ranks; several cards per "
+            "worker process are not ported yet (ROADMAP queue 1 item 11b)"
         )
+    #: The gang's backend: NCCL where each rank owns a whole card (the
+    #: rule of strategies/base.py), gloo on shares of one or the CPU.
+    backend = ("nccl" if str(device).startswith("cuda")
+               and float(num_gpus_per_replica) >= 1.0 else "gloo")
     if roles is None:
         roles_list = ["mixed"] * num_replicas
     elif isinstance(roles, str):
@@ -2027,12 +2137,13 @@ def start_replicas(
     if num_gpus_per_replica:
         bundle["GPU"] = float(num_gpus_per_replica)
     pg = None
-    if num_replicas > 1:
+    if num_replicas * hosts > 1:
         pg = fabric.placement_group(
-            [dict(bundle) for _ in range(num_replicas)],
+            [dict(bundle) for _ in range(num_replicas * hosts)],
             strategy=placement_strategy,
         )
     actor_cls = fabric.remote(ServeReplica)
+    follower_cls = fabric.remote(ServeShardFollower)
 
     def opts_for(
         bundle_index: int, fresh_capacity: bool = False
@@ -2059,6 +2170,8 @@ def start_replicas(
     #: restarted prefill replica comes back a prefill replica, and an
     #: autoscaled index keeps its role across restarts.
     role_by_index: Dict[int, str] = dict(enumerate(roles_list))
+    #: index -> its gang's op queues (one per follower).
+    op_queues: Dict[int, List[Any]] = {}
 
     def spawn_replica(
         i: int, fresh_capacity: bool = False, role: Optional[str] = None
@@ -2068,9 +2181,12 @@ def start_replicas(
         exactly this (``role`` overrides only for a brand-new autoscaled
         index; respawns reuse the recorded role). ``fresh_capacity``
         draws free capacity instead of the replica's placement-group
-        bundle: a preemption's pre-spawn runs while the dying replica
-        still holds its bundle (no headroom fails fast). Returns
-        ``(actor, [])``: no gang followers (item 11b)."""
+        bundles: a preemption's pre-spawn runs while the dying replica
+        still holds them (no headroom fails fast). Returns ``(leader,
+        followers)``: a gang gets a fresh coordinator port and fresh op
+        queues each time, and its members are spawned without waiting for
+        their constructors (each blocks in the rendezvous until all have
+        joined); the caller's ping is the readiness barrier."""
         resolved_role = str(role or role_by_index.get(i, "mixed"))
         role_by_index[i] = resolved_role
         kw = dict(replica_kwargs, device=device, role=resolved_role)
@@ -2085,16 +2201,54 @@ def start_replicas(
                 kvfleet_inflight_mb=float(kvfleet_inflight_mb),
                 kvfleet_bandwidth_mbps=float(kvfleet_bandwidth_mbps),
             )
-        return actor_cls.options(**opts_for(i, fresh_capacity)).remote(
-            **kw), []
+        if hosts == 1:
+            return actor_cls.options(**opts_for(i, fresh_capacity)).remote(
+                **kw), []
+        coordinator = f"{coordinator_host}:{find_free_port(coordinator_host)}"
+        # Held here for the gang's life: a manager queue whose last driver
+        # proxy is collected is gone before a member unpickles its copy.
+        queues = op_queues[i] = [fabric.Queue() for _ in range(hosts - 1)]
+
+        def dist(rank: int) -> Dict[str, Any]:
+            return {"num_hosts": hosts, "host_rank": rank,
+                    "coordinator_address": coordinator, "backend": backend}
+
+        engine_kwargs = {k: v for k, v in kw.items() if k in ENGINE_KEYS}
+        gang: List[Any] = []
+        try:
+            for rank in range(1, hosts):
+                gang.append(follower_cls.options(
+                    lazy_init=True,
+                    **opts_for(i * hosts + rank, fresh_capacity),
+                ).remote(op_queue=queues[rank - 1], dist=dist(rank),
+                         device=device, **engine_kwargs))
+            leader = actor_cls.options(
+                lazy_init=True, **opts_for(i * hosts, fresh_capacity),
+            ).remote(dist=dist(0), gang_queues=queues, **kw)
+        except BaseException:
+            # Followers blocked in a rendezvous their leader will never
+            # join would hold their shares until the store times out.
+            for f in gang:
+                try:
+                    fabric.kill(f)
+                except Exception:  # noqa: BLE001
+                    pass
+            raise
+        return leader, gang
 
     replicas: List[Any] = []
+    followers: List[Any] = []
+    follower_replica: List[int] = []
     try:
         for i in range(num_replicas):
-            replicas.append(spawn_replica(i)[0])
-        fabric.get([r.ping.remote() for r in replicas], timeout=init_timeout)
+            leader, gang = spawn_replica(i)
+            replicas.append(leader)
+            followers.extend(gang)
+            follower_replica.extend([i] * len(gang))
+        fabric.get([_ready(r) for r in replicas + followers],
+                   timeout=init_timeout)
     except BaseException:
-        for r in replicas:
+        for r in replicas + followers:
             try:
                 fabric.kill(r)
             except Exception:  # noqa: BLE001
@@ -2126,6 +2280,8 @@ def start_replicas(
     return ServeClient(
         replicas,
         pg=pg,
+        followers=followers,
+        follower_replica=follower_replica,
         respawn_fn=spawn_replica,
         rpc_timeout_s=rpc_timeout_s,
         init_timeout=init_timeout,

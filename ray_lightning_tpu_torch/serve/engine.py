@@ -119,8 +119,23 @@ fetch, :meth:`cached_prefix_blocks` is the scheduler's probe before it
 asks for one, :meth:`import_prefix_block_layer` stages a layer-wise ship
 (a block is matchable only once its last layer lands), and with
 ``kvstore_dir`` a block that leaves every local tier is written to the
-store instead of dying. What the JAX engine also offers and this port
-does not yet: a device mesh (``mesh``, ROADMAP queue 1 item 11b; raises).
+store instead of dying.
+
+A serving mesh (``mesh``, ``parallel/mesh.py:mesh_from_spec``): PyTorch is
+multi-controller and the port runs one process per card, so a mesh
+engine is a gang. Every rank of the serving world builds the same engine
+on its own slice (``models/gpt.py:gpt_param_slices``): H/m query heads,
+Hkv/m KV heads of the cache, the pool and the pages, d_ff/m MLP columns;
+the model functions all-reduce the out projection's and the MLP's partial
+sums over the ``"model"`` group, so every rank samples the same logits and
+emits the same tokens. The rank that serves drives the others through its
+op stream (``serve/server.py:_GangLeaderEngine``). The prefix tiers spill
+and refill this rank's slice, on per-rank budgets (the disk tier in a
+``rank<N>`` directory of its own). On an NCCL model group the dispatch
+graphs capture the collectives; on gloo (ranks sharing a card, or the
+CPU) the bodies run eagerly, ``graphed`` is False and ``compiled_count``
+stays 0. A split engine's KV plane (export, import, the store) raises:
+a rank holds only its own heads (ROADMAP queue 1 item 11b).
 
 All methods must be driven from one thread (the scheduler loop).
 """
@@ -142,10 +157,12 @@ from ray_lightning_tpu_torch.models.gpt import (
     ChunkRows,
     GPTConfig,
     cast_params,
+    check_decode_mesh,
     compute_dtype,
     first_token,
     gpt_decode_fold,
     gpt_decode_fold_spec,
+    gpt_param_slices,
     gpt_prefill,
     model_propose,
     ngram_propose,
@@ -162,9 +179,14 @@ from ray_lightning_tpu_torch.utils.graphs import Program, pinned_copy
 
 #: Constructor options of the JAX engine that the port does not run yet:
 #: name -> (the JAX default, which the port accepts, and the ROADMAP item).
-_UNPORTED: Dict[str, Tuple[Any, str]] = {
-    "mesh": (None, "queue 1 item 11b (mesh serving)"),
-}
+#: Every option is ported.
+_UNPORTED: Dict[str, Tuple[Any, str]] = {}
+
+#: What a split engine refuses: its KV plane would move partial blocks.
+_GANG_KV = ("a tensor-parallel gang's KV plane ({what}) is not ported yet: "
+            "each rank holds only its own heads of every block (ROADMAP "
+            "queue 1 item 11b); serve the fleet KV plane and the store on "
+            "unsplit replicas")
 
 #: The tiers of the prefix cache, warmest first.
 TIERS = ("device", "host", "disk")
@@ -307,6 +329,7 @@ class DecodeEngine:
         spec_params: Optional[Dict[str, Any]] = None,
         spec_config: Optional[GPTConfig | Dict[str, Any]] = None,
         spec_window: int = 32,
+        mesh: Any = None,
         device: Any = "cuda",
         _graphs: bool = True,
         **options: Any,
@@ -325,7 +348,15 @@ class DecodeEngine:
         if isinstance(config, dict):
             config = GPTConfig(**config)
         config.validate_variants()
+        # Before anything is allocated: a mesh that cannot split this
+        # config's heads rejects now.
+        if mesh is not None:
+            check_decode_mesh(config, mesh)
         self.cfg = config
+        self.mesh = mesh
+        #: The model group this rank all-reduces over (None: whole heads).
+        self._tp = mesh.group("model") if mesh is not None else None
+        self._model = int(mesh.shape["model"]) if mesh is not None else 1
         self.device = resolve_device(device)
         self.num_slots = int(num_slots)
         if self.num_slots < 1:
@@ -454,11 +485,17 @@ class DecodeEngine:
                 "prefix tiers (prefix_host_mb / prefix_disk_dir) need a "
                 "device prefix pool (prefix_blocks > 0) to spill from"
             )
+        if kvstore_dir and self._tp is not None:
+            raise NotImplementedError(_GANG_KV.format(what="the KV object "
+                                                      "store"))
         self._check_spec(spec, spec_depth, spec_params, spec_config, spec_window)
         # The compute-dtype copy of the weights, made once here (see
         # models/gpt.py:cast_params): the JAX engine casts inside its
         # compiled step, where XLA fuses the cast into the matmul.
-        self.params = cast_params(params_to(params, self.device), config)
+        # Under a mesh this rank's slices, cut before they move.
+        self.params = cast_params(
+            params_to(gpt_param_slices(params, config, mesh), self.device),
+            config)
         self._spec_params = (
             cast_params(params_to(spec_params, self.device), self._spec_cfg)
             if self.spec == "model"
@@ -471,7 +508,9 @@ class DecodeEngine:
         self.spec_emitted_tokens = 0
 
         cdt = compute_dtype(config)
-        L, Hkv, hd = config.n_layer, config.kv_head, config.head_dim
+        # This rank's KV heads: Hkv/m under a model split.
+        L, hd = config.n_layer, config.head_dim
+        Hkv = config.kv_head // self._model
         B, S = self.num_slots, self.max_seq
         dev = self.device
         if self.paged:
@@ -517,6 +556,11 @@ class DecodeEngine:
         # -- spill tiers (host RAM, then disk) ---------------------------
         # Budgets hold on logical block bytes (one K + one V block).
         self._blk_shape = (L, 1, self.prefix_block, Hkv, hd)
+        #: Where this rank's block sits in the whole block, per dim (the
+        #: disk files' ``keys``): its heads' range under a model split.
+        h0 = (mesh.coords["model"] * Hkv) if mesh is not None else 0
+        self._blk_keys = [(0, n) for n in self._blk_shape]
+        self._blk_keys[3] = (h0, h0 + Hkv)
         self._blk_dtype = cdt
         self._blk_nbytes = (
             2 * int(np.prod(self._blk_shape)) * cdt.itemsize
@@ -534,8 +578,15 @@ class DecodeEngine:
         #: ``prefix_disk_dir`` as ``<digest-hex>.{keys,k,v}.npy``.
         self._disk_map: "OrderedDict[bytes, int]" = OrderedDict()
         self._disk_bytes = 0
+        #: The disk tier's directory: a gang's ranks hold different slices
+        #: of a digest's block, so each writes under its own.
+        self._disk_dir = (
+            os.path.join(self.prefix_disk_dir, f"rank{mesh.rank}")
+            if self.prefix_disk_dir and mesh is not None
+            else self.prefix_disk_dir
+        )
         if self._disk_budget:
-            os.makedirs(self.prefix_disk_dir, exist_ok=True)
+            os.makedirs(self._disk_dir, exist_ok=True)
             self._disk_prune_stale()
         #: Cumulative per-tier accounting (the scheduler diffs these into
         #: ServeMetrics): hits/misses are digest-walk probes; spills are
@@ -745,24 +796,42 @@ class DecodeEngine:
 
     @property
     def mesh_desc(self) -> str:
-        """``"MODELxDATA"`` of the serve mesh: one card, ``"1x1"``."""
-        return "1x1"
+        """``"MODELxDATA"`` of the serve mesh; ``"1x1"`` on one card."""
+        if self.mesh is None:
+            return "1x1"
+        return f"{self.mesh.shape['model']}x{self.mesh.shape['data']}"
+
+    @property
+    def kv_handoff(self) -> bool:
+        """Whether this engine's prefix blocks can leave it (export,
+        import, the store): not on a model split, where a rank holds only
+        its own heads of a block."""
+        return self._tp is None
+
+    def _check_kv_handoff(self, what: str) -> None:
+        if not self.kv_handoff and self.prefix_blocks:
+            raise NotImplementedError(_GANG_KV.format(what=what))
 
     def memory_stats(self) -> Dict[str, Dict[str, int]]:
         """Resident device-state footprint by component (the JAX engine's
-        ``memory_stats``): ``bytes`` and ``per_device_bytes``, equal on one
-        card. The paged engine's page pool reports under ``prefix_pool``
+        ``memory_stats``): logical ``bytes`` and ``per_device_bytes``, what
+        this rank holds. The KV cache and the prefix pool split their heads
+        over the mesh's model axis, so this rank's bytes are 1/model of
+        the whole; the token history and the page table are whole on every
+        rank. The paged engine's page pool reports under ``prefix_pool``
         (``kv_cache`` reads 0) and its table under ``page_table``.
         Metadata only: reads tensor sizes, never values."""
 
-        def row(*ts: Optional[torch.Tensor]) -> Dict[str, int]:
-            total = sum(t.numel() * t.element_size() for t in ts
-                        if t is not None)
-            return {"bytes": total, "per_device_bytes": total}
+        def row(*ts: Optional[torch.Tensor], split: bool = False
+                ) -> Dict[str, int]:
+            mine = sum(t.numel() * t.element_size() for t in ts
+                       if t is not None)
+            return {"bytes": mine * (self._model if split else 1),
+                    "per_device_bytes": mine}
 
         out = {
-            "kv_cache": row(self._k, self._v),
-            "prefix_pool": row(self._pool_k, self._pool_v),
+            "kv_cache": row(self._k, self._v, split=True),
+            "prefix_pool": row(self._pool_k, self._pool_v, split=True),
             "token_history": row(self._hist),
         }
         if self.paged:
@@ -1422,7 +1491,7 @@ class DecodeEngine:
     def _disk_paths(self, digest: bytes) -> Tuple[str, str, str]:
         hexd = digest.hex()
         return tuple(
-            os.path.join(self.prefix_disk_dir, f"{hexd}.{part}.npy")
+            os.path.join(self._disk_dir, f"{hexd}.{part}.npy")
             for part in ("keys", "k", "v")
         )
 
@@ -1430,10 +1499,10 @@ class DecodeEngine:
         """Start the disk tier empty: block files left by an earlier engine
         are removed, not adopted, so pool decisions depend on the op
         stream alone."""
-        for name in os.listdir(self.prefix_disk_dir):
+        for name in os.listdir(self._disk_dir):
             if name.endswith((".keys.npy", ".k.npy", ".v.npy")):
                 try:
-                    os.remove(os.path.join(self.prefix_disk_dir, name))
+                    os.remove(os.path.join(self._disk_dir, name))
                 except OSError:
                     pass
 
@@ -1444,7 +1513,8 @@ class DecodeEngine:
         oldest entries drop first, and the tier is never over budget.
 
         The JAX engine's file form: ``keys`` (1, 5, 2) int64, the block's
-        (start, stop) per dim, and K and V as (1, L, 1, block, Hkv,
+        (start, stop) per dim (this rank's heads under a model split: one
+        shard of the JAX form), and K and V as (1, L, 1, block, Hkv,
         hd * itemsize) uint8, the bytes of the compute dtype (numpy has no
         bfloat16; the load views them back)."""
         if not self._disk_budget:
@@ -1452,7 +1522,7 @@ class DecodeEngine:
         if digest in self._disk_map:
             self._disk_map.move_to_end(digest)
             return
-        keys = np.asarray([[(0, n) for n in self._blk_shape]], np.int64)
+        keys = np.asarray([self._blk_keys], np.int64)
         parts = [t[None].contiguous().view(torch.uint8).numpy() for t in (k, v)]
         size = 0
         paths = self._disk_paths(digest)
@@ -1659,6 +1729,7 @@ class DecodeEngine:
         """Serialize a digest chain (the wire form of
         :meth:`export_prefix_blocks`, addressed by digests): chain order,
         stopping at the first digest no tier holds."""
+        self._check_kv_handoff("export")
         if not self.prefix_blocks:
             return []
         out: List[Tuple[str, torch.Tensor, torch.Tensor]] = []
@@ -1703,6 +1774,7 @@ class DecodeEngine:
         are plain copies into the pool's buffers, queued on the stream
         behind any fold in flight: no graph, no wait for the card. Returns
         the blocks accepted."""
+        self._check_kv_handoff("import")
         if not self.prefix_blocks:
             return 0
         accepted = 0
@@ -1762,6 +1834,7 @@ class DecodeEngine:
         capture would add pool memory and nothing else, and the graph
         plan (``dispatch_plan``, ``compiled_count``) stays the one the
         dispatches need."""
+        self._check_kv_handoff("layer-wise import")
         if not self.prefix_blocks:
             return False
         d = bytes.fromhex(hexd)
@@ -2131,8 +2204,19 @@ class DecodeEngine:
         the slot state the captures' warm-up runs wrote is reset.
         ``compiled_count`` is the number of graphs, ``capture_s`` their
         capture seconds and ``graph_bytes`` the device memory the pool
-        reserved."""
-        capture = graphs and self.device.type == "cuda"
+        reserved. A model split captures only on an NCCL group, after one
+        all-reduce on it (an NCCL communicator must have run a collective
+        before a graph can capture one); on gloo, whose collectives stage
+        through the host, the bodies run eagerly and :attr:`graphed` says
+        so."""
+        capture = graphs and self.device.type == "cuda" and (
+            self._tp is None or self.mesh.backend == "nccl")
+        if capture and self._tp is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(torch.ones(1, device=self.device), group=self._tp)
+        #: Whether the dispatches replay CUDA graphs.
+        self.graphed = capture
         pool = torch.cuda.graph_pool_handle() if capture else None
         t0 = time.monotonic()
         reserved = self._reserved() if capture else 0
@@ -2190,14 +2274,14 @@ class DecodeEngine:
         if self.spec == "off":
             out = gpt_decode_fold(
                 self.params, self.cfg, *self._state(), *caches, fold=k,
-                sampling=sampling, piggyback=pb, **paging,
+                sampling=sampling, piggyback=pb, mesh=self.mesh, **paging,
             )
             new = out[2:7]
         else:
             out = gpt_decode_fold_spec(
                 self.params, self.cfg, *self._state(), self._hist, *caches,
                 fold=k, depth=self.spec_depth, draft_fn=self._draft,
-                sampling=sampling, piggyback=pb, **paging,
+                sampling=sampling, piggyback=pb, mesh=self.mesh, **paging,
             )
             new = out[2:8]
             self._hist.copy_(out[7])
@@ -2220,7 +2304,7 @@ class DecodeEngine:
             self.params, self.cfg, self._chunk_rows[cb], self._cur,
             self._pos, self._ctrs, self._active, self._remaining, self._temps,
             self._top_ks, self._top_ps, self._seeds, *caches, hist=self._hist,
-            **paging,
+            mesh=self.mesh, **paging,
         )
         self._tok_out.copy_(tok)
 
@@ -2231,7 +2315,8 @@ class DecodeEngine:
         prompt = self._admit_prompt[:, :pb]
         ints, floats = self._admit_ints, self._admit_floats
         slot, P = ints[0:1], ints[1:2]
-        h, pf_k, pf_v = gpt_prefill(self.params, self.cfg, prompt)
+        h, pf_k, pf_v = gpt_prefill(self.params, self.cfg, prompt,
+                                    mesh=self.mesh)
         self._k[:, slot, :pb] = pf_k
         self._v[:, slot, :pb] = pf_v
         self._temps.index_copy_(0, slot, floats[0:1])
@@ -2248,7 +2333,7 @@ class DecodeEngine:
         h_last = h.index_select(1, (P - 1).clamp(min=0))
         tok = first_token(
             self.params, self.cfg, h_last, floats[0:1], ints[2:3],
-            floats[1:2], ints[5:6], torch.zeros_like(slot),
+            floats[1:2], ints[5:6], torch.zeros_like(slot), mesh=self.mesh,
         )
         n_new, eos = ints[4:5], ints[3:4]
         self._cur.index_copy_(0, slot, tok)

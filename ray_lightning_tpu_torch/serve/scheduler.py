@@ -661,7 +661,10 @@ class Scheduler:
             # A drain's cancel looks like any other cancel to a replay.
             for req in migrate:
                 self.journal.record_cancel(req.request_id, True)
-        export = getattr(self.engine, "prefix_blocks", 0) > 0
+        # A tensor-parallel gang's ranks hold only their own heads of a
+        # block: its migrants resubmit cold (engine ``kv_handoff``).
+        export = (getattr(self.engine, "prefix_blocks", 0) > 0
+                  and getattr(self.engine, "kv_handoff", True))
         plan = {
             "budget_s": budget,
             "finish": finish,

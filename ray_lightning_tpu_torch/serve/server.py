@@ -17,13 +17,23 @@ fabric connection. Fleets are spawned through
 fleet KV plane (``serve/kvfleet.py``: peer fetches and disaggregated
 ships), and with ``kvstore_dir`` its engine writes to and reads from the
 KV object store (``serve/kvstore.py``; ``park_session`` parks a
-conversation there). The multi-host gang (``mesh``, ``dist``,
-``gang_queues``: ROADMAP queue 1 item 11b) and the profiler RPC (item 14)
-are not ported: their options raise unless left at the JAX defaults.
+conversation there).
+
+A tensor-parallel replica is a gang of rank processes (``mesh``
+``"MODELxDATA"``, ``dist``, ``gang_queues``; spawned by
+``start_replicas(hosts_per_replica=N)``): the leader is a
+:class:`ServeReplica` whose scheduler drives a :class:`_GangLeaderEngine`,
+which ships every device-mutating engine call to the
+:class:`ServeShardFollower` ranks before running it; each rank runs the
+same engine on its slice of the heads, and the collectives inside the
+model functions keep them in step. The profiler RPC (ROADMAP queue 1
+item 14) is not ported.
 """
 from __future__ import annotations
 
+import hashlib
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -62,7 +72,9 @@ def load_serve_params(
 
 #: Engine-facing construction kwargs (the JAX package's set): what a
 #: journal header's engine section and a replica's config carry into
-#: :func:`build_engine`.
+#: :func:`build_engine`, and what a gang follower builds its engine from.
+#: ``kvstore_dir``/``kvstore_mb`` are leader-only, as in the JAX package:
+#: followers run no store (a split gang refuses one anyway).
 ENGINE_KEYS = frozenset((
     "ckpt_path", "model_config", "params", "int8", "num_slots", "max_seq",
     "prefill_buckets", "decode_fold", "pipeline", "prefill_chunk",
@@ -113,8 +125,12 @@ def build_engine(
     KV object store, namespaced by ``kvstore_namespace`` or else by the raw
     (``ckpt_path``, ``model_config``) pair, so the driver and every
     replica derive the same namespace without loading the checkpoint.
-    ``mesh`` other than None or ``"1x1"`` raises (ROADMAP queue 1 item
-    11)."""
+    ``mesh`` is a ``"MODELxDATA"`` spec (``parallel/mesh.py:
+    mesh_from_spec``): None or ``"1x1"`` is the one-card engine; anything
+    larger needs this process joined to a world of exactly model x data
+    ranks (:func:`_setup_gang_rendezvous`), every rank of which builds the
+    same engine from the same checkpoint and keeps its slice."""
+    from ray_lightning_tpu_torch.parallel.mesh import mesh_from_spec
     from ray_lightning_tpu_torch.serve.engine import DecodeEngine
     from ray_lightning_tpu_torch.serve.kvstore import (
         kvstore_namespace as _kvstore_namespace,
@@ -122,11 +138,7 @@ def build_engine(
 
     device = resolve_device(device)
     t_load = time.perf_counter()
-    if mesh not in (None, "1x1"):
-        raise NotImplementedError(
-            f"build_engine mesh={mesh!r} is not ported yet (ROADMAP queue 1 "
-            "item 11b, mesh serving); serve on one card (mesh None or '1x1')"
-        )
+    serve_mesh = mesh_from_spec(mesh)
     if params is None:
         if ckpt_path is None:
             raise ValueError("need ckpt_path or params")
@@ -184,6 +196,7 @@ def build_engine(
         spec_window=spec_window,
         piggyback_chunks=piggyback_chunks,
         fold_ladder=fold_ladder,
+        mesh=serve_mesh,
         device=device,
     )
     #: Seconds the checkpoint took to read (and quantize), before the
@@ -192,13 +205,289 @@ def build_engine(
     return engine
 
 
-#: ServeReplica options of the JAX signature that the port does not run
-#: yet: name -> (the JAX default, which the port accepts, and the ROADMAP
-#: item).
-_REPLICA_UNPORTED: Dict[str, Tuple[Any, str]] = {
-    "dist": (None, "queue 1 item 11b (multi-host serving gangs)"),
-    "gang_queues": (None, "queue 1 item 11b (multi-host serving gangs)"),
-}
+def _setup_gang_rendezvous(dist: Dict[str, Any]) -> None:
+    """Join this process to its gang's world (``dist``: ``num_hosts``,
+    ``host_rank``, ``coordinator_address``, ``backend``): one rank per
+    process, NCCL where each rank owns a whole card and gloo where ranks
+    share one or run on the CPU (``parallel/mesh.py:setup_distributed``).
+    Runs before the engine is built; a gang of one does nothing."""
+    n = int(dist.get("num_hosts", 1))
+    if n <= 1:
+        return
+    from ray_lightning_tpu_torch.parallel.env import DistEnv
+    from ray_lightning_tpu_torch.parallel.mesh import setup_distributed
+
+    setup_distributed(
+        DistEnv(world_size=n, num_hosts=n,
+                host_rank=int(dist.get("host_rank", 0)),
+                coordinator_address=dist.get("coordinator_address"),
+                backend=str(dist.get("backend") or "gloo")),
+        timeout_s=dist.get("timeout_s"),
+    )
+
+
+class _TokenLog:
+    """What a gang member's engine emitted, in call order: a running
+    SHA-256 over every (request id, token) the recorded calls returned, and
+    their counts. The leader's proxy and each follower record their own
+    engine's results of the same op stream, so equal digests mean the
+    ranks emitted the same tokens in the same order."""
+
+    def __init__(self) -> None:
+        self._hash = hashlib.sha256()
+        self.ops = 0
+        self.tokens = 0
+        self._rids: set = set()
+
+    def _add(self, rid: Any, tok: Any) -> None:
+        if rid is None or tok is None:
+            return
+        self._rids.add(rid)
+        self.tokens += 1
+        self._hash.update(f"{rid}:{int(tok)};".encode())
+
+    def record(self, name: str, args: tuple, kwargs: dict, out: Any) -> None:
+        if name in _GANG_OPS:
+            self.ops += 1
+        if name == "admit":
+            self._add(kwargs.get("request_id"), out[1])
+        elif name == "admit_many":
+            reqs = kwargs.get("requests", args[0] if args else [])
+            for req, (_, tok, _) in zip(reqs, out):
+                self._add(req.get("request_id"), tok)
+        elif name in ("prefill_step", "pop_chunk_events"):
+            for _, task, tok, _ in out:
+                self._add(task.request_id, tok)
+        elif name == "step":
+            for _, rid, tok, _ in out:
+                self._add(rid, tok)
+
+    def digest(self) -> Dict[str, Any]:
+        return {"ops": self.ops, "requests": len(self._rids),
+                "tokens": self.tokens, "sha256": self._hash.hexdigest()}
+
+
+#: The engine calls that move device state (or, for the exports, run the
+#: pool reads every rank must run alike): a gang leader ships each to its
+#: followers before running it (JAX ``serve/server.py:228-318``).
+_GANG_OPS = ("admit", "admit_many", "prefill_step", "step", "release",
+             "import_prefix_blocks", "export_blocks_by_digest",
+             "export_prefix_blocks", "evict_prefix_chain")
+#: Of those, the KV plane's: a split gang refuses them before any rank
+#: runs them.
+_GANG_KV_OPS = ("import_prefix_blocks", "export_blocks_by_digest",
+                "export_prefix_blocks")
+
+
+class _GangLeaderEngine:
+    """Leader-side engine proxy of a tensor-parallel serving gang.
+
+    Every rank must issue the same sequence of engine calls: the model
+    functions' collectives pair up across the ranks only then. The
+    scheduler mutates the engine through :data:`_GANG_OPS`; the leader
+    ships each call's name and arguments to every follower's queue BEFORE
+    running it, and the followers replay the stream on engines built the
+    same way. Host bookkeeping (slot choice, the prefix pool's walk and
+    LRU, the fold ladder, the piggyback plan) is a function of the op
+    stream and of the tokens, which every rank samples from the same
+    reduced logits, so the gang stays in step without sharing state.
+    Reads delegate without broadcasting, and so do attribute writes (the
+    scheduler's ``tracer`` and ``events`` land on the engine). ``log``
+    records what the leader's engine emitted (:class:`_TokenLog`)."""
+
+    _OWN = ("_engine", "_queues", "log")
+
+    def __init__(self, engine: Any, queues: Sequence[Any]) -> None:
+        object.__setattr__(self, "_engine", engine)
+        object.__setattr__(self, "_queues", list(queues))
+        object.__setattr__(self, "log", _TokenLog())
+
+    def __getattr__(self, name: str) -> Any:
+        if name in _GANG_OPS:
+            return lambda *a, **kw: self._call(name, a, kw)
+        return getattr(self._engine, name)
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name in self._OWN:
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self._engine, name, value)
+
+    def _broadcast(self, name: str, args: tuple, kwargs: dict) -> None:
+        for q in self._queues:
+            q.put((name, args, kwargs))
+
+    def _call(self, name: str, args: tuple, kwargs: dict) -> Any:
+        if name in _GANG_KV_OPS:
+            # Refused on the leader alone, before a follower sees it.
+            self._engine._check_kv_handoff(name)
+        self._broadcast(name, args, kwargs)
+        out = getattr(self._engine, name)(*args, **kwargs)
+        self.log.record(name, args, kwargs, out)
+        return out
+
+    def pop_chunk_events(self) -> Any:
+        out = self._engine.pop_chunk_events()
+        self.log.record("pop_chunk_events", (), {}, out)
+        return out
+
+    def close(self) -> None:
+        """End-of-life sentinel: followers drain and exit their loops."""
+        for q in self._queues:
+            try:
+                q.put(None)
+            except Exception:  # noqa: BLE001 - best-effort drain
+                pass
+
+
+def _collectives() -> Dict[str, Any]:
+    """This process's model-group all-reduces and their gloo seconds
+    (``parallel/tp.py:collective_stats``)."""
+    from ray_lightning_tpu_torch.parallel.tp import collective_stats
+
+    return {"calls": collective_stats.calls,
+            "seconds": collective_stats.seconds}
+
+
+class ServeShardFollower:
+    """A rank > 0 member of a tensor-parallel serving gang (a fabric
+    actor; JAX ``serve/server.py:320-424``).
+
+    Joins the gang's world (:func:`_setup_gang_rendezvous`), builds the
+    same engine as the leader (:func:`build_engine` on the
+    :data:`ENGINE_KEYS` of the leader's kwargs; the KV store stays the
+    leader's), and replays the leader's op stream on a daemon thread, so
+    every rank runs the same dispatches and collectives. It takes no
+    requests: traffic enters through the leader. The replayed calls carry
+    the request ids, so the engine's spans land on this process's tracer
+    under the leader's ids (:meth:`trace_dump`). A call that fails leaves
+    the gang unable to pair its collectives: the loop stops loud (stderr,
+    ``stats()["error"]``)."""
+
+    def __init__(
+        self,
+        op_queue: Any,
+        dist: Optional[Dict[str, Any]] = None,
+        faults: Any = None,
+        device: Any = "cuda",
+        **engine_kwargs: Any,
+    ) -> None:
+        t_init = time.time()
+        from ray_lightning_tpu_torch.obs.trace import RequestTracer
+        from ray_lightning_tpu_torch.serve.faults import FaultInjector
+
+        self._startup: Dict[str, Any] = {
+            "worker_t0": float(os.environ.get("RLT_WORKER_T0") or "nan"),
+            "init_t0": t_init,
+            "imports_end": time.time(),
+        }
+        # The follower_op point wedges (or preempts) this op loop.
+        self.faults = (
+            FaultInjector.parse(faults) or FaultInjector.from_env()
+        )
+        self._dist = dict(dist or {})
+        _setup_gang_rendezvous(self._dist)
+        self.engine = build_engine(
+            device=device,
+            **{k: v for k, v in engine_kwargs.items() if k in ENGINE_KEYS},
+        )
+        self.device = self.engine.device
+        if self.device.type == "cuda" and self.device.index is None:
+            import torch
+
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.tracer = RequestTracer(capacity=4096)
+        self.engine.tracer = self.tracer
+        self.log = _TokenLog()
+        self.error: Optional[str] = None
+        self._queue = op_queue
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name="serve-shard-follower", daemon=True
+        )
+        self._thread.start()
+        self._startup["init_end"] = time.time()
+
+    def _loop(self) -> None:
+        import queue as _q
+
+        if self.device.type == "cuda":
+            import torch
+
+            torch.cuda.set_device(self.device)
+        while not self._stop.is_set():
+            try:
+                op = self._queue.get(timeout=0.25)
+            except (_q.Empty, EOFError, BrokenPipeError, ConnectionError):
+                continue
+            if op is None:
+                break
+            name, args, kwargs = op
+            if self.faults is not None:
+                self.faults.hit("follower_op")
+            try:
+                out = getattr(self.engine, name)(*args, **kwargs)
+                self.log.record(name, args, kwargs, out)
+                if name == "step":
+                    # The leader's scheduler pops these after each step.
+                    self.log.record("pop_chunk_events", (), {},
+                                    self.engine.pop_chunk_events())
+            except Exception as exc:  # noqa: BLE001 - the gang is broken
+                self.error = f"{name}: {type(exc).__name__}: {exc}"
+                print(f"serve shard follower desync on {self.error}",
+                      file=sys.stderr, flush=True)
+                break
+
+    def ping(self) -> str:
+        return "ok"
+
+    def stats(self) -> Dict[str, Any]:
+        """This rank's kernel counters, memory, mesh, graphs, the ops it
+        replayed, its start-up and its loop's error (None while it runs)."""
+        eng = self.engine
+        return {
+            "kernels": _kernel_counts(),
+            "collectives": _collectives(),
+            "memory": eng.memory_stats(),
+            "mesh": eng.mesh_desc,
+            "graphed": eng.graphed,
+            "compiled_count": eng.compiled_count,
+            "backend": None if eng.mesh is None else eng.mesh.backend,
+            "ops": self.log.ops,
+            "startup": dict(self._startup),
+            "error": self.error,
+            "alive": self._thread.is_alive(),
+        }
+
+    def token_digest(self) -> Dict[str, Any]:
+        """The digest of the tokens this rank's engine emitted
+        (:class:`_TokenLog`)."""
+        return self.log.digest()
+
+    def trace_dump(self, n: int = 16) -> Dict[str, Any]:
+        """This follower's trace ring in the stitching wire form."""
+        return self.tracer.dump(n)
+
+    def inject_fault(self, plan: Any) -> list:
+        """Arm (or disarm with None) a fault plan on this live follower:
+        how a test preempts or wedges ONE member of a gang. Replaces any
+        previous plan; returns the armed rules."""
+        from ray_lightning_tpu_torch.serve.faults import FaultInjector
+
+        inj = FaultInjector.parse(plan)
+        self.faults = inj
+        return [] if inj is None else inj.describe()
+
+    def preempt_state(self) -> Dict[str, Any]:
+        """This follower's preemption-monitor state (what its fabric
+        heartbeats carry)."""
+        from ray_lightning_tpu_torch.serve.preempt import peek_state
+
+        return peek_state() or {"pending": False}
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=10.0)
 
 
 def _kernel_counts() -> Dict[str, Any]:
@@ -230,6 +519,14 @@ class ServeReplica:
     counters. With the fleet KV plane on, ``stats()`` carries its
     ``kvfleet`` block, and with a store its ``kvstore`` block (whose write
     and drop rings feed the router's directory).
+
+    ``mesh`` (``"MODELxDATA"``) with ``dist`` (this rank's place in the
+    gang, :func:`_setup_gang_rendezvous`) and ``gang_queues`` (one op queue
+    per follower) makes this process the leader of a tensor-parallel gang
+    (``start_replicas(hosts_per_replica=N)``): its scheduler drives a
+    :class:`_GangLeaderEngine`. ``stats()`` carries ``mesh``,
+    ``gang_hosts``, ``graphed`` and the backend; the KV plane and the
+    store are refused on a split gang (ROADMAP queue 1 item 11b).
     """
 
     def __init__(
@@ -312,13 +609,6 @@ class ServeReplica:
         from ray_lightning_tpu_torch.ops import _build
         from ray_lightning_tpu_torch.utils.graphs import capture_stats
 
-        given = locals()
-        for name, (default, item) in _REPLICA_UNPORTED.items():
-            if given[name] != default:
-                raise NotImplementedError(
-                    f"ServeReplica option {name}={given[name]!r} is not "
-                    f"ported yet (ROADMAP {item})"
-                )
         # Where this replica's start-up goes (``stats()["startup"]``): the
         # interpreter (the fabric worker stamps RLT_WORKER_T0), the imports
         # that unpickling this class and the lines above ran, the CUDA
@@ -333,6 +623,12 @@ class ServeReplica:
         if resolve_device(device).type == "cuda":
             torch.zeros(1, device=device)
         startup["cuda_context_s"] = time.perf_counter() - t
+        # A gang's leader joins the gang's world before its engine (whose
+        # mesh is built over that world) exists.
+        self._dist = dict(dist or {})
+        t = time.perf_counter()
+        _setup_gang_rendezvous(self._dist)
+        startup["rendezvous_s"] = time.perf_counter() - t
         t = time.perf_counter()
         self.engine = build_engine(
             ckpt_path=ckpt_path,
@@ -384,6 +680,19 @@ class ServeReplica:
             # again before its first replay.
             torch.cuda.set_device(self.device)
         self.int8 = bool(int8)
+        # A gang: the scheduler drives the proxy that ships every device-
+        # mutating call to the followers before running it here; reads,
+        # stats and RPCs use the engine itself.
+        self._gang: Optional[_GangLeaderEngine] = (
+            _GangLeaderEngine(self.engine, gang_queues)
+            if gang_queues else None
+        )
+        if (kv_inbox is not None or role != "mixed") and (
+                not self.engine.kv_handoff):
+            from ray_lightning_tpu_torch.serve.engine import _GANG_KV
+
+            raise NotImplementedError(_GANG_KV.format(what="the fleet KV "
+                                                      "plane"))
         # The fleet KV role. A prefill replica ships each finished
         # prefill's blocks, which only a prefix pool holds.
         self.role = str(role)
@@ -508,7 +817,7 @@ class ServeReplica:
                 store=self.engine.kvstore,
             )
         self.scheduler = Scheduler(
-            self.engine,
+            self._gang if self._gang is not None else self.engine,
             metrics=self.metrics,
             max_prefills_per_step=max_prefills_per_step,
             max_prefill_chunks_per_step=max_prefill_chunks_per_step,
@@ -540,6 +849,7 @@ class ServeReplica:
             "spec_depth": self.engine.spec_depth,
             "int8": self.int8,
             "mesh": self.engine.mesh_desc,
+            "gang_hosts": int(self._dist.get("num_hosts", 1)),
             "role": self.role,
             "kvfleet": self.kvfleet is not None,
             "kvfleet_layerwise": bool(kvfleet_layerwise),
@@ -798,6 +1108,7 @@ class ServeReplica:
                 "capture_s": self.engine.capture_s,
                 "graph_bytes": self.engine.graph_bytes,
                 "kernels": _kernel_counts(),
+                "collectives": _collectives(),
                 "startup": dict(self._startup),
                 "device": str(self.device),
                 "max_seq": self.engine.max_seq,
@@ -811,6 +1122,10 @@ class ServeReplica:
                 "kv_pages_total": self.engine.kv_pages,
                 "int8": self.int8,
                 "mesh": self.engine.mesh_desc,
+                "gang_hosts": int(self._dist.get("num_hosts", 1)),
+                "graphed": self.engine.graphed,
+                "backend": (None if self.engine.mesh is None
+                            else self.engine.mesh.backend),
                 "memory": self.engine.memory_stats(),
                 "tracing": self.tracer.enabled,
                 "metrics": self._registry.to_dict(),
@@ -946,7 +1261,12 @@ class ServeReplica:
         """Accept a dying peer's exported prefix blocks: queued here,
         imported into the engine pool at the top of the next scheduler
         step (engine mutations stay on the loop thread). Returns blocks
-        queued."""
+        queued. A split gang refuses them here (ROADMAP queue 1 item
+        11b), before its loop thread would."""
+        if blocks and not self.engine.kv_handoff:
+            from ray_lightning_tpu_torch.serve.engine import _GANG_KV
+
+            raise NotImplementedError(_GANG_KV.format(what="import"))
         n = self.scheduler.enqueue_prefix_import(blocks)
         self._work.set()
         return n
@@ -1028,6 +1348,12 @@ class ServeReplica:
         """This replica process's registry in Prometheus text format."""
         return self._registry.render()
 
+    def token_digest(self) -> Optional[Dict[str, Any]]:
+        """A gang leader's digest of the tokens its engine emitted, to hold
+        against each follower's (``ServeShardFollower.token_digest``); None
+        outside a gang."""
+        return None if self._gang is None else self._gang.log.digest()
+
     def profile(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
         raise NotImplementedError(
             "ServeReplica.profile (a torch.profiler capture) is not ported "
@@ -1042,3 +1368,6 @@ class ServeReplica:
         self._stop.set()
         self._work.set()
         self._thread.join(timeout=5.0)
+        if self._gang is not None:
+            # After the loop thread's last call: followers drain and exit.
+            self._gang.close()

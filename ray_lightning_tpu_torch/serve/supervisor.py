@@ -51,10 +51,14 @@ and ``rlt_fleet_replica_state{replica=}`` metrics, ``replica_draining``
 ``replica_restart_giveup`` typed events (``replica_lost`` / ``failover``
 come from the client), and :meth:`rows` — the supervisor table.
 
-Not ported yet, and refused naming their ROADMAP queue 1 item: the
-``poller=`` feed (``obs.fleet.FleetPoller``, item 14) and the gang
-followers' preemption notices, read from their heartbeats (multi-host
-replicas, item 11b; the port's client has no followers).
+A tensor-parallel gang is one replica to the supervisor: the client
+reads each follower's preemption notice from its heartbeat
+(``gang_preempt_state``), which dooms the whole gang (the PREEMPTING path,
+the event's ``member`` is ``follower``), and it respawns, pre-spawns and
+tears down the gang as a unit.
+
+Not ported yet, and refused naming its ROADMAP queue 1 item: the
+``poller=`` feed (``obs.fleet.FleetPoller``, item 14).
 """
 from __future__ import annotations
 
@@ -214,6 +218,16 @@ class FleetSupervisor:
         preempt = rep.get("preempt") if isinstance(rep, dict) else None
         if not (isinstance(preempt, dict) and preempt.get("pending")):
             preempt = None
+            # A gang follower has no RPC surface: its notice rides its
+            # heartbeat, and one preempted member dooms the whole gang.
+            gang_fn = getattr(self.client, "gang_preempt_state", None)
+            if gang_fn is not None:
+                try:
+                    p = gang_fn(idx)
+                except Exception:  # noqa: BLE001 - advisory signal
+                    p = None
+                if isinstance(p, dict) and p.get("pending"):
+                    preempt = dict(p, member="follower")
         return str(rep.get("verdict", HEALTHY)), None, preempt
 
     # -- the loop body -----------------------------------------------------

@@ -324,6 +324,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ray_lightning_tpu_torch.parallel, "
         "ray_lightning_tpu_torch.parallel.env, "
         "ray_lightning_tpu_torch.parallel.mesh, "
+        "ray_lightning_tpu_torch.parallel.tp, "
+        "ray_lightning_tpu_torch.parallel.logical, "
         "ray_lightning_tpu_torch.parallel.zero, "
         "ray_lightning_tpu_torch.utils.rank_zero, "
         "ray_lightning_tpu_torch.utils.seed, "
@@ -334,6 +336,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "[getattr(p, n) for n in p.__all__]; "
         "import ray_lightning_tpu_torch.serve as s; "
         "[getattr(s, n) for n in s.__all__]; "
+        # The serving mesh's lazy imports: a rank's slices and the gang.
+        "from ray_lightning_tpu_torch.parallel.mesh import Mesh, "
+        "parse_mesh_spec, mesh_from_spec; "
+        "from ray_lightning_tpu_torch.models import gpt; "
+        "from ray_lightning_tpu_torch.serve.server import "
+        "ServeShardFollower, _GangLeaderEngine, _setup_gang_rendezvous; "
+        "cfg = gpt.GPTConfig(vocab_size=97, n_layer=1, n_head=4, "
+        "d_model=32, max_seq=16); "
+        "import torch; gpt.gpt_param_slices(gpt.init_gpt_params("
+        "torch.Generator(), cfg), cfg, "
+        "Mesh({'model': 2}, 1, {'model': None}, 'gloo')); "
+        "assert parse_mesh_spec('2x1') == (2, 1) and "
+        "mesh_from_spec('1x1') is None; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'ray_lightning_tpu' or m.startswith('ray_lightning_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -360,6 +375,8 @@ class Probe:
         import ray_lightning_tpu_torch.serve.engine
         import ray_lightning_tpu_torch.serve.kvfleet
         import ray_lightning_tpu_torch.serve.kvstore
+        import ray_lightning_tpu_torch.serve.supervisor
+        import ray_lightning_tpu_torch.parallel.mesh
         import ray_lightning_tpu_torch.obs.health
         return [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "ray_lightning_tpu"

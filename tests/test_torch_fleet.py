@@ -257,8 +257,11 @@ def test_killed_replica_fails_over_bit_exact(fleet, weights):
 
 
 def test_replica_refuses_unported_options(weights, tmp_path):
-    """The gang options (item 11) and the profiler (item 14) still raise
-    naming their item. The fleet KV plane and the KV object store options
+    """The gang options are ported (slice 13): a replica given ``dist``
+    joins its gang's world first (without a coordinator it cannot), and
+    ``mesh`` needs a world of the mesh's ranks, whose error names the fix;
+    the profiler (item 14) still raises naming its item (below). The
+    fleet KV plane and the KV object store options
     (item 9) now build: a replica given an inbox, peers and the plane's
     budgets runs a plane, one given ``kvstore_dir`` a store; a prefill
     role without a prefix pool is refused; without a plane ``ship_to``
@@ -266,12 +269,29 @@ def test_replica_refuses_unported_options(weights, tmp_path):
     import queue
 
     _, params = weights
-    for kw, item in (({"dist": {"num_hosts": 2}}, "item 11"),
-                     ({"gang_queues": [object()]}, "item 11"),
-                     ({"mesh": "2x1"}, "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    for kw, match in (({"dist": {"num_hosts": 2}}, "coordinator address"),
+                      ({"mesh": "2x1"}, "hosts_per_replica=2")):
+        with pytest.raises(ValueError, match=match):
             ServeReplica(params=params, model_config=CFG, device="cpu",
                          watchdog=False, **kw)
+    sent = []
+
+    class _Chan:
+        def put(self, item):
+            sent.append(item)
+
+    gang = ServeReplica(params=params, model_config=CFG, device="cpu",
+                        watchdog=False, gang_queues=[_Chan()])
+    try:
+        assert gang.submit([1, 2, 3], max_new_tokens=2)
+        deadline = time.monotonic() + 30
+        while not any(op and op[0] == "step" for op in sent):
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        assert gang.stats()["gang_hosts"] == 1
+    finally:
+        gang.stop()
+    assert sent[0][0] == "admit_many" and sent[-1] is None
     with pytest.raises(ValueError, match="prefix pool"):
         ServeReplica(params=params, model_config=CFG, device="cpu",
                      watchdog=False, role="prefill")

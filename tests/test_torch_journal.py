@@ -239,7 +239,8 @@ def test_journal_captured_by_jax_replays_exact_in_the_port(weights, tmp_path):
 def test_replay_rejects_bad_timing_missing_header_and_unported_knobs(
         weights, tmp_path):
     """tests/test_journal.py:284, and a header knob the port does not have
-    is refused naming its ROADMAP item, not ignored; the router, kvfleet
+    is refused, not ignored (a mesh header rebuilds only on a world of
+    the mesh's ranks, which this process is not); the router, kvfleet
     and kvstore sections are accepted and surface as ``router_config``,
     ``kvfleet_config`` and ``kvstore_config`` (filtered to their known
     keys, as the JAX package filters them), and an engine section's
@@ -259,12 +260,13 @@ def test_replay_rejects_bad_timing_missing_header_and_unported_knobs(
     eng = DecodeEngine(params, CFG, num_slots=2, max_seq=64,
                        prefill_buckets=[8], device="cpu")
     header = engine_header(eng)
-    for bad, match in (
-        (dict(header, engine=dict(header["engine"], mesh="2x1")), "item 11"),
+    for bad, exc, match in (
+        (dict(header, engine=dict(header["engine"], mesh="2x1")),
+         ValueError, "serving world has 1"),
         (dict(header, engine=dict(header["engine"], no_such_knob=1)),
-         "no_such_knob"),
+         NotImplementedError, "no_such_knob"),
     ):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(exc, match=match):
             build_replay_scheduler(bad, params=params, device="cpu")
     kv_root = str(tmp_path / "kv")
     stored = dict(header, engine=dict(header["engine"], kvstore_dir=kv_root,

@@ -319,9 +319,10 @@ def test_int8_engine_is_bitwise_the_dequantized_engine(weights, kind):
 def test_build_engine_int8_equals_quantize_then_construct(weights, tmp_path):
     """build_engine(int8=True) quantizes at load: the same tokens as an
     engine constructed on quantize_params_int8 of the tree, from explicit
-    params and from a checkpoint; the resident weights shrink; mesh raises
-    naming its ROADMAP item, and ``kvstore_dir`` builds the engine's KV
-    object store in the reference's namespace."""
+    params and from a checkpoint; the resident weights shrink; a mesh
+    larger than one rank needs a world of its ranks (a gang; here there is
+    none, and the error names the fix), and ``kvstore_dir`` builds the
+    engine's KV object store in the reference's namespace."""
     tree, _, t_q, fp = weights
     reqs = _reqs(4)
     kw = dict(num_slots=3, max_seq=64, prefill_buckets=[8, 16],
@@ -337,7 +338,7 @@ def test_build_engine_int8_equals_quantize_then_construct(weights, tmp_path):
     assert _serve(eng2, reqs) == want
     f_eng = build_engine(ckpt_path=ckpt, **kw)
     assert weight_bytes(eng.params) < 0.5 * weight_bytes(f_eng.params)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="hosts_per_replica=2"):
         build_engine(params=fp, model_config=CFG, mesh="2x1", **kw)
     # The KV object store (item 9): the namespace is the given one, else
     # the reference's function of the raw (ckpt_path, model_config).

@@ -858,16 +858,17 @@ def _spawned(monkeypatch, n, **kw):
 
 def test_client_refuses_unported_options(monkeypatch):
     """What belongs to a later slice raises, naming its ROADMAP item (the
-    profiler, multi-host replicas). The fleet KV plane and the KV object
-    store are ported: the client takes roles, KV queues and a store
-    handle, parks a session and seeds the directory, and
+    profiler, several cards per worker process). The fleet KV plane and
+    the KV object store are ported: the client takes roles, KV queues and
+    a store handle, parks a session and seeds the directory, and
     ``start_replicas`` wires every replica's role, inbox, peers and
     budgets (the plane on by default for a cached multi-replica fleet),
     refusing only fleets that cannot serve. The recovery plane is
     ported: ``start_replicas`` retains each index's spawn as the client's
     ``respawn_fn`` (same kwargs, same bundle, same role, same inbox and
     peers; fresh capacity outside the placement group), and an added
-    replica's new inbox reaches every live replica."""
+    replica's new inbox reaches every live replica. So are gangs: the
+    client keeps each replica's followers and respawns them with it."""
     Fake = _fake_cls(PKGS["torch"])
     rep = Fake()
     client, _, _ = _client(PKGS["torch"], [rep])
@@ -883,14 +884,22 @@ def test_client_refuses_unported_options(monkeypatch):
     assert parked == [([1] + Fake.tokens_for([1], 0, 1), "u")]
     assert client.seed_store_directory() == 0  # no store, no router
     assert client.can_respawn() is False
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        t_client.ServeClient([Fake()], followers=[Fake()])
+    # Gangs are ported: a client keeps each replica's followers, a dead
+    # follower dooms its gang, and a respawn swaps the whole gang in.
+    followers = [Fake(), Fake()]
+    fc = t_client.ServeClient([Fake(), Fake()], followers=followers,
+                              follower_replica=[1, 1])
+    assert fc.followers_of(1) == followers and fc.followers_of(0) == []
+    assert fc.replica_is_alive(1)
+    followers[1].dead = True
+    assert not fc.replica_is_alive(1) and fc.replica_is_alive(0)
     assert t_client.ServeClient(
         [Fake()], respawn_fn=lambda i: None).can_respawn() is True
-    gang = t_client.ServeClient([Fake()],
-                                respawn_fn=lambda i: (Fake(), [Fake()]))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        gang.respawn_replica(0)
+    fresh = (Fake(), [Fake()])
+    gang = t_client.ServeClient([Fake()], followers=[Fake()],
+                                respawn_fn=lambda i: fresh)
+    gang.respawn_replica(0)
+    assert gang._actor(0) is fresh[0] and gang.followers_of(0) == fresh[1]
     q, store = object(), object()
     c = t_client.ServeClient([Fake()], kv_queues={0: q}, kvstore=store,
                              roles=["prefill"])
@@ -898,7 +907,9 @@ def test_client_refuses_unported_options(monkeypatch):
                                                        "prefill")
     with pytest.raises(NotImplementedError, match="item 14"):
         t_router.Router(poller=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # A gang's ranks are model x data, one process per card: anything else
+    # is several cards per worker process (item 11b).
+    with pytest.raises(NotImplementedError, match="item 11b"):
         t_client.start_replicas(1, device="cpu", hosts_per_replica=2)
     spawned, _ = _spawned(monkeypatch, 1, roles="decode")
     assert spawned[0]["role"] == "decode" and "kv_inbox" not in spawned[0]

@@ -269,12 +269,29 @@ def test_engine_options_not_ported_raise(weights):
     chunked prefill and prefix cache options (item 3), paged KV (item 4),
     speculative decoding (item 5), piggybacked chunks and the fold ladder
     (item 6), the pipelined dispatch (item 7) and the KV object store
-    (item 9) now construct."""
+    (item 9) and the serving mesh (item 11b) now construct; what is left
+    of item 11b, a split gang's KV plane, raises naming it (the mesh's
+    collectives need a joined world: tests/test_torch_serve_mesh.py)."""
+    from ray_lightning_tpu_torch.parallel.mesh import Mesh
+
     _, params = weights
-    for kw, item in (({"mesh": object()}, 11),):
+    split = Mesh({"model": 2}, 0, {"model": object()}, "gloo")
+    eng = _engine(params, mesh=split, prefix_blocks=4)
+    assert (eng.mesh_desc, eng.kv_handoff, eng.graphed) == ("2x1", False,
+                                                            False)
+    assert eng._pool_k.shape[3] == CFG.kv_head // 2
+    for call in (lambda: eng.export_prefix_blocks(list(range(8))),
+                 lambda: eng.export_blocks_by_digest(["00"]),
+                 lambda: eng.import_prefix_blocks([]),
+                 lambda: eng.import_prefix_block_layer("00", None, None, 0,
+                                                       2)):
         with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 item {item}"):
-            _engine(params, **kw)
+                           match="ROADMAP queue 1 item 11b"):
+            call()
+    with tempfile.TemporaryDirectory() as root:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 11b"):
+            _engine(params, mesh=split, prefix_blocks=4, kvstore_dir=root)
     with tempfile.TemporaryDirectory() as root:
         eng = _engine(params, prefix_blocks=4, kvstore_dir=root,
                       kvstore_mb=1.0, kvstore_namespace="cafe0123cafe0123")

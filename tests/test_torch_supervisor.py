@@ -79,6 +79,8 @@ class _FakeClient:
         self.heartbeat_age = None
         self.respawn_fail = 0  # next N respawns raise
         self.drain_raises = None
+        #: A gang follower's pending notice per replica (its heartbeat).
+        self.gang_preempt = {i: None for i in range(n)}
         self.log = []
 
     @property
@@ -109,6 +111,10 @@ class _FakeClient:
             rep["preempt"] = self.preempt[idx]
         return rep
 
+    def gang_preempt_state(self, idx):
+        self.log.append(("gang_preempt_state", idx))
+        return self.gang_preempt[idx]
+
     def exclude(self, idx):
         self.log.append(("exclude", idx))
 
@@ -130,6 +136,7 @@ class _FakeClient:
         self.alive[idx] = True
         self.verdicts[idx] = "healthy"
         self.preempt[idx] = None
+        self.gang_preempt[idx] = None
 
     def prespawn_replacement(self, idx):
         self.log.append(("prespawn_replacement", idx))
@@ -242,6 +249,12 @@ SUPERVISOR_SCRIPTS = {
         (0.0, lambda f: (_preempt(0, 30.0)(f), _set(routed=(0, 1))(f))),
         (1.0, _set(alive=(0, False))),
     ]),
+    # tests/test_preempt.py::test_supervisor_gang_follower_preempt_drains_the_whole_gang
+    "gang_follower_preempt": dict(steps=[
+        (0.0, _set(gang_preempt=(0, {"pending": True, "remaining_s": 15.0,
+                                     "source": "fault"}))),
+        (1.0, _set(routed=(0, 0))),
+    ]),
     # A failed drain degrades to crash semantics at the deadline.
     "preempt_drain_raises": dict(steps=[
         (0.0, lambda f: (_preempt(1, 2.0)(f), _set(routed=(1, 1))(f),
@@ -276,6 +289,14 @@ def test_supervisor_matches_jax(script):
     if script == "preempt_drain_prespawn_replace":
         assert rec[0]["rows"][0]["state"] == "preempting"
         assert last[0]["state"] == "healthy" and last[0]["restarts"] == 1
+    if script == "gang_follower_preempt":
+        assert [r["state"] for r in rec[0]["rows"]] == ["preempting",
+                                                        "healthy"]
+        assert ("preempt_drain", 0, 15.0) in rec[0]["calls"]
+        (ev,) = [e for e in rec[0]["events"]
+                 if e["name"] == "replica_preempting"]
+        assert ev["member"] == "follower"
+        assert ("respawn_replica", 0) in rec[1]["calls"]
     if script == "retired_is_not_dead":
         assert [r["state"] for r in last] == ["healthy", "retired"]
 
