@@ -298,7 +298,23 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    be back. Prints each rank's start-up, TTFT, tokens/s, ms per step, the
    all-reduces and gloo seconds per fold, the KV bytes per rank, the
    notice-to-swap seconds and the phase's wall.
-18. Print the ``{"kernels": [...]}`` line, the card line, and last
+18. zoo: the model zoo. (a) BERT-base masked-LM pretraining (vocab
+   30522, 12 layers, 12 heads, d_model 768, S=512, bf16) through
+   ``Trainer.fit(BERTEncoder(...))`` for 20 steps of 8 sequences: K1 at
+   every layer of every forward (training and validation), K2 and K3 at
+   every layer of every step, all non-causal, the reference path never;
+   the loss falls; the graphed fit's first 4 losses bitwise those of the
+   same fit with graphs off; ``fill_mask`` keeps every unmasked position
+   and never emits [MASK]. Then BERT's attention call (B=8, S=512, H=12,
+   D=64, bf16, non-causal, q/k/v strided views of the fused projection)
+   is held against the plain versions and timed beside SDPA and the
+   bound. (b) ViT-B/16 at 224 px, 10 steps of 32 images: its 197 rows
+   take the reference attention (12 calls per forward), K1 never. (c)
+   ResNet-18/CIFAR at width 64, fp32, 20 SGD steps of 64 images: no
+   attention call, the loss falls. (b) and (c) hold fp32 logits of 2
+   images within 1e-3 of the CPU forward on the same weights. (d) One
+   epoch each of the XOR and MNIST fixtures: finite metrics.
+19. Print the ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``. Each phase's wall seconds are printed
    as it ends.
 
@@ -749,17 +765,18 @@ def training_bwd_inputs(gen, heads: int = 0):
     return q, k, v, do, out, lse
 
 
-def check_training_call(fa, q, k, v, do, out, lse, scale):
+def check_training_call(fa, q, k, v, do, out, lse, scale, causal=True):
     """K1's out/lse and K2/K3's dq/dk/dv at the training call against the
     plain versions on the same inputs; fails on a miss."""
     import torch
 
     B, S, H, D = q.shape
     atol, rtol = TOL["bfloat16"]
-    ref, ref_lse = fa.flash_attention_plain(q, k, v, True, scale)
-    got = fa._flash_bwd_cuda(q, k, v, out, lse, do, True, scale, 0, 0)
-    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, True, scale, 0, 0)
-    ref_grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
+    mode = "causal" if causal else "non-causal"
+    ref, ref_lse = fa.flash_attention_plain(q, k, v, causal, scale)
+    got = fa._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, 0, 0)
+    again = fa._flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, 0, 0)
+    ref_grads = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                              scale)
     torch.cuda.synchronize()
     # One writer per gradient tile and no atomics: a repeat is bitwise equal.
@@ -778,9 +795,9 @@ def check_training_call(fa, q, k, v, do, out, lse, scale):
         errs[name] = float(err.max())
         if not bool((err <= atol + rtol * b.float().abs()).all()):
             fail(f"{name} disagrees with its plain version at the training "
-                 f"call (B={B}, S={S}, H={H}, D={D}, bf16, causal, strided "
+                 f"call (B={B}, S={S}, H={H}, D={D}, bf16, {mode}, strided "
                  f"q/k/v): max abs err {errs[name]}")
-    print(f"[kernel] training call bf16 causal B={B} S={S} H={H} D={D}, q/k/v "
+    print(f"[kernel] training call bf16 {mode} B={B} S={S} H={H} D={D}, q/k/v "
           f"strides {q.stride()}/{k.stride()}/{v.stride()}: max abs err "
           f"{json.dumps(errs)} tol=({atol}+{rtol}*|ref|, lse {LSE_TOL})")
 
@@ -866,7 +883,8 @@ def phase_bwd_kernels():
     return worst, rows
 
 
-def time_bwd_training_call(fa, q, k, v, do, out, lse, scale) -> dict:
+def time_bwd_training_call(fa, q, k, v, do, out, lse, scale,
+                           causal=True) -> dict:
     """K2 and K3 timed at a training call beside the plain backward and
     the SDPA backward on the same views, with their bounds."""
     import torch
@@ -877,14 +895,14 @@ def time_bwd_training_call(fa, q, k, v, do, out, lse, scale) -> dict:
     dq, dk, dv = (
         torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)
     )
-    args = fa.prepare_bwd(q, k, v, out, lse, do, True, scale, 0, 0)
+    args = fa.prepare_bwd(q, k, v, out, lse, do, causal, scale, 0, 0)
     qt, kt, vt = (
         x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)
     )
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     plain_ms = cuda_ms(
-        lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
+        lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do, causal,
                                              scale), iters=5, warmup=1
     )
     library_ms = cuda_ms(
@@ -898,17 +916,18 @@ def time_bwd_training_call(fa, q, k, v, do, out, lse, scale) -> dict:
         row = {"ms": cuda_ms(fn), "plain_ms": plain_ms,
                "library_ms": library_ms}
         row["bound_ms"], row["bound_by"], flops = bwd_bound(
-            q, True, n_products, n_out
+            q, causal, n_products, n_out
         )
         row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
         rows[name] = row
-        print(f"[kernel] {name} timing bf16 causal B={B} S={S} H={H} D={D}: "
+        mode = "causal" if causal else "non-causal"
+        print(f"[kernel] {name} timing bf16 {mode} B={B} S={S} H={H} D={D}: "
               f"{json.dumps(row)} (plain_ms and library_ms are the whole "
               f"backward: dq, dk and dv)")
     return rows
 
 
-def time_fwd_training_call(fa, q, k, v, out, lse, scale):
+def time_fwd_training_call(fa, q, k, v, out, lse, scale, causal=True):
     """K1 at the training call: a second run must give bitwise-equal
     out/lse (one writer per output tile); then its time beside the plain
     version, the SDPA forward on the same strided views (a yardstick only)
@@ -916,7 +935,7 @@ def time_fwd_training_call(fa, q, k, v, out, lse, scale):
     import torch
     import torch.nn.functional as F
 
-    again = fa._flash_fwd_cuda(q, k, v, True, scale, 0, 0)
+    again = fa._flash_fwd_cuda(q, k, v, causal, scale, 0, 0)
     torch.cuda.synchronize()
     if not (torch.equal(again[0], out) and torch.equal(again[1], lse)):
         fail("flash_fwd out/lse differ between two runs on the same inputs")
@@ -924,20 +943,21 @@ def time_fwd_training_call(fa, q, k, v, out, lse, scale):
     with torch.no_grad():
         row = {
             "ms": cuda_ms(
-                lambda: fa._flash_fwd_cuda(q, k, v, True, scale, 0, 0)
+                lambda: fa._flash_fwd_cuda(q, k, v, causal, scale, 0, 0)
             ),
             "plain_ms": cuda_ms(
-                lambda: fa.flash_attention_plain(q, k, v, True, scale),
+                lambda: fa.flash_attention_plain(q, k, v, causal, scale),
                 iters=5, warmup=1),
             "library_ms": cuda_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                       is_causal=True)
+                                                       is_causal=causal)
             ),
         }
-    row["bound_ms"], row["bound_by"], flops = flash_bound(q, 0, 0, True)
+    row["bound_ms"], row["bound_by"], flops = flash_bound(q, 0, 0, causal)
     row["tflops"] = flops / (row["ms"] * 1e-3) / 1e12
     B, S, H, D = q.shape
-    print(f"[kernel] flash_fwd timing at the training call bf16 causal B={B} "
+    mode = "causal" if causal else "non-causal"
+    print(f"[kernel] flash_fwd timing at the training call bf16 {mode} B={B} "
           f"S={S} H={H} D={D}, strided q/k/v: {json.dumps(row)} (library_ms:"
           f" the SDPA forward on the same views)")
     return row
@@ -4138,8 +4158,9 @@ def startup_breakdown(client, idx: int) -> dict:
 
 
 class _Sampler:
-    """Samples ``fn()`` every 10 ms on a thread until stopped: (wall time,
-    value) pairs."""
+    """Samples ``fn()`` every 10 ms on a thread until stopped, and once more
+    at the stop (the caller may stop it on a state it has just seen,
+    before the thread's next sample): (wall time, value) pairs."""
 
     def __init__(self, fn):
         import threading
@@ -4157,6 +4178,7 @@ class _Sampler:
     def stop(self):
         self._stop.set()
         self._thread.join(10)
+        self.samples.append((time.time(), self.fn()))
         return self.samples
 
 
@@ -6061,6 +6083,325 @@ def phase_serve_mesh(serve4: dict):
     return out["launches"], row
 
 
+#: zoo (a): BERT-base's published widths (Devlin et al. 2019, Table 1; the
+#: bert-base-uncased vocabulary) on the repo's pre-LN encoder, 20 steps of
+#: 8 sequences of 512 tokens, validation (one batch) every 5th epoch.
+ZOO_BERT = dict(vocab_size=30522, n_layer=12, n_head=12, d_model=768,
+                max_seq=512, compute_dtype="bfloat16")
+ZOO_BERT_STEPS = 20
+#: The graphed fit's first losses held against the eager fit's.
+ZOO_EAGER_STEPS = 4
+#: zoo (b): ViT-Base's widths (Dosovitskiy et al. 2021, Table 1) at 224 px,
+#: patches of 16: 197 rows, which the shared shape rule sends to the
+#: reference attention.
+ZOO_VIT = dict(image_size=224, patch_size=16, n_layer=12, n_head=12,
+               d_model=768, d_ff=3072, compute_dtype="bfloat16")
+ZOO_VIT_STEPS = 10
+ZOO_RESNET_STEPS = 20
+#: fp32 logits on the card against the CPU forward on the same weights.
+ZOO_LOGIT_TOL = 1e-3
+
+
+def zoo_fit(module, n_steps: int, strategy=None, **kw):
+    """``Trainer.fit`` of ``module`` for ``n_steps`` steps on the card; the
+    trainer, its step clock, the kernel counts of the fit and its wall."""
+    import torch
+
+    from ray_lightning_tpu_torch.ops.flash_attention import counters
+    from ray_lightning_tpu_torch.trainer import Callback, Trainer
+
+    class StepClock(Callback):
+        def __init__(self):
+            self.ends, self.losses = [], []
+
+        def on_train_batch_end(self, trainer, module, logs, batch_idx):
+            self.ends.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+
+    clock = StepClock()
+    args = dict(max_steps=n_steps, max_epochs=n_steps, limit_val_batches=0,
+                num_sanity_val_steps=0, enable_checkpointing=False,
+                enable_model_summary=False, seed=0, log_every_n_steps=1,
+                callbacks=[clock], strategy=strategy)
+    args.update(kw)
+    trainer = Trainer(**args)
+    counters.reset()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(module)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": counters.launches,
+                "flash_bwd_dkv": counters.bwd_dkv_launches,
+                "flash_bwd_dq": counters.bwd_dq_launches,
+                "reference": counters.reference}
+    if trainer.global_step != n_steps or len(clock.losses) != n_steps:
+        fail(f"zoo: {type(module).__name__} trained {trainer.global_step} "
+             f"steps, {len(clock.losses)} losses, expected {n_steps}")
+    if not all(math.isfinite(x) for x in clock.losses):
+        fail(f"zoo: non-finite loss in {type(module).__name__}'s fit: "
+             f"{clock.losses}")
+    return trainer, clock, launches, wall
+
+
+def zoo_summary(clock, items_per_step: int, unit: str) -> dict:
+    """Step ms (median of steps 4..: the first 3 hold the warm-up run, the
+    capture and the first replay) and items per second of a fit."""
+    import torch
+
+    steps_s = [b - a for a, b in zip(clock.ends, clock.ends[1:])]
+    step_s = statistics_median(steps_s[2:])
+    return {"step_ms_median": step_s * 1e3,
+            "step_ms_all": [x * 1e3 for x in steps_s],
+            f"{unit}_per_s": items_per_step / step_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "loss_first": clock.losses[0], "loss_last": clock.losses[-1]}
+
+
+def falls(losses, n: int = 5) -> bool:
+    """The mean of the last ``n`` losses is below that of the first ``n``."""
+    return sum(losses[-n:]) / n < sum(losses[:n]) / n
+
+
+def bert_attention_inputs(gen, cfg):
+    """The attention inputs of one BERT-base training layer on the card:
+    q, k, v from the encoder's fused projection (``einsum("bsd,dthk->
+    bsthk")``), so they are the strided (B, S, 3, H, D) views the encoder
+    hands K1, K2 and K3; a contiguous dO; out and lse from K1, non-causal."""
+    import torch
+
+    from ray_lightning_tpu_torch.ops.flash_attention import _flash_fwd_cuda
+
+    B, S, H, D, dm = 8, cfg.max_seq, cfg.n_head, cfg.head_dim, cfg.d_model
+    dt = torch.bfloat16
+    a = torch.randn((B, S, dm), generator=gen, device="cuda").to(dt)
+    wqkv = (torch.randn((dm, 3, H, D), generator=gen, device="cuda")
+            * dm ** -0.5).to(dt)
+    with torch.no_grad():
+        qkv = torch.einsum("bsd,dthk->bsthk", a, wqkv)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+    out, lse = _flash_fwd_cuda(q, k, v, False, D ** -0.5, 0, 0)
+    return q, k, v, do, out, lse
+
+
+def zoo_bert() -> dict:
+    """(a) BERT-base masked-LM pretraining through ``Trainer.fit``: K1 at
+    every layer of every forward (training and validation), K2 and K3 at
+    every layer of every step, non-causal, the reference path never; the
+    loss falls; the graphed fit's first losses equal the eager fit's;
+    ``fill_mask`` on a held-out sequence. Then BERT's attention call alone,
+    held against the plain versions and timed."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from ray_lightning_tpu_torch.models.bert import BERTConfig, BERTEncoder
+    from ray_lightning_tpu_torch.models.gpt import make_fake_text
+    from ray_lightning_tpu_torch.strategies.base import SingleDeviceStrategy
+
+    class CountedBERT(BERTEncoder):
+        """Counts the eval forwards (each runs eagerly, one per row)."""
+
+        val_forwards = 0
+
+        def validation_step(self, params, batch):
+            self.val_forwards += 1
+            return super().validation_step(params, batch)
+
+    class EagerSingle(SingleDeviceStrategy):
+        capture_graphs = False  # the eager baseline: no CUDA graphs
+
+    cfg = BERTConfig(**ZOO_BERT)
+    n = ZOO_BERT_STEPS
+    module = CountedBERT(cfg, batch_size=8, warmup_steps=2, n_train=16)
+    trainer, clock, launches, wall = zoo_fit(
+        module, n, max_epochs=n // 2, limit_val_batches=1,
+        check_val_every_n_epoch=5)
+    forwards = n + module.val_forwards
+    L = cfg.n_layer
+    want = {"flash_fwd": L * forwards, "flash_bwd_dkv": L * n,
+            "flash_bwd_dq": L * n, "reference": 0}
+    print(f"[zoo] bert: {n} steps of BERT-base MLM (B=8, S={cfg.max_seq}, "
+          f"bf16, non-causal flash) through Trainer.fit in {wall:.3f} s, "
+          f"{module.val_forwards} validation forwards; launches "
+          f"{json.dumps(launches)}; losses {clock.losses}")
+    if launches != want:
+        fail(f"zoo bert: launches {launches} != {want} (12 layers x {n} "
+             f"steps, K1 also x {module.val_forwards} validation forwards; "
+             f"0 reference-path calls)")
+    if not falls(clock.losses):
+        fail(f"zoo bert: the loss did not fall: {clock.losses}")
+    run = zoo_summary(clock, 8 * cfg.max_seq, "tokens")
+    run["val_loss"] = trainer.callback_metrics.get("val_loss")
+    graphed = clock.losses[:ZOO_EAGER_STEPS]
+
+    # fill_mask on a held-out sequence with 15% of its positions masked.
+    toks = make_fake_text(1, seq_len=cfg.max_seq - 1, vocab=cfg.mask_id,
+                          seed=11).arrays[0]
+    holes = np.random.default_rng(0).random(toks.shape) < 0.15
+    masked = np.where(holes, cfg.mask_id, toks)
+    filled = module.fill_mask(masked).cpu().numpy()
+    if not (filled[~holes] == toks[~holes]).all():
+        fail("zoo bert: fill_mask changed an unmasked position")
+    if (filled == cfg.mask_id).any():
+        fail("zoo bert: fill_mask emitted the [MASK] id")
+    run["fill_mask_recovered"] = float((filled[holes] == toks[holes]).mean())
+    run["fill_mask_holes"] = int(holes.sum())
+    del trainer, module
+    torch.cuda.empty_cache()
+
+    _, eager_clock, _, _ = zoo_fit(
+        BERTEncoder(cfg, batch_size=8, warmup_steps=2, n_train=16),
+        ZOO_EAGER_STEPS, strategy=EagerSingle("cuda"))
+    eager = eager_clock.losses
+    diff = max(abs(a - b) / abs(b) for a, b in zip(graphed, eager))
+    run.update(graphed_losses=graphed, eager_losses=eager,
+               graphed_eager_bitwise=graphed == eager,
+               graphed_eager_max_rel_diff=diff)
+    print(f"[zoo] bert: graphed fit's first {ZOO_EAGER_STEPS} losses "
+          f"{graphed}, eager fit's {eager}, worst relative difference {diff}")
+    if graphed != eager:
+        fail(f"zoo bert: the graphed fit's losses {graphed} differ from the "
+             f"eager fit's {eager}")
+    torch.cuda.empty_cache()
+
+    # BERT's attention call alone (B=8, S=512, H=12, D=64, bf16,
+    # non-causal, q/k/v strided views of the fused projection).
+    fa = importlib.import_module("ray_lightning_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do, out, lse = bert_attention_inputs(gen, cfg)
+    scale = q.shape[-1] ** -0.5
+    check_training_call(fa, q, k, v, do, out, lse, scale, causal=False)
+    rows = {"flash_fwd": time_fwd_training_call(fa, q, k, v, out, lse, scale,
+                                                causal=False)}
+    rows.update(time_bwd_training_call(fa, q, k, v, do, out, lse, scale,
+                                       causal=False))
+    print(f"[zoo] bert {json.dumps(run)} on {card_line()}")
+    return {"launches": launches, "rows": rows}
+
+
+def zoo_cpu_logits(forward, params, x) -> float:
+    """Max abs difference of fp32 ``forward(params, x)`` on the card and on
+    the CPU (the same weights and images, copied)."""
+    import torch
+
+    from ray_lightning_tpu_torch.models.gpt import params_to
+
+    cpu = torch.device("cpu")
+    with torch.no_grad():
+        card = forward(params, x).float().cpu()
+        host = forward(params_to(params, cpu), x.cpu()).float()
+    if not (torch.isfinite(card).all() and torch.isfinite(host).all()):
+        fail("zoo: non-finite logits")
+    return float((card - host).abs().max())
+
+
+def zoo_vit() -> dict:
+    """(b) ViT-B/16 at 224 px on fake CIFAR: 10 steps; its 197 rows take
+    the reference attention (12 per forward), K1 never; fp32 logits on the
+    card within 1e-3 of the CPU forward."""
+    import dataclasses
+
+    import torch
+
+    from ray_lightning_tpu_torch.models.vit import (
+        ViTClassifier,
+        ViTConfig,
+        vit_forward,
+    )
+
+    cfg = ViTConfig(**ZOO_VIT)
+    n, B = ZOO_VIT_STEPS, 32
+    module = ViTClassifier(cfg, batch_size=B, n_train=2 * B)
+    _, clock, launches, wall = zoo_fit(module, n)
+    want = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+            "reference": cfg.n_layer * n}
+    print(f"[zoo] vit: {n} steps of ViT-B/16 (B={B}, 224 px, "
+          f"{cfg.n_patches + 1} rows, bf16) in {wall:.3f} s; launches "
+          f"{json.dumps(launches)}; losses {clock.losses}")
+    if launches != want:
+        fail(f"zoo vit: launches {launches} != {want}")
+    run = zoo_summary(clock, B, "images")
+    x = module._prep(torch.from_numpy(module._fake(2, seed=3).arrays[0])
+                     .cuda())
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    run["fp32_logits_card_vs_cpu"] = zoo_cpu_logits(
+        lambda p, im: vit_forward(p, im, cfg32), module.params, x)
+    print(f"[zoo] vit {json.dumps(run)} on {card_line()}")
+    if not run["fp32_logits_card_vs_cpu"] <= ZOO_LOGIT_TOL:
+        fail(f"zoo vit: fp32 logits on the card differ from the CPU "
+             f"forward's by {run['fp32_logits_card_vs_cpu']}")
+    return run
+
+
+def zoo_resnet() -> dict:
+    """(c) ResNet-18/CIFAR-10 at width 64, fp32, batch 64: 20 SGD steps, no
+    flash call, the loss falls; fp32 logits of 2 images on the card within
+    1e-3 of the CPU forward."""
+    import torch
+
+    from ray_lightning_tpu_torch.models.resnet import CIFARResNet
+
+    n, B = ZOO_RESNET_STEPS, 64
+    module = CIFARResNet(batch_size=B, width=64)
+    _, clock, launches, wall = zoo_fit(module, n)
+    print(f"[zoo] resnet: {n} steps of ResNet-18 (B={B}, 32 px, fp32) in "
+          f"{wall:.3f} s; launches {json.dumps(launches)}; losses "
+          f"{clock.losses}")
+    if any(launches.values()):
+        fail(f"zoo resnet: attention calls in a model without attention: "
+             f"{launches}")
+    if not falls(clock.losses):
+        fail(f"zoo resnet: the loss did not fall: {clock.losses}")
+    run = zoo_summary(clock, B, "images")
+    x = module._prep(torch.from_numpy(module._fake(2, seed=3).arrays[0]).cuda())
+    run["fp32_logits_card_vs_cpu"] = zoo_cpu_logits(module._forward,
+                                                    module.params, x)
+    print(f"[zoo] resnet {json.dumps(run)} on {card_line()}")
+    if not run["fp32_logits_card_vs_cpu"] <= ZOO_LOGIT_TOL:
+        fail(f"zoo resnet: fp32 logits on the card differ from the CPU "
+             f"forward's by {run['fp32_logits_card_vs_cpu']}")
+    return run
+
+
+def zoo_fixtures() -> dict:
+    """(d) One epoch each of the XOR and MNIST fixtures on the card, with
+    validation: every metric finite."""
+    from ray_lightning_tpu_torch.models import MNISTClassifier, XORModule
+    from ray_lightning_tpu_torch.trainer import Trainer
+
+    out = {}
+    for name, module in (("xor", XORModule()), ("mnist", MNISTClassifier())):
+        trainer = Trainer(max_epochs=1, enable_checkpointing=False,
+                          enable_model_summary=False, seed=0)
+        trainer.fit(module)
+        metrics = {k: float(v) for k, v in trainer.callback_metrics.items()}
+        if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"zoo {name}: metrics {metrics}")
+        out[name] = metrics
+    print(f"[zoo] fixtures {json.dumps(out)}")
+    return out
+
+
+def bert_row(row: dict) -> dict:
+    """A kernel's timing at BERT's attention call, for the kernels line."""
+    return {key: row[key] for key in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by", "tflops")}
+
+
+def phase_zoo():
+    """The model zoo on the card: (a) BERT-base MLM through K1-K3
+    non-causal, (b) ViT-B/16, (c) ResNet-18, (d) XOR and MNIST. Returns
+    (a)'s launches and its attention call's timing rows."""
+    bert = zoo_bert()
+    zoo_vit()
+    zoo_resnet()
+    zoo_fixtures()
+    return bert["launches"], bert["rows"]
+
+
 def _flat_params(tree, prefix=""):
     """(path, tensor) of a parameter tree, in tree order."""
     out = []
@@ -6120,6 +6461,7 @@ def main() -> None:
                                           yard)
     mesh_launches, mesh_row = timed_phase("serve-mesh", phase_serve_mesh,
                                           serve4)
+    zoo_launches, bert_rows = timed_phase("zoo", phase_zoo)
     src = "ray_lightning_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_fwd",
@@ -6130,7 +6472,7 @@ def main() -> None:
         + int8_launches + lifecycle_launches + fleet_launches
         + kvplane_launches + recovery_launches + train_launches["flash_fwd"]
         + dist_launches["flash_fwd"] + gspmd_launches["flash_fwd"]
-        + mesh_launches,
+        + mesh_launches + zoo_launches["flash_fwd"],
         "launches_by_path": {"serve": serve_launches,
                              "serve_chunked": chunked_launches,
                              "serve_paged": paged_launches,
@@ -6144,7 +6486,8 @@ def main() -> None:
                              "train": train_launches["flash_fwd"],
                              "train_dist": dist_launches["flash_fwd"],
                              "train_gspmd": gspmd_launches["flash_fwd"],
-                             "serve_mesh": mesh_launches},
+                             "serve_mesh": mesh_launches,
+                             "train_bert": zoo_launches["flash_fwd"]},
         "max_abs_err": worst["bfloat16"],
         "max_abs_err_fp32": worst["float32"],
         "ms": timed["ms"],
@@ -6162,6 +6505,7 @@ def main() -> None:
         "train_tp": tp_rows["flash_fwd"],
         "serve_spec": draft_row,
         "serve_tp": mesh_row,
+        "train_bert": bert_row(bert_rows["flash_fwd"]),
     }]
     for name, line in (("flash_bwd_dkv", 189), ("flash_bwd_dq", 254)):
         row = bwd_rows[name]
@@ -6171,10 +6515,11 @@ def main() -> None:
             "source": src + "flash_bwd.cu",
             "replaces": f"ray_lightning_tpu/ops/flash_attention.py:{line}",
             "launches": (train_launches[name] + dist_launches[name]
-                         + gspmd_launches[name]),
+                         + gspmd_launches[name] + zoo_launches[name]),
             "launches_by_path": {"train": train_launches[name],
                                  "train_dist": dist_launches[name],
-                                 "train_gspmd": gspmd_launches[name]},
+                                 "train_gspmd": gspmd_launches[name],
+                                 "train_bert": zoo_launches[name]},
             "max_abs_err": bwd_worst["bfloat16"],
             "max_abs_err_fp32": bwd_worst["float32"],
             "ms": row["ms"],
@@ -6186,6 +6531,7 @@ def main() -> None:
             "sass_tensor_core_instructions": tensor_ops[name],
             "shape": [8, 1024, 12, 64],
             "train_tp": tp_rows[name],
+            "train_bert": bert_row(bert_rows[name]),
         })
     print(json.dumps({"kernels": kernels}))
     print(f"[card] {card_line()}")

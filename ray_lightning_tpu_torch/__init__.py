@@ -23,7 +23,9 @@ the watchdog, flight recorder and preemption monitor (``obs/health.py``,
 with ``Trainer(max_restarts=...)``, and tensor-parallel training:
 ``GSPMDStrategy`` over a data x fsdp x model mesh (``parallel/logical.py``,
 ``parallel/tp.py``) with sharded and async checkpoints
-(``trainer/checkpoint_io.py``). It imports ``torch``, never ``jax``,
+(``trainer/checkpoint_io.py``), and the model zoo: BERT masked-LM
+pretraining, ViT, ResNet-18, the Hugging Face GPT-2/Llama import and the
+XOR and MNIST fixtures (``models/``). It imports ``torch``, never ``jax``,
 and nothing of ``ray_lightning_tpu``.
 """
 __version__ = "0.1.0"
@@ -56,6 +58,24 @@ _LAZY = {
     "WorkloadJournal": "ray_lightning_tpu_torch.obs.journal",
     "FaultInjector": "ray_lightning_tpu_torch.serve.faults",
     "flash_attention": "ray_lightning_tpu_torch.ops.flash_attention",
+    "RandomDataset": "ray_lightning_tpu_torch.models.boring",
+    "make_fake_text": "ray_lightning_tpu_torch.models.gpt",
+    "BERTConfig": "ray_lightning_tpu_torch.models.bert",
+    "BERTEncoder": "ray_lightning_tpu_torch.models.bert",
+    "bert_forward": "ray_lightning_tpu_torch.models.bert",
+    "init_bert_params": "ray_lightning_tpu_torch.models.bert",
+    "apply_mlm_masking": "ray_lightning_tpu_torch.models.bert",
+    "masked_lm_loss": "ray_lightning_tpu_torch.models.bert",
+    "ViTConfig": "ray_lightning_tpu_torch.models.vit",
+    "ViTClassifier": "ray_lightning_tpu_torch.models.vit",
+    "vit_forward": "ray_lightning_tpu_torch.models.vit",
+    "CIFARResNet": "ray_lightning_tpu_torch.models.resnet",
+    "make_fake_cifar": "ray_lightning_tpu_torch.models.resnet",
+    "XORModule": "ray_lightning_tpu_torch.models.xor",
+    "MNISTClassifier": "ray_lightning_tpu_torch.models.mnist",
+    "make_fake_mnist": "ray_lightning_tpu_torch.models.mnist",
+    "load_hf_gpt2": "ray_lightning_tpu_torch.models.hf_import",
+    "load_hf_llama": "ray_lightning_tpu_torch.models.hf_import",
 }
 
 

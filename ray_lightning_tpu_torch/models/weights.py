@@ -1,9 +1,12 @@
-"""The weight bridge: the JAX package's GPT parameter tree <-> the port's.
+"""The weight bridge: the JAX package's parameter trees <-> the port's.
 
-Both sides use the same leaf names and the same stacked ``(L, ...)``
-layouts (``ray_lightning_tpu/models/gpt.py:171-267``), so the bridge is a
-copy with no re-layout: each numpy leaf becomes an fp32 tensor on the
-target device, and a weight-only int8 node ``{"q": int8, "s": fp32}``
+Every model of the zoo keeps the JAX package's leaf names and layouts: the
+GPT family's and BERT's stacked ``(L, ...)`` leaves
+(``ray_lightning_tpu/models/gpt.py:171-267``, ``bert.py:72-109``), ViT's
+(``vit.py:98-127``), flax's ResNet-18 tree with HWIO kernels, and the XOR
+and MNIST fixtures' flat trees. So the bridge is a copy with no
+re-layout: each numpy leaf becomes an fp32 tensor on the target device,
+and a weight-only int8 node ``{"q": int8, "s": fp32}``
 (``utils/quantize.py``) becomes an int8 tensor and an fp32 tensor of the
 same shapes. Make the numpy tree on the JAX side with, e.g.,
 ``jax.tree_util.tree_map(np.asarray, init_gpt_params(key, cfg))``.
@@ -15,7 +18,9 @@ from typing import Any, Dict, Union
 import numpy as np
 import torch
 
+from ray_lightning_tpu_torch.models.bert import BERTConfig, bert_param_shapes
 from ray_lightning_tpu_torch.models.gpt import GPTConfig, param_shapes
+from ray_lightning_tpu_torch.models.vit import ViTConfig, vit_param_shapes
 from ray_lightning_tpu_torch.utils.device import resolve_device
 from ray_lightning_tpu_torch.utils.quantize import is_quantized
 
@@ -43,16 +48,33 @@ def _int8_node(node: Dict[str, Any], shape, path: str, device) -> Dict[str, Any]
     }
 
 
+def expected_shapes(cfg: Any) -> Dict[str, Any]:
+    """The tree of leaf shapes a model's parameters have: ``cfg`` is a
+    ``GPTConfig``, ``BERTConfig`` or ``ViTConfig``, or the tree of shapes
+    itself (``ResNet18.param_shapes(channels)``, ``XORModule.
+    param_shapes()``, ``MNISTClassifier.param_shapes(in_features)``)."""
+    if isinstance(cfg, GPTConfig):
+        return param_shapes(cfg)
+    if isinstance(cfg, BERTConfig):
+        return bert_param_shapes(cfg)
+    if isinstance(cfg, ViTConfig):
+        return vit_param_shapes(cfg)
+    if isinstance(cfg, dict):
+        return cfg
+    raise TypeError(f"no parameter shapes for {type(cfg).__name__}")
+
+
 def params_from_jax(
     tree: Dict[str, Any],
-    cfg: GPTConfig,
+    cfg: Any,
     device: Union[str, torch.device] = "cuda",
 ) -> Dict[str, Any]:
     """JAX parameter tree (numpy leaves, int8 nodes allowed) -> the port's
     tree on ``device``: fp32 tensors, and int8 nodes as int8 ``q`` and
-    fp32 ``s``. Checks every leaf's name and shape against ``cfg``."""
+    fp32 ``s``. Checks every leaf's name and shape against ``cfg`` (a
+    config, a model, or a tree of shapes: :func:`expected_shapes`)."""
     device = resolve_device(device)
-    expected = param_shapes(cfg)
+    expected = expected_shapes(cfg)
 
     def convert(node: Any, shapes: Any, path: str) -> Any:
         if isinstance(shapes, dict):

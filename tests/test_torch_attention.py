@@ -306,6 +306,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "ray_lightning_tpu_torch.models.weights, "
         "ray_lightning_tpu_torch.models.gpt, "
         "ray_lightning_tpu_torch.models.boring, "
+        "ray_lightning_tpu_torch.models.bert, "
+        "ray_lightning_tpu_torch.models.vit, "
+        "ray_lightning_tpu_torch.models.resnet, "
+        "ray_lightning_tpu_torch.models.hf_import, "
+        "ray_lightning_tpu_torch.models.xor, "
+        "ray_lightning_tpu_torch.models.mnist, "
+        "ray_lightning_tpu_torch.models, "
         "ray_lightning_tpu_torch.trainer, "
         "ray_lightning_tpu_torch.trainer.trainer, "
         "ray_lightning_tpu_torch.trainer.loop, "
@@ -336,6 +343,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "[getattr(p, n) for n in p.__all__]; "
         "import ray_lightning_tpu_torch.serve as s; "
         "[getattr(s, n) for n in s.__all__]; "
+        "import ray_lightning_tpu_torch.models as zoo; "
+        "[getattr(zoo, n) for n in zoo.__all__]; "
         # The serving mesh's lazy imports: a rank's slices and the gang.
         "from ray_lightning_tpu_torch.parallel.mesh import Mesh, "
         "parse_mesh_spec, mesh_from_spec; "
@@ -350,7 +359,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert parse_mesh_spec('2x1') == (2, 1) and "
         "mesh_from_spec('1x1') is None; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
-        "or m == 'ray_lightning_tpu' or m.startswith('ray_lightning_tpu.')]; "
+        "or m == 'ray_lightning_tpu' or m.startswith('ray_lightning_tpu.') "
+        "or m == 'transformers' or m.startswith('transformers.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(
