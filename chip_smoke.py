@@ -242,7 +242,9 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    1)`` and ``zero_stage=3``, one worker each, 6 steps: losses and final
    parameters (SHA-256) bitwise (a)'s first 6, the same launches, graphs;
    between steps ZeRO-3 must hold at least 90% of the fp32 parameters'
-   bytes less than ZeRO-1 (its full leaves are freed at rest).
+   bytes less than ZeRO-1 (its full leaves are freed at rest), and its
+   step (one CUDA graph) must hold the per-layer gathers (the capture's
+   ``gather_stats``).
    (c) ``RayStrategy(num_workers=2, resources_per_worker={"GPU": 0.5})``:
    two ranks on the one card over gloo, eager, fp32, 4 layers, 4 rows per
    rank, 10 steps, against an in-process fit of the same model on 8 rows
@@ -270,8 +272,13 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    checkpoint resumed in process on the card through ``Trainer.fit(
    ckpt_path=...)`` at its last step: step 6, parameters on the card
    bitwise (b)'s gathered ones. (c) fp32, 4 layers, 6 steps, against an
-   in-process fit within 1e-4, under ``GSPMDStrategy({"model": 2})`` and
-   ``RayShardedStrategy(zero_stage=3)`` on two shared-card ranks. Prints
+   in-process fit within 1e-4, under ``GSPMDStrategy({"model": 2})``,
+   ``RayShardedStrategy(zero_stage=1)`` and ``zero_stage=3`` (gathered
+   layer by layer) on two shared-card ranks, 4 rows each: ZeRO-3's peak
+   allocated per rank must lie below ZeRO-1's by at least half the run's
+   fp32 parameter bytes, with at most two layers alive; its reserved and
+   between-step memory and its gathers and reductions (with their gloo
+   seconds) are printed beside ZeRO-1's. Prints
    each fit's workers-ready seconds, backend, graphs, step time beside
    phase 14's, tokens/s, peak memory per rank, (b)'s gloo share per
    step, and the phase's wall; no child process may be left and the
@@ -294,10 +301,19 @@ Phases, in order; any failure exits non-zero (nothing is caught):
    follower under the same requests; the notice, read from the
    follower's heartbeat, drains the gang (0 lost) and a pre-spawned gang
    replaces it as a unit; the preempted and the fresh gang's tokens are
-   bitwise (a)'s. No child process may be left and the card's memory must
-   be back. Prints each rank's start-up, TTFT, tokens/s, ms per step, the
-   all-reduces and gloo seconds per fold, the KV bytes per rank, the
-   notice-to-swap seconds and the phase's wall.
+   bitwise (a)'s. (c) The gang's KV plane (``mesh_kv_run``): a gang and
+   an unsplit replica on serve-fleet's chunked engine, peers of one
+   another, on one KV store: the gang ships a prompt's blocks (its heads
+   gathered) to the unsplit replica, the unsplit replica ships another to
+   the gang, the gang parks a third into the store and the unsplit
+   replica reads it back; every receiver admits warm and every greedy
+   stream equals the reference-attention solo except at near-ties; the
+   ships' bytes and seconds, the gang's gather seconds and each rank's K1
+   launches per admission (0: the chunk code) are printed. No child
+   process may be left and the card's memory must be back. Prints each
+   rank's start-up, TTFT, tokens/s, ms per step, the all-reduces and gloo
+   seconds per fold, the KV bytes per rank, the notice-to-swap seconds
+   and the phase's wall.
 18. zoo: the model zoo. (a) BERT-base masked-LM pretraining (vocab
    30522, 12 layers, 12 heads, d_model 768, S=512, bf16) through
    ``Trainer.fit(BERTEncoder(...))`` for 20 steps of 8 sequences: K1 at
@@ -4964,6 +4980,8 @@ def dist_probe(tag: str, digest_at: int = 0):
                 self.at_rest = torch.cuda.memory_allocated()
 
         def on_fit_end(self, trainer, module):
+            import dataclasses
+
             import torch
 
             from ray_lightning_tpu_torch.ops.flash_attention import counters
@@ -4994,6 +5012,13 @@ def dist_probe(tag: str, digest_at: int = 0):
                 "at_rest_mib": self.at_rest / 2**20,
                 "reserved_gib": (torch.cuda.memory_reserved() / 2**30
                                  if cuda else 0.0),
+                # ZeRO-3's per-layer traffic (counted at a graph's capture
+                # on NCCL; every step on gloo, with its seconds).
+                "gather_stats": (dataclasses.asdict(trainer.optimizer
+                                                    .gather_stats)
+                                 if getattr(trainer.optimizer,
+                                            "gather_stats", None)
+                                 else None),
             }
             os.makedirs(DIST_ROOT, exist_ok=True)
             path = os.path.join(DIST_ROOT,
@@ -5255,7 +5280,12 @@ def phase_train_dist(yard: dict):
             print(f"[train-dist] ({tag}) losses {rb['losses']}; bitwise "
                   f"(a)'s first {DIST_B_STEPS}: losses "
                   f"{rb['losses'] == r['losses'][:DIST_B_STEPS]}, params "
-                  f"{digest == r['digest']}; graphs {rb['graphs']}")
+                  f"{digest == r['digest']}; graphs {rb['graphs']}; "
+                  f"per-layer gathers (captured) {rb['gather_stats']}")
+            if tag == "b-zero3" and not (rb["gather_stats"] or {}).get(
+                    "gathers"):
+                fail(f"train-dist (b-zero3): no per-layer gather in the "
+                     f"step: {rb['gather_stats']}")
             if rb["losses"] != r["losses"][:DIST_B_STEPS]:
                 fail(f"train-dist ({tag}): losses {rb['losses']} differ from "
                      f"(a)'s first {DIST_B_STEPS} {r['losses'][:DIST_B_STEPS]}")
@@ -5613,11 +5643,16 @@ def phase_train_gspmd(yard: dict):
         torch.cuda.empty_cache()
         shutil.rmtree(root, ignore_errors=True)
 
-        # (c) fp32, 4 layers, against the in-process fit, within 1e-4.
+        # (c) fp32, 4 layers, against the in-process fit, within 1e-4;
+        # ZeRO-3 (gathered layer by layer) beside ZeRO-1 on the same shape.
+        c_records = {}
         for tag, strat, per_rank in (
             ("gspmd-c", GSPMDStrategy(num_workers=2, mesh_shape={"model": 2},
                                       resources_per_worker={"GPU": 0.5}),
              GSPMD_C["batch"]),
+            ("zero1-c", RayShardedStrategy(num_workers=2, zero_stage=1,
+                                           resources_per_worker={"GPU": 0.5}),
+             GSPMD_C["batch"] // 2),
             ("zero3-c", RayShardedStrategy(num_workers=2, zero_stage=3,
                                            resources_per_worker={"GPU": 0.5}),
              GSPMD_C["batch"] // 2),
@@ -5645,8 +5680,34 @@ def phase_train_gspmd(yard: dict):
             check_dist_kernels(f"({tag})", c["ranks"], n, GSPMD_C["n_layer"])
             summaries.append(dist_summary(
                 tag, c, GSPMD_C["batch"] * c_cfg.max_seq))
+            c_records[tag] = [{k: r[k] for k in (
+                "rank", "peak_mem_gib", "reserved_gib", "at_rest_mib",
+                "gather_stats")} for r in c["ranks"]]
             del module, c
             shutil.rmtree(root, ignore_errors=True)
+        # ZeRO-3's peak per rank below ZeRO-1's by at least half the
+        # run's fp32 parameter bytes: no full leaf, and no gradient of
+        # the whole tree, is alive in its step.
+        c_param_bytes = sum(t.numel() * 4
+                            for t in tree_leaves(c_yard["params"]))
+        for r1, r3 in zip(c_records["zero1-c"], c_records["zero3-c"]):
+            cut = (r1["peak_mem_gib"] - r3["peak_mem_gib"]) * 2**30
+            print(f"[train-gspmd] (c) rank {r3['rank']}: peak allocated "
+                  f"zero1 {r1['peak_mem_gib']} GiB, zero3 "
+                  f"{r3['peak_mem_gib']} GiB (cut {cut / 1e6} MB; the bar "
+                  f"{c_param_bytes / 2e6} MB, half the {c_param_bytes} fp32 "
+                  f"parameter bytes); reserved {r1['reserved_gib']} / "
+                  f"{r3['reserved_gib']} GiB; between steps "
+                  f"{r1['at_rest_mib']} / {r3['at_rest_mib']} MiB; zero3's "
+                  f"gathers and reductions {r3['gather_stats']}")
+            st = r3["gather_stats"] or {}
+            if (cut < c_param_bytes / 2 or not st.get("gathers")
+                    or not st.get("reductions") or st.get("peak_layers", 9)
+                    > 2):
+                fail(f"train-gspmd (c) rank {r3['rank']}: zero3 peak "
+                     f"{r3['peak_mem_gib']} GiB vs zero1 "
+                     f"{r1['peak_mem_gib']} GiB: cut {cut} B, the bar "
+                     f"{c_param_bytes / 2} B; gathers {st}")
     finally:
         fabric.shutdown()
         shutil.rmtree(GSPMD_ROOT, ignore_errors=True)
@@ -5685,6 +5746,15 @@ MESH_TICK_S = 0.25
 #: is admitted, so the residents are still decoding when the notice lands.
 MESH_DRAIN_DELAY_S = 0.5
 MESH_ENV = {"RLT_HEARTBEAT_S": "0.5"}
+#: (c): the gang's KV plane, a gang and an unsplit replica on the chunked
+#: engine of serve-fleet (their admissions run the chunk code, bitwise the
+#: solo under the reference attention on one card; no K1), joined by the
+#: fleet KV plane, both on one KV store. Prompts (greedy, SERVE_NEW new
+#: tokens each): the gang ships the first to the unsplit replica, the
+#: unsplit replica ships the second to the gang, and the third goes from
+#: the gang's park into the store and back out to the unsplit replica.
+MESH_KV_LENGTHS = (200, 300, 130)
+MESH_KV_GPUS = 0.25
 
 
 def mesh_compare(tag, reqs, got, exact, params, cfg, device) -> tuple:
@@ -5981,10 +6051,190 @@ def serve_mesh_run(params, cfg, device, ckpt: str, reqs, exact: dict,
         }
         print(f"[serve-mesh] (b) {json.dumps(out['b'])}")
         client.shutdown()
+
+        # -- (c) the gang's KV plane and store ----------------------------
+        out["c"] = mesh_kv_run(params, cfg, device, ckpt)
+        launches += out["c"]["k1_launches"]
     finally:
         fabric.shutdown()
     out["launches"] = launches
     return out
+
+
+def mesh_kv_run(params, cfg, device, ckpt: str) -> dict:
+    """serve-mesh (c): a ``"2x1"`` gang at ``role="decode"`` and an
+    unsplit replica at ``role="mixed"`` (``start_replicas`` twice, the
+    fleet KV plane on, one KV store; each names the other as its peer 1;
+    a client refuses a fleet of prefill replicas alone, and a request's
+    ``ship_to`` makes either one its prefill side).
+    The gang prefills the first prompt and ships its blocks (exported:
+    every rank's heads gathered over the model group) to the unsplit
+    replica, where the request's resubmission admits warm; the unsplit
+    replica ships the second prompt to the gang (each rank keeps its
+    heads); the gang serves the third and parks it (its chain written
+    whole to the store) and the unsplit replica's resubmission with a
+    store hint reads it back warm. Gates: every ship and the park land
+    (the receiver's hit tokens > 0, every block stored) and every greedy
+    stream equals the solo ``gpt_generate`` under the reference attention
+    except at near-ties (the split rounds its fp32 sum to bf16 once).
+    Reported per ship: its bytes, the seconds from the submit to the
+    shipped terminal (the prefill, the export, the send), the gang's
+    gather seconds; each rank's K1 launches per admission (0: the chunked
+    engines prefill through the chunk code; (a) and (b) hold K1 on the
+    gang's admissions). Returns the part's record."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_lightning_tpu_torch.models import gpt
+    from ray_lightning_tpu_torch.serve.client import start_replicas
+    from ray_lightning_tpu_torch.serve.router import prompt_block_digests
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in MESH_KV_LENGTHS]
+    store = os.path.join(os.path.dirname(ckpt), "store")
+    common = dict(ckpt_path=ckpt, device=device, env=MESH_ENV,
+                  rpc_timeout_s=300.0, init_timeout=600.0, kvfleet=True,
+                  kvstore_dir=store, **FLEET_KV, **FLEET_CHUNKED_ENGINE)
+    gang = start_replicas(1, hosts_per_replica=2, mesh=MESH_SPEC,
+                          num_gpus_per_replica=MESH_KV_GPUS, roles="decode",
+                          **common)
+    whole = start_replicas(1, num_gpus_per_replica=MESH_KV_GPUS,
+                           roles="mixed", **common)
+    spawn_s = time.perf_counter() - t0
+    try:
+        gang._rpc(0, "register_kv_peer", 1, whole._kv_queues[0])
+        whole._rpc(0, "register_kv_peer", 1, gang._kv_queues[0])
+        members = gang_of(gang)
+
+        def rows():
+            return gang_rows(members) + [whole._rpc(0, "stats")]
+
+        def run(client, rid, prompt, **kw):
+            """Submit on the client's replica and read to the end: the
+            tokens, the terminal status and the seconds."""
+            t = time.perf_counter()
+            client._rpc(0, "submit", prompt, max_new_tokens=SERVE_NEW,
+                        request_id=rid, **kw)
+            got, cur = [], 0
+            deadline = time.monotonic() + 120
+            while True:
+                res = client._rpc(0, "result", rid, cur, wait_s=0.5)
+                got += res["tokens"]
+                cur += len(res["tokens"])
+                if res["done"]:
+                    return got, res["status"], time.perf_counter() - t
+                if time.monotonic() > deadline:
+                    fail(f"serve-mesh (c) {rid}: no end in 120 s; the "
+                         f"gang's errors {[r.get('error') for r in rows()]}")
+
+        def hits(row):
+            return row["prefix"]["hit_tokens"]
+
+        before = rows()
+        ships, toks = [], {}
+        for rid, src, dst, prompt in (("kv0", gang, whole, prompts[0]),
+                                      ("kv1", whole, gang, prompts[1])):
+            a = rows()
+            first, status, secs = run(src, rid, prompt, ship_to=1)
+            mid = rows()
+            full, end_status, _ = run(dst, rid, prompt)
+            b = rows()
+            src_row, dst_row = ((a[0], mid[0]), (a[2], b[2])) if (
+                src is gang) else ((a[2], mid[2]), (a[0], b[0]))
+            ship = {
+                "request": rid,
+                "from": "gang" if src is gang else "unsplit",
+                "status": [status, end_status],
+                "blocks": (src_row[1]["kvfleet"]["ship_blocks"]
+                           - src_row[0]["kvfleet"]["ship_blocks"]),
+                "bytes": (src_row[1]["kvfleet"]["ship_bytes"]
+                          - src_row[0]["kvfleet"]["ship_bytes"]),
+                "submit_to_shipped_s": secs,
+                "gang_gather_s": (mid[0]["kv_gather"]["seconds"]
+                                  - a[0]["kv_gather"]["seconds"]),
+                "gang_gather_bytes": (mid[0]["kv_gather"]["bytes"]
+                                      - a[0]["kv_gather"]["bytes"]),
+                "receiver_hit_tokens": hits(dst_row[1]) - hits(dst_row[0]),
+            }
+            ships.append(ship)
+            toks[rid] = full
+            if (status != "shipped" or end_status != "finished"
+                    or not ship["blocks"] or ship["receiver_hit_tokens"] <= 0
+                    or first[:1] != full[:1]):
+                fail(f"serve-mesh (c) {rid}: {ship}; first {first}")
+        # The store: the gang serves the third prompt, parks it (its
+        # chain gathered and written whole), the unsplit replica reads it
+        # back warm through a store hint.
+        a = rows()
+        toks["kv2-gang"], _, _ = run(gang, "kv2", prompts[2])
+        parked = gang._rpc(0, "park_session", prompts[2])
+        digs = [d.hex() for d in prompt_block_digests(
+            prompts[2], FLEET_CHUNKED_ENGINE["prefix_block"])]
+        full, status, secs = run(whole, "kv2-read", prompts[2], kv_hint={
+            "peer": None, "store": True, "digests": digs})
+        b = rows()
+        toks["kv2"] = full
+        stored = {"parked": parked, "read_s": secs, "status": status,
+                  "receiver_hit_tokens": hits(b[2]) - hits(a[2]),
+                  "gang_gather_s": (b[0]["kv_gather"]["seconds"]
+                                    - a[0]["kv_gather"]["seconds"])}
+        if (parked.get("stored") != len(digs) or not digs
+                or stored["receiver_hit_tokens"] <= 0):
+            fail(f"serve-mesh (c) store: {stored}, {len(digs)} blocks")
+        after = rows()
+        # A follower's admissions are its leader's (it replays them).
+        adm = [after[i]["admitted"] - before[i]["admitted"]
+               for i in (0, 0, 2)]
+        ranks = []
+        for r, (x, y) in enumerate(zip(before, after)):
+            k1 = y["kernels"]["launches"] - x["kernels"]["launches"]
+            ranks.append({
+                "rank": ("gang leader", "gang follower", "unsplit")[r],
+                "k1_launches": k1, "admissions": adm[r],
+                "k1_per_admission": k1 / max(1, adm[r]),
+                "reference": y["kernels"]["reference"]
+                - x["kernels"]["reference"],
+                "error": y.get("error")})
+        if any(r["error"] for r in ranks):
+            fail(f"serve-mesh (c): a rank's op loop stopped: {ranks}")
+        digests = gang_digests(members)
+        if len({d["sha256"] for d in digests}) != 1:
+            fail(f"serve-mesh (c): the gang's ranks emitted different "
+                 f"tokens: {digests}")
+    finally:
+        gang.shutdown()
+        whole.shutdown()
+    # Greedy streams against the solo under the reference attention.
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    near = 0
+    for rid, prompt in (("kv0", prompts[0]), ("kv1", prompts[1]),
+                        ("kv2-gang", prompts[2]), ("kv2", prompts[2])):
+        solo = gpt.gpt_generate(params, ref_cfg, [prompt], SERVE_NEW,
+                                device=device)[0, len(prompt):].tolist()
+        got = toks[rid]
+        if got == solo:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(got, solo)) if x != y),
+                 None)
+        if j is None:
+            fail(f"serve-mesh (c) {rid}: {len(got)} tokens, solo "
+                 f"{len(solo)}")
+        margin = greedy_margin(params, ref_cfg, prompt + solo[:j])
+        print(f"[serve-mesh] (c) {rid}: differs from the solo first at "
+              f"token {j}, its margin {margin}")
+        if margin >= MARGIN:
+            fail(f"serve-mesh (c) {rid}: mismatch at token {j} with margin "
+                 f"{margin}")
+        near += 1
+    rec = {"spawn_s": spawn_s, "ships": ships, "store": stored,
+           "ranks": ranks, "near_tie_mismatches": near,
+           "k1_launches": sum(r["k1_launches"] for r in ranks[:2]),
+           "wall_s": time.perf_counter() - t0}
+    print(f"[serve-mesh] (c) {json.dumps(rec, default=str)}")
+    return rec
 
 
 def phase_serve_mesh(serve4: dict):

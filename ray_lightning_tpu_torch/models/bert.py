@@ -237,12 +237,14 @@ def run_blocks(x: torch.Tensor, blocks: Dict[str, Any], n_layer: int,
     """The stacked encoder blocks over ``x``, each recomputed in the
     backward under ``remat``."""
     for li in range(n_layer):
-        lp = _layer(blocks, li)
         if remat:
-            x = checkpoint(encoder_block, x, lp, attend, cdt, tps,
-                           use_reentrant=False)
+            # Read (under ZeRO-3: gathered) inside the recomputed block.
+            x = checkpoint(
+                lambda h, li=li: encoder_block(h, _layer(blocks, li), attend,
+                                               cdt, tps),
+                x, use_reentrant=False)
         else:
-            x = encoder_block(x, lp, attend, cdt, tps)
+            x = encoder_block(x, _layer(blocks, li), attend, cdt, tps)
     return x
 
 
@@ -391,13 +393,13 @@ class BERTEncoder(TorchModule):
         toks = toks[:, : self.config.max_seq].long()
         inputs, targets = apply_mlm_masking(generator, toks, self.config)
         if self.config.loss_chunk > 0:
-            if _model_group(self._mesh) is not None:
-                raise NotImplementedError(
-                    "loss_chunk under a model axis is not ported yet (ROADMAP "
-                    "queue 1 item 11b)")
-            hidden = bert_forward(params, inputs, self.config, return_hidden=True)
+            hidden = bert_forward(params, inputs, self.config,
+                                  return_hidden=True, mesh=self._mesh)
+            wte = params["wte"]
+            tp = _model_group(self._mesh)
             return chunked_lm_loss(
-                hidden, params["wte"], targets, self.config.loss_chunk
+                hidden, wte, targets, self.config.loss_chunk,
+                tp=tp if wte.shape[0] != self.config.vocab_size else None,
             )
         logits = bert_forward(params, inputs, self.config, mesh=self._mesh)
         return masked_lm_loss(logits, targets)

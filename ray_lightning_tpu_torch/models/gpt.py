@@ -24,6 +24,10 @@ Differences that follow from PyTorch:
 - Dense configs only: ``n_experts > 0`` raises (MoE is ROADMAP queue 1 item 13).
 - ``remat`` recomputes each block in the backward through
   ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``).
+- Under ZeRO-3 (and ``GSPMDStrategy``'s fsdp axis) the step passes a view
+  of the tree whose reads gather: :func:`_layer` gathers one layer's rows
+  of the stacked leaves just before the layer runs, as XLA places the
+  gathers inside the JAX package's layer scan.
 - The decode step is batch-invariant on the card: its row-wise work runs
   in fixed blocks of ``DECODE_ROWS`` rows and its attention in fp64, so a
   slot's logits do not depend on its batchmates or on the cache's length.
@@ -43,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ray_lightning_tpu_torch.parallel.zero import layer_of
 from ray_lightning_tpu_torch.parallel.tp import (
     copy_to_model,
     gather_from_model,
@@ -280,7 +285,12 @@ def cast_params(params: Dict[str, Any], cfg: GPTConfig) -> Dict[str, Any]:
 
 def _layer(blocks: Dict[str, Any], li: int) -> Dict[str, Any]:
     """Layer ``li`` of the stacked block leaves (an int8 node's ``q`` and
-    ``s`` both indexed)."""
+    ``s`` both indexed). Under ZeRO-3 the step's view of the blocks
+    gathers the layer's rows here, just before the layer runs
+    (``parallel/zero.py:LayerGather``)."""
+    gathered = layer_of(blocks, li)
+    if gathered is not None:
+        return gathered
     return {
         k: ({"q": v["q"][li], "s": v["s"][li]} if is_quantized(v) else v[li])
         for k, v in blocks.items()
@@ -568,12 +578,16 @@ def gpt_forward(
         m = norm_fn(h, lp["ln2_g"], lp["ln2_b"])
         return h + _dense_mlp(m, lp, cfg, cdt, tp)
 
+    blocks = params["blocks"]
     for li in range(cfg.n_layer):
-        lp = _layer(params["blocks"], li)
         if cfg.remat:
-            x = checkpoint(block, x, lp, use_reentrant=False)
+            # The layer is read inside the recomputed block, so the
+            # backward reads it again (under ZeRO-3: gathers it again)
+            # instead of keeping it.
+            x = checkpoint(lambda h, li=li: block(h, _layer(blocks, li)), x,
+                           use_reentrant=False)
         else:
-            x = block(x, lp)
+            x = block(x, _layer(blocks, li))
     x = norm_fn(x, params["lnf_g"], params["lnf_b"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     out = x if return_hidden else gpt_logits(params, x, cfg, tp)
@@ -729,8 +743,37 @@ def lm_loss(
     return ce, acc
 
 
+def _vocab_parallel_chunk(logits: torch.Tensor, t_c: torch.Tensor,
+                          tp: Any) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """(log-sum-exp, target logit, argmax) of one chunk whose ``logits``
+    hold this rank's V/m columns of a vocab split over the model group:
+    the maxima are gathered (no gradient), the exponential sums and the
+    target logit (nonzero on the rank holding the target's column) summed
+    over the group; the argmax is the first maximum over the whole
+    vocab, as ``argmax`` of the whole logits gives."""
+    import torch.distributed as dist
+
+    local = logits.shape[-1]
+    lo = dist.get_rank(tp) * local
+    best, arg = logits.detach().max(-1, keepdim=True)
+    maxes = gather_from_model(best, -1, tp)  # (..., m)
+    args = gather_from_model(arg, -1, tp)
+    mx = maxes.amax(-1)
+    lse = torch.log(reduce_from_model(
+        torch.exp(logits - mx[..., None]).sum(-1), tp)) + mx
+    idx = t_c.long() - lo
+    inside = (idx >= 0) & (idx < local)
+    tgt = torch.gather(logits, -1, idx.clamp(0, local - 1)[..., None])[..., 0]
+    tgt = reduce_from_model(torch.where(inside, tgt, 0.0), tp)
+    rank = maxes.argmax(-1, keepdim=True)  # the first rank holding it
+    top = torch.gather(args, -1, rank)[..., 0] + rank[..., 0] * local
+    return lse, tgt, top
+
+
 def chunked_lm_loss(
-    x: torch.Tensor, wte: Any, targets: torch.Tensor, chunk: int
+    x: torch.Tensor, wte: Any, targets: torch.Tensor, chunk: int,
+    tp: Any = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused LM head + mean CE + accuracy without (B, S, V) logits
     (``gpt.py:924`` of the JAX package).
@@ -742,6 +785,11 @@ def chunked_lm_loss(
     peak logits memory is B*chunk*V fp32. The table's cast to the compute
     dtype is made once, outside the chunk loop. Same fp32 math as
     :func:`lm_loss`; the mean is over the valid positions.
+
+    ``tp`` (the model group) with ``wte`` holding this rank's V/m rows
+    makes the head vocab-parallel: each chunk's log-sum-exp and target
+    logit are reduced over the group (:func:`_vocab_parallel_chunk`), and
+    ``x`` (whole on every rank) gets its gradient summed over the group.
     """
     B, S, D = x.shape
     nc = -(-S // chunk)
@@ -753,12 +801,19 @@ def chunked_lm_loss(
     wte_c = dequant(wte, x.dtype).float()
 
     def body(x_c: torch.Tensor, t_c: torch.Tensor):
-        logits = _lm_head(x_c, wte_c)
         valid = t_c >= 0
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, t_c.clamp(min=0)[..., None].long())[..., 0]
+        if tp is not None:
+            logits = _lm_head(copy_to_model(x_c, tp), wte_c)
+            lse, tgt, top = _vocab_parallel_chunk(
+                logits, t_c.clamp(min=0), tp)
+        else:
+            logits = _lm_head(x_c, wte_c)
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1,
+                               t_c.clamp(min=0)[..., None].long())[..., 0]
+            top = logits.argmax(-1)
         ce_sum = torch.where(valid, lse - tgt, 0.0).sum()
-        hit = (logits.argmax(-1) == t_c) & valid
+        hit = (top == t_c) & valid
         return ce_sum, hit.float().sum()
 
     ce_sum = n_correct = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -2228,14 +2283,16 @@ class GPTLM(TorchModule):
         toks = batch[0] if isinstance(batch, (tuple, list)) else batch
         toks = toks.long()
         if self.config.loss_chunk > 0:
-            if self._mesh is not None and self._mesh.size("model") > 1:
-                raise NotImplementedError(
-                    "loss_chunk under a model axis is not ported yet (ROADMAP "
-                    "queue 1 item 11b)")
-            h = gpt_forward(params, toks[:, :-1], self.config, return_hidden=True)
+            # Under a model axis the hidden state of the split forward is
+            # whole on every rank; a vocab split makes the head
+            # vocab-parallel, an odd vocab leaves the table whole.
+            h = gpt_forward(params, toks[:, :-1], self.config,
+                            mesh=self._mesh, return_hidden=True)
+            w = _head_weight(params, self.config)
+            tp = _model_group(self._mesh)
             return chunked_lm_loss(
-                h, _head_weight(params, self.config), toks[:, 1:],
-                self.config.loss_chunk,
+                h, w, toks[:, 1:], self.config.loss_chunk,
+                tp=tp if w.shape[0] != self.config.vocab_size else None,
             )
         return lm_loss(self._forward(params, toks[:, :-1]), toks[:, 1:])
 

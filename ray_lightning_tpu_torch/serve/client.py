@@ -84,6 +84,7 @@ from ray_lightning_tpu_torch.obs import trace as _trace
 from ray_lightning_tpu_torch.serve.router import RequestRejectedError
 from ray_lightning_tpu_torch.serve.server import (
     ENGINE_KEYS,
+    STORE_KEYS,
     ServeReplica,
     ServeShardFollower,
 )
@@ -2213,7 +2214,8 @@ def start_replicas(
             return {"num_hosts": hosts, "host_rank": rank,
                     "coordinator_address": coordinator, "backend": backend}
 
-        engine_kwargs = {k: v for k, v in kw.items() if k in ENGINE_KEYS}
+        engine_kwargs = {k: v for k, v in kw.items()
+                         if k in ENGINE_KEYS or k in STORE_KEYS}
         gang: List[Any] = []
         try:
             for rank in range(1, hosts):

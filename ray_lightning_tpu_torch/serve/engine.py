@@ -134,8 +134,12 @@ and refill this rank's slice, on per-rank budgets (the disk tier in a
 ``rank<N>`` directory of its own). On an NCCL model group the dispatch
 graphs capture the collectives; on gloo (ranks sharing a card, or the
 CPU) the bodies run eagerly, ``graphed`` is False and ``compiled_count``
-stays 0. A split engine's KV plane (export, import, the store) raises:
-a rank holds only its own heads (ROADMAP queue 1 item 11b).
+stays 0. A split engine's KV plane moves whole blocks, in the form an
+unsplit engine's exports take: an export gathers every rank's heads of
+each block over the model group (every rank runs it, as an op of the
+gang's stream), an import keeps this rank's heads of each whole block,
+and with ``kvstore_dir`` a block leaving the local tiers is gathered on
+every rank and written whole by the gang's first rank.
 
 All methods must be driven from one thread (the scheduler loop).
 """
@@ -181,12 +185,6 @@ from ray_lightning_tpu_torch.utils.graphs import Program, pinned_copy
 #: name -> (the JAX default, which the port accepts, and the ROADMAP item).
 #: Every option is ported.
 _UNPORTED: Dict[str, Tuple[Any, str]] = {}
-
-#: What a split engine refuses: its KV plane would move partial blocks.
-_GANG_KV = ("a tensor-parallel gang's KV plane ({what}) is not ported yet: "
-            "each rank holds only its own heads of every block (ROADMAP "
-            "queue 1 item 11b); serve the fleet KV plane and the store on "
-            "unsplit replicas")
 
 #: The tiers of the prefix cache, warmest first.
 TIERS = ("device", "host", "disk")
@@ -485,9 +483,6 @@ class DecodeEngine:
                 "prefix tiers (prefix_host_mb / prefix_disk_dir) need a "
                 "device prefix pool (prefix_blocks > 0) to spill from"
             )
-        if kvstore_dir and self._tp is not None:
-            raise NotImplementedError(_GANG_KV.format(what="the KV object "
-                                                      "store"))
         self._check_spec(spec, spec_depth, spec_params, spec_config, spec_window)
         # The compute-dtype copy of the weights, made once here (see
         # models/gpt.py:cast_params): the JAX engine casts inside its
@@ -625,6 +620,9 @@ class DecodeEngine:
                 str(kvstore_namespace) if kvstore_namespace
                 else _kvs_ns(None, config)
             )
+        # A split gang gathers a block leaving its tiers on every rank
+        # (_store_sink); its first rank alone opens the store and writes.
+        if self.kvstore_dir and (mesh is None or mesh.rank == 0):
             self.kvstore = FleetKVStore(
                 self.kvstore_dir,
                 budget_mb=self.kvstore_mb,
@@ -802,15 +800,66 @@ class DecodeEngine:
         return f"{self.mesh.shape['model']}x{self.mesh.shape['data']}"
 
     @property
-    def kv_handoff(self) -> bool:
-        """Whether this engine's prefix blocks can leave it (export,
-        import, the store): not on a model split, where a rank holds only
-        its own heads of a block."""
-        return self._tp is None
+    def heads_split(self) -> bool:
+        """Whether this rank holds only its own heads of every block (a
+        model split): its exports gather, its imports slice, and a
+        layer-wise ship from it falls back to the whole-prompt form."""
+        return self._tp is not None
 
-    def _check_kv_handoff(self, what: str) -> None:
-        if not self.kv_handoff and self.prefix_blocks:
-            raise NotImplementedError(_GANG_KV.format(what=what))
+    #: Bytes and host seconds of the head gathers of this engine's exports
+    #: and store writes (a split engine's; 0 on one card).
+    kv_gather_bytes = 0
+    kv_gather_s = 0.0
+
+    def _gather_bytes(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Every rank's bytes of ``parts`` (on the card or the host),
+        gathered over the model group: an (m, nbytes) CPU uint8 tensor in
+        group-rank order (one all-gather, staged through the host on
+        gloo)."""
+        from ray_lightning_tpu_torch.parallel.mesh import all_gather
+
+        flat = torch.cat([
+            (p if p.device.type == self.device.type
+             else host_to(p, self.device))
+            .contiguous().reshape(-1).view(torch.uint8) for p in parts])
+        out = torch.empty((self._model * flat.numel(),), dtype=torch.uint8,
+                          device=flat.device)
+        all_gather(out, flat, self._tp)
+        return out.view(self._model, -1).cpu()
+
+    def _gather_heads(self, parts: Sequence[torch.Tensor]
+                      ) -> List[torch.Tensor]:
+        """Every rank's heads of ``parts`` (blocks of this rank's heads,
+        head dim -2) gathered over the model group into whole CPU blocks
+        (a collective every rank of the split runs with the same
+        shapes)."""
+        t0 = time.perf_counter()
+        out = self._gather_bytes(parts)
+        whole, at = [], 0
+        for p in parts:
+            n = p.numel() * p.element_size()
+            t = out[:, at:at + n].contiguous().view(p.dtype).view(
+                (self._model,) + tuple(p.shape))
+            # (m, ..., Hkv/m, hd) -> (..., m, Hkv/m, hd) -> (..., Hkv, hd)
+            t = t.movedim(0, -3).reshape(tuple(p.shape[:-2]) + (
+                self._model * p.shape[-2], p.shape[-1]))
+            whole.append(t)
+            at += n
+        self.kv_gather_bytes += out.numel()
+        self.kv_gather_s += time.perf_counter() - t0
+        return whole
+
+    def _own_heads(self, t: Any, shape: Tuple[int, ...]) -> torch.Tensor:
+        """This rank's heads of a whole block payload (an unsplit
+        engine's form), as ``shape`` (the local block's, or one layer of
+        it)."""
+        t = torch.as_tensor(t).to(self._blk_dtype)
+        if self._tp is None:
+            return t.reshape(shape)
+        hl = shape[3]
+        whole = tuple(shape[:3]) + (hl * self._model,) + tuple(shape[4:])
+        h0 = self._blk_keys[3][0]
+        return t.reshape(whole)[:, :, :, h0:h0 + hl].contiguous()
 
     def memory_stats(self) -> Dict[str, Dict[str, int]]:
         """Resident device-state footprint by component (the JAX engine's
@@ -1543,7 +1592,7 @@ class DecodeEngine:
             return
         while self._disk_map and self._disk_bytes + size > self._disk_budget:
             oldest = next(iter(self._disk_map))
-            if self.kvstore is not None:
+            if self.kvstore_dir:
                 # The bottom of the local walk holds the only copy: read
                 # the victim back before its files go.
                 payload = self._disk_load(oldest)
@@ -1636,6 +1685,10 @@ class DecodeEngine:
         local tier walk is written to the object store, when there is
         one. A failed write counts in the store's ``write_errors`` and
         the drop goes on: pages are lost loudly, never silently."""
+        if not self.kvstore_dir:
+            return
+        if self._tp is not None:
+            k, v = self._gather_heads([k, v])
         if self.kvstore is not None:
             self.kvstore.put_block(digest.hex(), k, v)
 
@@ -1712,9 +1765,13 @@ class DecodeEngine:
 
     def _export_block(self, digest: bytes) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """One block's host copy from whichever tier holds it (a device
-        block is copied out, as a spill does), else None."""
+        block is copied out, as a spill does; a split engine's stays on
+        the card for its gather), else None."""
         idx = self._pool_map.get(digest)
         if idx is not None:
+            if self._tp is not None:
+                return (self._pool_k[:, idx : idx + 1],
+                        self._pool_v[:, idx : idx + 1])
             return (self._pool_k[:, idx : idx + 1].to("cpu", copy=True),
                     self._pool_v[:, idx : idx + 1].to("cpu", copy=True))
         if digest in self._host_map:
@@ -1728,8 +1785,10 @@ class DecodeEngine:
     ) -> List[Tuple[str, torch.Tensor, torch.Tensor]]:
         """Serialize a digest chain (the wire form of
         :meth:`export_prefix_blocks`, addressed by digests): chain order,
-        stopping at the first digest no tier holds."""
-        self._check_kv_handoff("export")
+        stopping at the first digest no tier holds. A split engine
+        gathers every rank's heads of the chain's blocks (a collective of
+        the model group; the ranks keep the chain all of them hold), so
+        its blocks are whole, as an unsplit engine's are."""
         if not self.prefix_blocks:
             return []
         out: List[Tuple[str, torch.Tensor, torch.Tensor]] = []
@@ -1742,7 +1801,16 @@ class DecodeEngine:
             if block is None:
                 break
             out.append((hexd, *block))
-            self.prefix_handoff_exports += 1
+        if self._tp is not None:
+            held = self._gather_bytes([torch.tensor([len(out)])])
+            out = out[:int(held.view(torch.int64).min())]
+            if out:
+                whole = self._gather_heads(
+                    [k for _, k, _ in out] + [v for _, _, v in out])
+                n = len(out)
+                out = [(hexd, whole[i], whole[n + i])
+                       for i, (hexd, _, _) in enumerate(out)]
+        self.prefix_handoff_exports += len(out)
         return out
 
     def export_prefix_blocks(
@@ -1773,8 +1841,8 @@ class DecodeEngine:
         unreferenced cache page (``page_allocs`` counts it). The writes
         are plain copies into the pool's buffers, queued on the stream
         behind any fold in flight: no graph, no wait for the card. Returns
-        the blocks accepted."""
-        self._check_kv_handoff("import")
+        the blocks accepted. A split engine keeps this rank's heads of
+        each whole block."""
         if not self.prefix_blocks:
             return 0
         accepted = 0
@@ -1786,8 +1854,8 @@ class DecodeEngine:
                 self._pool_meta[idx].stamp = self._pool_tick
                 accepted += 1
                 continue
-            k = torch.as_tensor(kp).to(self._blk_dtype).reshape(self._blk_shape)
-            v = torch.as_tensor(vp).to(self._blk_dtype).reshape(self._blk_shape)
+            k = self._own_heads(kp, self._blk_shape)
+            v = self._own_heads(vp, self._blk_shape)
             idx = self._pool_alloc()
             if idx is None:
                 if self._host_budget:
@@ -1833,8 +1901,8 @@ class DecodeEngine:
         its shape never changes and it runs between dispatches, so a
         capture would add pool memory and nothing else, and the graph
         plan (``dispatch_plan``, ``compiled_count``) stays the one the
-        dispatches need."""
-        self._check_kv_handoff("layer-wise import")
+        dispatches need. A split engine keeps this rank's heads of the
+        whole layer."""
         if not self.prefix_blocks:
             return False
         d = bytes.fromhex(hexd)
@@ -1865,8 +1933,8 @@ class DecodeEngine:
             self.abort_layer_imports([hexd])
             return False
         shape = (1,) + self._blk_shape[1:]
-        k = torch.as_tensor(kp).to(self._blk_dtype).reshape(shape)
-        v = torch.as_tensor(vp).to(self._blk_dtype).reshape(shape)
+        k = self._own_heads(kp, shape)
+        v = self._own_heads(vp, shape)
         idx = st["idx"]
         self._pool_k[layer : layer + 1, idx : idx + 1] = host_to(k, self.device)
         self._pool_v[layer : layer + 1, idx : idx + 1] = host_to(v, self.device)

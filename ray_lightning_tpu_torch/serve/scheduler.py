@@ -661,10 +661,9 @@ class Scheduler:
             # A drain's cancel looks like any other cancel to a replay.
             for req in migrate:
                 self.journal.record_cancel(req.request_id, True)
-        # A tensor-parallel gang's ranks hold only their own heads of a
-        # block: its migrants resubmit cold (engine ``kv_handoff``).
-        export = (getattr(self.engine, "prefix_blocks", 0) > 0
-                  and getattr(self.engine, "kv_handoff", True))
+        # A tensor-parallel gang's export gathers whole blocks, so its
+        # migrants leave warm too.
+        export = getattr(self.engine, "prefix_blocks", 0) > 0
         plan = {
             "budget_s": budget,
             "finish": finish,
@@ -1210,8 +1209,12 @@ class Scheduler:
             )
             if self.kvstore_writethrough and self.kvstore is not None and blocks:
                 self.kvstore.put_blocks(blocks)
-            layerwise = bool(self.kvfleet.layerwise_ship)
-            self.kvfleet.ship(req.ship_to, req.request_id, blocks)
+            # A split gang ships the whole prompt, as the JAX package's
+            # mesh-sharded payloads do (the receiver takes its heads).
+            layerwise = (bool(self.kvfleet.layerwise_ship)
+                         and not getattr(self.engine, "heads_split", False))
+            self.kvfleet.ship(req.ship_to, req.request_id, blocks,
+                              layerwise=layerwise)
             if self.journal is not None:
                 # To a replay of this journal a ship is a cancel after the
                 # recorded first token; the decode replica's journal holds

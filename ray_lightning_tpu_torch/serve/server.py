@@ -74,7 +74,8 @@ def load_serve_params(
 #: journal header's engine section and a replica's config carry into
 #: :func:`build_engine`, and what a gang follower builds its engine from.
 #: ``kvstore_dir``/``kvstore_mb`` are leader-only, as in the JAX package:
-#: followers run no store (a split gang refuses one anyway).
+#: a follower gets them apart (:data:`STORE_KEYS`) only to join the head
+#: gathers of its split gang's store writes.
 ENGINE_KEYS = frozenset((
     "ckpt_path", "model_config", "params", "int8", "num_slots", "max_seq",
     "prefill_buckets", "decode_fold", "pipeline", "prefill_chunk",
@@ -83,6 +84,11 @@ ENGINE_KEYS = frozenset((
     "spec_draft_ckpt", "spec_draft_config", "spec_draft_int8",
     "spec_window", "mesh", "piggyback_chunks", "fold_ladder",
 ))
+
+
+#: The store's kwargs a gang follower takes beside :data:`ENGINE_KEYS`:
+#: its engine opens no store, but gathers the heads the leader writes.
+STORE_KEYS = frozenset(("kvstore_dir", "kvstore_mb", "kvstore_namespace"))
 
 
 def build_engine(
@@ -268,15 +274,15 @@ class _TokenLog:
 
 
 #: The engine calls that move device state (or, for the exports, run the
-#: pool reads every rank must run alike): a gang leader ships each to its
-#: followers before running it (JAX ``serve/server.py:228-318``).
+#: pool reads and the head gathers every rank must run alike): a gang
+#: leader ships each to its followers before running it (JAX
+#: ``serve/server.py:228-318``). A split gang's exports return whole
+#: blocks on every rank; its imports (whole blocks, or one layer of them)
+#: keep each rank's heads.
 _GANG_OPS = ("admit", "admit_many", "prefill_step", "step", "release",
-             "import_prefix_blocks", "export_blocks_by_digest",
+             "import_prefix_blocks", "import_prefix_block_layer",
+             "abort_layer_imports", "export_blocks_by_digest",
              "export_prefix_blocks", "evict_prefix_chain")
-#: Of those, the KV plane's: a split gang refuses them before any rank
-#: runs them.
-_GANG_KV_OPS = ("import_prefix_blocks", "export_blocks_by_digest",
-                "export_prefix_blocks")
 
 
 class _GangLeaderEngine:
@@ -318,9 +324,6 @@ class _GangLeaderEngine:
             q.put((name, args, kwargs))
 
     def _call(self, name: str, args: tuple, kwargs: dict) -> Any:
-        if name in _GANG_KV_OPS:
-            # Refused on the leader alone, before a follower sees it.
-            self._engine._check_kv_handoff(name)
         self._broadcast(name, args, kwargs)
         out = getattr(self._engine, name)(*args, **kwargs)
         self.log.record(name, args, kwargs, out)
@@ -355,8 +358,9 @@ class ServeShardFollower:
 
     Joins the gang's world (:func:`_setup_gang_rendezvous`), builds the
     same engine as the leader (:func:`build_engine` on the
-    :data:`ENGINE_KEYS` of the leader's kwargs; the KV store stays the
-    leader's), and replays the leader's op stream on a daemon thread, so
+    :data:`ENGINE_KEYS` and :data:`STORE_KEYS` of the leader's kwargs; the
+    KV store stays the leader's, the follower joins its head gathers), and
+    replays the leader's op stream on a daemon thread, so
     every rank runs the same dispatches and collectives. It takes no
     requests: traffic enters through the leader. The replayed calls carry
     the request ids, so the engine's spans land on this process's tracer
@@ -389,7 +393,8 @@ class ServeShardFollower:
         _setup_gang_rendezvous(self._dist)
         self.engine = build_engine(
             device=device,
-            **{k: v for k, v in engine_kwargs.items() if k in ENGINE_KEYS},
+            **{k: v for k, v in engine_kwargs.items()
+               if k in ENGINE_KEYS or k in STORE_KEYS},
         )
         self.device = self.engine.device
         if self.device.type == "cuda" and self.device.index is None:
@@ -449,6 +454,7 @@ class ServeShardFollower:
             "kernels": _kernel_counts(),
             "collectives": _collectives(),
             "memory": eng.memory_stats(),
+            "kv_gather": _kv_gather(eng),
             "mesh": eng.mesh_desc,
             "graphed": eng.graphed,
             "compiled_count": eng.compiled_count,
@@ -490,6 +496,13 @@ class ServeShardFollower:
         self._thread.join(timeout=10.0)
 
 
+def _kv_gather(engine: Any) -> Dict[str, Any]:
+    """The bytes and host seconds of a split engine's head gathers (its
+    KV exports and store writes; 0 on one card)."""
+    return {"bytes": int(engine.kv_gather_bytes),
+            "seconds": float(engine.kv_gather_s)}
+
+
 def _kernel_counts() -> Dict[str, Any]:
     """The flash kernels' launch counters of this process (K1 forward,
     K2 dK/dV, K3 dQ), the reference-path calls, and the seconds each
@@ -525,8 +538,9 @@ class ServeReplica:
     per follower) makes this process the leader of a tensor-parallel gang
     (``start_replicas(hosts_per_replica=N)``): its scheduler drives a
     :class:`_GangLeaderEngine`. ``stats()`` carries ``mesh``,
-    ``gang_hosts``, ``graphed`` and the backend; the KV plane and the
-    store are refused on a split gang (ROADMAP queue 1 item 11b).
+    ``gang_hosts``, ``graphed`` and the backend. A split gang's KV plane
+    and store move whole blocks (its engine's exports gather every rank's
+    heads; its imports keep each rank's).
     """
 
     def __init__(
@@ -687,12 +701,6 @@ class ServeReplica:
             _GangLeaderEngine(self.engine, gang_queues)
             if gang_queues else None
         )
-        if (kv_inbox is not None or role != "mixed") and (
-                not self.engine.kv_handoff):
-            from ray_lightning_tpu_torch.serve.engine import _GANG_KV
-
-            raise NotImplementedError(_GANG_KV.format(what="the fleet KV "
-                                                      "plane"))
         # The fleet KV role. A prefill replica ships each finished
         # prefill's blocks, which only a prefix pool holds.
         self.role = str(role)
@@ -1127,6 +1135,7 @@ class ServeReplica:
                 "backend": (None if self.engine.mesh is None
                             else self.engine.mesh.backend),
                 "memory": self.engine.memory_stats(),
+                "kv_gather": _kv_gather(self.engine),
                 "tracing": self.tracer.enabled,
                 "metrics": self._registry.to_dict(),
             }
@@ -1261,12 +1270,8 @@ class ServeReplica:
         """Accept a dying peer's exported prefix blocks: queued here,
         imported into the engine pool at the top of the next scheduler
         step (engine mutations stay on the loop thread). Returns blocks
-        queued. A split gang refuses them here (ROADMAP queue 1 item
-        11b), before its loop thread would."""
-        if blocks and not self.engine.kv_handoff:
-            from ray_lightning_tpu_torch.serve.engine import _GANG_KV
-
-            raise NotImplementedError(_GANG_KV.format(what="import"))
+        queued (a gang's leader runs the import as an op of its stream,
+        each rank keeping its heads)."""
         n = self.scheduler.enqueue_prefix_import(blocks)
         self._work.set()
         return n

@@ -628,6 +628,7 @@ class TrainProgram:
         self.log_grad_norm = bool(log_grad_norm)
         self.K = int(fold)
         self.prep = strategy._prep_compute(module)
+        self.cdt = strategy._compute_dtype(module)
         self.capture = (bool(_graphs) and self.device.type == "cuda"
                         and strategy.capture_graphs)
         self.generators = [torch.Generator(device=self.device)
@@ -671,19 +672,32 @@ class TrainProgram:
             for k in steps:
                 pos, updates = plan[k]
                 batch = tree_map(lambda x: x[k], self.batch)
-                self.optimizer.gather_params()
-                p, b = self.prep(params, batch)
-                # ZeRO-3: the full leaves the forward reads only through
-                # their cast copies go before the forward, the rest after
-                # the backward.
-                self.optimizer.release_params(tree_leaves(p))
-                loss, logs = self.module.training_step(p, b,
-                                                       self.generators[k])
-                grads = torch.autograd.grad(loss, leaves)
-                self.optimizer.release_params()
-                # The strategy's reduction: the mean over ranks (the
-                # identity on one device).
-                grads = strategy.reduce_grads(list(grads))
+                gather = self.optimizer.layer_gather(self.cdt)
+                if gather is None:
+                    p, b = self.prep(params, batch)
+                    loss, logs = self.module.training_step(
+                        p, b, self.generators[k])
+                    grads = list(torch.autograd.grad(loss, leaves))
+                    # The strategy's reduction: the mean over ranks (the
+                    # identity on one device).
+                    grads = strategy.reduce_grads(grads)
+                else:
+                    # ZeRO-3: the forward reads a view that gathers (and
+                    # casts) each layer where it runs; the backward gives
+                    # this rank's reduced slices of the split leaves and
+                    # the whole gradients of the others, reduced here.
+                    self.optimizer.release_params()
+                    _, b = self.prep({}, batch)
+                    with gather.hooks():
+                        loss, logs = self.module.training_step(
+                            gather.view(params), b, self.generators[k])
+                    grads = gather.backward(loss)
+                    whole = [i for i, g in enumerate(grads)
+                             if self.optimizer.splits[i] is None]
+                    if whole:
+                        for i, g in zip(whole, strategy.reduce_grads(
+                                [grads[i] for i in whole])):
+                            grads[i] = g
                 logs = {name: v.detach() for name, v in dict(logs).items()}
                 logs.setdefault("loss", loss.detach())
                 logs = strategy.reduce_logs(logs)

@@ -15,8 +15,10 @@ coordinates (``parallel/mesh.py``) and the collectives are explicit:
   (``parallel/tp.py``; ``GPTLM.bind_mesh``);
 - ``"fsdp"``: the leaves split over fsdp rest as this rank's slices (the
   optimizer's, as ZeRO-3 does, :class:`MeshTrainOptimizer`) and are
-  all-gathered over the fsdp group before each forward: ZeRO-3's
-  placement with stage 1's peak;
+  gathered over the fsdp group layer by layer in the step
+  (``parallel/zero.py:LayerGather``); a rule may map a parameter axis
+  onto ``"data"`` too, and such a leaf is split and gathered over the
+  data group the same way (over data x fsdp where both split it);
 - ``"data"`` and ``"fsdp"`` together are the data-parallel extent: the
   sampler shards rows over it, ranks that share a data-parallel shard
   load the same rows, and gradients, logs and eval sums are averaged
@@ -38,7 +40,11 @@ from ray_lightning_tpu_torch.parallel.logical import (
     tree_logical_specs,
 )
 from ray_lightning_tpu_torch.parallel.mesh import AXES, Mesh, build_mesh
-from ray_lightning_tpu_torch.parallel.zero import gather_full, shard_dim_for
+from ray_lightning_tpu_torch.parallel.zero import (
+    Split,
+    gather_full,
+    shard_dim_for,
+)
 from ray_lightning_tpu_torch.strategies.base import not_ported, to_host
 from ray_lightning_tpu_torch.strategies.ddp import RayGPUStrategy
 from ray_lightning_tpu_torch.strategies.sharded import ShardedTrainOptimizer
@@ -61,14 +67,34 @@ def _same_structure(tree: Any, specs: Any) -> bool:
     return isinstance(tree, torch.Tensor) and tree.dim() == len(specs)
 
 
+def zero_split(spec: Tuple[Optional[str], ...], mesh: Any) -> Optional[Split]:
+    """How the ranks of a data-parallel shard hold a leaf of ``spec``
+    beyond its model slice: the dims split over ``"data"`` and ``"fsdp"``
+    (in the mesh's order, the rank order of its ``"dp"`` group), gathered
+    over that axis's group, or over ``"dp"`` when both split it; None when
+    neither does."""
+    found = sorted(((d, ax) for d, ax in enumerate(spec)
+                    if ax in ("data", "fsdp") and mesh.size(ax) > 1),
+                   key=lambda p: AXES.index(p[1]))
+    if not found:
+        return None
+    axes = tuple(ax for _, ax in found)
+    return Split(dims=tuple(d for d, _ in found),
+                 sizes=tuple(mesh.size(ax) for ax in axes),
+                 index=tuple(mesh.coords[ax] for ax in axes),
+                 group=mesh.group(axes[0] if len(axes) == 1 else "dp"),
+                 axes=axes)
+
+
 class MeshTrainOptimizer(ShardedTrainOptimizer):
     """The update of a rank's tensor-parallel slices: each leaf is this
-    rank's slice over ``"model"``; a leaf also split over ``"fsdp"`` is
-    stepped as this rank's fsdp slice and gathered whole over the fsdp
-    group before each forward (stage 3 of :class:`ShardedTrainOptimizer`
-    over the fsdp group). Clipping and the logged norm use the norm of the
-    whole gradient (:meth:`norm`); AdamW's update is elementwise, so
-    stepping slices is stepping the whole."""
+    rank's slice over ``"model"``; a leaf also split over ``"fsdp"`` or
+    ``"data"`` (or both: :func:`zero_split`) is stepped as this rank's
+    slice of it and gathered layer by layer in the step, its gradient
+    reduced into the slice over the data-parallel group (stage 3 of
+    :class:`ShardedTrainOptimizer`). Clipping and the logged norm use the
+    norm of the whole gradient (:meth:`norm`); AdamW's update is
+    elementwise, so stepping slices is stepping the whole."""
 
     def __init__(self, factory: Callable, leaves: List[torch.Tensor],
                  lr_schedule: Optional[Callable[[int], float]],
@@ -78,30 +104,44 @@ class MeshTrainOptimizer(ShardedTrainOptimizer):
         self.mesh = mesh
         self.specs = list(specs)
         self.model_dims = [split_dim(sp, "model") for sp in self.specs]
-        dims = [split_dim(sp, "fsdp") for sp in self.specs]
+        splits = [zero_split(sp, mesh) for sp in self.specs]
         super().__init__(
             factory, leaves, lr_schedule, clip=clip, accumulate=accumulate,
-            stage=3 if any(d is not None for d in dims) else 1,
-            rank=mesh.coords["fsdp"], world=mesh.size("fsdp"), dims=dims,
-            group=mesh.group("fsdp"), axis="fsdp")
+            stage=3 if any(sp is not None for sp in splits) else 1,
+            rank=mesh.coords["fsdp"], world=mesh.size("fsdp"),
+            group=mesh.group("fsdp"), splits=splits,
+            reduce_group=mesh.group("dp"), reduce_size=mesh.dp_size)
 
     def norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """The 2-norm of the whole gradient: the squares of the leaves
-        split over ``"model"`` summed over the model group, plus those of
-        the replicated leaves once. The gradients here are whole over
-        ``"fsdp"`` (the optimizer slices them after the reduction)."""
+        """The 2-norm of the whole gradient: the squares of this rank's
+        slices summed over the group that splits each (its data/fsdp
+        group, then the model group), plus those of the replicated leaves
+        once."""
         group = self.mesh.group("model")
-        if group is None:
+        if group is None and all(sp is None for sp in self.splits):
             return global_norm(grads)
         import torch.distributed as dist
 
         zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
-        split = sum(((g.float() ** 2).sum() for g, d in
-                     zip(grads, self.model_dims) if d is not None), zero)
-        whole = sum(((g.float() ** 2).sum() for g, d in
-                     zip(grads, self.model_dims) if d is None), zero)
-        split = split.clone()
-        dist.all_reduce(split, group=group)
+        # Per zero group (None: no zero split): [model-split, the rest].
+        parts: Dict[Any, List[Any]] = {None: [zero, zero]}
+        groups: Dict[Any, Any] = {}
+        for g, sp, md in zip(grads, self.splits, self.model_dims):
+            sq = (self._slice(g, sp).float() ** 2).sum()
+            key = None if sp is None else sp.axes
+            part = parts.setdefault(key, [zero, zero])
+            part[0 if md is not None else 1] = part[0 if md is not None
+                                                    else 1] + sq
+            if sp is not None:
+                groups[key] = sp.group
+        split, whole = parts.pop(None)
+        for key, (m, r) in parts.items():
+            v = torch.stack([m, r])
+            dist.all_reduce(v, group=groups[key])
+            split, whole = split + v[0], whole + v[1]
+        if group is not None:
+            split = split.clone()
+            dist.all_reduce(split, group=group)
         return torch.sqrt(split + whole)
 
     def _model_state(self, state: Dict[str, Any], fn: Callable,
@@ -275,12 +315,10 @@ class GSPMDStrategy(RayGPUStrategy):
                 return tuple(spec)
 
             specs = tree_map(rule, params)
-        # Rules may map a parameter axis onto "data"; seq, ep and pp are
-        # 1 here (the constructor raises), so no rule resolves to them.
-        for spec in _spec_leaves(specs):
-            if "data" in spec:
-                raise not_ported("parameters split over the 'data' mesh "
-                                 "axis", "11b")
+        # A rule may map a parameter axis onto "data": the optimizer then
+        # splits that leaf over the data group as over fsdp (zero_split).
+        # seq, ep and pp are 1 here (the constructor raises), so no rule
+        # resolves to them.
         return specs
 
     def opt_sharding(self, opt_state: Dict[str, Any], params: Any) -> Any:

@@ -138,9 +138,25 @@ class TrainOptimizer:
         self.step_in_graph = bool(capturable) and _step_is_graph_safe(
             self.opt, lr_schedule is not None)
         self.acc: Optional[List[torch.Tensor]] = (
-            [torch.zeros_like(p) for p in leaves]
+            [torch.zeros_like(p) for p in self._acc_like()]
             if self.accumulate > 1 or not self.step_in_graph else None
         )
+
+    #: The step gathers the parameters layer by layer and hands
+    #: :meth:`take` this rank's slices of the gradients (ZeRO-3,
+    #: ``strategies/sharded.py``).
+    layered = False
+
+    def _acc_like(self) -> List[torch.Tensor]:
+        """The tensors the accumulation window mirrors, one per leaf (the
+        gradients :meth:`take` gets have their shapes)."""
+        return self.leaves
+
+    def layer_gather(self, cdt: Optional[torch.dtype]) -> Any:
+        """The per-layer gathers of one micro-batch (ZeRO-3's
+        ``parallel/zero.py:LayerGather``); None here, where the step reads
+        the parameter tensors themselves."""
+        return None
 
     # -- host planning -----------------------------------------------------
     def plan(self, n: int) -> List[Tuple[int, bool]]:

@@ -4,6 +4,7 @@ fabric actor of a two-rank gloo world runs through
 package (the actors import it by reference), and takes and returns numpy
 arrays only.
 """
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -64,6 +65,13 @@ def _module(kind: str, gpt_cfg: Optional[Dict[str, Any]]) -> Any:
         from ray_lightning_tpu_torch.models.boring import BoringModule
 
         return BoringModule()
+    if kind == "bert":
+        from ray_lightning_tpu_torch.models.bert import (
+            BERTConfig,
+            BERTEncoder,
+        )
+
+        return BERTEncoder(BERTConfig(**gpt_cfg), warmup_steps=0)
     from ray_lightning_tpu_torch.models.gpt import GPTLM, GPTConfig
 
     return GPTLM(GPTConfig(**gpt_cfg), warmup_steps=0)
@@ -133,6 +141,8 @@ def train_case(name: str, kind: str, params: Any, batches: List[np.ndarray],
                   "whole_in_forward": whole}
         if strategy.gather_is_collective:
             result["gathered"] = _to_numpy(strategy.gather_state(placed))
+    if getattr(opt, "gather_stats", None) is not None:
+        result["gather_stats"] = dataclasses.asdict(opt.gather_stats)
     if strategy.gather_is_collective:
         result["state_shapes"] = sorted(
             tuple(v.shape) for st in opt.opt.state.values()
@@ -357,18 +367,19 @@ def tp_forward(mesh_shape: Dict[str, int], gpt_cfg: Dict[str, Any],
 def gspmd_train(mesh_shape: Dict[str, int], kind: str, params: Any,
                 batches: List[np.ndarray], clip: Optional[float],
                 gpt_cfg: Optional[Dict[str, Any]] = None,
-                staged: bool = False) -> Dict[str, Any]:
+                staged: bool = False, rules: Any = None) -> Dict[str, Any]:
     """Steps of ``GSPMDStrategy`` on this rank's data-parallel rows of each
     global batch: every step's logs, the whole parameters gathered after,
     this rank's replicated leaves as it holds them, and the shapes its
     optimizer state holds. ``staged``: every all-gather goes through host
-    buffers (the path CUDA tensors take on gloo)."""
+    buffers (the path CUDA tensors take on gloo); ``rules``: the logical-
+    axis rules (the default's when None)."""
     from ray_lightning_tpu_torch.parallel import mesh as pmesh
     from ray_lightning_tpu_torch.strategies.gspmd import _spec_leaves
     from ray_lightning_tpu_torch.trainer.module import unpack_optimizers
     from ray_lightning_tpu_torch.utils.tree import tree_leaves
 
-    s = gspmd(mesh_shape)
+    s = gspmd(mesh_shape, logical_axis_rules=rules)
     module = _module(kind, gpt_cfg)
     module.precision = "fp32"
     s.bind_module(module)
@@ -395,9 +406,11 @@ def gspmd_train(mesh_shape: Dict[str, int], kind: str, params: Any,
         full_state = opt.gathered_state_dict()["optimizer"]["state"]
     finally:
         pmesh._staged = saved
+    stats = getattr(opt, "gather_stats", None)
     return {
         "logs": logs, "gathered": gathered, "replicated": replicated,
-        "coords": s.mesh.coords,
+        "coords": s.mesh.coords, "layered": opt.layered,
+        "gather_stats": None if stats is None else dataclasses.asdict(stats),
         "specs": {p: sp for (p, _), sp in zip(_paths(placed),
                                               _spec_leaves(s._param_specs))},
         "shard_shapes": [tuple(t.shape) for t in opt.shards],
@@ -562,3 +575,85 @@ def gspmd_eval(mesh_shape: Dict[str, int], gpt_cfg: Dict[str, Any],
     preds = TrainingLoop(spec, module, s).run_predict()
     return {"metrics": metrics, "preds": [p.numpy() for p in preds],
             "rows": rows.rows}
+
+
+def zero3_probe(kind: str, params: Any, batches: List[np.ndarray],
+                cfg: Dict[str, Any], precision: str = "fp32") -> Dict[str, Any]:
+    """ZeRO-3 steps on this rank's rows, watched: at every per-layer
+    gather (forward and backward) the layers whose gathered rows are
+    alive and the full leaves holding storage; every gradient a layer's
+    backward hands its reduction (the largest, against the largest row of
+    a stacked leaf); the tensors the step asks autograd for; the shapes of
+    the gradients the optimizer takes (against its slices')."""
+    from ray_lightning_tpu_torch.parallel import zero
+    from ray_lightning_tpu_torch.trainer.module import unpack_optimizers
+    from ray_lightning_tpu_torch.utils.tree import tree_leaves
+
+    strategy = _strategy("zero3")
+    module = _module(kind, cfg)
+    module.precision = precision
+    placed = strategy.place_params(_from_numpy(params))
+    leaves = tree_leaves(placed)
+    factory, sched = unpack_optimizers(module.configure_optimizers())
+    opt = strategy.make_optimizer(factory, leaves, sched, 0.3, 1)
+    program = strategy.compile_train_step(module, opt, seed=0,
+                                          log_grad_norm=True)
+    seen: Dict[str, Any] = {"layers": [], "full_bytes": [], "grad_numel": 0,
+                            "asked": [], "taken": []}
+    gather, reduce_, grad, take = (zero.LayerGather._gather,
+                                   zero.LayerGather._reduce,
+                                   torch.autograd.grad, opt.take)
+
+    def watched_gather(self, key):
+        out = gather(self, key)
+        seen["layers"].append(len(self._live) + (key[0] == "row"))
+        seen["full_bytes"].append(sum(t.untyped_storage().nbytes()
+                                      for t, sp in zip(leaves, opt.splits)
+                                      if sp is not None))
+        return out
+
+    def watched_reduce(self, key, grads):
+        seen["grad_numel"] = max([seen["grad_numel"]]
+                                 + [g.numel() for g in grads])
+        return reduce_(self, key, grads)
+
+    def watched_grad(outputs, inputs, *a, **kw):
+        seen["asked"].append([id(t) for t in inputs])
+        return grad(outputs, inputs, *a, **kw)
+
+    def watched_take(grads, *a, **kw):
+        seen["taken"].append([tuple(g.shape) for g in grads])
+        return take(grads, *a, **kw)
+
+    zero.LayerGather._gather = watched_gather
+    zero.LayerGather._reduce = watched_reduce
+    torch.autograd.grad = watched_grad
+    opt.take = watched_take
+    try:
+        logs = []
+        for i, batch in enumerate(batches):
+            out = program(placed, [_rows(batch)], i)
+            logs.append({k: float(v[0]) for k, v in out.items()})
+    finally:
+        zero.LayerGather._gather = gather
+        zero.LayerGather._reduce = reduce_
+        torch.autograd.grad = grad
+    split_ids = {id(t) for t, sp in zip(leaves, opt.splits) if sp is not None}
+    rows = [int(np.prod(t.shape[1:])) for t, sp in zip(leaves, opt.splits)
+            if sp is not None and t.dim() > 1 and 0 not in sp.dims]
+    return {
+        "logs": logs,
+        "peak_layers": max(seen["layers"]),
+        "stats_peak_layers": opt.gather_stats.peak_layers,
+        "full_bytes": max(seen["full_bytes"]),
+        "grad_numel": seen["grad_numel"],
+        "largest_split_leaf": max(t.numel() for t, sp in
+                                  zip(leaves, opt.splits) if sp is not None),
+        "largest_row": max(rows),
+        "asked_split": any(i in split_ids for ids in seen["asked"]
+                           for i in ids),
+        "taken": seen["taken"],
+        "shard_shapes": [tuple(s.shape) for s in opt.shards],
+        "regathers": opt.gather_stats.regathers,
+        "gathers": opt.gather_stats.gathers,
+    }

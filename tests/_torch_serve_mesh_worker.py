@@ -205,3 +205,145 @@ def model_case(spec: Optional[str], cfg_kwargs: Dict[str, Any],
         out["verify_paged"], _, _ = gpt.gpt_decode_verify_paged(
             p, cfg, toks, pos, pk, pv, table, page, mesh=mesh)
     return {k: np.asarray(t) for k, t in out.items()}
+
+
+# -- a split gang's KV plane and store ---------------------------------------
+
+
+def _duo(cfg_kwargs: Dict[str, Any], params: Any, kw: Dict[str, Any],
+         specs: Sequence[Optional[str]], layerwise: bool = False) -> Any:
+    """Two engines of this rank (each on its ``specs`` mesh, or unsplit)
+    with schedulers joined by fleet KV planes over plain queues."""
+    import queue
+    import types
+
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.parallel.mesh import mesh_from_spec
+    from ray_lightning_tpu_torch.serve import kvfleet
+    from ray_lightning_tpu_torch.serve import scheduler as sched_mod
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+
+    tree = to_torch(params, cfg_kwargs)
+    cfg = GPTConfig(**cfg_kwargs)
+    inboxes = {0: queue.Queue(), 1: queue.Queue()}
+    engines = [DecodeEngine(tree, cfg, mesh=mesh_from_spec(spec),
+                            device="cpu", **kw) for spec in specs]
+    planes = [kvfleet.KVFleetPlane(
+        index=i, inbox=inboxes[i], peers=dict(inboxes),
+        block_bytes=e.prefix_block_nbytes, timeout_s=5.0, min_poll_s=0.0,
+        layerwise_ship=layerwise) for i, e in enumerate(engines)]
+    scheds = [sched_mod.Scheduler(e, kvfleet=p)
+              for e, p in zip(engines, planes)]
+    return types.SimpleNamespace(engines=engines, planes=planes,
+                                 scheds=scheds, sched_mod=sched_mod)
+
+
+def _drive(scheds: Sequence[Any], max_steps: int = 400) -> List[List[Any]]:
+    events: List[List[Any]] = [[] for _ in scheds]
+    for _ in range(max_steps):
+        busy = False
+        for i, s in enumerate(scheds):
+            busy = busy or s.has_work()
+            events[i].extend(s.step())
+        if not busy:
+            break
+    return events
+
+
+def _tokens(events: Sequence[Any], rid: str) -> List[int]:
+    return [e.token for e in events if e.request_id == rid
+            and e.token is not None]
+
+
+def gang_disagg_case(cfg_kwargs: Dict[str, Any], params: Any,
+                     kw: Dict[str, Any], specs: Sequence[Optional[str]],
+                     prompt: List[int], n: int,
+                     layerwise: bool) -> Dict[str, Any]:
+    """Engine 0 prefills ``prompt`` and ships its blocks to engine 1 (the
+    JAX ``tests/test_kvfleet.py:498,1219`` scenario); the resubmission on
+    engine 1 decodes. Returns both streams, the terminals and the
+    planes' and engines' transfer counters."""
+    duo = _duo(cfg_kwargs, params, kw, specs, layerwise)
+    sp = duo.sched_mod.SamplingParams(max_new_tokens=n, seed=0)
+    duo.scheds[0].submit(prompt, sp, request_id="r", ship_to=1)
+    ev_a, _ = _drive(duo.scheds)
+    duo.scheds[1].submit(prompt, sp, request_id="r")
+    _, ev_b = _drive(duo.scheds)
+    a, b = duo.engines
+    pa, pb = (p.stats() for p in duo.planes)
+    return {
+        "done": [(e.reason, e.ship_to) for e in ev_a if e.done],
+        "first": _tokens(ev_a, "r"), "full": _tokens(ev_b, "r"),
+        "ships": pa["ships"], "layer_ships": pa["layer_ships"],
+        "layer_ship_messages": pa["layer_ship_messages"],
+        "ship_bytes": pa["ship_bytes"],
+        "exports": a.prefix_handoff_exports,
+        "imports": b.prefix_handoff_imports,
+        "layer_block_imports": b.layer_block_imports,
+        "hit_tokens": b.prefix_hit_tokens,
+        "gather_bytes": (a.kv_gather_bytes, b.kv_gather_bytes),
+        "split": (a.heads_split, b.heads_split),
+        "compiled": [e.compiled_count for e in duo.engines],
+    }
+
+
+def gang_store_case(cfg_kwargs: Dict[str, Any], params: Any,
+                    kw: Dict[str, Any], spec: str, prompts: List[List[int]],
+                    n: int, store_dir: str) -> Dict[str, Any]:
+    """A round trip through the KV object store between a split engine
+    and an unsplit one. The split engine (``kvstore_dir``, a pool of few
+    blocks and a host tier too small for one) serves ``prompts[0]``, then ``prompts[1]``,
+    whose blocks push the first chain out of the pool into the store:
+    the eviction gathers every rank's heads and the gang's first rank
+    writes whole blocks. An unsplit engine reads that chain from the
+    store, imports it and serves the prompt warm. Then the unsplit engine
+    writes ``prompts[2]``'s exported chain (as a leader's write-through
+    does) and the split engine reads, imports (each rank its heads) and
+    serves it warm. Returns each engine's streams, hits and the stored
+    and read block counts."""
+    import torch.distributed as dist
+
+    from ray_lightning_tpu_torch.models.gpt import GPTConfig
+    from ray_lightning_tpu_torch.parallel.mesh import mesh_from_spec
+    from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+    from ray_lightning_tpu_torch.serve.kvstore import FleetKVStore
+    from ray_lightning_tpu_torch.serve.router import prompt_block_digests
+
+    tree = to_torch(params, cfg_kwargs)
+    cfg = GPTConfig(**cfg_kwargs)
+    split = DecodeEngine(tree, cfg, mesh=mesh_from_spec(spec), device="cpu",
+                         kvstore_dir=store_dir, **kw)
+    whole = DecodeEngine(tree, cfg, device="cpu", **kw)
+    store = FleetKVStore(store_dir, namespace=split.kvstore_namespace)
+    block = split.prefix_block
+    p0, p1, p2 = prompts
+    out: Dict[str, Any] = {"writer": split.kvstore is not None}
+    out["split_cold"] = run_one_by_one(split, [(p0, n), (p1, n)])
+    dist.barrier()
+    digs = [d.hex() for d in prompt_block_digests(p0, block)]
+    blocks, _ = store.get_chain(digs)
+    out["stored"] = len(blocks)
+    out["imported_whole"] = whole.import_prefix_blocks(blocks)
+    out["whole_warm"] = run_one_by_one(whole, [(p0, n)])
+    out["whole_hits"] = whole.prefix_hit_tokens
+    # The unsplit engine's chain of a prompt it served, written through.
+    run_one_by_one(whole, [(p2, n)])
+    exported = whole.export_prefix_blocks(p2)
+    if dist.get_rank() == 0:
+        store.put_blocks(exported)
+    dist.barrier()
+    digs2 = [d.hex() for d in prompt_block_digests(p2, block)]
+    blocks2, _ = store.get_chain(digs2)
+    hits0 = split.prefix_hit_tokens
+    out["imported_split"] = split.import_prefix_blocks(blocks2)
+    out["split_warm"] = run_one_by_one(split, [(p2, n)])
+    out["split_hits"] = split.prefix_hit_tokens - hits0
+    out["gather_bytes"] = split.kv_gather_bytes
+    # A split engine's export of the imported chain is the unsplit
+    # engine's, bitwise.
+    again = split.export_prefix_blocks(p2)
+    out["export_bitwise"] = (
+        [h for h, _, _ in again] == [h for h, _, _ in exported]
+        and all(torch.equal(a, b) for (_, ka, va), (_, kb, vb)
+                in zip(again, exported) for a, b in ((ka, kb), (va, vb))))
+    return out

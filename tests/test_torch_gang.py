@@ -27,6 +27,7 @@ from ray_lightning_tpu_torch.obs.trace import (
 )
 from ray_lightning_tpu_torch.serve.client import start_replicas
 from ray_lightning_tpu_torch.serve.engine import DecodeEngine
+from ray_lightning_tpu_torch.serve.router import Router
 from ray_lightning_tpu_torch.serve.server import (
     ServeReplica,
     _GangLeaderEngine,
@@ -203,13 +204,15 @@ def test_gang_hosts_must_be_the_mesh_ranks():
 
 
 def _generate_all(client, reqs):
-    """Each request streamed on a thread of its own: the tokens."""
+    """Each request streamed on a thread of its own: the tokens, as they
+    arrive."""
     handles = [client.submit(p, max_new_tokens=n) for p, n in reqs]
-    toks, errors = {}, []
+    toks, errors = {i: [] for i in range(len(reqs))}, []
 
     def read(i, h):
         try:
-            toks[i] = list(client.stream_handle(h, timeout_s=T))
+            for tok in client.stream_handle(h, timeout_s=T):
+                toks[i].append(tok)
         except Exception as exc:  # noqa: BLE001 - reported below
             errors.append(repr(exc))
 
@@ -220,22 +223,30 @@ def _generate_all(client, reqs):
     return threads, toks, errors
 
 
-def test_gang_replica_serves_and_recovers_as_a_unit(params, monkeypatch):
+def test_gang_replica_serves_and_recovers_as_a_unit(params, monkeypatch,
+                                                   tmp_path):
     """``test_serve_sharded.py:543`` and the gang half of the recovery
     plane: ``start_replicas(1, hosts_per_replica=2, mesh="2x1")`` on the
     CPU fabric serves the tokens of a one-rank replica; its stats carry
     the mesh, the gang, the eager gloo dispatch and each rank's half of
     the KV cache; both ranks' token digests are equal; the stitched trace
-    has the follower's track; the gang's KV plane is refused (item 11b).
-    Then a ``preempt`` fault on the follower reaches the supervisor
-    through the follower's heartbeat: the gang is drained with 0 lost and
-    respawned as a unit (a pre-spawned gang swapped in, the old follower
-    gone), and the fresh gang serves the same tokens."""
+    has the follower's track; the gang imports a whole block (each rank
+    keeping its heads) and exports it back bitwise into the KV store
+    (``park_session``: the follower's heads gathered, the leader
+    writing). Then a ``preempt`` fault on the follower reaches the
+    supervisor through the follower's heartbeat: the gang is drained with
+    0 lost and respawned as a unit (a pre-spawned gang swapped in, the old
+    follower gone), and the fresh gang serves the same tokens."""
+    from ray_lightning_tpu_torch.serve.kvstore import FleetKVStore
+    from ray_lightning_tpu_torch.serve.router import prompt_block_digests
+
     monkeypatch.setenv("RLT_NUM_GPUS", "0")
     monkeypatch.delenv("RLT_REQUIRE_GPU", raising=False)
     kw = dict(params=params, model_config=dataclasses.asdict(CFG),
               num_slots=3, prefill_buckets=[8, 16], decode_fold=2,
-              watchdog=False)
+              watchdog=False, prefix_blocks=8)
+    store = dict(kvstore_dir=str(tmp_path / "store"),
+                 kvstore_namespace="0123456789abcdef")
     rng = np.random.default_rng(0)
     reqs = [(rng.integers(0, 97, size=n).tolist(), m)
             for n, m in ((5, 7), (8, 4), (11, 9), (6, 5))]
@@ -259,7 +270,7 @@ def test_gang_replica_serves_and_recovers_as_a_unit(params, monkeypatch):
         client = start_replicas(
             1, hosts_per_replica=2, mesh="2x1", device="cpu",
             env={"OMP_NUM_THREADS": "1", "RLT_HEARTBEAT_S": "0.2"},
-            init_timeout=T, rpc_timeout_s=T, **kw)
+            init_timeout=T, rpc_timeout_s=T, **kw, **store)
         assert [client.generate(p, max_new_tokens=n)
                 for p, n in reqs] == want
         st = client.stats()[0]
@@ -285,15 +296,38 @@ def test_gang_replica_serves_and_recovers_as_a_unit(params, monkeypatch):
         assert lead_d["tokens"] == sum(len(t) for t in want)
         names = [d["name"] for d in client.trace_dumps()]
         assert names == ["client", "replica0", "follower0"]
-        with pytest.raises(NotImplementedError, match="item 11b"):
-            client._rpc(0, "import_prefix_blocks", [("00", None, None)],
-                        retries=0)
+        # A whole block in (each rank keeps its heads), the same block
+        # out (the export gathers them back) into the store, bitwise.
+        tokens = list(range(1, 17))
+        (digest,) = [d.hex() for d in prompt_block_digests(tokens, 16)]
+        whole = (CFG.n_layer, 1, 16, CFG.kv_head, CFG.head_dim)
+        kv = np.random.default_rng(5).standard_normal((2,) + whole).astype(
+            np.float32)
+        assert client._rpc(0, "import_prefix_blocks",
+                           [(digest, kv[0], kv[1])]) == 1
+        parked = client._rpc(0, "park_session", tokens)
+        assert (parked["blocks"], parked["stored"]) == (1, 1), parked
+        (got,), missing = FleetKVStore(
+            store["kvstore_dir"],
+            namespace=store["kvstore_namespace"]).get_chain([digest])
+        assert missing == [] and got[0] == digest
+        for want_kv, got_kv in zip(kv, got[1:]):
+            np.testing.assert_array_equal(np.asarray(got_kv), want_kv)
 
         events = EventLog()
         sup = FleetSupervisor(client, events=events)
-        client.inject_fault(0, [{"point": "follower_op", "action": "preempt",
-                                 "seconds": 30.0}], follower=0)
         threads, toks, errors = _generate_all(client, reqs)
+        # The notice lands once every request is admitted: a request still
+        # queued, or one the drain judges unable to finish inside half the
+        # grace window, migrates, and a gang with no survivor loses it.
+        # Under load (a slow decode rate, the last request waiting for a
+        # slot) an earlier notice would lose one by chance.
+        deadline = time.monotonic() + T
+        while (not all(toks[i] for i in range(len(reqs))) and not errors
+               and time.monotonic() < deadline):
+            time.sleep(0.02)
+        client.inject_fault(0, [{"point": "follower_op", "action": "preempt",
+                                 "seconds": 120.0}], follower=0)
         deadline = time.monotonic() + T
         while time.monotonic() < deadline:
             sup.tick()
@@ -314,6 +348,62 @@ def test_gang_replica_serves_and_recovers_as_a_unit(params, monkeypatch):
         assert fresh is not follower and not follower.is_alive()
         assert [client.generate(p, max_new_tokens=n)
                 for p, n in reqs] == want
+        client.shutdown()
+    finally:
+        fabric.shutdown()
+
+
+def test_gang_prefill_and_decode_roles_ship_whole_blocks(params, monkeypatch):
+    """Disaggregated serving between two gangs on the CPU fabric:
+    ``start_replicas(2, hosts_per_replica=2, mesh="2x1", roles=["prefill",
+    "decode"], kvfleet=True)``. The router sends each request to the
+    prefill gang, which prefills it and ships its blocks (every rank's
+    heads gathered into whole blocks) to the decode gang (each rank keeping
+    its heads); the client follows the ship and the decode gang admits
+    warm. The streams equal a one-rank replica's."""
+    monkeypatch.setenv("RLT_NUM_GPUS", "0")
+    monkeypatch.delenv("RLT_REQUIRE_GPU", raising=False)
+    kw = dict(params=params, model_config=dataclasses.asdict(CFG),
+              num_slots=2, prefill_buckets=[16, 32], decode_fold=2,
+              prefill_chunk=8, prefix_blocks=16, prefix_block=4,
+              watchdog=False)
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, 97, size=n).tolist(), m)
+            for n, m in ((13, 5), (18, 4))]
+    one = ServeReplica(device="cpu", **kw)
+    try:
+        want = []
+        for p, n in reqs:
+            rid = one.submit(p, max_new_tokens=n)
+            got, cur, done = [], 0, False
+            while not done:
+                res = one.result(rid, cur, wait_s=1.0)
+                got += res["tokens"]
+                cur += len(res["tokens"])
+                done = res["done"]
+            want.append(got)
+    finally:
+        one.stop()
+    fabric.init(num_cpus=4)
+    try:
+        client = start_replicas(
+            2, hosts_per_replica=2, mesh="2x1", device="cpu",
+            roles=["prefill", "decode"], kvfleet=True,
+            env={"OMP_NUM_THREADS": "1"}, init_timeout=T, rpc_timeout_s=T,
+            **kw)
+        client.router = Router(client=client, refresh_s=0.0, prefix_block=4)
+        assert [client.generate(p, max_new_tokens=n, timeout_s=T)
+                for p, n in reqs] == want
+        st = client.stats()
+        assert [s["role"] for s in st] == ["prefill", "decode"]
+        assert st[0]["kvfleet"]["ships"] == len(reqs)
+        assert st[0]["kv_gather"]["bytes"] > 0
+        assert st[1]["prefix"]["hit_tokens"] == sum(
+            len(p) // 4 * 4 for p, _ in reqs)
+        for idx in (0, 1):
+            (follower,) = client.followers_of(idx)
+            fs = fabric.get(follower.stats.remote(), timeout=T)
+            assert fs["error"] is None and fs["alive"]
         client.shutdown()
     finally:
         fabric.shutdown()

@@ -268,30 +268,37 @@ def test_engine_options_not_ported_raise(weights):
     """Each option still unported raises naming its ROADMAP item; the
     chunked prefill and prefix cache options (item 3), paged KV (item 4),
     speculative decoding (item 5), piggybacked chunks and the fold ladder
-    (item 6), the pipelined dispatch (item 7) and the KV object store
-    (item 9) and the serving mesh (item 11b) now construct; what is left
-    of item 11b, a split gang's KV plane, raises naming it (the mesh's
-    collectives need a joined world: tests/test_torch_serve_mesh.py)."""
+    (item 6), the pipelined dispatch (item 7), the KV object store (item
+    9), the serving mesh and, last of item 11b's serving pieces, a split
+    gang's KV plane and store now construct: a split engine keeps its
+    heads of an imported whole block, and with ``kvstore_dir`` the mesh's
+    first rank alone opens the store (the exports' head gathers need a
+    joined world: tests/test_torch_gang_kv.py)."""
     from ray_lightning_tpu_torch.parallel.mesh import Mesh
 
     _, params = weights
-    split = Mesh({"model": 2}, 0, {"model": object()}, "gloo")
-    eng = _engine(params, mesh=split, prefix_blocks=4)
-    assert (eng.mesh_desc, eng.kv_handoff, eng.graphed) == ("2x1", False,
-                                                            False)
-    assert eng._pool_k.shape[3] == CFG.kv_head // 2
-    for call in (lambda: eng.export_prefix_blocks(list(range(8))),
-                 lambda: eng.export_blocks_by_digest(["00"]),
-                 lambda: eng.import_prefix_blocks([]),
-                 lambda: eng.import_prefix_block_layer("00", None, None, 0,
-                                                       2)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 11b"):
-            call()
-    with tempfile.TemporaryDirectory() as root:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 11b"):
-            _engine(params, mesh=split, prefix_blocks=4, kvstore_dir=root)
+    for rank in (0, 1):
+        split = Mesh({"model": 2}, rank, {"model": object()}, "gloo")
+        eng = _engine(params, mesh=split, prefix_blocks=4)
+        assert (eng.mesh_desc, eng.heads_split, eng.graphed) == (
+            "2x1", True, False)
+        hl = CFG.kv_head // 2
+        assert eng._pool_k.shape[3] == hl
+        whole = (CFG.n_layer, 1, eng.prefix_block, CFG.kv_head,
+                 CFG.head_dim)
+        k = torch.arange(int(np.prod(whole)), dtype=torch.float32).reshape(
+            whole)
+        assert eng.import_prefix_blocks([("ab" * 16, k, -k)]) == 1
+        idx = eng._pool_map[bytes.fromhex("ab" * 16)]
+        mine = k[:, :, :, rank * hl:(rank + 1) * hl].to(eng._blk_dtype)
+        assert torch.equal(eng._pool_k[:, idx:idx + 1], mine)
+        assert torch.equal(eng._pool_v[:, idx:idx + 1], -mine)
+        assert eng.prefix_handoff_imports == 1
+        with tempfile.TemporaryDirectory() as root:
+            eng = _engine(params, mesh=split, prefix_blocks=4,
+                          kvstore_dir=root)
+            assert (eng.kvstore is not None) == (rank == 0)
+            assert eng.kvstore_namespace
     with tempfile.TemporaryDirectory() as root:
         eng = _engine(params, prefix_blocks=4, kvstore_dir=root,
                       kvstore_mb=1.0, kvstore_namespace="cafe0123cafe0123")

@@ -358,7 +358,12 @@ def test_step_matches_jax(world, name, kind, case):
             "zero3": replicated + slices}.get(name, full)
     assert [r["param_bytes"] for r in ranks] == [held, held]
     n_leaves = len(jax.tree_util.tree_leaves(params))
-    assert ranks[0]["whole_in_forward"] == [n_leaves] * accumulate
+    n_replicated = sum(shard_dim_for(x.shape, 2) is None
+                       for x in jax.tree_util.tree_leaves(params))
+    # ZeRO-3 gathers layer by layer: the full leaves it splits never hold
+    # storage in the step.
+    whole = n_replicated if name == "zero3" else n_leaves
+    assert ranks[0]["whole_in_forward"] == [whole] * accumulate
     if name.startswith("zero"):
         for r in ranks:
             _assert_tree(r["gathered"], ranks[0]["params"],
